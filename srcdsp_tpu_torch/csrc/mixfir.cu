@@ -1,0 +1,76 @@
+// Fused NCO mix + FIR + decimate (K1).
+//
+// Replaces srcdsp_tpu/kernels/mixfir.py (make_mix_fir_kernel and
+// make_mix_fir_kernel_mc, both through _compute): the TPU kernel builds
+// overlapping windows and runs the FIR as banded-Toeplitz MXU matmuls. Here
+// the FIR is a direct convolution from shared memory.
+//
+// One block per (output row of OT outputs, channel). The block stages the
+// row's OT*decim + hist input samples into shared memory, mixing each sample
+// once by its exact u32 phase word, then each thread convolves T taps for
+// its outputs. Staging reads each input sample from device memory about once
+// (rows overlap by hist samples). What bounds it: at T = 64 the work is about
+// 8 flop per byte moved, under the H100's ~20 f32 flop per byte, so the
+// floor is device-memory bytes; this simple form does not reach it, because
+// every FMA issues a shared-memory load (strided by decim, so bank-conflicted)
+// and the loads, not the bytes, set its time (about 20 % of the memory roof
+// at config-1 shapes on an H100 SXM at 700 W).
+//
+// Layout (the JAX kernel's): x [C, 2, L] f32 with L = hist + N, the first
+// hist samples history; output J of a channel is
+//   y[J] = sum_a h[a] * u[J*decim + hist - a],
+// u[g] = x[g] * e^{j 2 pi (w0 + g*dw) / 2^32}; yr, yi [C, NT, OT].
+#include "fsk_common.cuh"
+
+using namespace srcdsp;
+
+__global__ void mixfir_kernel(const float* __restrict__ x,
+                              const int32_t* __restrict__ words0,
+                              const int32_t* __restrict__ dwords,
+                              const float* __restrict__ taps, int taps_stride,
+                              float* __restrict__ yr, float* __restrict__ yi,
+                              int L, int NT, int OT, int decim, int T, int hist) {
+  extern __shared__ float smem[];
+  const int r = blockIdx.x;
+  const int c = blockIdx.y;
+  const int span = OT * decim + hist;
+  float* sr = smem;
+  float* si = sr + span;
+  float* sh = si + span;
+
+  const float* tc = taps + (long long)c * taps_stride;
+  for (int a = threadIdx.x; a < T; a += blockDim.x) sh[a] = tc[a];
+  const float* xr = x + (long long)c * 2 * L;
+  const float* xi = xr + L;
+  stage_window<true>(xr, xi, L, (long long)r * OT * decim, span,
+                     (uint32_t)words0[c], (uint32_t)dwords[c], sr, si);
+  __syncthreads();
+
+  const long long out = ((long long)c * NT + r) * OT;
+  for (int j = threadIdx.x; j < OT; j += blockDim.x) {
+    const int e = j * decim + hist;
+    float ar = 0.f, ai = 0.f;
+    for (int a = 0; a < T; ++a) {
+      const float h = sh[a];
+      ar = fmaf(h, sr[e - a], ar);
+      ai = fmaf(h, si[e - a], ai);
+    }
+    yr[out + j] = ar;
+    yi[out + j] = ai;
+  }
+}
+
+// taps_stride: 0 when all channels share one [T] tap set, T for [C, T].
+// Returns the launch's cudaError_t as an int (0 on success).
+extern "C" int srcdsp_mixfir(const void* x, const void* words0, const void* dwords,
+                             const void* taps, int taps_stride, void* yr, void* yi,
+                             int C, int L, int NT, int OT, int decim, int T, int hist,
+                             void* stream) {
+  const size_t smem = (size_t)(2 * (OT * decim + hist) + T) * sizeof(float);
+  cudaError_t err = allow_smem(mixfir_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  mixfir_kernel<<<dim3(NT, C), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int32_t*)words0, (const int32_t*)dwords,
+      (const float*)taps, taps_stride, (float*)yr, (float*)yi, L, NT, OT, decim, T, hist);
+  return (int)cudaGetLastError();
+}

@@ -46,3 +46,5 @@ def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy e2e/integration tests (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips when torch.cuda.is_available() is false")

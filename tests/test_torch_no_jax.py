@@ -1,0 +1,47 @@
+"""The port stands alone: no module of srcdsp_tpu_torch (nor chip_smoke.py)
+imports jax or the JAX package, and every CUDA source the build names exists.
+
+A static AST scan, not a runtime check: an interpreter may import jax at start.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from srcdsp_tpu_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "srcdsp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "srcdsp_tpu")
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_build_sources_exist():
+    paths = _build.source_paths()
+    assert {p.suffix for p in paths} == {".cu", ".cuh"}
+    for p in paths:
+        assert p.is_file(), p
+    on_disk = {p.name for p in (ROOT / "srcdsp_tpu_torch" / "csrc").iterdir()}
+    assert on_disk == {p.name for p in paths}
+
+
+def test_build_flags_are_sm90a_without_fast_math():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
