@@ -6,18 +6,28 @@
 Phases, in order; any failure raises and the run exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the CUDA kernels from srcdsp_tpu_torch/csrc with nvcc (sm_90a);
+2. build the CUDA kernels from srcdsp_tpu_torch/csrc with nvcc (sm_90a, one
+   nvcc per source, in parallel) and the ingest framer with make and g++;
 3. each kernel against its plain PyTorch version on the same device tensors,
-   at the main path's shapes: error, agreement of the decisions, and the
-   median time of each over 5 runs (CUDA events);
+   at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
+   of 32 x 2^22), f32 and bf16 ingest: error, agreement of the decisions,
+   and the median time of each over 5 runs (CUDA events); the pre-framed
+   kernels bit-identical to the complex-taps ones (K5 == K4, K7 == K3);
 4. config 4 end to end: 32 FSK channels, 4 chunks of 2^22 samples per
    channel, streamed through K3 (FskCtapsStream, the serving path), K1
-   (FskPlanesStream) and K2 (fsk_demod_fused), each at BER 0;
-5. config 1: 2^26 samples of one channel through K1;
+   (FskPlanesStream), K2 (fsk_demod_fused), K3 on bf16 input, and K6 + K7
+   (the frame kernel, then fsk_demod_preframed) in f32 and bf16, each at
+   BER 0;
+5. config 1: 2^26 samples of one channel through K1 and the four serving
+   variants of configs.build_config1_serving (K4, K5; f32 and bf16 ingest);
 6. the recorded fixture tests/fixtures/fsk_256sym.ci16 through the complex
-   chain, equal to the C++ oracle's gold bits.
+   chain, equal to the C++ oracle's gold bits;
+7. ingest at config-1 shape: an int16 capture framed to bf16 on the host by
+   the C++ framer into pinned memory, copied to the card and filtered by K5,
+   equal bit for bit to K5 over K6 frames of the same capture converted on
+   the card; the time of each leg.
 
-Launch counts are reset just before phase 4 and read after phase 5: every
+Launch counts are reset just before phase 4 and read after phase 7: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -113,14 +123,21 @@ def main() -> int:
 
     from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
     from srcdsp_tpu_torch.chains.fsk_planes import FskPlanesStream, make_timing_tone
-    from srcdsp_tpu_torch.configs import build_config1
+    from srcdsp_tpu_torch.configs import CONFIG1_SERVING, build_config1, build_config1_serving
+    from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
     from srcdsp_tpu_torch.kernels import fsk_fused as kff
+    from srcdsp_tpu_torch.kernels import fsk_preframed as kfp
     from srcdsp_tpu_torch.kernels import mixfir as kmf
+    from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
+    from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
     from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.planes import planes_from_int16
     from srcdsp_tpu_torch.ops.window import lowpass
+
+    bf16 = torch.bfloat16
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -136,6 +153,10 @@ def main() -> int:
     for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    framer_path = framer.build()
+    print(f"[2] built {framer_path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- 3. kernels vs plain at the main path's shapes --------------------------
     rows = []
@@ -168,7 +189,8 @@ def main() -> int:
     # K1, one channel, config-1 shapes
     c1 = build_config1(C1_SAMPLES, use_kernel=True, device=dev)
     x1 = c1.example[0]
-    taps1 = torch.as_tensor(lowpass(64, 0.2), device=dev)
+    taps1_np = lowpass(64, 0.2)
+    taps1 = torch.as_tensor(taps1_np, device=dev)
     word1 = int(freq_to_word(0.11))
     w01 = (-hist * word1) % (1 << 32)
     k1 = c1.step(x1)
@@ -217,11 +239,81 @@ def main() -> int:
               lambda: k3(chunk0),
               lambda: kct.fsk_ctaps_plain(chunk0, gr, gi, deltas, DECIM, OUT_TILE, hist,
                                           SPS, True))
-    del chunk0, kout, pout, k1, p1
+    del kout, pout, k1, p1
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    # K4, K5 and K6 at config-1 shape, f32 and bf16 ingest
+    g1r, g1i = (torch.as_tensor(a[0], device=dev)
+                for a in kct.ctaps_host(taps1_np, [word1], 2)[:2])
+    for dt, sfx in ((torch.float32, ""), (bf16, "_bf16")):
+        xin = x1.to(dt)
+        k4 = kcm.make_mix_fir_ctaps_kernel(taps1_np, word1, 2, out_tile=OUT_TILE,
+                                           b_rows=B_ROWS, in_dtype=dt, device=dev)
+        y4 = k4.fn(w01, xin)
+        err, rel = cplx_err(y4, kcm.mix_fir_ctaps_plain(w01, word1, xin, g1r, g1i, 2,
+                                                        OUT_TILE, hist))
+        record("mixfir_ctaps" + sfx, "srcdsp_tpu_torch/csrc/ctaps.cu",
+               "srcdsp_tpu/kernels/mixfir_ctaps.py:241", err, rel, rel < 1e-5, True,
+               lambda: k4.fn(w01, xin),
+               lambda: kcm.mix_fir_ctaps_plain(w01, word1, xin, g1r, g1i, 2, OUT_TILE, hist))
+        fn5, _, stride1, span1 = kpf.make_ctaps_preframed_kernel(
+            taps1_np, word1, 2, out_tile=OUT_TILE, b_rows=B_ROWS, in_dtype=dt,
+            device=dev)
+        fk1 = kpf.make_frame_kernel(stride1, span1, B_ROWS, in_dtype=dt, device=dev)
+        fr = kpf.frame_planes(xin, stride1, span1)
+        kfr = fk1(xin)
+        require(same(kfr, fr), f"frame{sfx}: K6 frames differ from frame_planes")
+        if dt == torch.float32:
+            record("frame", "srcdsp_tpu_torch/csrc/frame.cu",
+                   "srcdsp_tpu/kernels/mixfir_preframed.py:212", 0.0, 0.0, True, True,
+                   lambda: fk1(xin), lambda: kpf.frame_planes(xin, stride1, span1))
+        y5 = fn5(w01, fr[0], fr[1])
+        require(same(y5, y4), f"ctaps_preframed{sfx}: K5 != K4 (torch.equal)")
+        print(f"    ctaps_preframed{sfx} == mixfir_ctaps{sfx}: torch.equal True; "
+              f"frame{sfx} == frame_planes: torch.equal True")
+        err, rel = cplx_err(y5, kpf.ctaps_preframed_plain(w01, word1, fr[0], fr[1], g1r, g1i,
+                                                          2, OUT_TILE, hist))
+        record("ctaps_preframed" + sfx, "srcdsp_tpu_torch/csrc/ctaps.cu",
+               "srcdsp_tpu/kernels/mixfir_preframed.py:157", err, rel, rel < 1e-5, True,
+               lambda: fn5(w01, fr[0], fr[1]),
+               lambda: kpf.ctaps_preframed_plain(w01, word1, fr[0], fr[1], g1r, g1i, 2,
+                                                 OUT_TILE, hist))
+        del xin, fr, kfr, y4, y5
+
+    # K3 on bf16 input, and K7 over frames of the same chunk in both dtypes
+    k3b, _ = kct.make_fsk_ctaps_kernel(taps4, words, DECIM, SPS, out_tile=OUT_TILE,
+                                       b_rows=B_ROWS, class_major=True, in_dtype=bf16,
+                                       device=dev)
+    chunk0b = chunk0.to(bf16)
+    fsk_check("fsk_ctaps_bf16", "srcdsp_tpu_torch/csrc/fsk.cu",
+              "srcdsp_tpu/kernels/fsk_ctaps.py:272",
+              lambda: k3b(chunk0b),
+              lambda: kct.fsk_ctaps_plain(chunk0b, gr, gi, deltas, DECIM, OUT_TILE, hist,
+                                          SPS, True))
+    for dt, sfx, k3fn, ch in ((torch.float32, "", k3, chunk0), (bf16, "_bf16", k3b, chunk0b)):
+        fn7, _, stride4, span4 = kfp.make_fsk_preframed_kernel(
+            taps4, words, DECIM, SPS, out_tile=OUT_TILE, b_rows=B_ROWS, class_major=True,
+            in_dtype=dt, device=dev)
+        fr = kpf.frame_planes(ch, stride4, span4)
+        xr_f, xi_f = fr[:, 0].contiguous(), fr[:, 1].contiguous()
+        del fr
+        require(same(fn7(xr_f, xi_f), k3fn(ch)), f"fsk_preframed{sfx}: K7 != K3 (torch.equal)")
+        print(f"    fsk_preframed{sfx} == fsk_ctaps{sfx}: torch.equal True (d, st)")
+        fsk_check("fsk_preframed" + sfx, "srcdsp_tpu_torch/csrc/fsk.cu",
+                  "srcdsp_tpu/kernels/fsk_preframed.py:173",
+                  lambda: fn7(xr_f, xi_f),
+                  lambda: kfp.fsk_preframed_plain(xr_f, xi_f, gr, gi, deltas, DECIM,
+                                                  OUT_TILE, hist, SPS, True))
+        del xr_f, xi_f
+    del chunk0, chunk0b
 
     # --- 4. config 4 end to end (main path) ------------------------------------
+    x4b = x4.to(bf16)
     _build.reset_launches()
     chunks = [x4[:, :, i * C4_CHUNK:(i + 1) * C4_CHUNK] for i in range(C4_CHUNKS)]
+    chunks_b = [x4b[:, :, i * C4_CHUNK:(i + 1) * C4_CHUNK] for i in range(C4_CHUNKS)]
     total = C4_CHANNELS * C4_CHUNK * C4_CHUNKS
 
     # each setup builds its path outside the timed region and returns a per-chunk step
@@ -254,12 +346,50 @@ def main() -> int:
             return b
         return step
 
-    for name, setup in (("fsk_ctaps_stream (K3)", k3_path),
-                        ("fsk_planes_stream (K1)", k1_path), ("fsk_fused (K2)", k2_path)):
+    def k3_bf16_path():
+        fn, h = kct.make_fsk_ctaps_kernel(taps4, words, DECIM, SPS, out_tile=OUT_TILE,
+                                          b_rows=B_ROWS, class_major=True, in_dtype=bf16,
+                                          device=dev)
+        carry = dict(buf=torch.zeros((C4_CHANNELS, 2, h), dtype=bf16, device=dev), state=None)
+
+        def step(ch):
+            xin = torch.cat([carry["buf"], ch], dim=-1)
+            carry["state"], (b, _) = kct.fsk_demod_ctaps(fn, h, OUT_TILE, xin, SPS,
+                                                         state=carry["state"],
+                                                         class_major=True)
+            carry["buf"] = xin[..., -h:].contiguous()
+            return b
+        return step
+
+    def preframed_path(dt):
+        fn, h, stride, span = kfp.make_fsk_preframed_kernel(
+            taps4, words, DECIM, SPS, out_tile=OUT_TILE, b_rows=B_ROWS, class_major=True,
+            in_dtype=dt, device=dev)
+        frame = kpf.make_frame_kernel(stride, span, B_ROWS, in_dtype=dt, device=dev)
+        carry = dict(buf=torch.zeros((C4_CHANNELS, 2, h), dtype=dt, device=dev), state=None)
+
+        def step(ch):
+            xin = torch.cat([carry["buf"], ch], dim=-1)
+            xr_f, xi_f = frame(xin)
+            carry["state"], (b, _) = kfp.fsk_demod_preframed(fn, OUT_TILE, xr_f, xi_f, SPS,
+                                                             state=carry["state"],
+                                                             class_major=True)
+            carry["buf"] = xin[..., -h:].contiguous()
+            return b
+        return step
+
+    for name, setup, feed in (
+            ("fsk_ctaps_stream (K3)", k3_path, chunks),
+            ("fsk_planes_stream (K1)", k1_path, chunks),
+            ("fsk_fused (K2)", k2_path, chunks),
+            ("fsk_ctaps bf16 (K3 bf16)", k3_bf16_path, chunks_b),
+            ("frame + fsk_preframed (K6+K7)", lambda: preframed_path(torch.float32), chunks),
+            ("frame + fsk_preframed bf16 (K6+K7 bf16)", lambda: preframed_path(bf16),
+             chunks_b)):
         step = setup()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        bits = torch.cat([step(ch) for ch in chunks], dim=-1)
+        bits = torch.cat([step(ch) for ch in feed], dim=-1)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         rx = bits.cpu().numpy()
@@ -269,7 +399,7 @@ def main() -> int:
               f"max BER {ber.max()}", flush=True)
         require(rx.shape == bits_tx.shape, f"{name}: bits shape {rx.shape}")
         require(bool(np.all(ber == 0.0)), f"{name}: BER {ber}")
-    del x4, chunks
+    del x4, x4b, chunks, chunks_b
 
     # --- 5. config 1 (main path) ----------------------------------------------
     c1_ms = median_ms(torch, lambda: c1.step(x1))
@@ -277,14 +407,33 @@ def main() -> int:
     torch.cuda.synchronize()
     require(tuple(yr.shape) == (1, C1_SAMPLES // 2), f"config 1 output {tuple(yr.shape)}")
     require(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()), "config 1 not finite")
-    print(f"[5] config 1: {C1_SAMPLES} samples in {c1_ms:.3f} ms median, "
+    print(f"[5] config 1 kernel (K1): {C1_SAMPLES} samples in {c1_ms:.3f} ms median, "
           f"{C1_SAMPLES / c1_ms / 1e3:.1f} Ms/s", flush=True)
-
-    launches = dict(_build.LAUNCHES)
-    print(f"    main-path launches: {launches}")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        require(row["launches"] > 0, f"{row['name']} never launched on the main path")
+    serving = {}
+    for variant in CONFIG1_SERVING:
+        b = build_config1_serving(C1_SAMPLES, variant, device=dev)
+        ms = median_ms(torch, lambda: b.step(*b.example))
+        yr, yi = b.step(*b.example)
+        torch.cuda.synchronize()
+        require(b.samples_per_call == C1_SAMPLES and yr.numel() == C1_SAMPLES // 2,
+                f"config 1 {variant}: {b.samples_per_call} samples, {tuple(yr.shape)} out")
+        require(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+                f"config 1 {variant} not finite")
+        serving[variant] = (yr.reshape(-1), yi.reshape(-1))
+        print(f"[5] config 1 {variant}: {C1_SAMPLES} samples in {ms:.3f} ms median, "
+              f"{C1_SAMPLES / ms / 1e3:.1f} Ms/s", flush=True)
+        del b
+    for sfx in ("", "_bf16io"):
+        require(same(serving["preframed" + sfx], serving["ctaps" + sfx]),
+                f"config 1 preframed{sfx} != ctaps{sfx}")
+    ref = torch.complex(*serving["ctaps"])
+    snr = float(10 * torch.log10(ref.abs().pow(2).mean()
+                                 / (torch.complex(*serving["ctaps_bf16io"]) - ref)
+                                 .abs().pow(2).mean()))
+    print(f"    preframed == ctaps, preframed_bf16io == ctaps_bf16io (torch.equal); "
+          f"bf16 ingest SNR {snr:.2f} dB against f32 (floor 30)")
+    require(snr > 30.0, f"config 1 bf16 ingest SNR {snr} dB")
+    del serving, ref
 
     # --- 6. recorded fixture -----------------------------------------------------
     fix = REPO / "tests" / "fixtures"
@@ -296,6 +445,48 @@ def main() -> int:
     gold = np.load(fix / "fsk_256sym_gold_bits.npy")
     require(np.array_equal(bits.cpu().numpy(), gold), "fixture bits differ from gold")
     print(f"[6] fixture fsk_256sym: {gold.size} bits equal to the oracle's gold bits")
+
+    # --- 7. ingest: capture -> C++ framer (bf16) -> H2D -> K5 (main path) ---------
+    fn5, h5, stride1, span1 = kpf.make_ctaps_preframed_kernel(
+        taps1_np, word1, 2, out_tile=OUT_TILE, b_rows=B_ROWS, in_dtype=bf16, device=dev)
+    iq = np.random.default_rng(7).integers(-32768, 32768, size=(h5 + C1_SAMPLES, 2),
+                                           dtype=np.int16)
+    # the first call also loads the library and allocates the pinned buffers,
+    # which the caching host allocator hands back to the second, timed call
+    t = time.perf_counter()
+    hr, hi = framer.frame_ci16(iq, h5, stride1, span1, bf16=True, threads=4, pin_memory=True)
+    first_s = time.perf_counter() - t
+    del hr, hi
+    t = time.perf_counter()
+    hr, hi = framer.frame_ci16(iq, h5, stride1, span1, bf16=True, threads=4, pin_memory=True)
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    xr_f, xi_f = hr.to(dev, non_blocking=True), hi.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t
+    dev_ms = median_ms(torch, lambda: fn5(w01, xr_f, xi_f))
+    y = fn5(w01, xr_f, xi_f)
+    iq_d = torch.from_numpy(iq).to(dev)
+    pr, pi = planes_from_int16(iq_d.reshape(-1))
+    planes = torch.stack([pr, pi]).to(bf16)
+    kr, ki = kpf.make_frame_kernel(stride1, span1, B_ROWS, in_dtype=bf16, device=dev)(planes)
+    require(same((xr_f, xi_f), (kr, ki)), "ingest: framer frames differ from K6 frames")
+    require(same(y, fn5(w01, kr, ki)), "ingest: K5 output differs between the two producers")
+    frame_bytes = 2 * hr.numel() * hr.element_size()
+    print(f"[7] ingest {C1_SAMPLES} ci16 samples: framer bf16 x4 threads {host_s * 1e3:.3f} ms "
+          f"({C1_SAMPLES / host_s / 1e6:.1f} Ms/s; first call with the pinned allocation "
+          f"{first_s * 1e3:.3f} ms), H2D {frame_bytes / 1e6:.1f} MB in "
+          f"{h2d_s * 1e3:.3f} ms ({frame_bytes / h2d_s / 1e9:.2f} GB/s), K5 bf16 "
+          f"{dev_ms:.3f} ms ({C1_SAMPLES / dev_ms / 1e3:.1f} Ms/s); frames and K5 output "
+          f"equal to K6 frames of the capture converted on the card", flush=True)
+    del hr, hi, xr_f, xi_f, y, iq_d, pr, pi, planes, kr, ki
+
+    launches = dict(_build.LAUNCHES)
+    print(f"    main-path launches: {launches}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        require(row["launches"] > 0, f"{row['name']} never launched on the main path")
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -64,6 +64,57 @@ def build_config1(n: int = 1 << 20, use_kernel: bool = False, device=None) -> Bu
                        (xr, xi), n, dict(taps=t, decim=m, impl="planes"))
 
 
+CONFIG1_SERVING = ("ctaps", "ctaps_bf16io", "preframed", "preframed_bf16io")
+
+
+def build_config1_serving(n: int = 1 << 26, variant: str = "preframed_bf16io",
+                          device=None) -> BuiltConfig:
+    """Config 1 on the complex-taps serving kernels: the counterparts of
+    bench.py's ``_make_ctaps`` (variants ``ctaps``, ``ctaps_bf16io``: K4 on raw
+    planes) and ``_make_preframed`` (``preframed``, ``preframed_bf16io``: K5 on
+    frames), with their taps lowpass(64, 0.2), word freq_to_word(0.11),
+    decim 2, out_tile 512, b_rows 32 and seed-0 standard_normal((2, hist+n))
+    input. ``_bf16io`` ships the input as bf16. The preframed variants frame
+    on the host when they are built, outside the step, as bench.py does.
+
+    step(*example) returns (yr, yi): [1, n/2] for ctaps, [NT, 512] for
+    preframed, as the JAX steps do.
+    """
+    from srcdsp_tpu_torch.kernels.mixfir_ctaps import make_mix_fir_ctaps_kernel, mix_fir_ctaps
+    from srcdsp_tpu_torch.kernels.mixfir_preframed import (
+        frame_planes, make_ctaps_preframed_kernel)
+    from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    if variant not in CONFIG1_SERVING:
+        raise ValueError(f"variant {variant!r} not in {CONFIG1_SERVING}")
+    t, m, out_tile, b_rows = 64, 2, 512, 32
+    taps = lowpass(t, 0.2)
+    word = int(freq_to_word(0.11))
+    dt = torch.bfloat16 if variant.endswith("_bf16io") else torch.float32
+    meta = dict(taps=t, decim=m, impl=variant)
+    if variant.startswith("ctaps"):
+        k = make_mix_fir_ctaps_kernel(taps, word, m, out_tile=out_tile, b_rows=b_rows,
+                                      in_dtype=dt, device=device)
+        hist, blk = k.hist, k.block_in()
+    else:
+        fn, hist, stride, span = make_ctaps_preframed_kernel(
+            taps, word, m, out_tile=out_tile, b_rows=b_rows, in_dtype=dt, device=device)
+        blk = b_rows * stride
+    n = (n // blk) * blk
+    if n == 0:
+        raise ValueError(f"n smaller than one kernel block of {blk} samples")
+    word0 = (-hist * word) % (1 << 32)
+    planes = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, hist + n)).astype(np.float32))
+    if variant.startswith("ctaps"):
+        x = planes.to(dt).to(device)
+        return BuiltConfig(lambda p: mix_fir_ctaps(k, word0, p), (x,), n, meta)
+    fr = frame_planes(planes, stride, span).to(dt)
+    xr_f, xi_f = fr[0].to(device), fr[1].to(device)
+    return BuiltConfig(lambda r, i: fn(word0, r, i), (xr_f, xi_f), n, meta)
+
+
 def build_config4(nsym: int = 2048, channels: int = 32, device=None) -> BuiltConfig:
     """FSK demod chain: mix + filter + discriminator + symbol timing.
 

@@ -1,10 +1,11 @@
-// Shared device helpers for the mix/FIR/decimate and FSK kernels.
+// Shared device helpers for the mix/FIR/decimate, complex-taps and FSK kernels.
 //
 // Built by srcdsp_tpu_torch/kernels/_build.py with nvcc for sm_90a, without
 // --use_fast_math: sinf, cosf, atan2f and sincospif keep their accurate forms.
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace srcdsp {
@@ -21,33 +22,92 @@ __device__ __forceinline__ void phasor(uint32_t w, float* c, float* s) {
   sincospif(two_turns, s, c);
 }
 
-// Stage samples [base, base + len) of one channel's I and Q planes into
-// shared memory; indices outside [0, L) read as zero. With MIX, each sample
-// is multiplied once by the NCO phasor of its u32 word w0 + g * dw.
-template <bool MIX>
-__device__ __forceinline__ void stage_window(const float* __restrict__ xr,
-                                             const float* __restrict__ xi,
-                                             long long L, long long base, int len,
-                                             uint32_t w0, uint32_t dw,
+// Input samples are float32 or bfloat16 (bf16 ingest); all arithmetic is f32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Window sources. load(c, r, g, &a, &b) reads sample g of channel c's stream
+// (the history-prepended input) for the block of output row r, and returns
+// false, leaving a and b alone, where the stream has no sample g. A kernel
+// body templated on the source computes the same bits from either.
+
+// Raw planes x [C, 2, L].
+template <typename T>
+struct Planes {
+  const T* x;
+  long long L;
+  __device__ __forceinline__ bool load(int c, int r, long long g, float* a,
+                                       float* b) const {
+    if (g < 0 || g >= L) return false;
+    const T* xr = x + (long long)c * 2 * L;
+    *a = to_f32(xr[g]);
+    *b = to_f32(xr[L + g]);
+    return true;
+  }
+};
+
+// Producer frames xr_f, xi_f [C, NT, span]: frame row r holds stream samples
+// [r*stride, r*stride + span). A sample left of row r's frame (the FSK
+// kernels' output J-1 reads up to decim samples there) comes from row r-1,
+// which holds [(r-1)*stride, r*stride + hist), so no geometry of taps and
+// decimation needs it to lie in row r's own frame. Left of row 0 the stream
+// has no samples.
+template <typename T>
+struct Frames {
+  const T* xr;
+  const T* xi;
+  int NT, stride, span;
+  __device__ __forceinline__ bool load(int c, int r, long long g, float* a,
+                                       float* b) const {
+    const long long row = g >= (long long)r * stride ? r : r - 1;
+    if (row < 0) return false;
+    const long long k = ((long long)c * NT + row) * span + (g - row * stride);
+    *a = to_f32(xr[k]);
+    *b = to_f32(xi[k]);
+    return true;
+  }
+};
+
+// Stage samples [base, base + len) of channel c into shared memory (zero
+// where the source has none). With MIX, each sample is multiplied once by the
+// NCO phasor of its u32 word w0 + g * dw.
+template <bool MIX, class Src>
+__device__ __forceinline__ void stage_window(const Src& src, int c, int r, long long base,
+                                             int len, uint32_t w0, uint32_t dw,
                                              float* sr, float* si) {
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const long long g = base + i;
     float a = 0.f, b = 0.f;
-    if (g >= 0 && g < L) {
-      a = xr[g];
-      b = xi[g];
-      if (MIX) {
-        float c, s;
-        phasor(w0 + (uint32_t)g * dw, &c, &s);
-        const float mr = a * c - b * s;
-        const float mi = a * s + b * c;
-        a = mr;
-        b = mi;
-      }
+    if (src.load(c, r, g, &a, &b) && MIX) {
+      float cs, sn;
+      phasor(w0 + (uint32_t)g * dw, &cs, &sn);
+      const float mr = a * cs - b * sn;
+      const float mi = a * sn + b * cs;
+      a = mr;
+      b = mi;
     }
     sr[i] = a;
     si[i] = b;
   }
+}
+
+// Complex FIR output from a staged window: sum_a g[a] * s[e - a], with the
+// explicit fmaf order every complex-taps kernel shares, so that the kernels
+// over raw planes and over frames round alike.
+__device__ __forceinline__ void ctaps_dot(const float* sr, const float* si,
+                                          const float* hr, const float* hi, int e,
+                                          int T, float* yr, float* yi) {
+  float ar = 0.f, ai = 0.f;
+  for (int a = 0; a < T; ++a) {
+    const float vr = sr[e - a];
+    const float vi = si[e - a];
+    const float gr = hr[a];
+    const float gi = hi[a];
+    ar = fmaf(gr, vr, fmaf(-gi, vi, ar));
+    ai = fmaf(gr, vi, fmaf(gi, vr, ai));
+  }
+  *yr = ar;
+  *yi = ai;
 }
 
 // Deterministic block-wide sum (fixed tree order, no atomics). `red` holds

@@ -40,9 +40,7 @@ __global__ void mixfir_kernel(const float* __restrict__ x,
 
   const float* tc = taps + (long long)c * taps_stride;
   for (int a = threadIdx.x; a < T; a += blockDim.x) sh[a] = tc[a];
-  const float* xr = x + (long long)c * 2 * L;
-  const float* xi = xr + L;
-  stage_window<true>(xr, xi, L, (long long)r * OT * decim, span,
+  stage_window<true>(Planes<float>{x, L}, c, r, (long long)r * OT * decim, span,
                      (uint32_t)words0[c], (uint32_t)dwords[c], sr, si);
   __syncthreads();
 

@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels (``srcdsp_tpu_torch/csrc``).
 
-The sources are compiled at first use with nvcc into one shared library with
-a plain C interface, loaded with ctypes:
+The sources are compiled at first use, one nvcc per source, all started
+together, and linked into one shared library with a plain C interface, loaded
+with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+    nvcc -shared
 
 No ``--use_fast_math``: it would swap sinf, cosf and atan2f for approximate
 forms. The library lands in ``build/srcdsp_tpu_torch/<hash of sources and
@@ -26,21 +28,28 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mixfir.cu", "fsk.cu")
+SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu")
 HEADERS = ("fsk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srcdsp_tpu_torch"
 LIB_NAME = "libsrcdsp_kernels.so"
 
-LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0}
+LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0,
+            "fsk_ctaps_bf16": 0, "mixfir_ctaps": 0, "mixfir_ctaps_bf16": 0,
+            "ctaps_preframed": 0, "ctaps_preframed_bf16": 0, "frame": 0,
+            "fsk_preframed": 0, "fsk_preframed_bf16": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 # C entry points (csrc/*.cu) and their argument types
 _SIGNATURES = {
     "srcdsp_mixfir": [_P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "srcdsp_fsk_fused": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "srcdsp_fsk_ctaps": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "srcdsp_fsk_ctaps": [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "srcdsp_fsk_preframed": [_P] * 7 + [_I] * 10 + [_P],
+    "srcdsp_mixfir_ctaps": [_P] * 5 + [_U, _U] + [_I] * 7 + [_P],
+    "srcdsp_ctaps_preframed": [_P] * 6 + [_U, _U] + [_I] * 7 + [_P],
+    "srcdsp_frame": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 
@@ -84,15 +93,23 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build finds a whole library
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        (lib.parent / "nvcc.log").write_text("".join(logs))
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+        so = Path(tmp) / LIB_NAME
+        proc = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(so, lib)  # atomic: a concurrent build finds a whole library
     return lib
 
 

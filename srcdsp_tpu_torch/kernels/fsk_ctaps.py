@@ -17,8 +17,14 @@ overlap and the per-call seam (output 0 of each call has d = 0, no delta).
 Outputs and layouts are K2's (``kernels/fsk_fused.py``).
 
 The CUDA kernel is ``csrc/fsk.cu`` (``srcdsp_fsk_ctaps``); `fsk_ctaps_plain`
-is the plain PyTorch version the wrapper runs for CPU tensors. The JAX
-kernel's bf16-ingest variant (``in_dtype``) is not ported yet: x is float32.
+is the plain PyTorch version the wrapper runs for CPU tensors.
+
+bf16 ingest (``in_dtype=torch.bfloat16``): x ships as bf16, each sample is
+converted to f32 once and everything after is f32. The taps stay f32, where
+the JAX variant rounds its packed taps to bf16 too (a constraint of its
+matrix-unit lowering, not of the method), so the port is held to the
+reference's contract for this variant rather than to its bits: decisions
+equal and soft values within 5e-2 of the f32 path.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch.nn.functional as F
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_fused import (
     PAD, demod_tail, discriminate_call, om_partials, to_class_major)
-from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, check_planes, cuda_or_cpu
+from srcdsp_tpu_torch.kernels.mixfir import (
+    LANE, _round_up, check_in_dtype, check_planes, cuda_or_cpu)
 from srcdsp_tpu_torch.ops.fir import pin_f32
 from srcdsp_tpu_torch.ops.nco import TWO_PI, _INV_SCALE
 from srcdsp_tpu_torch.types import F32
@@ -59,12 +66,13 @@ def ctaps_host(taps, dwords, decim: int) -> tuple[np.ndarray, np.ndarray, np.nda
 
 def ctaps_fir_rows(x: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor, decim: int,
                    hist: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain complex FIR + decimate per channel: x [C, 2, hist+N], g [C, T]
-    -> yr, yi [C, N/decim] with y[J] = sum_a g[a] x[J*decim + hist - a]."""
+    """Plain complex FIR + decimate per channel: x [C, 2, hist+N] (f32, or
+    bf16 converted first), g [C, T] -> yr, yi [C, N/decim] f32 with
+    y[J] = sum_a g[a] x[J*decim + hist - a]."""
     pin_f32(x)
     c, _, _ = x.shape
     t = gr.shape[-1]
-    v = x[..., hist - (t - 1):].reshape(1, 2 * c, -1)
+    v = x[..., hist - (t - 1):].float().reshape(1, 2 * c, -1)
     hr, hi = gr.flip(-1), gi.flip(-1)
     # per channel: (yr, yi) = [[gr, -gi], [gi, gr]] * (xr, xi)
     w = torch.stack([torch.stack([hr, -hi], 1), torch.stack([hi, hr], 1)], 1)  # [C,2,2,T]
@@ -87,16 +95,20 @@ def fsk_ctaps_plain(x: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
 
 
 def make_fsk_ctaps_kernel(taps, dwords, decim: int, sps: int, out_tile: int = 512,
-                          b_rows: int = 32, class_major: bool = False, device=None):
+                          b_rows: int = 32, class_major: bool = False,
+                          in_dtype: torch.dtype = torch.float32, device=None):
     """Build K3 for FIXED per-channel tuning words `dwords` (u32, one per
-    channel). Returns (fn, hist) with fn: (x [C, 2, HK+N]) ->
-    (d [C, NT, OT], st [C, NT, 128]); no run-time phase words.
+    channel). Returns (fn, hist) with fn: (x [C, 2, HK+N] of `in_dtype`,
+    float32 or bfloat16) -> (d [C, NT, OT], st [C, NT, 128]) f32; no run-time
+    phase words.
 
     The TPU version's block_cols, precision, pipelined and interpret options
     shape only the Pallas lowering and have no counterpart here.
     """
     if out_tile % sps != 0:
         raise ValueError(f"out_tile {out_tile} % sps {sps} != 0")
+    bf16 = check_in_dtype(in_dtype)
+    counter = "fsk_ctaps_bf16" if bf16 else "fsk_ctaps"
     gr_np, gi_np, deltas_np = ctaps_host(taps, dwords, decim)
     num_channels, t = gr_np.shape
     hist = _round_up(t - 1, LANE)
@@ -106,7 +118,7 @@ def make_fsk_ctaps_kernel(taps, dwords, decim: int, sps: int, out_tile: int = 51
     deltas = torch.as_tensor(deltas_np, device=device).contiguous()
 
     def fn(x):
-        n = check_planes(x, num_channels, hist, block)
+        n = check_planes(x, num_channels, hist, block, in_dtype)
         if x.device != gr.device:
             raise ValueError(f"x on {x.device}, kernel built for {gr.device}")
         if not cuda_or_cpu(x):
@@ -119,9 +131,10 @@ def make_fsk_ctaps_kernel(taps, dwords, decim: int, sps: int, out_tile: int = 51
         rc = lib.srcdsp_fsk_ctaps(x.data_ptr(), gr.data_ptr(), gi.data_ptr(),
                                   deltas.data_ptr(), d.data_ptr(), st.data_ptr(),
                                   num_channels, x.shape[-1], nt, out_tile, decim, t, hist,
-                                  sps, int(class_major), _build.stream_handle(x))
-        _build.check(rc, "fsk_ctaps")
-        _build.LAUNCHES["fsk_ctaps"] += 1
+                                  sps, int(class_major), int(bf16),
+                                  _build.stream_handle(x))
+        _build.check(rc, counter)
+        _build.LAUNCHES[counter] += 1
         return d, st
 
     return fn, hist

@@ -71,10 +71,12 @@ def signed_phase_angle(words: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.float32) * np.float32(TWO_PI * _INV_SCALE)
 
 
-def check_planes(x: torch.Tensor, num_channels: int, hist: int, block: int) -> int:
-    """Validate x [C, 2, hist + N] f32 contiguous; return NT rows of output."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"x must be float32, got {x.dtype}")
+def check_planes(x: torch.Tensor, num_channels: int, hist: int, block: int,
+                 in_dtype: torch.dtype = torch.float32) -> int:
+    """Validate x [C, 2, hist + N] contiguous, of the kernel's input dtype;
+    return N."""
+    if x.dtype != in_dtype:
+        raise ValueError(f"x dtype {x.dtype} != kernel in_dtype {in_dtype}")
     if x.ndim != 3 or x.shape[0] != num_channels or x.shape[1] != 2:
         raise ValueError(f"x must be [{num_channels}, 2, hist+N], got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -83,6 +85,13 @@ def check_planes(x: torch.Tensor, num_channels: int, hist: int, block: int) -> i
     if n <= 0 or n % block != 0:
         raise ValueError(f"N={n} not a multiple of kernel block {block}")
     return n
+
+
+def check_in_dtype(in_dtype: torch.dtype) -> bool:
+    """True for a bf16-ingest kernel, False for float32; anything else raises."""
+    if in_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"in_dtype must be float32 or bfloat16, got {in_dtype}")
+    return in_dtype == torch.bfloat16
 
 
 def cuda_or_cpu(x: torch.Tensor) -> bool:
