@@ -10,9 +10,13 @@ Phases, in order; any failure raises and the run exits non-zero:
    nvcc per source, in parallel) and the ingest framer with make and g++;
 3. each kernel against its plain PyTorch version on the same device tensors,
    at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
-   of 32 x 2^22), f32 and bf16 ingest: error, agreement of the decisions,
-   and the median time of each over 5 runs (CUDA events); the pre-framed
-   kernels bit-identical to the complex-taps ones (K5 == K4, K7 == K3);
+   of 32 x 2^22; config 2: one channel of 33,521,664 samples, and one chunk
+   of 4 x 8,380,416 for K8 mc), f32 and bf16 ingest: error, agreement of
+   the decisions, the median time of each over 5 runs (CUDA events), the
+   library call's where one PyTorch call computes the same function, and the
+   bound (the larger of the f32 multiply-adds over 67 TFLOP/s and the bytes
+   in and out over 3.35 TB/s); the pre-framed kernels bit-identical to the
+   ones over raw planes (K5 == K4, K7 == K3, K9 == K8);
 4. config 4 end to end: 32 FSK channels, 4 chunks of 2^22 samples per
    channel, streamed through K3 (FskCtapsStream, the serving path), K1
    (FskPlanesStream), K2 (fsk_demod_fused), K3 on bf16 input, and K6 + K7
@@ -25,9 +29,16 @@ Phases, in order; any failure raises and the run exits non-zero:
 7. ingest at config-1 shape: an int16 capture framed to bf16 on the host by
    the C++ framer into pinned memory, copied to the card and filtered by K5,
    equal bit for bit to K5 over K6 frames of the same capture converted on
-   the card; the time of each leg.
+   the card; the time of each leg;
+8. config 2 end to end: 4 channels x 33,521,664 samples through K8 mc (the
+   429 combined taps of the 128-tap FIR and the 3/4 resampler), one launch
+   equal bit for bit to 4 chunks with carried history; SNR > 90 dB against
+   the plain chain (configs.build_config2 on the card) and, on the first
+   2^18 samples of channel 0, against the C++ oracle; then the five variants
+   of configs.build_config2_onchip, each timed, with pre-framed == fused ==
+   fused_mc channel 0 bit for bit.
 
-Launch counts are reset just before phase 4 and read after phase 7: every
+Launch counts are reset just before phase 4 and read after phase 8: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -48,7 +59,14 @@ C4_CHANNELS, C4_CHUNK, C4_CHUNKS = 32, 1 << 22, 4
 DECIM, SPS, DEV = 4, 8, 0.05
 OUT_TILE, B_ROWS = 512, 32
 C1_SAMPLES = 1 << 26
+# config 2: 2^25 samples per channel rounded down to whole blocks of every
+# variant (49,152 = 32 K9 rows of 1536), streamed as 4 chunks of 682 K8 blocks
+C2_CHANNELS, C2_CHUNK, C2_CHUNKS = 4, 682 * 12288, 4
+C2_SAMPLES = C2_CHUNK * C2_CHUNKS
+C2_ORACLE_SAMPLES = 1 << 18
 REPS = 5
+# published H100 SXM peaks: f32 outside the tensor cores, and HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -81,6 +99,29 @@ def median_ms(torch, fn, reps: int = REPS) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the given tensors (nested tuples and lists allowed)."""
+    total = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            total += tensor_bytes(*t)
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def roofline_ms(flops: float, nbytes: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of flops over the f32
+    peak and bytes (each input read once, each output written once) over the
+    memory rate, in ms, and which of the two binds."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def snr_db(torch, ref, got) -> float:
+    return float(10 * torch.log10(ref.abs().pow(2).mean() / (got - ref).abs().pow(2).mean()))
 
 
 def ber_per_channel(tx: np.ndarray, rx: np.ndarray, settle: int = 16) -> np.ndarray:
@@ -121,9 +162,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from srcdsp_tpu_torch import oracle
     from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
     from srcdsp_tpu_torch.chains.fsk_planes import FskPlanesStream, make_timing_tone
-    from srcdsp_tpu_torch.configs import CONFIG1_SERVING, build_config1, build_config1_serving
+    from srcdsp_tpu_torch.configs import (
+        CONFIG1_SERVING, CONFIG2_ONCHIP, build_config1, build_config1_serving, build_config2,
+        build_config2_onchip, config2_step)
     from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
@@ -133,6 +177,8 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import mixfir as kmf
     from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
     from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
+    from srcdsp_tpu_torch.kernels import resample_pallas as krs
+    from srcdsp_tpu_torch.kernels import resample_preframed as krp
     from srcdsp_tpu_torch.ops.nco import freq_to_word
     from srcdsp_tpu_torch.ops.planes import planes_from_int16
     from srcdsp_tpu_torch.ops.window import lowpass
@@ -170,16 +216,28 @@ def main() -> int:
     chunk0 = torch.cat([torch.zeros((C4_CHANNELS, 2, hist), device=dev),
                         x4[:, :, :C4_CHUNK]], dim=-1)
 
-    def record(name, source, replaces, err, rel, within, agree, k_fn, p_fn):
+    def record(name, source, replaces, err, rel, within, agree, k_fn, p_fn, flops, nbytes,
+               lib_fn=None):
+        """Time kernel and plain version (and the library call where one
+        computes the same function); flops counts the least multiply-adds of
+        the function's filter sums: real taps on complex samples, 4 flop per
+        tap and output whatever form the kernel uses (complex taps are the
+        kernel's choice; phasors and atan2 left out), nbytes the inputs and
+        outputs once each (taps, at most 2 KB, left out)."""
         before = _build.LAUNCHES[name]
         ms, plain_ms = median_ms(torch, k_fn), median_ms(torch, p_fn)
         require(_build.LAUNCHES[name] == before + REPS + 1, f"{name}: launch count")
+        lib_ms = median_ms(torch, lib_fn) if lib_fn is not None else None
+        bound_ms, bound_by = roofline_ms(flops, nbytes)
         print(f"    {name}: max_abs_err {err:.3e} rel_l2 {rel:.3e} decisions_equal {agree} "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+              flush=True)
         require(within, f"{name}: max abs error {err} / rel L2 {rel} over tolerance")
         require(agree, f"{name}: decisions differ from the plain version")
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
 
     def cplx_err(k, p):
         got, ref = torch.complex(*k), torch.complex(*p)
@@ -198,7 +256,8 @@ def main() -> int:
     err, rel = cplx_err(k1, (p1[0].reshape(1, -1), p1[1].reshape(1, -1)))
     record("mixfir", "srcdsp_tpu_torch/csrc/mixfir.cu", "srcdsp_tpu/kernels/mixfir.py:277",
            err, rel, rel < 1e-5, True, lambda: c1.step(x1),
-           lambda: kmf.mix_fir_plain(w01, word1, x1[None], taps1, 2, OUT_TILE, hist))
+           lambda: kmf.mix_fir_plain(w01, word1, x1[None], taps1, 2, OUT_TILE, hist),
+           k1[0].numel() * 64 * 4, tensor_bytes(x1, k1))
 
     # K1, 32 channels, one config-4 chunk
     kmc = kmf.make_mix_fir_kernel_mc(taps4, DECIM, C4_CHANNELS, out_tile=OUT_TILE,
@@ -209,11 +268,13 @@ def main() -> int:
     err, rel = cplx_err(kout, pout)
     record("mixfir_mc", "srcdsp_tpu_torch/csrc/mixfir.cu", "srcdsp_tpu/kernels/mixfir.py:437",
            err, rel, rel < 1e-5, True, lambda: kmc.fn(w04, words, chunk0),
-           lambda: kmf.mix_fir_plain(w04, words, chunk0, taps4_d, DECIM, OUT_TILE, hist))
+           lambda: kmf.mix_fir_plain(w04, words, chunk0, taps4_d, DECIM, OUT_TILE, hist),
+           kout[0].numel() * 64 * 4, tensor_bytes(chunk0, kout))
 
-    def fsk_check(name, source, replaces, k_fn, p_fn):
+    def fsk_check(name, source, replaces, k_fn, p_fn, inputs):
         d, st = k_fn()
         pd, pst = p_fn()
+        flops, nbytes = d.numel() * 64 * 4, tensor_bytes(inputs, d, st)
         err = float(torch.max(torch.abs(d - pd)))
         rel = float(torch.linalg.norm(d - pd) / torch.linalg.norm(pd))
         st_ok = bool(torch.all(torch.abs(st - pst) <= 1e-3 + 1e-4 * torch.abs(pst)))
@@ -221,7 +282,7 @@ def main() -> int:
         _, (b, _) = kff.demod_tail(d, st, SPS, OUT_TILE, class_major=True)
         _, (pb, _) = kff.demod_tail(pd, pst, SPS, OUT_TILE, class_major=True)
         record(name, source, replaces, err, rel, err <= 1e-4, bool(torch.equal(b, pb)),
-               k_fn, p_fn)
+               k_fn, p_fn, flops, nbytes)
 
     k2, _ = kff.make_fsk_mc_kernel(taps4, DECIM, C4_CHANNELS, SPS, out_tile=OUT_TILE,
                                    b_rows=B_ROWS, class_major=True, device=dev)
@@ -229,7 +290,7 @@ def main() -> int:
               "srcdsp_tpu/kernels/fsk_fused.py:263",
               lambda: k2(w04, words, chunk0),
               lambda: kff.fsk_fused_plain(w04, words, chunk0, taps4_d, DECIM, OUT_TILE,
-                                          hist, SPS, True))
+                                          hist, SPS, True), chunk0)
     k3, _ = kct.make_fsk_ctaps_kernel(taps4, words, DECIM, SPS, out_tile=OUT_TILE,
                                       b_rows=B_ROWS, class_major=True, device=dev)
     gr, gi, deltas = (torch.as_tensor(a, device=dev)
@@ -238,7 +299,7 @@ def main() -> int:
               "srcdsp_tpu/kernels/fsk_ctaps.py:272",
               lambda: k3(chunk0),
               lambda: kct.fsk_ctaps_plain(chunk0, gr, gi, deltas, DECIM, OUT_TILE, hist,
-                                          SPS, True))
+                                          SPS, True), chunk0)
     del kout, pout, k1, p1
 
     def same(a, b):
@@ -257,7 +318,8 @@ def main() -> int:
         record("mixfir_ctaps" + sfx, "srcdsp_tpu_torch/csrc/ctaps.cu",
                "srcdsp_tpu/kernels/mixfir_ctaps.py:241", err, rel, rel < 1e-5, True,
                lambda: k4.fn(w01, xin),
-               lambda: kcm.mix_fir_ctaps_plain(w01, word1, xin, g1r, g1i, 2, OUT_TILE, hist))
+               lambda: kcm.mix_fir_ctaps_plain(w01, word1, xin, g1r, g1i, 2, OUT_TILE, hist),
+               y4[0].numel() * 64 * 4, tensor_bytes(xin, y4))
         fn5, _, stride1, span1 = kpf.make_ctaps_preframed_kernel(
             taps1_np, word1, 2, out_tile=OUT_TILE, b_rows=B_ROWS, in_dtype=dt,
             device=dev)
@@ -266,9 +328,12 @@ def main() -> int:
         kfr = fk1(xin)
         require(same(kfr, fr), f"frame{sfx}: K6 frames differ from frame_planes")
         if dt == torch.float32:
+            # the library call: one unfold of the planes, made contiguous
             record("frame", "srcdsp_tpu_torch/csrc/frame.cu",
                    "srcdsp_tpu/kernels/mixfir_preframed.py:212", 0.0, 0.0, True, True,
-                   lambda: fk1(xin), lambda: kpf.frame_planes(xin, stride1, span1))
+                   lambda: fk1(xin), lambda: kpf.frame_planes(xin, stride1, span1),
+                   0, tensor_bytes(xin, kfr),
+                   lambda: xin.unfold(-1, span1, stride1).contiguous())
         y5 = fn5(w01, fr[0], fr[1])
         require(same(y5, y4), f"ctaps_preframed{sfx}: K5 != K4 (torch.equal)")
         print(f"    ctaps_preframed{sfx} == mixfir_ctaps{sfx}: torch.equal True; "
@@ -279,7 +344,8 @@ def main() -> int:
                "srcdsp_tpu/kernels/mixfir_preframed.py:157", err, rel, rel < 1e-5, True,
                lambda: fn5(w01, fr[0], fr[1]),
                lambda: kpf.ctaps_preframed_plain(w01, word1, fr[0], fr[1], g1r, g1i, 2,
-                                                 OUT_TILE, hist))
+                                                 OUT_TILE, hist),
+               y5[0].numel() * 64 * 4, tensor_bytes(fr, y5))
         del xin, fr, kfr, y4, y5
 
     # K3 on bf16 input, and K7 over frames of the same chunk in both dtypes
@@ -291,7 +357,7 @@ def main() -> int:
               "srcdsp_tpu/kernels/fsk_ctaps.py:272",
               lambda: k3b(chunk0b),
               lambda: kct.fsk_ctaps_plain(chunk0b, gr, gi, deltas, DECIM, OUT_TILE, hist,
-                                          SPS, True))
+                                          SPS, True), chunk0b)
     for dt, sfx, k3fn, ch in ((torch.float32, "", k3, chunk0), (bf16, "_bf16", k3b, chunk0b)):
         fn7, _, stride4, span4 = kfp.make_fsk_preframed_kernel(
             taps4, words, DECIM, SPS, out_tile=OUT_TILE, b_rows=B_ROWS, class_major=True,
@@ -305,9 +371,66 @@ def main() -> int:
                   "srcdsp_tpu/kernels/fsk_preframed.py:173",
                   lambda: fn7(xr_f, xi_f),
                   lambda: kfp.fsk_preframed_plain(xr_f, xi_f, gr, gi, deltas, DECIM,
-                                                  OUT_TILE, hist, SPS, True))
+                                                  OUT_TILE, hist, SPS, True), (xr_f, xi_f))
         del xr_f, xi_f
     del chunk0, chunk0b
+
+    # K8 (one channel, config-2 shape), K8 mc (4 channels, one chunk), K9 f32
+    # and bf16 over K6 frames; K9 == K8 bit for bit
+    t0 = time.perf_counter()
+    c2 = build_config2_onchip(C2_SAMPLES, "fused_mc", channels=C2_CHANNELS, device=dev)
+    x2 = c2.example[0]
+    k8mc, w02, words2 = c2.meta["kernel"], c2.meta["words0"], c2.meta["words"]
+    h2 = k8mc.hist
+    require(h2 == 256 and x2.shape[-1] == h2 + C2_SAMPLES, f"config-2 planes {tuple(x2.shape)}")
+    print(f"[3] config-2 planes {tuple(x2.shape)} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    hc = krs.combine_fir_resample_taps(lowpass(128, 0.2), lowpass(48, 0.3), 3)
+    hc_d = torch.as_tensor(hc, device=dev)
+    c2_flops_per_out = -(-len(hc) // 3) * 4          # 143 real taps x complex samples
+    k8 = krs.make_mix_resample_kernel(hc, 3, 4, out_tile=384, b_rows=24, device=dev)
+    x20 = x2[0]
+    y8 = k8.fn(w02[0], words2[0], x20)
+    p8r, p8i = krs.mix_resample_plain(w02[0], words2[0], x20[None], hc_d, 3, 4, 384, h2)
+    err, rel = cplx_err(y8, (p8r[0], p8i[0]))
+    del p8r, p8i
+    record("mix_resample", "srcdsp_tpu_torch/csrc/resample.cu",
+           "srcdsp_tpu/kernels/resample_pallas.py:166", err, rel, rel < 1e-5, True,
+           lambda: k8.fn(w02[0], words2[0], x20),
+           lambda: krs.mix_resample_plain(w02[0], words2[0], x20[None], hc_d, 3, 4, 384, h2),
+           y8[0].numel() * c2_flops_per_out, tensor_bytes(x20, y8))
+    chunk2 = x2[..., :h2 + C2_CHUNK].contiguous()
+    ymc = k8mc.fn(w02, words2, chunk2)
+    err, rel = cplx_err(ymc, krs.mix_resample_plain(w02, words2, chunk2, hc_d, 3, 4, 384, h2))
+    record("mix_resample_mc", "srcdsp_tpu_torch/csrc/resample.cu",
+           "srcdsp_tpu/kernels/resample_pallas.py:283", err, rel, rel < 1e-5, True,
+           lambda: k8mc.fn(w02, words2, chunk2),
+           lambda: krs.mix_resample_plain(w02, words2, chunk2, hc_d, 3, 4, 384, h2),
+           ymc[0].numel() * c2_flops_per_out, tensor_bytes(chunk2, ymc))
+    del chunk2, ymc
+    for dt, sfx, ot in ((torch.float32, "", 1152), (bf16, "_bf16", 2304)):
+        fn9, h9, stride9, span9 = krp.make_resample_preframed_kernel(
+            hc, words2[0], 3, 4, out_tile=ot, b_rows=B_ROWS, in_dtype=dt, device=dev)
+        fr = kpf.make_frame_kernel(stride9, span9, B_ROWS, in_dtype=dt, device=dev)(x20.to(dt))
+        y9 = fn9(w02[0], *fr)
+        flat9 = torch.complex(y9[0].reshape(-1), y9[1].reshape(-1))
+        flat8 = torch.complex(y8[0].reshape(-1), y8[1].reshape(-1))
+        if dt == torch.float32:
+            require(torch.equal(flat9, flat8), "resample_preframed: K9 != K8 (torch.equal)")
+            print("    resample_preframed == mix_resample: torch.equal True")
+        else:
+            snr = snr_db(torch, flat8, flat9)
+            print(f"    resample_preframed_bf16: SNR {snr:.2f} dB against K8 f32 (floor 40)")
+            require(snr > 40.0, f"resample_preframed_bf16: SNR {snr} dB against f32")
+        err, rel = cplx_err(y9, krp.resample_preframed_plain(w02[0], words2[0], *fr, hc_d, 3,
+                                                             4, ot, h9))
+        record("resample_preframed" + sfx, "srcdsp_tpu_torch/csrc/resample.cu",
+               "srcdsp_tpu/kernels/resample_preframed.py:167", err, rel, rel < 1e-5, True,
+               lambda: fn9(w02[0], *fr),
+               lambda: krp.resample_preframed_plain(w02[0], words2[0], *fr, hc_d, 3, 4, ot,
+                                                    h9),
+               y9[0].numel() * c2_flops_per_out, tensor_bytes(fr, y9))
+        del fr, y9, flat9, flat8
 
     # --- 4. config 4 end to end (main path) ------------------------------------
     x4b = x4.to(bf16)
@@ -481,6 +604,81 @@ def main() -> int:
           f"{dev_ms:.3f} ms ({C1_SAMPLES / dev_ms / 1e3:.1f} Ms/s); frames and K5 output "
           f"equal to K6 frames of the capture converted on the card", flush=True)
     del hr, hi, xr_f, xi_f, y, iq_d, pr, pi, planes, kr, ki
+
+    # --- 8. config 2 (main path) ---------------------------------------------
+    t = time.perf_counter()
+    one = c2.step(x2)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    stream = x2[..., h2:]
+    carry = torch.zeros((C2_CHANNELS, 2, h2), device=dev)
+    parts = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(C2_CHUNKS):
+        xin = torch.cat([carry, stream[..., i * C2_CHUNK:(i + 1) * C2_CHUNK]], dim=-1)
+        w0i = [(w0 + i * C2_CHUNK * w) % (1 << 32) for w0, w in zip(w02, words2)]
+        parts.append(k8mc.fn(w0i, words2, xin))
+        carry = xin[..., -h2:]
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    chunked = tuple(torch.cat([p[j] for p in parts], dim=1) for j in range(2))
+    require(same(chunked, one), "config 2: chunked K8 mc != one launch (torch.equal)")
+    del parts, xin, carry, chunked
+    total2 = C2_CHANNELS * C2_SAMPLES
+    print(f"[8] config 2 K8 mc: {C2_CHANNELS} ch x {C2_SAMPLES} samples, one launch "
+          f"{one_s * 1e3:.3f} ms (first call), {C2_CHUNKS} chunks of {C2_CHUNK} with carried "
+          f"history {chunk_s * 1e3:.3f} ms ({total2 / chunk_s / 1e6:.1f} Ms/s); chunked == one "
+          f"launch: torch.equal True", flush=True)
+    y2 = torch.complex(one[0], one[1]).reshape(C2_CHANNELS, -1)
+    del one
+    xc = torch.complex(stream[:, 0], stream[:, 1])
+    chain_state = build_config2(16, C2_CHANNELS, device=dev).example[:3]
+    t = time.perf_counter()
+    *_, z2 = config2_step(words2, dev)(*chain_state, xc)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t
+    require(z2.shape == y2.shape, f"config 2: plain chain {tuple(z2.shape)} vs {tuple(y2.shape)}")
+    snr_chain = snr_db(torch, z2, y2)
+    del z2
+    x0 = xc[0, :C2_ORACLE_SAMPLES].cpu().numpy()
+    mixed, _ = oracle.nco_mix(x0, 0, words2[0])
+    ref0 = oracle.resample(oracle.fir(mixed, lowpass(128, 0.2)), lowpass(48, 0.3), 3, 4)
+    snr_oracle = snr_db(torch, torch.from_numpy(ref0),
+                        y2[0, :ref0.size].cpu())
+    print(f"    config 2 against the plain chain (nco -> 128-tap FIR -> 3/4 resample, "
+          f"{chain_s * 1e3:.1f} ms on the card): SNR {snr_chain:.2f} dB; first "
+          f"{C2_ORACLE_SAMPLES} samples of channel 0 against the C++ oracle: SNR "
+          f"{snr_oracle:.2f} dB (floor 90 each)", flush=True)
+    require(snr_chain > 90.0, f"config 2: SNR {snr_chain} dB against the plain chain")
+    require(snr_oracle > 90.0, f"config 2: SNR {snr_oracle} dB against the oracle")
+    del xc, stream
+    outs = {}
+    for variant in CONFIG2_ONCHIP:
+        b = c2 if variant == "fused_mc" else build_config2_onchip(C2_SAMPLES, variant,
+                                                                   device=dev)
+        ms = median_ms(torch, lambda: b.step(*b.example))
+        yr, yi = b.step(*b.example)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+                f"config 2 {variant} not finite")
+        y = torch.complex(yr, yi)
+        outs[variant] = y.reshape(C2_CHANNELS, -1)[0] if variant == "fused_mc" else y.reshape(-1)
+        print(f"[8] config 2 {variant}: {b.samples_per_call} samples in {ms:.3f} ms median, "
+              f"{b.samples_per_call / ms / 1e3:.1f} Ms/s", flush=True)
+        del b, yr, yi, y
+    fused = outs["fused"]
+    require(torch.equal(outs["fused_mc"], fused), "config 2: fused_mc channel 0 != fused")
+    require(torch.equal(outs["preframed"], fused), "config 2: preframed != fused (torch.equal)")
+    n2 = min(outs["two_kernels"].numel(), fused.numel())
+    snr_two = snr_db(torch, fused[:n2], outs["two_kernels"][:n2])
+    snr_bf16 = snr_db(torch, fused, outs["preframed_bf16io"])
+    print(f"    preframed == fused == fused_mc channel 0 (torch.equal); two_kernels SNR "
+          f"{snr_two:.2f} dB (floor 90), preframed_bf16io SNR {snr_bf16:.2f} dB (floor 40) "
+          f"against fused", flush=True)
+    require(snr_two > 90.0, f"config 2 two_kernels: SNR {snr_two} dB")
+    require(snr_bf16 > 40.0, f"config 2 preframed_bf16io: SNR {snr_bf16} dB")
+    del outs, fused, x2, c2, y2
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

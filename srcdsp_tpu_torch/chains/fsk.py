@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from srcdsp_tpu_torch.chains.sync import TimingState, timing_estimate, timing_init, timing_sample
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.fir import FirState, fir_apply, fir_init
 from srcdsp_tpu_torch.ops.nco import NcoState, TWO_PI, freq_to_word, nco_apply, nco_init, word_tensor
 from srcdsp_tpu_torch.ops.window import lowpass
@@ -51,6 +52,7 @@ def make_fsk_params(center_freq: float, num_taps: int, cutoff: float,
     center_freq: channel offset in cycles/sample at the *input* rate; the NCO
     mixes by -center_freq so the channel lands at baseband.
     """
+    device = resolve(device)
     return FskParams(
         freq_word=word_tensor(freq_to_word(-center_freq), device),
         taps=torch.as_tensor(lowpass(num_taps, cutoff, window=window), device=device),

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.nco import TWO_PI
 from srcdsp_tpu_torch.types import CF32, F32
 
@@ -30,6 +31,7 @@ class TimingState(NamedTuple):
 
 
 def timing_init(sps: int, channel_shape: tuple = (), dtype=CF32, device=None) -> TimingState:
+    device = resolve(device)
     return TimingState(
         acc=torch.zeros(channel_shape, dtype=CF32, device=device),
         last=torch.zeros((*channel_shape, sps + 1), dtype=dtype, device=device),

@@ -14,12 +14,15 @@ import torch
 
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
 from srcdsp_tpu_torch.chains.sync import TimingState
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.fir import FirState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
+from srcdsp_tpu_torch.ops.resample import ResampleState
 
 
 def fsk_params_from(p, device=None) -> FskParams:
     """FskParams from any object with the JAX FskParams fields."""
+    device = resolve(device)
     return FskParams(
         freq_word=word_tensor(np.asarray(p.freq_word, np.uint32), device),
         taps=torch.as_tensor(np.array(p.taps, np.float32), device=device),
@@ -37,6 +40,8 @@ def fsk_params_to_numpy(p: FskParams) -> dict:
 def fsk_state_from(s, device=None) -> FskState:
     """FskState from any object shaped like the JAX FskState
     (s.nco.phase u32, s.fir.tail, s.disc_last, s.timing.acc, s.timing.last)."""
+    device = resolve(device)
+
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype), device=device)
 
@@ -56,3 +61,20 @@ def fsk_state_to_numpy(s: FskState) -> dict:
     return dict(nco_phase=n(s.nco.phase).astype(np.uint32), fir_tail=n(s.fir.tail),
                 disc_last=n(s.disc_last), timing_acc=n(s.timing.acc),
                 timing_last=n(s.timing.last))
+
+
+def resample_state_from(s, device=None) -> ResampleState:
+    """ResampleState from any object with a ``tail`` field (the JAX ResampleState)."""
+    return ResampleState(tail=torch.as_tensor(np.array(s.tail, np.complex64),
+                                              device=resolve(device)))
+
+
+def config2_state_from(states, device=None) -> tuple[NcoState, FirState, ResampleState]:
+    """The config-2 chain's carried state (nco, fir, resample), as the JAX
+    ``build_config2`` step takes and returns it, for the port's step."""
+    device = resolve(device)
+    nco_s, fir_s, rs_s = states
+    return (NcoState(phase=word_tensor(np.asarray(nco_s.phase, np.uint32), device)),
+            FirState(tail=torch.as_tensor(np.array(fir_s.tail, np.complex64), device=device)),
+            resample_state_from(rs_s, device))
+

@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.types import DEFAULT_SCALE, np_complex64_to_int16, np_int16_to_complex64
 
 FORMATS = ("ci16", "cf32", "cu8", "ci8")
@@ -140,6 +141,7 @@ def device_blocks(path: str, block: int, start_block: int = 0,
     planes=True yields [2, block] float32 (real, imag) planes — the layout
     the kernels consume — instead of [block] complex64.
     """
+    device = resolve(device)
     for xb in read_capture_blocks(path, block, start_block=start_block):
         arr = np.stack([xb.real, xb.imag]).astype(np.float32) if planes else xb
         yield torch.as_tensor(arr, device=device)

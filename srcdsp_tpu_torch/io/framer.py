@@ -2,10 +2,9 @@
 (counterpart of ``srcdsp_tpu/io/framer.py``): one C++ pass converts a capture
 and emits the [NT, span] frame planes the pre-framed kernels consume (K5, K7).
 
-The library is built at first use by the repository's own Makefile, with g++,
-into ``build/srcdsp_tpu_torch/framer/<hash of the source and Makefile>/`` at
-the root of the checkout (``make -C cpp/ingest BUILD=<that directory>``), so
-the checkout's source is what runs. A failed build raises.
+The library is built at first use by the repository's own Makefile into
+``build/srcdsp_tpu_torch/framer/<hash>/`` (``_native.MakeLibrary``), so the
+checkout's source is what runs. A failed build raises.
 
 Contracts, as the JAX binding's: frames equal `frame_planes` of the converted
 stream bit for bit; int16 converts as x / scale; bf16 is round-to-nearest-even
@@ -17,19 +16,11 @@ can write them into pinned memory for an asynchronous copy to the card.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[2]
-SRC_DIR = ROOT / "cpp" / "ingest"
-BUILD_ROOT = ROOT / "build" / "srcdsp_tpu_torch" / "framer"
+from srcdsp_tpu_torch._native import MakeLibrary
 
 _P, _L, _F, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_float, ctypes.c_int
 _SIGNATURES = {
@@ -41,38 +32,9 @@ _SIGNATURES = {
 }
 
 
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for name in ("framer.cc", "Makefile"):
-        h.update((SRC_DIR / name).read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libframer.so"
-
-
-def build() -> Path:
-    """Build the framer unless this exact build exists; return the .so path."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
-        proc = subprocess.run(["make", "-C", str(SRC_DIR), f"BUILD={tmp}"],
-                              capture_output=True, text=True)
-        built = Path(tmp) / lib.name
-        if proc.returncode != 0 or not built.exists():
-            raise RuntimeError(f"framer build failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(built, lib)  # atomic: a concurrent build finds a whole library
-    return lib
-
-
-@functools.cache
-def load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_long
-    return lib
+_LIB = MakeLibrary("ingest", "framer.cc", "framer", _SIGNATURES, ctypes.c_long)
+BUILD_ROOT = _LIB.build_root
+library_path, build, load = _LIB.path, _LIB.build, _LIB.load
 
 
 def _outputs(nt: int, span: int, dtype: torch.dtype, pin_memory: bool = False):

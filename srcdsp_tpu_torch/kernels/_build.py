@@ -28,7 +28,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu")
+SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu")
 HEADERS = ("fsk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,7 +38,8 @@ LIB_NAME = "libsrcdsp_kernels.so"
 LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0,
             "fsk_ctaps_bf16": 0, "mixfir_ctaps": 0, "mixfir_ctaps_bf16": 0,
             "ctaps_preframed": 0, "ctaps_preframed_bf16": 0, "frame": 0,
-            "fsk_preframed": 0, "fsk_preframed_bf16": 0}
+            "fsk_preframed": 0, "fsk_preframed_bf16": 0, "mix_resample": 0,
+            "mix_resample_mc": 0, "resample_preframed": 0, "resample_preframed_bf16": 0}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 # C entry points (csrc/*.cu) and their argument types
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "srcdsp_mixfir_ctaps": [_P] * 5 + [_U, _U] + [_I] * 7 + [_P],
     "srcdsp_ctaps_preframed": [_P] * 6 + [_U, _U] + [_I] * 7 + [_P],
     "srcdsp_frame": [_P] * 3 + [_I] * 6 + [_P],
+    "srcdsp_mix_resample": [_P] * 6 + [_I] * 8 + [_P],
+    "srcdsp_resample_preframed": [_P] * 5 + [_U, _U] + [_I] * 8 + [_P],
 }
 
 

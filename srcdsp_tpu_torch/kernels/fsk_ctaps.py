@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_fused import (
     PAD, demod_tail, discriminate_call, om_partials, to_class_major)
@@ -109,6 +110,7 @@ def make_fsk_ctaps_kernel(taps, dwords, decim: int, sps: int, out_tile: int = 51
         raise ValueError(f"out_tile {out_tile} % sps {sps} != 0")
     bf16 = check_in_dtype(in_dtype)
     counter = "fsk_ctaps_bf16" if bf16 else "fsk_ctaps"
+    device = resolve(device)
     gr_np, gi_np, deltas_np = ctaps_host(taps, dwords, decim)
     num_channels, t = gr_np.shape
     hist = _round_up(t - 1, LANE)
@@ -159,6 +161,7 @@ class FskCtapsStream:
     def __init__(self, taps, dwords, decim: int, sps: int, num_channels: int,
                  out_tile: int = 512, b_rows: int = 32, class_major: bool = True,
                  device=None):
+        device = resolve(device)
         self.fn, self.hist = make_fsk_ctaps_kernel(
             taps, dwords, decim, sps, out_tile=out_tile, b_rows=b_rows,
             class_major=class_major, device=device)

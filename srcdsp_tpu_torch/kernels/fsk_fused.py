@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import (
     LANE, _round_up, _words_i32, check_planes, cuda_or_cpu, mix_fir_plain)
@@ -90,7 +91,7 @@ def make_fsk_mc_kernel(taps, decim: int, num_channels: int, sps: int,
     t = taps.shape[-1]
     hist = _round_up(t - 1, LANE)
     block = b_rows * out_tile * decim
-    taps_t = torch.as_tensor(taps, device=device).contiguous()
+    taps_t = torch.as_tensor(taps, device=resolve(device)).contiguous()
 
     def fn(words0, dwords, x):
         n = check_planes(x, num_channels, hist, block)

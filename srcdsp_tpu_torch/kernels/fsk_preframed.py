@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_ctaps import ctaps_host, fsk_ctaps_plain
 from srcdsp_tpu_torch.kernels.fsk_fused import PAD, demod_tail
@@ -47,6 +48,7 @@ def make_fsk_preframed_kernel(taps, dwords, decim: int, sps: int, out_tile: int 
         raise ValueError(f"out_tile {out_tile} % sps {sps} != 0")
     bf16 = check_in_dtype(in_dtype)
     counter = "fsk_preframed_bf16" if bf16 else "fsk_preframed"
+    device = resolve(device)
     gr_np, gi_np, deltas_np = ctaps_host(taps, dwords, decim)
     num_channels, t = gr_np.shape
     hist = _round_up(t - 1, LANE)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.ops.fir import pin_f32
 from srcdsp_tpu_torch.ops.nco import MASK32, TWO_PI, _INV_SCALE, word_tensor
@@ -123,18 +124,24 @@ def fir_decim_rows(u: torch.Tensor, taps: torch.Tensor, decim: int, hist: int
     return y.reshape(c, p, -1)
 
 
-def mix_fir_plain(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: int,
-                  out_tile: int, hist: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: x [C, 2, hist+N], taps [T] or [C, T] -> yr, yi [C, NT, OT]."""
-    c, _, length = x.shape
+def mix_planes(words0, dwords, x: torch.Tensor) -> torch.Tensor:
+    """Planes x [C, 2, L] mixed sample by sample by the exact u32 word
+    ``words0[c] + g*dwords[c]`` (g = index along L) -> [C, 2, L] float32."""
+    _, _, length = x.shape
     g = torch.arange(length, dtype=torch.int64, device=x.device)
     w = (word_tensor(words0, x.device).reshape(-1, 1)
          + g * word_tensor(dwords, x.device).reshape(-1, 1)) & MASK32
     ang = signed_phase_angle(w)
     cs, sn = torch.cos(ang), torch.sin(ang)
-    xr, xi = x[:, 0], x[:, 1]
-    u = torch.stack([xr * cs - xi * sn, xr * sn + xi * cs], dim=1)
-    y = fir_decim_rows(u, taps, decim, hist)
+    xr, xi = x[:, 0].to(torch.float32), x[:, 1].to(torch.float32)
+    return torch.stack([xr * cs - xi * sn, xr * sn + xi * cs], dim=1)
+
+
+def mix_fir_plain(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: int,
+                  out_tile: int, hist: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K1: x [C, 2, hist+N], taps [T] or [C, T] -> yr, yi [C, NT, OT]."""
+    c = x.shape[0]
+    y = fir_decim_rows(mix_planes(words0, dwords, x), taps, decim, hist)
     return y[:, 0].reshape(c, -1, out_tile), y[:, 1].reshape(c, -1, out_tile)
 
 
@@ -185,7 +192,7 @@ def _make(taps: np.ndarray, decim: int, num_channels: int, out_tile: int, b_rows
     t = taps.shape[-1]
     hist = _round_up(t - 1, LANE)
     block = b_rows * out_tile * decim
-    taps_t = torch.as_tensor(taps, device=device).contiguous()
+    taps_t = torch.as_tensor(taps, device=resolve(device)).contiguous()
 
     def fn(words0, dwords, x):
         xc = x[None] if single else x

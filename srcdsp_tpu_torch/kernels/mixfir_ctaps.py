@@ -29,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_ctaps import ctaps_fir_rows, ctaps_host
 from srcdsp_tpu_torch.kernels.mixfir import (
@@ -87,6 +88,7 @@ def make_mix_fir_ctaps_kernel(taps, dword: int, decim: int, out_tile: int = 512,
     """
     bf16 = check_in_dtype(in_dtype)
     counter = "mixfir_ctaps_bf16" if bf16 else "mixfir_ctaps"
+    device = resolve(device)
     dword = word_u32(dword)
     gr_np, gi_np, _ = ctaps_host(taps, [dword], decim)
     t = gr_np.shape[-1]

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_ctaps import ctaps_host
 from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, check_in_dtype, cuda_or_cpu
@@ -96,6 +97,7 @@ def make_ctaps_preframed_kernel(taps, dword: int, decim: int, out_tile: int = 51
     word0 as for K4. Bit-identical to K4 on the same stream."""
     bf16 = check_in_dtype(in_dtype)
     counter = "ctaps_preframed_bf16" if bf16 else "ctaps_preframed"
+    device = resolve(device)
     dword = word_u32(dword)
     gr_np, gi_np, _ = ctaps_host(taps, [dword], decim)
     t = gr_np.shape[-1]
@@ -133,7 +135,7 @@ def make_frame_kernel(stride: int, span: int, b_rows: int = 32,
     NT must be a multiple of b_rows (the JAX kernel's grid step)."""
     check_in_dtype(in_dtype)
     hist = _frame_geometry(stride, span)
-    dev = torch.empty(0, device=device).device
+    dev = resolve(device)
 
     def fn(x):
         if x.dtype != in_dtype:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.types import CF32, F32
 
 
@@ -39,7 +40,8 @@ class FirState(NamedTuple):
 
 def fir_init(num_taps: int, channel_shape: tuple = (), dtype=CF32, device=None) -> FirState:
     """Zero state == zero-filled delay line (causal filter from rest)."""
-    return FirState(tail=torch.zeros((*channel_shape, num_taps - 1), dtype=dtype, device=device))
+    return FirState(tail=torch.zeros((*channel_shape, num_taps - 1), dtype=dtype,
+                                     device=resolve(device)))
 
 
 def _as_taps(taps, device) -> torch.Tensor:

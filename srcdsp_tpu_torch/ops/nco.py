@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.device import resolve
+
 TWO_PI = 6.283185307179586
 MASK32 = 0xFFFFFFFF
 _SCALE = 4294967296.0  # 2^32 turns per wrap
@@ -52,7 +54,8 @@ class NcoState(NamedTuple):
 
 def nco_init(channel_shape: tuple = (), phase0: float = 0.0, device=None) -> NcoState:
     word = int(np.round((phase0 % 1.0) * _SCALE) % _SCALE)
-    return NcoState(phase=torch.full(channel_shape, word, dtype=torch.int64, device=device))
+    return NcoState(phase=torch.full(channel_shape, word, dtype=torch.int64,
+                                     device=resolve(device)))
 
 
 def phase_angle(words: torch.Tensor) -> torch.Tensor:

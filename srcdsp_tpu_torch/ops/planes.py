@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.nco import MASK32, TWO_PI, _INV_SCALE, word_tensor
 from srcdsp_tpu_torch.types import F32, _f32
 
@@ -66,6 +67,7 @@ def nco_planes(word0, dword, n: int, row_offset: int = 0, device=None
     Bit-exact with ops.nco.nco_phasor phase words; row_offset shifts the
     sample index (for chunked calls).
     """
+    device = resolve(device)
     k = torch.arange(n, dtype=torch.int64, device=device)[None] + row_offset
     ph = (word_tensor(word0, device) + k * word_tensor(dword, device)) & MASK32
     ang = ph.to(F32) * np.float32(TWO_PI * _INV_SCALE)

@@ -70,7 +70,7 @@ def _port(x, dtype):
 def test_ctaps_plain_matches_pallas_interpret(t, m):
     taps, word, hist, n, x, w0 = _fixture(t, m, freq=0.1743)
     jk = jct.make_mix_fir_ctaps_kernel(taps, word, m, out_tile=OT, b_rows=BR, interpret=True)
-    tk = tct.make_mix_fir_ctaps_kernel(taps, word, m, out_tile=OT, b_rows=BR)
+    tk = tct.make_mix_fir_ctaps_kernel(taps, word, m, out_tile=OT, b_rows=BR, device="cpu")
     assert (tk.hist, tk.block_in(), tk.dword) == (jk.hist, jk.block_in(), jk.dword)
     jr, ji = jct.mix_fir_ctaps_pallas(jk, w0, jnp.asarray(x))
     tr, ti = tct.mix_fir_ctaps(tk, w0, torch.from_numpy(x))
@@ -86,7 +86,8 @@ def test_ctaps_plain_matches_pallas_interpret(t, m):
 def test_ctaps_chunked_equals_one_shot_bit_exact(dtype):
     """Phase words are exact u32 ints: two half launches equal one launch."""
     taps, word, hist, n, x, w0 = _fixture(blocks=4)
-    k = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=dtype)
+    k = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=dtype,
+                                      device="cpu")
     xt = _port(x, dtype)
     yr, yi = tct.mix_fir_ctaps(k, w0, xt)
     half = n // 2
@@ -98,7 +99,8 @@ def test_ctaps_chunked_equals_one_shot_bit_exact(dtype):
 
 def test_ctaps_bf16_snr_against_jax_f32_and_bf16():
     taps, word, hist, n, x, w0 = _fixture(blocks=4)
-    tk = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=BF16)
+    tk = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=BF16,
+                                       device="cpu")
     tr, ti = tct.mix_fir_ctaps(tk, w0, _port(x, BF16))
     assert tr.dtype == torch.float32
     got = _cplx(tr, ti)
@@ -115,9 +117,10 @@ def test_ctaps_bf16_snr_against_jax_f32_and_bf16():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_preframed_plain_equals_ctaps_plain_bit_exact(dtype):
     taps, word, hist, n, x, w0 = _fixture(t=33, m=4, freq=-0.21)
-    k4 = tct.make_mix_fir_ctaps_kernel(taps, word, 4, out_tile=OT, b_rows=BR, in_dtype=dtype)
+    k4 = tct.make_mix_fir_ctaps_kernel(taps, word, 4, out_tile=OT, b_rows=BR, in_dtype=dtype,
+                                       device="cpu")
     fn, hist5, stride, span = tpf.make_ctaps_preframed_kernel(
-        taps, word, 4, out_tile=OT, b_rows=BR, in_dtype=dtype)
+        taps, word, 4, out_tile=OT, b_rows=BR, in_dtype=dtype, device="cpu")
     assert (hist5, stride, span) == (hist, OT * 4, OT * 4 + hist)
     xt = _port(x, dtype)
     fr = tpf.frame_planes(xt, stride, span)
@@ -131,7 +134,7 @@ def test_preframed_plain_matches_pallas_interpret():
     jfn, jhist, stride, span = jpf.make_ctaps_preframed_kernel(
         taps, word, 4, out_tile=OT, b_rows=BR, interpret=True)
     tfn, thist, tstride, tspan = tpf.make_ctaps_preframed_kernel(
-        taps, word, 4, out_tile=OT, b_rows=BR)
+        taps, word, 4, out_tile=OT, b_rows=BR, device="cpu")
     assert (jhist, stride, span) == (thist, tstride, tspan)
     jfr = jpf.frame_planes(jnp.asarray(x), stride, span)
     jr, ji = jfn(jnp.asarray(np.asarray([[w0]], np.uint32).view(np.int32)), jfr[0], jfr[1])
@@ -152,12 +155,12 @@ def test_frames_match_jax_frame_planes_and_frame_kernel(dtype):
     xt = _port(x, dtype)
     got = tpf.frame_planes(xt, stride, span)
     np.testing.assert_array_equal(got.float().numpy(), ref)
-    tr, ti = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=dtype)(xt)
+    tr, ti = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=dtype, device="cpu")(xt)
     np.testing.assert_array_equal(tr.float().numpy(), np.asarray(jr.astype(jnp.float32)))
     np.testing.assert_array_equal(ti.float().numpy(), np.asarray(ji.astype(jnp.float32)))
     assert tr.dtype == dtype
     # a leading batch of planes frames each entry alike, and deframe inverts
-    br, bi = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=dtype)(
+    br, bi = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=dtype, device="cpu")(
         torch.stack([xt, xt.flip(-1)]))
     assert torch.equal(br[0], tr) and torch.equal(bi[0], ti)
     assert torch.equal(tpf.deframe(br, stride)[1], xt[0].flip(-1))
@@ -188,10 +191,11 @@ def test_wrappers_reject_other_dtype():
     taps, word, hist, n, x, w0 = _fixture()
     stride, span = OT * 2, OT * 2 + hist
     xf, xb = _port(x, torch.float32), _port(x, BF16)
-    k4 = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR)
-    k4b = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=BF16)
-    fn5, *_ = tpf.make_ctaps_preframed_kernel(taps, word, 2, out_tile=OT, b_rows=BR)
-    fk = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=BF16)
+    k4 = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, device="cpu")
+    k4b = tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, in_dtype=BF16,
+                                        device="cpu")
+    fn5, *_ = tpf.make_ctaps_preframed_kernel(taps, word, 2, out_tile=OT, b_rows=BR, device="cpu")
+    fk = tpf.make_frame_kernel(stride, span, b_rows=BR, in_dtype=BF16, device="cpu")
     frb = tpf.frame_planes(xb, stride, span)
     with pytest.raises(ValueError, match="in_dtype"):
         k4.fn(w0, xb)
@@ -202,7 +206,7 @@ def test_wrappers_reject_other_dtype():
     with pytest.raises(ValueError, match="in_dtype"):
         fk(xf)
     with pytest.raises(ValueError, match="in_dtype"):
-        tct.make_mix_fir_ctaps_kernel(taps, word, 2, in_dtype=torch.float16)
+        tct.make_mix_fir_ctaps_kernel(taps, word, 2, in_dtype=torch.float16, device="cpu")
     fr = tpf.frame_planes(xf, stride, span)
     with pytest.raises(ValueError, match="b_rows"):
         fn5(w0, fr[0, :-1].contiguous(), fr[1, :-1].contiguous())
@@ -215,9 +219,9 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     stride, span = OT * 2, OT * 2 + hist
     _build.reset_launches()
     xt = torch.from_numpy(x)
-    tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR).fn(w0, xt)
-    fr = tpf.make_frame_kernel(stride, span, b_rows=BR)(xt)
-    fn5, *_ = tpf.make_ctaps_preframed_kernel(taps, word, 2, out_tile=OT, b_rows=BR)
+    tct.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=BR, device="cpu").fn(w0, xt)
+    fr = tpf.make_frame_kernel(stride, span, b_rows=BR, device="cpu")(xt)
+    fn5, *_ = tpf.make_ctaps_preframed_kernel(taps, word, 2, out_tile=OT, b_rows=BR, device="cpu")
     assert fn5(w0, *fr)[0].device.type == "cpu"
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
@@ -227,7 +231,7 @@ def test_config1_serving_variants_agree():
     dtype, and bf16 ingest stays above the 30 dB floor."""
     out = {}
     for v in tconfigs.CONFIG1_SERVING:
-        b = tconfigs.build_config1_serving(1 << 15, v)
+        b = tconfigs.build_config1_serving(1 << 15, v, device="cpu")
         assert b.samples_per_call == 1 << 15
         yr, yi = b.step(*b.example)
         out[v] = (yr.reshape(-1), yi.reshape(-1))
@@ -235,13 +239,13 @@ def test_config1_serving_variants_agree():
         assert all(torch.equal(a, b) for a, b in zip(out["ctaps" + dt], out["preframed" + dt]))
     assert _snr_db(_cplx(*out["ctaps"]), _cplx(*out["ctaps_bf16io"])) > 30.0
     with pytest.raises(ValueError, match="variant"):
-        tconfigs.build_config1_serving(1 << 15, "kernel")
+        tconfigs.build_config1_serving(1 << 15, "kernel", device="cpu")
 
 
 def test_config1_preframed_bf16io_matches_jax_kernel():
     """The slice: the preframed_bf16io preset's step against the JAX K5 in
     bf16 (bench.py's _make_preframed kernel) on the same frames, > 30 dB."""
-    b = tconfigs.build_config1_serving(1 << 16, "preframed_bf16io")
+    b = tconfigs.build_config1_serving(1 << 16, "preframed_bf16io", device="cpu")
     xr_f, xi_f = b.example
     yr, yi = b.step(xr_f, xi_f)
     fn, hist, stride, span = jpf.make_ctaps_preframed_kernel(

@@ -15,6 +15,8 @@ from srcdsp_tpu_torch.kernels import fsk_preframed as kfp
 from srcdsp_tpu_torch.kernels import mixfir as kmf
 from srcdsp_tpu_torch.kernels import mixfir_ctaps as kmc
 from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
+from srcdsp_tpu_torch.kernels import resample_pallas as krs
+from srcdsp_tpu_torch.kernels import resample_preframed as krp
 from srcdsp_tpu_torch.ops.nco import freq_to_word
 from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, random_bits, tone
@@ -91,7 +93,7 @@ def test_fsk_kernels_match_plain(dev, ctaps, class_major):
 
 
 def test_cuda_tensor_with_cpu_kernel_raises(dev):
-    k = kmf.make_mix_fir_kernel_mc(lowpass(64, 0.03), DECIM, C, out_tile=OT, b_rows=8)
+    k = kmf.make_mix_fir_kernel_mc(lowpass(64, 0.03), DECIM, C, out_tile=OT, b_rows=8, device="cpu")
     x = torch.zeros((C, 2, k.hist + k.block_in()), device=dev)
     with pytest.raises(ValueError, match="kernel built for cpu"):
         k.fn([0] * C, [1] * C, x)
@@ -155,6 +157,73 @@ def test_fsk_preframed_matches_plain_and_ctaps(dev, dtype):
     _, (bits, _) = kff.demod_tail(d3, st3, SPS, OT, class_major=True)
     _, (pbits, _) = kff.demod_tail(pd, pst, SPS, OT, class_major=True)
     assert torch.equal(bits, pbits)
+
+
+def _c2_planes(dev, c, hist, n, seed=0):
+    x = np.random.default_rng(seed).standard_normal((c, 2, hist + n)).astype(np.float32)
+    x[..., :hist] = 0.0
+    return torch.as_tensor(x, device=dev)
+
+
+@pytest.mark.parametrize("channels", [1, 4, 37])
+def test_mix_resample_matches_plain(dev, channels):
+    """K8 at the config-2 combined taps (429 taps, 3/4, out_tile 384) against
+    its plain version, rel L2 < 1e-5; each channel of the multichannel form
+    equal to the single-channel kernel bit for bit (37 channels cross the
+    by-value words' launch groups); chunked launches equal one launch."""
+    hc = krs.combine_fir_resample_taps(lowpass(128, 0.2), lowpass(48, 0.3), 3)
+    k1 = krs.make_mix_resample_kernel(hc, 3, 4, out_tile=384, b_rows=24, device=dev)
+    kc = krs.make_mix_resample_kernel_mc(hc, 3, 4, channels, out_tile=384, b_rows=24,
+                                         device=dev)
+    n = 4 * kc.block_in()
+    x = _c2_planes(dev, channels, kc.hist, n)
+    words = [(int(freq_to_word(0.07)) + 7919 * c) % (1 << 32) for c in range(channels)]
+    words0 = [(-kc.hist * w) % (1 << 32) for w in words]
+    before = dict(_build.LAUNCHES)
+    yr, yi = kc.fn(words0, words, x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mix_resample_mc"] == before["mix_resample_mc"] + 1
+    pr, pi = krs.mix_resample_plain(words0, words, x, torch.as_tensor(hc, device=dev), 3, 4,
+                                    384, kc.hist)
+    assert _rel((yr, yi), (pr, pi)) < 1e-5
+    for c in (0, channels - 1):
+        r1, i1 = k1.fn(words0[c], words[c], x[c])
+        assert torch.equal(r1, yr[c]) and torch.equal(i1, yi[c])
+    h = n // 2
+    ar, ai = kc.fn(words0, words, x[..., :kc.hist + h].contiguous())
+    br, bi = kc.fn([(w0 + h * w) % (1 << 32) for w0, w in zip(words0, words)], words,
+                   x[..., h:].contiguous())
+    assert torch.equal(torch.cat([ar, br], 1), yr) and torch.equal(torch.cat([ai, bi], 1), yi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_resample_preframed_matches_plain_and_k8(dev, dtype):
+    """K9 over K6 frames against its plain version (rel L2 < 1e-5), K9 == K8
+    bit for bit on the same f32 stream, bf16 ingest > 40 dB against f32."""
+    hc = krs.combine_fir_resample_taps(lowpass(128, 0.2), lowpass(48, 0.3), 3)
+    word = int(freq_to_word(0.07))
+    fn, hist, stride, span = krp.make_resample_preframed_kernel(
+        hc, word, 3, 4, out_tile=1152, b_rows=8, in_dtype=dtype, device=dev)
+    k8 = krs.make_mix_resample_kernel(hc, 3, 4, out_tile=384, b_rows=24, device=dev)
+    x = _c2_planes(dev, 1, hist, 4 * 8 * stride)[0]
+    w0 = (-hist * word) % (1 << 32)
+    xr_f, xi_f = kpf.make_frame_kernel(stride, span, b_rows=8, in_dtype=dtype, device=dev)(
+        x.to(dtype))
+    counter = "resample_preframed" + ("_bf16" if dtype == BF16 else "")
+    before = _build.LAUNCHES[counter]
+    yr, yi = fn(w0, xr_f, xi_f)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    pr, pi = krp.resample_preframed_plain(w0, word, xr_f, xi_f, torch.as_tensor(hc, device=dev),
+                                          3, 4, 1152, hist)
+    assert _rel((yr, yi), (pr, pi)) < 1e-5
+    r8, i8 = krs.mix_resample(k8, w0, word, x)
+    if dtype == torch.float32:
+        assert torch.equal(yr.reshape(-1), r8[0]) and torch.equal(yi.reshape(-1), i8[0])
+    else:
+        ref = torch.complex(r8[0], i8[0])
+        err = torch.complex(yr.reshape(-1), yi.reshape(-1)) - ref
+        assert float(10 * torch.log10(ref.abs().pow(2).mean() / err.abs().pow(2).mean())) > 40
 
 
 def test_cuda_wrong_dtype_raises_before_launch(dev):

@@ -31,7 +31,7 @@ def test_fir_apply_carried_blocks_match_jax(decim):
     rng = np.random.default_rng(decim)
     x = _cx(rng, (2, 3 * 256))
     js = jfir.fir_init(31, (2,))
-    ts = tfir.fir_init(31, (2,))
+    ts = tfir.fir_init(31, (2,), device="cpu")
     for b in range(3):
         xb = x[:, b * 256:(b + 1) * 256]
         js, jy = jfir.fir_apply(jnp.asarray(taps), js, jnp.asarray(xb), decim=decim)
@@ -76,7 +76,7 @@ def test_fused_mix_fir_decim_planes_match_jax(t, m):
 def test_nco_planes_match_jax():
     jc, js = jplanes.nco_planes(jnp.asarray(123456789, jnp.uint32),
                                 jnp.asarray(987654321, jnp.uint32), 4096, 77)
-    tc, ts = tplanes.nco_planes(123456789, 987654321, 4096, 77)
+    tc, ts = tplanes.nco_planes(123456789, 987654321, 4096, 77, device="cpu")
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6)
 

@@ -71,7 +71,7 @@ def _same(jout, tout):
 def test_fsk_apply_matches_jax_over_blocks():
     _, x, _ = _signal(2, 256)
     jp = jfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV)
-    tp = tfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV)
+    tp = tfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV, device="cpu")
     np.testing.assert_array_equal(tp.taps.numpy(), np.asarray(jp.taps))
     js, ts = jfsk.fsk_init(jp, (2,)), tfsk.fsk_init(tp, (2,))
     blk = 2048
@@ -86,7 +86,7 @@ def test_fsk_apply_matches_jax_over_blocks():
 def test_fsk_demod_stream_matches_jax():
     _, x, _ = _signal(1, 128)
     jp = jfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV)
-    tp = tfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV)
+    tp = tfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV, device="cpu")
     jb, js = jfsk.fsk_demod_stream(jp, jnp.asarray(x[0]), 1024)
     tb, ts = tfsk.fsk_demod_stream(tp, torch.as_tensor(x[0]), 1024)
     _same((jb, js), (tb, ts))
@@ -97,7 +97,7 @@ def test_recorded_fixture_gold_bits():
         meta = json.load(f)
     x, _ = read_capture(os.path.join(FIX, "fsk_256sym.ci16"))
     params = tfsk.make_fsk_params(meta["center"], meta["taps"], meta["cutoff"],
-                                  meta["decim"], meta["sps"], meta["dev"])
+                                  meta["decim"], meta["sps"], meta["dev"], device="cpu")
     _, (bits, _) = tfsk.fsk_apply(params, tfsk.fsk_init(params), torch.as_tensor(x))
     gold = np.load(os.path.join(FIX, "fsk_256sym_gold_bits.npy"))
     np.testing.assert_array_equal(bits.numpy(), gold)
@@ -108,13 +108,14 @@ def test_state_converted_from_jax_continues_without_seam():
     equals JAX's block 2. The port's state converts back for JAX's block 3."""
     _, x, _ = _signal(2, 192)
     jp = jfsk.make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV, timing_forget=0.7)
-    tp = convert.fsk_params_from(jp)
+    tp = convert.fsk_params_from(jp, device="cpu")
     assert convert.fsk_params_to_numpy(tp)["freq_word"] == np.asarray(jp.freq_word)
     blk = 2048
     xb = [x[:, i * blk:(i + 1) * blk] for i in range(3)]
     js, _ = jfsk.fsk_apply(jp, jfsk.fsk_init(jp, (2,)), jnp.asarray(xb[0]))
     js2, jout2 = jfsk.fsk_apply(jp, js, jnp.asarray(xb[1]))
-    ts2, tout2 = tfsk.fsk_apply(tp, convert.fsk_state_from(js), torch.as_tensor(xb[1]))
+    ts2, tout2 = tfsk.fsk_apply(tp, convert.fsk_state_from(js, device="cpu"),
+                                torch.as_tensor(xb[1]))
     _same(jout2, tout2)
     a = convert.fsk_state_to_numpy(ts2)
     back = jfsk.FskState(
@@ -134,7 +135,7 @@ def test_fsk_planes_stream_matches_jax():
     _, x, words = _signal(nch, 512, seed=3)
     taps = lowpass(64, 0.03)
     jk = jmake_mc(taps, DECIM, nch, out_tile=128, b_rows=2, interpret=True)
-    tk = tmake_mc(taps, DECIM, nch, out_tile=128, b_rows=2)
+    tk = tmake_mc(taps, DECIM, nch, out_tile=128, b_rows=2, device="cpu")
     n = (x.shape[-1] // (2 * jk.block_in())) * 2 * jk.block_in()
     half = n // 2
     tc, ts = jfp.make_timing_tone(half // DECIM, SPS)
@@ -153,7 +154,7 @@ def test_fsk_ctaps_stream_matches_jax():
     taps = lowpass(64, 0.03)
     jstream = jct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2,
                                  interpret=True)
-    tstream = tct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2)
+    tstream = tct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2, device="cpu")
     blk = 2 * 128 * DECIM
     n = (x.shape[-1] // (2 * blk)) * 2 * blk
     raw = _planes(x[:, :n])
@@ -171,7 +172,7 @@ def test_slice_config4_small_ber_zero_equal_to_jax():
     taps = lowpass(64, 0.03)
     jstream = jct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2,
                                  interpret=True)
-    tstream = tct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2)
+    tstream = tct.FskCtapsStream(taps, words, DECIM, SPS, nch, out_tile=128, b_rows=2, device="cpu")
     raw = _planes(x)
     jb, _ = jstream.process(jnp.asarray(raw))
     tb, _ = tstream.process(torch.as_tensor(raw))
@@ -183,7 +184,7 @@ def test_slice_config4_small_ber_zero_equal_to_jax():
 def test_config1_preset_matches_jax(use_kernel):
     n = 1 << 14
     jb = jconfigs.build_config1(n, use_pallas=use_kernel, interpret=True)
-    tb = tconfigs.build_config1(n, use_kernel=use_kernel)
+    tb = tconfigs.build_config1(n, use_kernel=use_kernel, device="cpu")
     assert tb.samples_per_call == jb.samples_per_call
     for te, je in zip(tb.example, jb.example):
         np.testing.assert_array_equal(te.numpy(), np.asarray(je))
@@ -195,7 +196,7 @@ def test_config1_preset_matches_jax(use_kernel):
 
 
 def test_config4_preset_decodes():
-    b = tconfigs.build_config4(nsym=256, channels=3)
+    b = tconfigs.build_config4(nsym=256, channels=3, device="cpu")
     _, (bits, _) = b.step(*b.example)
     assert np.all(_ber(b.meta["bits"], bits.numpy()) == 0.0)
 

@@ -55,7 +55,7 @@ def test_fsk_fused_plain_matches_pallas_interpret(class_major):
     jfn, jhist = jff.make_fsk_mc_kernel(taps, DECIM, NCH, SPS, out_tile=OT, b_rows=2,
                                         class_major=class_major, interpret=True)
     tfn, thist = tff.make_fsk_mc_kernel(taps, DECIM, NCH, SPS, out_tile=OT, b_rows=2,
-                                        class_major=class_major)
+                                        class_major=class_major, device="cpu")
     assert jhist == thist == hist
     words0 = np.asarray([(-hist * int(w)) % (1 << 32) for w in words], np.uint32)
     jout = jff.fsk_demod_fused(jfn, hist, OT, words0, words, jnp.asarray(planes), SPS,
@@ -77,7 +77,7 @@ def test_fsk_ctaps_plain_matches_pallas_interpret(class_major):
     jfn, jhist = jct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=2,
                                            class_major=class_major, interpret=True)
     tfn, thist = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=2,
-                                           class_major=class_major)
+                                           class_major=class_major, device="cpu")
     assert jhist == thist == hist
     jout = jct.fsk_demod_ctaps(jfn, hist, OT, jnp.asarray(planes), SPS,
                                class_major=class_major)
@@ -114,7 +114,7 @@ def test_seam_and_chunk_join_match_jax():
     sample equal the one-shot call's, as in the JAX kernel."""
     words, planes, hist = _fixture(nsym=1024)
     taps = lowpass(64, 0.03)
-    tfn, _ = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=2)
+    tfn, _ = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=2, device="cpu")
     n = planes.shape[-1] - hist
     half = n // 2
     d1, _ = tfn(torch.as_tensor(planes))

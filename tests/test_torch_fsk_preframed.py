@@ -77,7 +77,7 @@ def test_fsk_preframed_plain_matches_pallas_interpret(class_major):
         taps, words, DECIM, SPS, out_tile=OT, b_rows=BR, class_major=class_major,
         interpret=True)
     tfn, thist, tstride, tspan = tfp.make_fsk_preframed_kernel(
-        taps, words, DECIM, SPS, out_tile=OT, b_rows=BR, class_major=class_major)
+        taps, words, DECIM, SPS, out_tile=OT, b_rows=BR, class_major=class_major, device="cpu")
     assert (jhist, stride, span) == (thist, tstride, tspan) == (hist, OT * DECIM,
                                                                 OT * DECIM + hist)
     jfr = jframe_planes(jnp.asarray(planes), stride, span)
@@ -98,9 +98,10 @@ def test_fsk_preframed_plain_equals_ctaps_plain_bit_exact(dtype):
     words, planes, hist = _fixture(nsym=1024)
     taps = lowpass(64, 0.03)
     fn3, _ = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=BR,
-                                       class_major=True, in_dtype=dtype)
+                                       class_major=True, in_dtype=dtype, device="cpu")
     fn7, _, stride, span = tfp.make_fsk_preframed_kernel(
-        taps, words, DECIM, SPS, out_tile=OT, b_rows=BR, class_major=True, in_dtype=dtype)
+        taps, words, DECIM, SPS, out_tile=OT, b_rows=BR, class_major=True, in_dtype=dtype,
+        device="cpu")
     n = planes.shape[-1] - hist
     s3 = s7 = None
     for lo in (0, n // 2):
@@ -119,7 +120,7 @@ def test_fsk_ctaps_bf16_matches_jax_bf16_and_f32():
     words, planes, hist = _fixture()
     taps = lowpass(64, 0.03)
     tfn, _ = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=BR,
-                                       class_major=True, in_dtype=BF16)
+                                       class_major=True, in_dtype=BF16, device="cpu")
     xb = torch.from_numpy(planes).to(BF16)
     tout = tct.fsk_demod_ctaps(tfn, hist, OT, xb, SPS, class_major=True)
     assert tout[1][1].dtype == torch.float32
@@ -137,9 +138,9 @@ def test_fsk_bf16_ingest_wrappers_reject_other_dtype():
     words, planes, hist = _fixture(nsym=256)
     taps = lowpass(64, 0.03)
     fn3, _ = tct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT, b_rows=BR,
-                                       in_dtype=BF16)
+                                       in_dtype=BF16, device="cpu")
     fn7, _, stride, span = tfp.make_fsk_preframed_kernel(taps, words, DECIM, SPS,
-                                                         out_tile=OT, b_rows=BR)
+                                                         out_tile=OT, b_rows=BR, device="cpu")
     with pytest.raises(ValueError, match="in_dtype"):
         fn3(torch.from_numpy(planes))
     with pytest.raises(ValueError, match="in_dtype"):

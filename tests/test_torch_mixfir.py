@@ -29,7 +29,7 @@ def _planes(rng, c, length):
 def test_single_channel_matches_pallas_interpret(t, m):
     taps = lowpass(t, 0.4 / max(m, 2))
     jkern = jk.make_mix_fir_kernel(taps, m, out_tile=128, b_rows=2, interpret=True)
-    tkern = tk.make_mix_fir_kernel(taps, m, out_tile=128, b_rows=2)
+    tkern = tk.make_mix_fir_kernel(taps, m, out_tile=128, b_rows=2, device="cpu")
     assert tkern.hist == jkern.hist and tkern.block_in() == jkern.block_in()
     x = _planes(np.random.default_rng(t), 1, jkern.hist + 3 * jkern.block_in())[0]
     word = int(freq_to_word(0.0931))
@@ -48,7 +48,7 @@ def test_multichannel_matches_pallas_interpret(per_channel):
     if per_channel:
         taps = np.stack([lowpass(64, 0.03 + 0.01 * i) for i in range(c)])
     jkern = jk.make_mix_fir_kernel_mc(taps, m, c, out_tile=128, b_rows=2, interpret=True)
-    tkern = tk.make_mix_fir_kernel_mc(taps, m, c, out_tile=128, b_rows=2)
+    tkern = tk.make_mix_fir_kernel_mc(taps, m, c, out_tile=128, b_rows=2, device="cpu")
     x = _planes(np.random.default_rng(7), c, jkern.hist + 2 * jkern.block_in())
     dwords = np.asarray([freq_to_word(-0.11 - 0.01 * i) for i in range(c)], np.uint32)
     words0 = np.asarray([(-jkern.hist * int(w)) % (1 << 32) for w in dwords], np.uint32)
@@ -62,7 +62,7 @@ def test_chunked_equals_one_shot_bit_exact():
     """Two launches over chunks (u32 phase carried as the start word) equal
     one launch over the whole buffer, bit for bit."""
     taps = lowpass(32, 0.2)
-    k = tk.make_mix_fir_kernel(taps, 2, out_tile=128, b_rows=2)
+    k = tk.make_mix_fir_kernel(taps, 2, out_tile=128, b_rows=2, device="cpu")
     n = 4 * k.block_in()
     x = torch.as_tensor(_planes(np.random.default_rng(1), 1, k.hist + n)[0])
     word = int(freq_to_word(0.217))
@@ -88,7 +88,7 @@ def test_toeplitz_and_banded_taps_bit_equal(t, m, ot, hist):
 
 def test_cpu_tensor_runs_plain_version_without_launching():
     _build.reset_launches()
-    k = tk.make_mix_fir_kernel_mc(lowpass(64, 0.03), 4, 2, out_tile=128, b_rows=2)
+    k = tk.make_mix_fir_kernel_mc(lowpass(64, 0.03), 4, 2, out_tile=128, b_rows=2, device="cpu")
     x = torch.zeros((2, 2, k.hist + k.block_in()))
     yr, yi = tk.mix_fir_decim_mc(k, [0, 0], [1, 2], x)
     assert yr.shape == (2, k.block_in() // 4) and yi.device.type == "cpu"
@@ -96,7 +96,7 @@ def test_cpu_tensor_runs_plain_version_without_launching():
 
 
 def test_wrapper_rejects_bad_inputs():
-    k = tk.make_mix_fir_kernel_mc(lowpass(64, 0.03), 4, 2, out_tile=128, b_rows=2)
+    k = tk.make_mix_fir_kernel_mc(lowpass(64, 0.03), 4, 2, out_tile=128, b_rows=2, device="cpu")
     good = torch.zeros((2, 2, k.hist + k.block_in()))
     with pytest.raises(ValueError, match="float32"):
         k.fn([0, 0], [1, 1], good.double())

@@ -53,7 +53,7 @@ def test_capture_roundtrip_matches_jax(tmp_path, fmt):
     xt, meta = tcap.read_capture(pt)
     assert meta.fmt == fmt and meta.num_samples == 1000
     np.testing.assert_array_equal(xt, xj)
-    blocks = list(tcap.device_blocks(pt, 256, start_block=1, planes=True))
+    blocks = list(tcap.device_blocks(pt, 256, start_block=1, planes=True, device="cpu"))
     assert len(blocks) == 2 and blocks[0].shape == (2, 256)
     np.testing.assert_array_equal(blocks[0].numpy(),
                                   np.stack([xj[256:512].real, xj[256:512].imag]))

@@ -54,7 +54,7 @@ def test_nco_phase_words_bit_exact_across_splits(split):
     x = (rng.standard_normal((2, split * n_blocks))
          + 1j * rng.standard_normal((2, split * n_blocks))).astype(np.complex64)
     js = jnco.nco_init((2,), phase0=0.3)
-    ts = tnco.nco_init((2,), phase0=0.3)
+    ts = tnco.nco_init((2,), phase0=0.3, device="cpu")
     np.testing.assert_array_equal(ts.phase.numpy(), np.asarray(js.phase).astype(np.int64))
     for b in range(n_blocks):
         xb = x[:, b * split:(b + 1) * split]
