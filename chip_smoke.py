@@ -36,9 +36,25 @@ Phases, in order; any failure raises and the run exits non-zero:
    the plain chain (configs.build_config2 on the card) and, on the first
    2^18 samples of channel 0, against the C++ oracle; then the five variants
    of configs.build_config2_onchip, each timed, with pre-framed == fused ==
-   fused_mc channel 0 bit for bit.
+   fused_mc channel 0 bit for bit;
+9. the FFT: the four configs.build_fft variants at 8192 frames of 4096 (K10
+   in natural, digit and kernel-natural order; the matrix FFT of
+   ops.fft_planes), each timed, with 5 N log2 N GFLOP/s and the share of the
+   bound; the conj inverse round trip above 110 dB;
+10. config 3 end to end: 16 channels x 8,355,840 samples (2^23 rounded down
+   to 170 blocks of 49,152) through K11 (1024 taps, fft 4096, hop 3072) in
+   one launch, equal bit for bit to 5 chunks through FftConvStream; SNR >
+   100 dB against the plain K11 on the card and > 90 dB against the C++
+   oracle's direct FIR (first 2^16 samples of channels 0 and 15); then the
+   three variants of configs.build_config3_onchip, each timed.
 
-Launch counts are reset just before phase 4 and read after phase 8: every
+Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
+torch.fft in complex128, natural == digit + unscramble == kernel-natural by
+torch.equal) and K11 (shared and per-channel taps, one config-3 chunk of
+16 x 1,671,168) against their plain versions, with cuFFT (torch.fft.fft) and
+cuDNN conv1d (TF32 off) as their library yardsticks.
+
+Launch counts are reset just before phase 4 and read after phase 10: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -64,6 +80,13 @@ C1_SAMPLES = 1 << 26
 C2_CHANNELS, C2_CHUNK, C2_CHUNKS = 4, 682 * 12288, 4
 C2_SAMPLES = C2_CHUNK * C2_CHUNKS
 C2_ORACLE_SAMPLES = 1 << 18
+# the FFT (bench/run.py run_fft): 8192 frames of 4096 points
+FFT_BATCH, FFT_N, FFT_SNR_FRAMES = 8192, 4096, 256
+# config 3 (bench/run.py run_config3_onchip): 16 channels, 2^23 samples per
+# channel rounded down to 170 K11 blocks of 49,152, streamed as 5 chunks of 34
+C3_CHANNELS, C3_CHUNK, C3_CHUNKS = 16, 34 * 49152, 5
+C3_SAMPLES = C3_CHUNK * C3_CHUNKS
+C3_ORACLE_SAMPLES = 1 << 16
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -166,11 +189,14 @@ def main() -> int:
     from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
     from srcdsp_tpu_torch.chains.fsk_planes import FskPlanesStream, make_timing_tone
     from srcdsp_tpu_torch.configs import (
-        CONFIG1_SERVING, CONFIG2_ONCHIP, build_config1, build_config1_serving, build_config2,
-        build_config2_onchip, config2_step)
+        C3_CUTOFF, CONFIG1_SERVING, CONFIG2_ONCHIP, CONFIG3_ONCHIP, FFT_VARIANTS, build_config1,
+        build_config1_serving, build_config2, build_config2_onchip, build_config3_onchip,
+        build_fft, config2_step)
     from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
     from srcdsp_tpu_torch.kernels import fsk_fused as kff
     from srcdsp_tpu_torch.kernels import fsk_preframed as kfp
@@ -179,6 +205,7 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
     from srcdsp_tpu_torch.kernels import resample_pallas as krs
     from srcdsp_tpu_torch.kernels import resample_preframed as krp
+    from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
     from srcdsp_tpu_torch.ops.nco import freq_to_word
     from srcdsp_tpu_torch.ops.planes import planes_from_int16
     from srcdsp_tpu_torch.ops.window import lowpass
@@ -432,6 +459,94 @@ def main() -> int:
                y9[0].numel() * c2_flops_per_out, tensor_bytes(fr, y9))
         del fr, y9, flat9, flat8
 
+    # K10 at the FFT cell's shape, in its three output orders; the library call
+    # is cuFFT on a prebuilt complex64 copy of the same frames (natural order)
+    t0 = time.perf_counter()
+    bfft = build_fft(FFT_BATCH, FFT_N, "kernel", device=dev)
+    fxr, fxi = bfft.example
+    print(f"[3] FFT input 2 x {tuple(fxr.shape)} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fxc = torch.complex(fxr, fxi)
+    fft_flops = bfft.meta["flops_5nlogn"]
+    fft_bytes = 2 * tensor_bytes(fxr, fxi)
+    fft_out = {}
+    for name, order, site in (("fft", True, "fft_pallas.py:201"),
+                              ("fft_digit", False, "fft_pallas.py:201"),
+                              ("fft_nat", "kernel", "fft_pallas.py:241")):
+        kf = kfft.make_fft_kernel(FFT_N, b_frames=16, natural_order=order, device=dev)
+
+        def fft_plain(kf=kf, order=order):
+            pr, pi = kfft.fft_rows_plain(fxr.reshape(-1, kf.n2), fxi.reshape(-1, kf.n2),
+                                         kf.consts, kf.n1, kf.n2)
+            if order is False:
+                return pr, pi
+            return kfft.unscramble(pr, kf.n1, kf.n2), kfft.unscramble(pi, kf.n1, kf.n2)
+
+        yf = kf.fn(fxr, fxi)
+        err, rel = cplx_err(yf, fft_plain())
+        record(name, "srcdsp_tpu_torch/csrc/fft.cu", "srcdsp_tpu/kernels/" + site, err, rel,
+               rel < 1e-5, True, lambda kf=kf: kf.fn(fxr, fxi), fft_plain, fft_flops, fft_bytes,
+               lambda: torch.fft.fft(fxc, dim=-1))
+        fft_out[name] = (yf, kf)
+    nat = fft_out["fft"][0]
+    kd = fft_out["fft_digit"][1]
+    require(same(nat, fft_out["fft_nat"][0]), "fft_nat: kernel-natural store != natural")
+    require(same(nat, tuple(kfft.unscramble(y, kd.n1, kd.n2) for y in fft_out["fft_digit"][0])),
+            "fft: digit store + unscramble != natural store (torch.equal)")
+    ref = torch.fft.fft(torch.complex(fxr[:FFT_SNR_FRAMES].double(),
+                                      fxi[:FFT_SNR_FRAMES].double()), dim=-1)
+    snr = snr_db(torch, ref, torch.complex(nat[0][:FFT_SNR_FRAMES],
+                                           nat[1][:FFT_SNR_FRAMES]).to(torch.complex128))
+    print(f"    fft == fft_nat == unscrambled fft_digit: torch.equal True; K10 SNR {snr:.2f} dB "
+          f"against torch.fft in complex128 on {FFT_SNR_FRAMES} frames (floor 110)", flush=True)
+    require(snr > 110.0, f"fft: SNR {snr} dB against complex128")
+    del bfft, fxr, fxi, fxc, fft_out, nat, kd, ref, yf, kf
+
+    # K11 on one config-3 chunk (16 x 1,671,168), shared and per-channel taps; the
+    # library call is one cuDNN conv1d over the 32 real planes with the flipped
+    # taps (TF32 off: pin_f32 at the top of main), the same causal FIR
+    t0 = time.perf_counter()
+    c3 = build_config3_onchip(C3_SAMPLES, "fused", channels=C3_CHANNELS, device=dev)
+    x3 = c3.example[0]
+    k11 = c3.meta["kernel"]
+    ov3, hop3 = k11.overlap, k11.hop
+    require((ov3, hop3, k11.block_in()) == (1024, 3072, 49152)
+            and x3.shape[-1] == ov3 + C3_SAMPLES, f"config-3 planes {tuple(x3.shape)}")
+    print(f"[3] config-3 planes {tuple(x3.shape)} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    taps3 = lowpass(1024, C3_CUTOFF)
+    taps3_pc = np.stack([lowpass(1024, 0.05 + 0.005 * c) for c in range(C3_CHANNELS)])
+    fft3 = make_fft_planes(4096, device=dev)
+    chunk3 = x3[..., :ov3 + C3_CHUNK].contiguous()
+    frames3 = C3_CHANNELS * C3_CHUNK // hop3
+    fc_flops = frames3 * (2 * 5 * 4096 * 12 + 6 * 4096)
+    for name, taps_k in (("fftconv", taps3), ("fftconv_per_channel", taps3_pc)):
+        kc = kfc.make_fftconv_kernel(taps_k, 4096, num_channels=C3_CHANNELS, b_frames=16,
+                                     karatsuba=True, device=dev)
+        hresp = torch.as_tensor(kfc.freq_response_planes(taps_k, 4096), device=dev)
+        wflip = torch.as_tensor(np.ascontiguousarray(np.atleast_2d(taps_k)[:, ::-1]),
+                                dtype=torch.float32, device=dev)
+        w = wflip.repeat_interleave(2, dim=0)[:, None] if taps_k.ndim == 2 else wflip[None]
+        groups = 2 * C3_CHANNELS if taps_k.ndim == 2 else 1
+        xin = chunk3.reshape(1, 2 * C3_CHANNELS, -1) if groups > 1 else chunk3.reshape(
+            2 * C3_CHANNELS, 1, -1)
+        yc = kfc.fftconv_pallas(kc, chunk3)
+        err, rel = cplx_err(yc, kfc.fftconv_plain(chunk3, hresp, fft3, 4096, hop3))
+        record(name, "srcdsp_tpu_torch/csrc/fftconv.cu",
+               "srcdsp_tpu/kernels/fftconv_pallas.py:361", err, rel, rel < 1e-5, True,
+               lambda kc=kc: kfc.fftconv_pallas(kc, chunk3),
+               lambda hresp=hresp: kfc.fftconv_plain(chunk3, hresp, fft3, 4096, hop3), fc_flops,
+               tensor_bytes(chunk3, yc),
+               lambda w=w, xin=xin, groups=groups: torch.nn.functional.conv1d(
+                   xin, w, groups=groups))
+        # the conv1d yardstick computes the same outputs (its sample j is y[j - 1])
+        lib = torch.nn.functional.conv1d(xin, w, groups=groups).reshape(C3_CHANNELS, 2, -1)
+        lib_snr = snr_db(torch, torch.complex(lib[:, 0, 1:], lib[:, 1, 1:]), torch.complex(*yc))
+        print(f"    {name}: SNR {lib_snr:.2f} dB against the cuDNN conv1d yardstick", flush=True)
+        require(lib_snr > 100.0, f"{name}: SNR {lib_snr} dB against conv1d")
+        del yc, lib, hresp, w, xin
+    del chunk3
+
     # --- 4. config 4 end to end (main path) ------------------------------------
     x4b = x4.to(bf16)
     _build.reset_launches()
@@ -679,6 +794,100 @@ def main() -> int:
     require(snr_two > 90.0, f"config 2 two_kernels: SNR {snr_two} dB")
     require(snr_bf16 > 40.0, f"config 2 preframed_bf16io: SNR {snr_bf16} dB")
     del outs, fused, x2, c2, y2
+
+    # --- 9. the FFT (main path) ------------------------------------------------
+    fft_bound_ms, _ = roofline_ms(5 * FFT_N * np.log2(FFT_N) * FFT_BATCH,
+                                  4 * FFT_BATCH * FFT_N * 4)
+    for variant in FFT_VARIANTS:
+        b = build_fft(FFT_BATCH, FFT_N, variant, device=dev)
+        ms = median_ms(torch, lambda: b.step(*b.example))
+        yr, yi = b.step(*b.example)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+                f"fft {variant} not finite")
+        print(f"[9] fft {variant}: {b.meta['batch']} x {FFT_N} in {ms:.3f} ms median, "
+              f"{b.meta['flops_5nlogn'] / ms / 1e6:.1f} GFLOP/s (5 N log2 N), "
+              f"{fft_bound_ms / ms:.3f} of the {fft_bound_ms:.4f} ms bound", flush=True)
+        if variant == "kernel":
+            kf = b.meta["kernel"]
+            rr, ri = kfft.ifft_pallas(kf, yr, yi)
+            snr_r = snr_db(torch, b.example[0], rr)
+            snr_i = snr_db(torch, b.example[1], ri)
+            print(f"    inverse round trip (conj -> K10 -> conj, 1/N): SNR {snr_r:.2f} / "
+                  f"{snr_i:.2f} dB (floor 110)", flush=True)
+            require(min(snr_r, snr_i) > 110.0, f"fft round trip: SNR {snr_r}, {snr_i} dB")
+            del rr, ri
+        del b, yr, yi
+
+    # --- 10. config 3 (main path) ---------------------------------------------
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one = c3.step(x3)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    st3 = kfc.FftConvStream(k11)
+    chunks3 = [x3[..., ov3 + i * C3_CHUNK:ov3 + (i + 1) * C3_CHUNK] for i in range(C3_CHUNKS)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    parts = [st3.process(ch) for ch in chunks3]
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    chunked = tuple(torch.cat([p[j] for p in parts], dim=-1) for j in range(2))
+    require(same(chunked, one), "config 3: 5 streamed chunks != one launch (torch.equal)")
+    del parts, chunked
+    cat_ms = median_ms(torch, lambda: torch.cat([st3.hist, chunks3[0]], dim=-1))
+    total3 = C3_CHANNELS * C3_SAMPLES
+    print(f"[10] config 3 K11: {C3_CHANNELS} ch x {C3_SAMPLES} samples, one launch "
+          f"{one_s * 1e3:.3f} ms (first call), {C3_CHUNKS} chunks of {C3_CHUNK} through "
+          f"FftConvStream {chunk_s * 1e3:.3f} ms ({total3 / chunk_s / 1e6:.1f} Ms/s), of which "
+          f"the history concat {cat_ms:.3f} ms per chunk (median); chunked == one launch: "
+          f"torch.equal True", flush=True)
+    h2s = torch.as_tensor(kfc.freq_response_planes(taps3, 4096), device=dev)
+    t = time.perf_counter()
+    pr, pi = kfc.fftconv_plain(x3, h2s, fft3, 4096, hop3)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    y3 = torch.complex(*one)
+    snr_plain = snr_db(torch, torch.complex(pr, pi), y3)
+    del pr, pi
+    snr_or = []
+    for c in (0, C3_CHANNELS - 1):
+        xc = torch.complex(x3[c, 0, ov3:ov3 + C3_ORACLE_SAMPLES],
+                           x3[c, 1, ov3:ov3 + C3_ORACLE_SAMPLES]).cpu().numpy()
+        snr_or.append(snr_db(torch, torch.from_numpy(oracle.fir(xc, taps3)),
+                             y3[c, :C3_ORACLE_SAMPLES].cpu()))
+    print(f"    config 3 against the plain K11 on the card ({plain_s * 1e3:.1f} ms): SNR "
+          f"{snr_plain:.2f} dB (floor 100); first {C3_ORACLE_SAMPLES} samples of channels 0 "
+          f"and {C3_CHANNELS - 1} against the C++ oracle's direct FIR: SNR "
+          f"{snr_or[0]:.2f} / {snr_or[1]:.2f} dB (floor 90)", flush=True)
+    require(snr_plain > 100.0, f"config 3: SNR {snr_plain} dB against the plain K11")
+    require(min(snr_or) > 90.0, f"config 3: SNR {snr_or} dB against the oracle")
+    del one, chunks3, st3
+    outs = {}
+    for variant in CONFIG3_ONCHIP:
+        b = c3 if variant == "fused" else build_config3_onchip(C3_SAMPLES, variant,
+                                                                channels=C3_CHANNELS, device=dev)
+        ms = median_ms(torch, lambda: b.step(*b.example))
+        yr, yi = b.step(*b.example)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+                f"config 3 {variant} not finite")
+        n3 = b.samples_per_call // C3_CHANNELS
+        agg = b.samples_per_call / ms / 1e3
+        gflops = (agg * 1e6 / b.meta["hop"]) * 2 * 5 * 4096 * 12 / 1e9
+        outs[variant] = torch.complex(yr, yi)
+        print(f"[10] config 3 {variant}: {C3_CHANNELS} ch x {n3} samples (hop "
+              f"{b.meta['hop']}) in {ms:.3f} ms median, {agg:.1f} Ms/s aggregate, "
+              f"{gflops:.1f} GFLOP/s (5 N log2 N, forward + inverse per hop)", flush=True)
+        del b, yr, yi
+    require(torch.equal(outs["fused_per_channel"], outs["fused"]),
+            "config 3: fused_per_channel != fused (torch.equal)")
+    snr_planes = snr_db(torch, outs["fused"], outs["planes"][:, :C3_SAMPLES])
+    print(f"    fused_per_channel == fused (torch.equal); planes (hop 2048) SNR "
+          f"{snr_planes:.2f} dB against fused on the common {C3_SAMPLES} samples (floor 100)",
+          flush=True)
+    require(snr_planes > 100.0, f"config 3 planes: SNR {snr_planes} dB")
+    del outs, c3, x3, y3
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

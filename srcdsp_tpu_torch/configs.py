@@ -1,5 +1,6 @@
-"""Config-1, config-2 and config-4 presets on the port (counterpart of
-``srcdsp_tpu/configs.py``, and of ``bench/run.py``'s on-chip config-2 runs).
+"""Config-1 to config-4 presets and the FFT on the port (counterpart of
+``srcdsp_tpu/configs.py``, and of ``bench/run.py``'s on-chip config-2 and
+config-3 runs and its FFT run).
 
 Each build_config* function returns (step fn, example inputs, samples per call, metadata),
 with the same shapes, taps and tuning as the JAX presets. Configs 1 and 2 make
@@ -181,12 +182,13 @@ def build_config2(n: int = 1 << 18, channels: int = 4, device=None) -> BuiltConf
 CONFIG2_ONCHIP = ("fused", "fused_mc", "two_kernels", "preframed", "preframed_bf16io")
 
 
-def config2_planes(channels: int, hist: int, n: int, seed: int = 0, device=None
-                   ) -> torch.Tensor:
-    """Config 2's on-card input: planes [C, 2, hist+N] float32, the history
-    zero (the stream starts from rest) and plane p of channel c drawn by
-    ``np.random.default_rng((seed, c, p)).standard_normal(N, dtype=float32)``,
-    so every variant, whatever its hist and N, sees the same samples."""
+def seeded_planes(channels: int, hist: int, n: int, seed: int = 0, device=None
+                  ) -> torch.Tensor:
+    """Configs 2 and 3's on-card input: planes [C, 2, hist+N] float32, the
+    history zero (the stream starts from rest) and plane p of channel c drawn
+    by ``np.random.default_rng((seed, c, p)).standard_normal(N, dtype=float32)``,
+    so every variant, whatever its hist and N, sees the same stream (the
+    shorter N a prefix of the longer)."""
     x = torch.zeros((channels, 2, hist + n), dtype=torch.float32)
     for c in range(channels):
         for p in range(2):
@@ -215,7 +217,7 @@ def build_config2_onchip(n: int = 1 << 25, variant: str = "fused_mc", channels: 
 
     The JAX ``fused_combined_taps_bf16`` run only sets its matrix unit's pass
     count (precision=DEFAULT); a CUDA-core kernel has no such knob, so it has
-    no variant here. The input is `config2_planes` (history zero), so every
+    no variant here. The input is `seeded_planes` (history zero), so every
     variant computes the same stream. step(*example) returns (yr, yi) as the
     kernel lays them out: [NT, OT], [C, NT, OT] for fused_mc, [1, N'] for
     two_kernels. For the K8 variants, meta holds the kernel and its words
@@ -250,14 +252,14 @@ def build_config2_onchip(n: int = 1 << 25, variant: str = "fused_mc", channels: 
         m = blocks(k.block_in())
         words = [(word + 7919 * c) % (1 << 32) for c in range(channels)]
         words0 = [(-k.hist * w) % (1 << 32) for w in words]
-        x = config2_planes(channels, k.hist, m, device=device)
+        x = seeded_planes(channels, k.hist, m, device=device)
         meta.update(kernel=k, words0=words0, words=words)
         return BuiltConfig(lambda p: k.fn(words0, words, p), (x,), channels * m, meta)
     if variant == "fused":
         k = make_mix_resample_kernel(hc, up, down, out_tile=384, b_rows=24, device=device)
         m = blocks(k.block_in())
         word0 = (-k.hist * word) % (1 << 32)
-        x = config2_planes(1, k.hist, m, device=device)[0]
+        x = seeded_planes(1, k.hist, m, device=device)[0]
         meta.update(kernel=k, words0=[word0], words=[word])
         return BuiltConfig(lambda p: k.fn(word0, word, p), (x,), m, meta)
     if variant == "two_kernels":
@@ -265,7 +267,7 @@ def build_config2_onchip(n: int = 1 << 25, variant: str = "fused_mc", channels: 
         k2 = make_mix_resample_kernel(h2, up, down, out_tile=384, b_rows=8, device=device)
         m = blocks(math.lcm(k1.block_in(), k2.block_in()))
         word0 = (-k1.hist * word) % (1 << 32)
-        x = config2_planes(1, k1.hist, m, device=device)[0]
+        x = seeded_planes(1, k1.hist, m, device=device)[0]
         z2 = torch.zeros((2, k2.hist), dtype=torch.float32, device=device)
 
         def step(p):
@@ -282,9 +284,128 @@ def build_config2_onchip(n: int = 1 << 25, variant: str = "fused_mc", channels: 
         device=device)
     m = blocks(b_rows * stride)
     word0 = (-hist * word) % (1 << 32)
-    x = config2_planes(1, hist, m, device=device)[0]
+    x = seeded_planes(1, hist, m, device=device)[0]
     xr_f, xi_f = make_frame_kernel(stride, span, b_rows, in_dtype=dt, device=device)(x.to(dt))
     return BuiltConfig(lambda r, i: fn(word0, r, i), (xr_f, xi_f), m, meta)
+
+
+C3_CUTOFF = 0.1
+
+
+def build_config3(n: int = 1 << 18, channels: int = 16, fft_size: int = 4096,
+                  num_taps: int = 1024, device=None) -> BuiltConfig:
+    """Overlap-save FFT convolution (4096-pt), 16 channels: the ``ops.fftconv``
+    tier (``torch.fft``) with the JAX preset's taps lowpass(num_taps, 0.1),
+    hop fft_size - num_taps + 1, and seed-0 complex input of n samples per
+    channel rounded down to whole hops.
+
+    step(st, x [C, N]) -> (st, y [C, N]).
+    """
+    from srcdsp_tpu_torch.ops.fftconv import (
+        default_hop, fftconv_apply, fftconv_init, make_freq_response)
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    device = resolve(device)
+    taps = lowpass(num_taps, C3_CUTOFF)
+    hr = make_freq_response(taps, fft_size, device=device)
+    hop = default_hop(num_taps, fft_size)
+    n = (n // hop) * hop
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(
+        (rng.standard_normal((channels, n)) + 1j * rng.standard_normal((channels, n)))
+        .astype(np.complex64), device=device)
+    st = fftconv_init(num_taps, fft_size, (channels,), device=device)
+    return BuiltConfig(lambda s, xb: fftconv_apply(hr, num_taps, s, xb), (st, x), n * channels,
+                       dict(channels=channels, fft=fft_size, impl="torch"))
+
+
+CONFIG3_ONCHIP = ("fused", "fused_per_channel", "planes")
+
+
+def build_config3_onchip(n: int = 1 << 23, variant: str = "fused", channels: int = 16,
+                         b_frames: int = 16, device=None) -> BuiltConfig:
+    """Config 3 on the card: the counterpart of ``bench/run.py``'s
+    ``run_config3_onchip`` (taps lowpass(1024, 0.1), fft 4096, n samples per
+    channel rounded down to whole blocks). Variants:
+
+    - ``fused``: K11 with shared taps (karatsuba=True, n2 128, b_frames 16:
+      hop 3072, blocks of 49,152), the serving path;
+    - ``fused_per_channel``: K11 with the same taps given per channel,
+      [C, T] (the same function through the per-channel response);
+    - ``planes``: ``ops.fftconv_planes`` per channel (hop 2048), the
+      reference's ``fused=False``.
+
+    The input is `seeded_planes` (history zero). step(*example) returns
+    (yr, yi) [C, N]. For the K11 variants meta holds the kernel (``kernel``)
+    for streaming with `FftConvStream`; meta ``hop`` is the variant's hop.
+    """
+    from srcdsp_tpu_torch.kernels.fftconv_pallas import fftconv_pallas, make_fftconv_kernel
+    from srcdsp_tpu_torch.ops.fftconv_planes import make_fftconv_planes
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    if variant not in CONFIG3_ONCHIP:
+        raise ValueError(f"variant {variant!r} not in {CONFIG3_ONCHIP}")
+    device = resolve(device)
+    fft_size, num_taps = 4096, 1024
+    taps = lowpass(num_taps, C3_CUTOFF)
+    meta = dict(impl=variant, channels=channels, fft=fft_size, taps=num_taps)
+    if variant == "planes":
+        fn, hop = make_fftconv_planes(taps, fft_size, device=device)
+        blk, hist = hop, fft_size - hop
+    else:
+        ktaps = np.tile(taps, (channels, 1)) if variant == "fused_per_channel" else taps
+        k = make_fftconv_kernel(ktaps, fft_size, num_channels=channels, b_frames=b_frames,
+                                karatsuba=True, device=device)
+        blk, hist, hop = k.block_in(), k.overlap, k.hop
+        meta.update(kernel=k)
+    m = (n // blk) * blk
+    if m == 0:
+        raise ValueError(f"n={n} smaller than one block of {blk} samples")
+    meta.update(hop=hop)
+    x = seeded_planes(channels, hist, m, device=device)
+    if variant == "planes":
+        def step(xp):
+            outs = [fn(xp[c, 0], xp[c, 1]) for c in range(channels)]
+            return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        return BuiltConfig(step, (x,), channels * m, meta)
+    return BuiltConfig(lambda xp: fftconv_pallas(k, xp), (x,), channels * m, meta)
+
+
+FFT_VARIANTS = ("kernel", "kernel_digit", "kernel_nat", "planes")
+
+
+def build_fft(batch: int = 8192, n: int = 4096, variant: str = "kernel", device=None
+              ) -> BuiltConfig:
+    """The batched FFT: the counterpart of ``bench/run.py``'s ``run_fft``
+    (seed-0 standard_normal planes [batch, n], batch rounded down to whole
+    b_frames of 16). Variants: ``kernel`` (K10, natural order through the
+    digit-order kernel and a transpose), ``kernel_digit``
+    (natural_order=False), ``kernel_nat`` (natural_order="kernel", the
+    kernel stores natural order) and ``planes`` (``ops.fft_planes``).
+
+    step(xr, xi) -> (yr, yi): [B, N], or [B*n1, n2] in digit order for
+    kernel_digit. meta ``flops_5nlogn`` is 5 N log2 N per frame times B.
+    """
+    from srcdsp_tpu_torch.kernels.fft_pallas import make_fft_kernel
+    from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
+
+    if variant not in FFT_VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {FFT_VARIANTS}")
+    device = resolve(device)
+    meta = dict(impl=variant, fft=n)
+    if variant == "planes":
+        step = make_fft_planes(n, device=device)
+    else:
+        order = {"kernel": True, "kernel_digit": False, "kernel_nat": "kernel"}[variant]
+        k = make_fft_kernel(n, b_frames=16, natural_order=order, device=device)
+        batch = (batch // k.b_frames) * k.b_frames
+        step = k.fn
+        meta.update(kernel=k)
+    rng = np.random.default_rng(0)
+    xr = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32), device=device)
+    xi = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32), device=device)
+    meta.update(batch=batch, flops_5nlogn=5 * n * math.log2(n) * batch)
+    return BuiltConfig(step, (xr, xi), batch * n, meta)
 
 
 def build_config4(nsym: int = 2048, channels: int = 32, device=None) -> BuiltConfig:

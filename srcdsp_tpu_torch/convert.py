@@ -15,6 +15,8 @@ import torch
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
 from srcdsp_tpu_torch.chains.sync import TimingState
 from srcdsp_tpu_torch.device import resolve
+from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
+from srcdsp_tpu_torch.ops.fftconv import FftConvState
 from srcdsp_tpu_torch.ops.fir import FirState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState
@@ -78,3 +80,23 @@ def config2_state_from(states, device=None) -> tuple[NcoState, FirState, Resampl
             FirState(tail=torch.as_tensor(np.array(fir_s.tail, np.complex64), device=device)),
             resample_state_from(rs_s, device))
 
+
+def fftconv_state_from(s, device=None) -> FftConvState:
+    """FftConvState from any object with a ``tail`` field (the JAX
+    FftConvState: the last fft_size - hop input samples, complex64)."""
+    return FftConvState(tail=torch.as_tensor(np.array(s.tail, np.complex64),
+                                             device=resolve(device)))
+
+
+def fftconv_stream_from(stream, kernel: FftConvKernel) -> FftConvStream:
+    """The port's FftConvStream over `kernel` (built with the same taps and
+    tiling), carrying on from any object with a ``hist`` field (the JAX
+    FftConvStream: [C, 2, overlap] float32), so the next chunk joins with no
+    seam."""
+    hist = np.array(stream.hist, np.float32)
+    want = (kernel.num_channels, 2, kernel.overlap)
+    if hist.shape != want:
+        raise ValueError(f"hist shape {hist.shape} != {want}")
+    out = FftConvStream(kernel)
+    out.hist = torch.as_tensor(hist, device=kernel.device)
+    return out

@@ -1,7 +1,7 @@
 """ctypes binding of the C++ golden oracle ``cpp/oracle/oracle.cc``: the
-port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that config 2
-needs (`nco_mix`, `fir` with real taps, `resample`, `resample_stream`), with
-the same arguments and results.
+port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that configs 2
+and 3 and the FFT need (`nco_mix`, `fir` with real taps, `resample`,
+`resample_stream`, `fft`), with the same arguments and results.
 
 The library is built at first use by the repository's own Makefile into
 ``build/srcdsp_tpu_torch/oracle/<hash of oracle.cc and the Makefile>/``
@@ -26,6 +26,7 @@ _SIGNATURES = {
     "orc_nco_mix": [_P, _L, _U, _U, _P, _P],
     "orc_resample": [_P, _L, _P, _L, _I, _I, _P],
     "orc_resample_stream": [_P, _L, _P, _L, _I, _I, _P, _P, _P],
+    "orc_fft": [_P, _P, _L, _I],
 }
 
 
@@ -89,3 +90,15 @@ def resample_stream(x: np.ndarray, taps: np.ndarray, up: int, down: int, hist: n
     load().orc_resample_stream(x.ctypes.data, x.size, taps.ctypes.data, taps.size, up, down,
                                hist.ctypes.data, ctypes.addressof(off), out.ctypes.data)
     return out, hist, int(off.value)
+
+
+def fft(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """Radix-2 DFT in double precision of a power-of-two length, rounded to
+    complex64; the inverse carries the 1/N."""
+    x = _cf(x)
+    n = x.size
+    if n & (n - 1):
+        raise ValueError(f"oracle fft needs power-of-two length, got {n}")
+    out = np.empty(n, np.complex64)
+    load().orc_fft(x.ctypes.data, out.ctypes.data, n, 1 if inverse else 0)
+    return out

@@ -234,3 +234,84 @@ def test_cuda_wrong_dtype_raises_before_launch(dev):
     with pytest.raises(ValueError, match="in_dtype"):
         k.fn(0, x)
     assert _build.LAUNCHES == before
+
+
+def _snr(ref, got) -> float:
+    return float(10 * torch.log10(ref.abs().pow(2).mean() / (got - ref).abs().pow(2).mean()))
+
+
+@pytest.mark.parametrize("n", [256, 512, 4096, 8192])
+@pytest.mark.parametrize("order", [True, False, "kernel"])
+def test_fft_kernel_matches_plain(dev, n, order):
+    """K10 in each output order against its plain version (rel L2 < 1e-5) and
+    against torch.fft in complex128 (SNR > 110 dB); natural == digit + the
+    unscramble bit for bit."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    k = kfft.make_fft_kernel(n, b_frames=4, natural_order=order, device=dev)
+    x = np.random.default_rng(n).standard_normal((2, 8, n)).astype(np.float32)
+    xr, xi = (torch.as_tensor(a, device=dev) for a in x)
+    counter = {True: "fft", False: "fft_digit", "kernel": "fft_nat"}[order]
+    before = _build.LAUNCHES[counter]
+    yr, yi = k.fn(xr, xi)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    pr, pi = kfft.fft_rows_plain(xr.reshape(-1, k.n2), xi.reshape(-1, k.n2), k.consts, k.n1,
+                                 k.n2)
+    if order is not False:
+        pr, pi = kfft.unscramble(pr, k.n1, k.n2), kfft.unscramble(pi, k.n1, k.n2)
+    assert _rel((yr, yi), (pr, pi)) < 1e-5
+    nat = k.fn(xr, xi) if order is not False else (kfft.unscramble(yr, k.n1, k.n2),
+                                                  kfft.unscramble(yi, k.n1, k.n2))
+    ref = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-1)
+    assert _snr(ref, torch.complex(*nat).to(torch.complex128)) > 110
+    dig = kfft.make_fft_kernel(n, b_frames=4, natural_order=False, device=dev).fn(xr, xi)
+    knat = kfft.make_fft_kernel(n, b_frames=4, natural_order="kernel", device=dev).fn(xr, xi)
+    for d, kn in zip(dig, knat):
+        assert torch.equal(kfft.unscramble(d, k.n1, k.n2), kn)
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_fftconv_kernel_matches_plain_and_streams(dev, per_channel):
+    """K11 at 1024 taps, fft 4096 against its plain version (SNR > 100 dB),
+    chunked launches and FftConvStream equal to one launch bit for bit."""
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+
+    c = 3
+    taps = (np.stack([lowpass(1024, 0.05 + 0.02 * i) for i in range(c)]) if per_channel
+            else lowpass(1024, 0.1))
+    k = kfc.make_fftconv_kernel(taps, 4096, num_channels=c, b_frames=4, karatsuba=True,
+                                device=dev)
+    n = 4 * k.block_in()
+    raw = torch.as_tensor(np.random.default_rng(1).standard_normal((c, 2, n)).astype(np.float32),
+                          device=dev)
+    x = torch.cat([torch.zeros((c, 2, k.overlap), device=dev), raw], dim=-1)
+    counter = "fftconv_per_channel" if per_channel else "fftconv"
+    before = _build.LAUNCHES[counter]
+    yr, yi = kfc.fftconv_pallas(k, x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    h2 = torch.as_tensor(kfc.freq_response_planes(taps, 4096), device=dev)
+    from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
+    pr, pi = kfc.fftconv_plain(x, h2, make_fft_planes(4096, device=dev), 4096, k.hop)
+    assert _snr(torch.complex(pr, pi), torch.complex(yr, yi)) > 100
+    st = kfc.FftConvStream(k)
+    parts = [st.process(raw[..., i * k.block_in():(i + 1) * k.block_in()].contiguous())
+             for i in range(4)]
+    assert torch.equal(torch.cat([p[0] for p in parts], -1), yr)
+    assert torch.equal(torch.cat([p[1] for p in parts], -1), yi)
+
+
+def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+
+    k = kfft.make_fft_kernel(1024, b_frames=1, device="cpu")
+    x = torch.zeros((1, 1024), device=dev)
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        k.fn(x, x)
+    kc = kfc.make_fftconv_kernel(lowpass(64, 0.2), 2048, b_frames=1, device="cpu")
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        kfc.fftconv_pallas(kc, torch.zeros((1, 2, kc.overlap + kc.block_in()), device=dev))
+    with pytest.raises(ValueError, match="powers of two"):
+        kfft.make_fft_kernel(16384, device=dev)

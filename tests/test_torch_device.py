@@ -15,10 +15,11 @@ from srcdsp_tpu_torch import configs, convert
 from srcdsp_tpu_torch.chains import fsk, sync
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.io import capture
+from srcdsp_tpu_torch.kernels import fft_pallas, fftconv_pallas
 from srcdsp_tpu_torch.kernels import fsk_ctaps, fsk_fused, fsk_preframed, mixfir
 from srcdsp_tpu_torch.kernels import mixfir_ctaps, mixfir_preframed, resample_pallas
 from srcdsp_tpu_torch.kernels import resample_preframed
-from srcdsp_tpu_torch.ops import fir, nco, planes, resample
+from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, nco, planes, resample
 from srcdsp_tpu_torch.ops.window import lowpass
 
 TAPS = lowpass(64, 0.03)
@@ -44,7 +45,16 @@ ENTRY_POINTS = {
     "build_config1_serving": lambda **d: configs.build_config1_serving(1 << 15, "ctaps", **d),
     "build_config2": lambda **d: configs.build_config2(1 << 10, 2, **d),
     "build_config2_onchip": lambda **d: configs.build_config2_onchip(1 << 14, "fused", **d),
+    "build_config3": lambda **d: configs.build_config3(1 << 13, 2, **d),
+    "build_config3_onchip": lambda **d: configs.build_config3_onchip(49152, "fused", 1, **d),
+    "build_fft": lambda **d: configs.build_fft(16, 256, "kernel", **d),
     "build_config4": lambda **d: configs.build_config4(64, 2, **d),
+    "make_fft_kernel": lambda **d: fft_pallas.make_fft_kernel(1024, **d),
+    "make_fftconv_kernel": lambda **d: fftconv_pallas.make_fftconv_kernel(TAPS, 2048, **d),
+    "make_fft_planes": lambda **d: fft_planes.make_fft_planes(1024, **d),
+    "make_fftconv_planes": lambda **d: fftconv_planes.make_fftconv_planes(TAPS, 1024, **d),
+    "make_freq_response": lambda **d: fftconv.make_freq_response(TAPS, 1024, **d),
+    "fftconv_init": lambda **d: fftconv.fftconv_init(64, 1024, (2,), **d),
     "make_mix_fir_kernel": lambda **d: mixfir.make_mix_fir_kernel(TAPS, 2, **d),
     "make_mix_fir_kernel_mc": lambda **d: mixfir.make_mix_fir_kernel_mc(TAPS, 2, 2, **d),
     "make_mix_fir_ctaps_kernel": lambda **d: mixfir_ctaps.make_mix_fir_ctaps_kernel(
@@ -77,6 +87,8 @@ ENTRY_POINTS = {
     "fsk_state_from": lambda **d: convert.fsk_state_from(_fsk_state(), **d),
     "resample_state_from": lambda **d: convert.resample_state_from(
         _JaxLike(tail=np.zeros(16, np.complex64)), **d),
+    "fftconv_state_from": lambda **d: convert.fftconv_state_from(
+        _JaxLike(tail=np.zeros(961, np.complex64)), **d),
 }
 
 

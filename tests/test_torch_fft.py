@@ -1,0 +1,162 @@
+"""Port vs JAX package: the four-step plane FFT (``ops/fft_planes``), the
+batched FFT kernel K10's plain version (``kernels/fft_pallas``) and the
+oracle's FFT binding.
+
+Contracts:
+
+- `make_fft_planes` against the JAX function on the same input: rel L2
+  < 1e-6 (the same constants and stage order; float32 products summed in
+  another order), and < 1e-5 against the C++ oracle (the reference's bar);
+- `fft_planes_flops`, the kernel's constants and the oracle binding: equal;
+- K10's plain version against the JAX kernel run with ``interpret=True``, in
+  all three output orders: SNR > 120 dB (the same factorization); against
+  numpy (complex128): > 110 dB, the reference's bar;
+- the digit layout: X[k1 + n1*k2] at frame row k1, lane k2 (n1 = N / n2);
+  natural == digit + unscramble bit for bit;
+- the conj inverse round trip: > 110 dB.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from srcdsp_tpu import oracle as joracle
+from srcdsp_tpu.kernels.fft_pallas import make_fft_kernel as jmake_fft_kernel
+from srcdsp_tpu.ops.fft_planes import fft_planes_flops as jflops
+from srcdsp_tpu.ops.fft_planes import make_fft_planes as jmake_fft_planes
+from srcdsp_tpu_torch import oracle as toracle
+from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+from srcdsp_tpu_torch.ops.fft_planes import fft_planes_flops, make_fft_planes
+
+
+def _snr_db(ref, got) -> float:
+    ref, got = np.asarray(ref), np.asarray(got)
+    err = np.mean(np.abs(got - ref) ** 2)
+    return float(10 * np.log10(np.mean(np.abs(ref) ** 2) / (err + 1e-30)))
+
+
+def _rel(got, ref) -> float:
+    return float(np.linalg.norm(np.asarray(got) - np.asarray(ref)) / np.linalg.norm(ref))
+
+
+def _planes(rng, b, n):
+    x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
+    return x, np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)
+
+
+@pytest.mark.parametrize("n,n1", [(64, 8), (256, 16), (1024, 32), (4096, 64), (512, 16)])
+def test_fft_planes_matches_jax(n, n1):
+    x, xr, xi = _planes(np.random.default_rng(n), 3, n)
+    jr, ji = jmake_fft_planes(n, n1)(jnp.asarray(xr), jnp.asarray(xi))
+    tr, ti = make_fft_planes(n, n1, device="cpu")(torch.from_numpy(xr), torch.from_numpy(xi))
+    got = tr.numpy() + 1j * ti.numpy()
+    assert _rel(got, np.asarray(jr) + 1j * np.asarray(ji)) < 1e-6
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=-1)) < 1e-5
+
+
+def test_fft_planes_default_factor_and_oracle():
+    x, xr, xi = _planes(np.random.default_rng(1), 1, 1024)
+    tr, ti = make_fft_planes(1024, device="cpu")(torch.from_numpy(xr), torch.from_numpy(xi))
+    got = (tr.numpy() + 1j * ti.numpy())[0]
+    jr, ji = jmake_fft_planes(1024)(jnp.asarray(xr), jnp.asarray(xi))
+    assert _rel(got, (np.asarray(jr) + 1j * np.asarray(ji))[0]) < 1e-6
+    assert _rel(got, toracle.fft(x[0])) < 1e-5
+    with pytest.raises(ValueError):
+        make_fft_planes(100, device="cpu")
+
+
+@pytest.mark.parametrize("batch,n,n1", [(16, 4096, None), (3, 1024, 8), (8192, 4096, 32)])
+def test_fft_planes_flops_equal(batch, n, n1):
+    assert fft_planes_flops(batch, n, n1) == jflops(batch, n, n1)
+
+
+@pytest.mark.parametrize("n", [16, 1024, 4096])
+def test_oracle_fft_equals_jax_binding(n):
+    x, _, _ = _planes(np.random.default_rng(n + 1), 1, n)
+    for inverse in (False, True):
+        np.testing.assert_array_equal(toracle.fft(x[0], inverse), joracle.fft(x[0], inverse))
+    with pytest.raises(ValueError, match="power-of-two"):
+        toracle.fft(np.zeros(12, np.complex64))
+
+
+@pytest.mark.parametrize("n,n2,b", [(4096, 128, 4), (1024, 256, 2)])
+def test_kernel_consts_equal_jax(n, n2, b):
+    jk = jmake_fft_kernel(n, n2=n2, b_frames=b, interpret=True)
+    tk = kfft.make_fft_kernel(n, n2=n2, b_frames=b, device="cpu")
+    assert (tk.n1, tk.n2, tk.b_frames, tk.fft_size) == (jk.n1, jk.n2, jk.b_frames, jk.fft_size)
+    for t, j in zip(tk.consts, jk.consts):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("order", [True, False, "kernel"])
+@pytest.mark.parametrize("n,n2,b", [(4096, 128, 4), (2048, 128, 2), (1024, 128, 8)])
+def test_kernel_plain_matches_jax_interpret(n, n2, b, order):
+    jk = jmake_fft_kernel(n, n2=n2, b_frames=b, natural_order=order, interpret=True)
+    tk = kfft.make_fft_kernel(n, n2=n2, b_frames=b, natural_order=order, device="cpu")
+    x, xr, xi = _planes(np.random.default_rng(n), 2 * b, n)
+    jr, ji = jk.fn(jnp.asarray(xr), jnp.asarray(xi))
+    tr, ti = tk.fn(torch.from_numpy(xr), torch.from_numpy(xi))
+    assert tuple(tr.shape) == tuple(jr.shape)
+    got = tr.numpy() + 1j * ti.numpy()
+    assert _snr_db(np.asarray(jr) + 1j * np.asarray(ji), got) > 120
+    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
+    if order is False:
+        ref = ref.reshape(2 * b, n2, n // n2).swapaxes(-1, -2).reshape(got.shape)
+    assert _snr_db(ref, got) > 110
+
+
+def test_transposed_digit_layout():
+    """natural_order=False returns X[k1 + n1*k2] at frame row k1, lane k2,
+    with the kernel's n1 = N / n2 (8 at 1024 points), not fft_planes' 32."""
+    k = kfft.make_fft_kernel(1024, n2=128, b_frames=2, natural_order=False, device="cpu")
+    assert k.n1 == 8
+    x = np.random.default_rng(2).standard_normal((2, 1024)).astype(np.float32)
+    yr, yi = k.fn(torch.from_numpy(x), torch.zeros(2, 1024))
+    got = (yr.numpy() + 1j * yi.numpy()).reshape(2, k.n1, 128)
+    ref = np.fft.fft(x.astype(np.complex128), axis=-1).reshape(2, 128, k.n1)
+    assert _snr_db(ref.swapaxes(-1, -2), got) > 110
+
+
+def test_natural_equals_digit_unscrambled_bit_for_bit():
+    x, xr, xi = _planes(np.random.default_rng(4), 4, 2048)
+    xr_t, xi_t = torch.from_numpy(xr), torch.from_numpy(xi)
+    nat = kfft.make_fft_kernel(2048, b_frames=2, device="cpu").fn(xr_t, xi_t)
+    knat = kfft.make_fft_kernel(2048, b_frames=2, natural_order="kernel", device="cpu").fn(
+        xr_t, xi_t)
+    dk = kfft.make_fft_kernel(2048, b_frames=2, natural_order=False, device="cpu")
+    dig = dk.fn(xr_t, xi_t)
+    for a, b_, d in zip(nat, knat, dig):
+        assert torch.equal(a, b_)
+        assert torch.equal(a, kfft.unscramble(d, dk.n1, dk.n2))
+
+
+def test_ifft_round_trip():
+    k = kfft.make_fft_kernel(2048, b_frames=2, device="cpu")
+    _, xr, xi = _planes(np.random.default_rng(3), 4, 2048)
+    yr, yi = k.fn(torch.from_numpy(xr), torch.from_numpy(xi))
+    rr, ri = kfft.ifft_pallas(k, yr, yi)
+    assert _snr_db(xr, rr.numpy()) > 110
+    assert _snr_db(xi, ri.numpy()) > 110
+
+
+def test_kernel_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="% n2"):
+        kfft.make_fft_kernel(1000, n2=128, device="cpu")
+    k = kfft.make_fft_kernel(1024, b_frames=4, device="cpu")
+    with pytest.raises(ValueError, match="B % 4"):
+        k.fn(torch.zeros(6, 1024), torch.zeros(6, 1024))
+    with pytest.raises(ValueError, match="rows"):
+        k.fn_rows(torch.zeros(8, 128), torch.zeros(8, 128))
+    for bad in (128, 3 * 1024, 16384):
+        with pytest.raises(ValueError, match="powers of two"):
+            kfft.check_cuda_fft_size(bad)
+    assert kfft.check_cuda_fft_size(256) == 8 and kfft.check_cuda_fft_size(8192) == 13
+
+
+def test_twiddle_table():
+    tw = kfft.fft_twiddles(4096)
+    assert tw.shape == (2, 2048) and tw.dtype == np.float32
+    ref = np.exp(-2j * np.pi * np.arange(2048) / 4096)
+    np.testing.assert_array_equal(tw[0], ref.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[1], ref.imag.astype(np.float32))
