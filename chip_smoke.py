@@ -46,15 +46,31 @@ Phases, in order; any failure raises and the run exits non-zero:
    one launch, equal bit for bit to 5 chunks through FftConvStream; SNR >
    100 dB against the plain K11 on the card and > 90 dB against the C++
    oracle's direct FIR (first 2^16 samples of channels 0 and 15); then the
-   three variants of configs.build_config3_onchip, each timed.
+   three variants of configs.build_config3_onchip, each timed;
+11. config 5 end to end: 64 channels x 2^19 frames (33,554,432 wideband
+   samples) through the four variants of configs.build_config5_onchip (K13
+   class-major + bank-stats tail, the serving path; K13 standard; K12 +
+   the planes tail; the matmul bank), each timed with its wideband Ms/s;
+   K13 in one launch equal bit for bit to 4 chunks of 2^17 frames, each with
+   its 128 history columns; a 64-channel QPSK wideband made on the card by
+   the plain synthesis bank (2^15 symbols per channel, sps 4) decoded at
+   SER 0 on every channel by fused, fused_std and bank, fused == fused_std;
+   K12 > 100 dB against the C++ oracle's channelize on the first 2^16
+   samples; the chan_8x128 fixture through K12 > 100 dB against its gold;
+   the qpsk_256sym fixture through psk_apply on the card equal to its gold;
+   configs.build_config5 (the complex tier, 2^16 frames), timed.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
 torch.equal) and K11 (shared and per-channel taps, one config-3 chunk of
 16 x 1,671,168) against their plain versions, with cuFFT (torch.fft.fft) and
-cuDNN conv1d (TF32 off) as their library yardsticks.
+cuDNN conv1d (TF32 off) as their library yardsticks, and K12 and K13 at the
+config-5 shape ([2, 64, 128 + 2^19] phase-major, b_k 512; K13's Y == K12's,
+class-major == standard permuted, by torch.equal), with one cuBLAS
+torch.matmul of E_comb^T by a prestaged SS^T (TF32 off, staging left out)
+as K12's yardstick and that matmul plus the plain stats epilogue as K13's.
 
-Launch counts are reset just before phase 4 and read after phase 10: every
+Launch counts are reset just before phase 4 and read after phase 11: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -87,6 +103,11 @@ FFT_BATCH, FFT_N, FFT_SNR_FRAMES = 8192, 4096, 256
 C3_CHANNELS, C3_CHUNK, C3_CHUNKS = 16, 34 * 49152, 5
 C3_SAMPLES = C3_CHUNK * C3_CHUNKS
 C3_ORACLE_SAMPLES = 1 << 16
+# config 5 (bench/run.py run_config5_onchip): 64 channels, 2^19 frames, b_k 512,
+# K13 chunks of 2^17 frames; the modulated check at 2^15 QPSK symbols of sps 4
+C5_CHANNELS, C5_FRAMES, C5_BK, C5_CHUNKS = 64, 1 << 19, 512, 4
+C5_NSYM, C5_SPS, C5_ORDER = 1 << 15, 4, 4
+C5_ORACLE_SAMPLES, C5_COMPLEX_FRAMES = 1 << 16, 1 << 16
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -157,6 +178,19 @@ def ber_per_channel(tx: np.ndarray, rx: np.ndarray, settle: int = 16) -> np.ndar
     return best
 
 
+def ser_per_channel(data: np.ndarray, idx: np.ndarray, order: int, settle: int = 30
+                    ) -> np.ndarray:
+    """Lowest symbol-error rate over lags -32..32 per channel, after a
+    differential decode and `settle` symbols (the V&V rotation drops out)."""
+    d = np.mod(idx - np.concatenate([np.zeros_like(idx[:, :1]), idx[:, :-1]], axis=1), order)
+    best = np.ones(data.shape[0])
+    for lag in range(-32, 33):
+        bs, rs = settle + max(lag, 0), settle + max(-lag, 0)
+        n = min(data.shape[-1] - bs, d.shape[-1] - rs)
+        best = np.minimum(best, np.mean(data[:, bs:bs + n] != d[:, rs:rs + n], axis=-1))
+    return best
+
+
 def config4_signal(torch, dev, seed: int = 0):
     """32 CPFSK channels, channel c centred at 0.11 + 0.01*c (input rate)."""
     from srcdsp_tpu_torch.ops.nco import freq_to_word
@@ -186,15 +220,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from srcdsp_tpu_torch import oracle
+    from srcdsp_tpu_torch.chains.channelizer import design_prototype
+    from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
     from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
     from srcdsp_tpu_torch.chains.fsk_planes import FskPlanesStream, make_timing_tone
     from srcdsp_tpu_torch.configs import (
-        C3_CUTOFF, CONFIG1_SERVING, CONFIG2_ONCHIP, CONFIG3_ONCHIP, FFT_VARIANTS, build_config1,
-        build_config1_serving, build_config2, build_config2_onchip, build_config3_onchip,
-        build_fft, config2_step)
+        C3_CUTOFF, CONFIG1_SERVING, CONFIG2_ONCHIP, CONFIG3_ONCHIP, CONFIG5_ONCHIP, FFT_VARIANTS,
+        build_config1, build_config1_serving, build_config2, build_config2_onchip,
+        build_config3_onchip, build_config5, build_config5_onchip, build_fft, config2_step)
     from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
+    from srcdsp_tpu_torch.kernels import bank_pallas as kbank
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
@@ -205,10 +242,12 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
     from srcdsp_tpu_torch.kernels import resample_pallas as krs
     from srcdsp_tpu_torch.kernels import resample_preframed as krp
+    from srcdsp_tpu_torch.ops.channelize_planes import combined_matrix, make_channelizer_mats
     from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
     from srcdsp_tpu_torch.ops.nco import freq_to_word
     from srcdsp_tpu_torch.ops.planes import planes_from_int16
     from srcdsp_tpu_torch.ops.window import lowpass
+    from srcdsp_tpu_torch.testing.signals import psk_wideband
 
     bf16 = torch.bfloat16
 
@@ -546,6 +585,70 @@ def main() -> int:
         require(lib_snr > 100.0, f"{name}: SNR {lib_snr} dB against conv1d")
         del yc, lib, hresp, w, xin
     del chunk3
+
+    # K12 and K13 at the config-5 shape: the bench's seed-0 phase-major planes
+    # [2, 64, 128 + 2^19], b_k 512. The library yardstick is one cuBLAS matmul
+    # of E_comb^T [128, 1152] by SS^T [1152, 2^19] staged beforehand (TF32
+    # off), the TPU kernel's dense form, without the staging; for K13 it is
+    # that matmul followed by the plain stats epilogue and lane permutation
+    t0 = time.perf_counter()
+    c5 = build_config5_onchip(C5_FRAMES, "fused", C5_CHANNELS, C5_BK, device=dev)
+    xp5, hc5 = c5.example[0], c5.meta["hist_cols"]
+    require(hc5 == 128 and tuple(xp5.shape) == (2, C5_CHANNELS, hc5 + C5_FRAMES),
+            f"config-5 planes {tuple(xp5.shape)}")
+    print(f"[3] config-5 planes {tuple(xp5.shape)} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    proto5 = design_prototype(C5_CHANNELS, 8)
+    p5 = len(proto5) // C5_CHANNELS
+    e5_t = torch.as_tensor(combined_matrix(*make_channelizer_mats(proto5, C5_CHANNELS)).T.copy(),
+                           device=dev)
+    k12, _ = kbank.make_bank_kernel(proto5, C5_CHANNELS, b_k=C5_BK, device=dev)
+    k13, _ = kbank.make_bank_psk_kernel(proto5, C5_CHANNELS, sps=C5_SPS, order=C5_ORDER,
+                                        b_k=C5_BK, device=dev)
+    k13c = c5.meta["kernel"]
+    perm5 = kbank.class_major_index(C5_BK, C5_SPS, dev)
+    ss5 = torch.cat([xp5[pl, :, hc5 - r:hc5 - r + C5_FRAMES] for pl in range(2)
+                     for r in range(p5 + 1)], dim=0)
+    # least work: the fold (4PM) and an M-point FFT (5 M log2 M) per frame; K13
+    # adds about 19 flop per output sample for its sums
+    bank_flops = C5_FRAMES * (4 * p5 * C5_CHANNELS + 5 * C5_CHANNELS * np.log2(C5_CHANNELS))
+
+    def stats13(y):
+        st = kbank.bank_stats_plain(y, C5_CHANNELS, C5_BK, C5_SPS, C5_ORDER)
+        return y.reshape(2 * C5_CHANNELS, -1, C5_BK)[..., perm5].reshape(y.shape), st
+
+    def plain13():
+        return stats13(kbank.bank_plain(xp5, e5_t, C5_CHANNELS, p5 + 1, hc5))
+
+    y12 = k12(xp5)
+    y13, st13 = k13(xp5)
+    y13c, st13c = k13c(xp5)
+    require(torch.equal(y13, y12), "bank_psk: K13's Y != K12's (torch.equal)")
+    require(torch.equal(st13c, st13), "bank_psk: class-major stats != standard stats")
+    require(torch.equal(y13c, y12.reshape(2 * C5_CHANNELS, -1, C5_BK)[..., perm5]
+                        .reshape(y12.shape)), "bank_psk: class-major != standard permuted")
+    print("    bank_psk Y == bank Y, class-major == standard permuted, stats equal: "
+          "torch.equal True", flush=True)
+    for name, site, k_fn, p_fn, lib_fn, out in (
+            ("bank", "bank_pallas.py:234", lambda: k12(xp5),
+             lambda: kbank.bank_plain(xp5, e5_t, C5_CHANNELS, p5 + 1, hc5),
+             lambda: e5_t @ ss5, (y12,)),
+            ("bank_psk", "bank_pallas.py:360", lambda: k13c(xp5), plain13,
+             lambda: stats13(e5_t @ ss5), (y13c, st13c))):
+        ref = p_fn()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = float(torch.max(torch.abs(out[0] - ref[0])))
+        rel = float(torch.linalg.norm(out[0] - ref[0]) / torch.linalg.norm(ref[0]))
+        ok = rel < 1e-5
+        if len(out) > 1:
+            st_rel = float(torch.linalg.norm(out[1] - ref[1]) / torch.linalg.norm(ref[1]))
+            print(f"    {name}: stats rel L2 {st_rel:.3e} against the plain epilogue (floor 1e-5)")
+            ok = ok and st_rel < 1e-5
+        flops = bank_flops + (19 * C5_CHANNELS * C5_FRAMES if len(out) > 1 else 0)
+        record(name, "srcdsp_tpu_torch/csrc/bank.cu", "srcdsp_tpu/kernels/" + site, err, rel, ok,
+               True, k_fn, p_fn, flops, tensor_bytes(xp5, out), lib_fn)
+        del ref
+    del ss5, y12, y13, st13, y13c, st13c
 
     # --- 4. config 4 end to end (main path) ------------------------------------
     x4b = x4.to(bf16)
@@ -888,6 +991,109 @@ def main() -> int:
           flush=True)
     require(snr_planes > 100.0, f"config 3 planes: SNR {snr_planes} dB")
     del outs, c3, x3, y3
+
+    # --- 11. config 5 (main path) ---------------------------------------------
+    n5 = C5_FRAMES * C5_CHANNELS
+    steps5 = {}
+    for variant in CONFIG5_ONCHIP:
+        # fused_std and bank run on the fused variant's input (the bench's seed-0
+        # planes); planes makes its own flat seed-0 planes, as the bench does
+        b = c5 if variant == "fused" else build_config5_onchip(
+            C5_FRAMES if variant == "planes" else C5_BK, variant, C5_CHANNELS, C5_BK, device=dev)
+        args = b.example if variant == "planes" else (xp5,)
+        ms = median_ms(torch, lambda: b.step(*args))
+        _, (idx, (sr, si)) = b.step(*args)
+        torch.cuda.synchronize()
+        require(tuple(idx.shape) == (C5_CHANNELS, C5_FRAMES // C5_SPS),
+                f"config 5 {variant}: indices {tuple(idx.shape)}")
+        require(bool(torch.isfinite(sr).all() and torch.isfinite(si).all()),
+                f"config 5 {variant} not finite")
+        print(f"[11] config 5 {variant}: {C5_CHANNELS} ch x {C5_FRAMES} frames ({n5} wideband "
+              f"samples) in {ms:.3f} ms median, {n5 / ms / 1e3:.1f} Ms/s wideband", flush=True)
+        steps5[variant] = b.step
+        del b, idx, sr, si
+    kfn5 = c5.meta["kernel"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one = kfn5(xp5)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    q5 = C5_FRAMES // C5_CHUNKS
+    chunks5 = [xp5[..., i * q5:i * q5 + hc5 + q5].contiguous() for i in range(C5_CHUNKS)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    parts = [kfn5(ch) for ch in chunks5]
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    require(torch.equal(torch.cat([p[0] for p in parts], dim=-1), one[0])
+            and torch.equal(torch.cat([p[1] for p in parts], dim=0), one[1]),
+            "config 5: K13 in 4 chunks != one launch (torch.equal)")
+    print(f"[11] config 5 K13 class-major: one launch {one_s * 1e3:.3f} ms, {C5_CHUNKS} chunks "
+          f"of {q5} frames with {hc5} history columns {chunk_s * 1e3:.3f} ms (host clock); "
+          f"chunked Y and stats == one launch: torch.equal True", flush=True)
+    del one, parts, chunks5, xp5, c5
+
+    t0 = time.perf_counter()
+    data5, protom, wb = psk_wideband(np.random.default_rng(5), C5_CHANNELS, C5_NSYM, C5_ORDER,
+                                     C5_SPS, device=dev)
+    torch.cuda.synchronize()
+    flat = torch.cat([torch.zeros((2, hc5 * C5_CHANNELS), device=dev),
+                      torch.stack([wb.real, wb.imag])], dim=-1)
+    xpm = kbank.phase_major(flat, C5_CHANNELS, hc5)
+    print(f"[11] modulated QPSK wideband {tuple(wb.shape)} ({C5_CHANNELS} ch x {C5_NSYM} symbols, "
+          f"sps {C5_SPS}) synthesized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    decided = {}
+    for variant in ("fused", "fused_std", "bank"):
+        _, (idx, _) = steps5[variant](xpm)
+        decided[variant] = idx
+        ser = ser_per_channel(data5, idx.cpu().numpy(), C5_ORDER)
+        print(f"    {variant}: max SER {ser.max()} over {C5_CHANNELS} channels after diff_decode",
+              flush=True)
+        require(bool(np.all(ser == 0.0)), f"config 5 {variant}: SER {ser}")
+    require(torch.equal(decided["fused"], decided["fused_std"]),
+            "config 5: fused indices != fused_std indices")
+    y = k12(xpm)
+    ref = torch.from_numpy(oracle.channelize(wb[:C5_ORACLE_SAMPLES].cpu().numpy(), protom,
+                                             C5_CHANNELS))
+    nf = C5_ORACLE_SAMPLES // C5_CHANNELS
+    snr_o = snr_db(torch, ref, torch.complex(y[:C5_CHANNELS, :nf], y[C5_CHANNELS:, :nf]).cpu())
+    print(f"    fused == fused_std indices (torch.equal); K12 against the C++ oracle's channelize "
+          f"on the first {C5_ORACLE_SAMPLES} samples: SNR {snr_o:.2f} dB (floor 100)", flush=True)
+    require(snr_o > 100.0, f"config 5: K12 SNR {snr_o} dB against the oracle")
+    del decided, y, ref, flat, xpm, wb
+
+    fix = REPO / "tests" / "fixtures"
+    xf, _ = read_capture(str(fix / "chan_8x128.ci16"))
+    hf = np.load(fix / "chan_8x128_proto.npy")
+    gold = np.load(fix / "chan_8x128_gold.npy")
+    kf8, hcf = kbank.make_bank_kernel(hf, 8, b_k=128, device=dev)
+    flat = np.zeros((2, (hcf + gold.shape[1]) * 8), np.float32)
+    flat[0, hcf * 8:], flat[1, hcf * 8:] = xf.real, xf.imag
+    yf = kf8(kbank.phase_major(torch.as_tensor(flat, device=dev), 8, hcf)).cpu()
+    snr_f = snr_db(torch, torch.from_numpy(gold), torch.complex(yf[:8], yf[8:]))
+    meta = json.loads((fix / "qpsk_256sym.fixture.json").read_text())
+    xq, _ = read_capture(str(fix / "qpsk_256sym.ci16"))
+    pq = make_psk_params(meta["center"], decim=meta["decim"], sps=meta["sps"],
+                         order=meta["order"], device=dev)
+    _, (iq5, _) = psk_apply(pq, psk_init(pq), torch.as_tensor(np.ascontiguousarray(xq), device=dev))
+    gq = np.load(fix / "qpsk_256sym_gold_idx.npy")
+    print(f"    chan_8x128 through K12: SNR {snr_f:.2f} dB against its gold (floor 100); "
+          f"qpsk_256sym through psk_apply on the card: {gq.size} indices equal to the gold: "
+          f"{np.array_equal(iq5.cpu().numpy(), gq)}", flush=True)
+    require(snr_f > 100.0, f"chan_8x128: SNR {snr_f} dB against the gold")
+    require(np.array_equal(iq5.cpu().numpy(), gq), "qpsk_256sym: indices differ from the gold")
+
+    b = build_config5(C5_COMPLEX_FRAMES, C5_CHANNELS, device=dev)
+    ms = median_ms(torch, lambda: b.step(*b.example))
+    idx, soft = b.step(*b.example)
+    torch.cuda.synchronize()
+    require(tuple(idx.shape) == (C5_CHANNELS, C5_COMPLEX_FRAMES // C5_SPS)
+            and bool(torch.isfinite(torch.view_as_real(soft)).all()),
+            f"config 5 complex tier: {tuple(idx.shape)} or not finite")
+    print(f"[11] config 5 complex tier (channelize_full + psk_apply): {b.samples_per_call} "
+          f"samples in {ms:.3f} ms median, {b.samples_per_call / ms / 1e3:.1f} Ms/s wideband",
+          flush=True)
+    del b, idx, soft
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

@@ -1,6 +1,6 @@
-"""Config-1 to config-4 presets and the FFT on the port (counterpart of
-``srcdsp_tpu/configs.py``, and of ``bench/run.py``'s on-chip config-2 and
-config-3 runs and its FFT run).
+"""Config-1 to config-5 presets and the FFT on the port (counterpart of
+``srcdsp_tpu/configs.py``, and of ``bench/run.py``'s on-chip config-2,
+config-3 and config-5 runs and its FFT run).
 
 Each build_config* function returns (step fn, example inputs, samples per call, metadata),
 with the same shapes, taps and tuning as the JAX presets. Configs 1 and 2 make
@@ -406,6 +406,125 @@ def build_fft(batch: int = 8192, n: int = 4096, variant: str = "kernel", device=
     xi = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32), device=device)
     meta.update(batch=batch, flops_5nlogn=5 * n * math.log2(n) * batch)
     return BuiltConfig(step, (xr, xi), batch * n, meta)
+
+
+C5_SPS, C5_ORDER, C5_TAPS_PER_PHASE = 4, 4, 8
+
+
+def build_config5(frames: int = 512, num_channels: int = 64, device=None) -> BuiltConfig:
+    """64-channel polyphase channelizer + per-channel QPSK demod, the complex
+    tier: ``chains.channelizer.channelize_full`` then ``chains.psk.psk_apply``
+    (decim 1, sps 4, RRC span 4) over the seed-0 complex input of
+    frames * num_channels samples, as the JAX preset's single-device form.
+    Its ``mesh`` form (time-sharded input, all_to_all to channel shards) waits
+    for the distribution slice.
+
+    step(x [N]) -> (idx int32 [M, frames/4], soft complex64 [M, frames/4]).
+    """
+    from srcdsp_tpu_torch.chains.channelizer import channelize_full, design_prototype
+    from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
+
+    device = resolve(device)
+    proto = design_prototype(num_channels, taps_per_phase=C5_TAPS_PER_PHASE)
+    psk = make_psk_params(0.0, decim=1, sps=C5_SPS, order=C5_ORDER, rrc_span=4, device=device)
+    n = frames * num_channels
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(
+        (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64),
+        device=device)
+
+    def step(xw):
+        bank = channelize_full(proto, xw, num_channels)
+        _, out = psk_apply(psk, psk_init(psk, (num_channels,)), bank)
+        return out
+
+    return BuiltConfig(step, (x,), n, dict(channels=num_channels, impl="torch",
+                                           distributed=False))
+
+
+CONFIG5_ONCHIP = ("fused", "fused_std", "bank", "planes")
+
+
+def build_config5_onchip(frames: int = 1 << 19, variant: str = "fused", num_channels: int = 64,
+                         b_k: int = 512, device=None) -> BuiltConfig:
+    """Config 5 on the card: the counterpart of ``bench/run.py``'s
+    ``run_config5_onchip`` (prototype design_prototype(M, 8), QPSK, sps 4,
+    offset 0.5; frames rounded down to whole b_k blocks for the kernels).
+    Variants:
+
+    - ``fused``: K13 with class_major=True, then ``psk_demod_bank_stats``
+      with class_major_b_k=b_k (the serving path);
+    - ``fused_std``: K13 in the standard layout, then the tail with
+      interp=False;
+    - ``bank``: K12, then ``psk_demod_planes``;
+    - ``planes``: ``ops.channelize_planes.make_channelize_planes``, then
+      ``psk_demod_planes``.
+
+    The input is the bench's: seed-0 standard-normal phase-major planes
+    [2, M, hist_cols + K] for the kernel variants, two seed-0 standard-normal
+    planes [K*M] for ``planes``. The JAX run's bf16 bank (precision=DEFAULT)
+    has no CUDA-core counterpart; every variant computes in float32.
+    step(*example) returns (acc, (idx int32 [M, K/4], (soft_r, soft_i))); the
+    kernel variants take any K that is a multiple of b_k. meta holds the
+    kernel (``kernel``) and ``hist_cols`` for the kernel variants.
+    """
+    from srcdsp_tpu_torch.chains.channelizer import design_prototype
+    from srcdsp_tpu_torch.chains.fsk_planes import make_timing_tone
+    from srcdsp_tpu_torch.chains.psk import constellation_offset
+    from srcdsp_tpu_torch.chains.psk_planes import psk_demod_bank_stats, psk_demod_planes
+    from srcdsp_tpu_torch.kernels.bank_pallas import make_bank_kernel, make_bank_psk_kernel
+    from srcdsp_tpu_torch.ops.channelize_planes import make_channelize_planes
+
+    if variant not in CONFIG5_ONCHIP:
+        raise ValueError(f"variant {variant!r} not in {CONFIG5_ONCHIP}")
+    device = resolve(device)
+    m, sps, order = num_channels, C5_SPS, C5_ORDER
+    off = constellation_offset(order)
+    proto = design_prototype(m, taps_per_phase=C5_TAPS_PER_PHASE)
+    k = (frames // sps) * sps
+    meta = dict(impl=variant, channels=m, b_k=b_k)
+    tones = {}
+
+    def demod_planes(yr, yi):
+        kk = yr.shape[-1]
+        if kk not in tones:
+            tones[kk] = tuple(torch.as_tensor(t, device=device) for t in make_timing_tone(kk, sps))
+        return psk_demod_planes(yr, yi, sps, order, *tones[kk], offset=off)
+
+    rng = np.random.default_rng(0)
+    if variant == "planes":
+        bank = make_channelize_planes(proto, m, device=device)
+        n = k * m
+        xr = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        xi = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+
+        def step_planes(xr, xi):
+            br, bi = bank(xr, xi)                        # [K, M]
+            return demod_planes(br.T, bi.T)
+
+        return BuiltConfig(step_planes, (xr, xi), n, meta)
+    if variant == "bank":
+        kb, hist_cols = make_bank_kernel(proto, m, b_k=b_k, device=device)
+
+        def step(xp):
+            y = kb(xp)                                   # [2M, K] channel-major
+            return demod_planes(y[:m], y[m:])
+    else:
+        cm = variant == "fused"
+        kb, hist_cols = make_bank_psk_kernel(proto, m, sps=sps, order=order, b_k=b_k,
+                                             class_major=cm, device=device)
+
+        def step(xp):
+            y, stats = kb(xp)
+            return psk_demod_bank_stats(y[:m], y[m:], stats, sps, order, offset=off,
+                                        interp=cm, class_major_b_k=b_k if cm else 0)
+    k = (k // b_k) * b_k
+    if k == 0:
+        raise ValueError(f"frames={frames} smaller than one block of b_k={b_k}")
+    xp = torch.as_tensor(rng.standard_normal((2, m, hist_cols + k)).astype(np.float32),
+                         device=device)
+    meta.update(kernel=kb, hist_cols=hist_cols)
+    return BuiltConfig(step, (xp,), k * m, meta)
 
 
 def build_config4(nsym: int = 2048, channels: int = 32, device=None) -> BuiltConfig:

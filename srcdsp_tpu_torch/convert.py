@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch.chains.channelizer import ChannelizerState
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
+from srcdsp_tpu_torch.chains.psk import PskParams, PskState
 from srcdsp_tpu_torch.chains.sync import TimingState
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
@@ -79,6 +81,35 @@ def config2_state_from(states, device=None) -> tuple[NcoState, FirState, Resampl
     return (NcoState(phase=word_tensor(np.asarray(nco_s.phase, np.uint32), device)),
             FirState(tail=torch.as_tensor(np.array(fir_s.tail, np.complex64), device=device)),
             resample_state_from(rs_s, device))
+
+
+def psk_params_from(p, device=None) -> PskParams:
+    """PskParams from any object with the JAX PskParams fields."""
+    device = resolve(device)
+    return PskParams(freq_word=word_tensor(np.asarray(p.freq_word, np.uint32), device),
+                     taps=torch.as_tensor(np.array(p.taps, np.float32), device=device),
+                     decim=int(p.decim), sps=int(p.sps), order=int(p.order))
+
+
+def psk_state_from(s, device=None) -> PskState:
+    """PskState from any object shaped like the JAX PskState (s.nco.phase u32,
+    s.fir.tail, s.timing.acc, s.timing.last complex, s.cr_acc)."""
+    device = resolve(device)
+
+    def c(a):
+        return torch.as_tensor(np.array(a, np.complex64), device=device)
+
+    return PskState(nco=NcoState(phase=word_tensor(np.asarray(s.nco.phase, np.uint32), device)),
+                    fir=FirState(tail=c(s.fir.tail)),
+                    timing=TimingState(acc=c(s.timing.acc), last=c(s.timing.last)),
+                    cr_acc=c(s.cr_acc))
+
+
+def channelizer_state_from(s, device=None) -> ChannelizerState:
+    """ChannelizerState from any object with a ``tail`` field (the JAX
+    ChannelizerState, analysis or synthesis), complex64."""
+    return ChannelizerState(tail=torch.as_tensor(np.array(s.tail, np.complex64),
+                                                 device=resolve(device)))
 
 
 def fftconv_state_from(s, device=None) -> FftConvState:

@@ -1,4 +1,4 @@
-"""Filter tap design: windowed-sinc lowpass, Kaiser/Hamming windows.
+"""Filter tap design: windowed-sinc lowpass, Kaiser/Hamming windows, RRC pulse.
 
 A numpy copy of ``srcdsp_tpu/ops/window.py``: importing that module imports
 the JAX package, which this package never does. Runs at chain-construction
@@ -56,4 +56,27 @@ def lowpass(num_taps: int, cutoff: float, window: str = "hamming",
         raise ValueError(f"unknown window {window!r}")
     h = h * w
     h /= h.sum()  # unit DC gain
+    return h.astype(np.float32)
+
+
+def root_raised_cosine(sps: int, num_symbols: int, beta: float = 0.35) -> np.ndarray:
+    """Root-raised-cosine pulse (PSK matched filter), unit energy.
+
+    sps samples/symbol, span of num_symbols symbols, roll-off beta.
+    """
+    n = sps * num_symbols + 1
+    t = (np.arange(n, dtype=np.float64) - (n - 1) / 2.0) / sps
+    h = np.empty(n)
+    for i, ti in enumerate(t):
+        if abs(ti) < 1e-12:
+            h[i] = 1.0 - beta + 4.0 * beta / np.pi
+        elif beta > 0 and abs(abs(4.0 * beta * ti) - 1.0) < 1e-9:
+            h[i] = (beta / np.sqrt(2.0)) * (
+                (1 + 2 / np.pi) * np.sin(np.pi / (4 * beta))
+                + (1 - 2 / np.pi) * np.cos(np.pi / (4 * beta)))
+        else:
+            num = np.sin(np.pi * ti * (1 - beta)) + 4 * beta * ti * np.cos(np.pi * ti * (1 + beta))
+            den = np.pi * ti * (1 - (4 * beta * ti) ** 2)
+            h[i] = num / den
+    h /= np.sqrt(np.sum(h * h))
     return h.astype(np.float32)

@@ -1,7 +1,10 @@
 """ctypes binding of the C++ golden oracle ``cpp/oracle/oracle.cc``: the
-port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that configs 2
-and 3 and the FFT need (`nco_mix`, `fir` with real taps, `resample`,
-`resample_stream`, `fft`), with the same arguments and results.
+port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that configs 2,
+3 and 5 and the FFT need, with the same arguments and results: `nco_mix`,
+`fir` with real taps, `resample`, `resample_stream`, `fft`; the channelizer
+and synthesis banks (`channelize`, `channelize_stream`, `channelize_os2`,
+`synthesize`, `synthesize_os2`); the symbol timing (`timing_estimate`,
+`timing_sample`); and the PSK chain composed from them (`psk_demod`).
 
 The library is built at first use by the repository's own Makefile into
 ``build/srcdsp_tpu_torch/oracle/<hash of oracle.cc and the Makefile>/``
@@ -20,13 +23,20 @@ import numpy as np
 
 from srcdsp_tpu_torch._native import MakeLibrary
 
-_P, _L, _I, _U = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_uint32
+_P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "orc_fir": [_P, _L, _P, _L, _I, _P],
     "orc_nco_mix": [_P, _L, _U, _U, _P, _P],
     "orc_resample": [_P, _L, _P, _L, _I, _I, _P],
     "orc_resample_stream": [_P, _L, _P, _L, _I, _I, _P, _P, _P],
     "orc_fft": [_P, _P, _L, _I],
+    "orc_channelize": [_P, _L, _P, _L, _I, _P],
+    "orc_channelize_stream": [_P, _L, _P, _L, _I, _P, _P],
+    "orc_channelize_os2": [_P, _L, _P, _L, _I, _P],
+    "orc_synthesize": [_P, _I, _L, _P, _L, _P],
+    "orc_synthesize_os2": [_P, _I, _L, _P, _L, _P],
+    "orc_timing_estimate": [_P, _L, _I, _F, _P, _P],
+    "orc_timing_sample_c": [_P, _P, _L, _I, _F, _P],
 }
 
 
@@ -102,3 +112,102 @@ def fft(x: np.ndarray, inverse: bool = False) -> np.ndarray:
     out = np.empty(n, np.complex64)
     load().orc_fft(x.ctypes.data, out.ctypes.data, n, 1 if inverse else 0)
     return out
+
+
+def _f32(x) -> np.ndarray:
+    return np.ascontiguousarray(x, np.float32)
+
+
+def timing_estimate(metric: np.ndarray, sps: int, acc: complex = 0.0,
+                    forget: float = 0.5) -> tuple[complex, float]:
+    """O&M timing from a real metric [N]: returns (new accumulator, tau in [0, sps))."""
+    metric = _f32(metric)
+    acc_io = np.asarray([acc.real, acc.imag], np.float32)
+    tau = ctypes.c_float(0.0)
+    load().orc_timing_estimate(metric.ctypes.data, metric.size, sps, forget,
+                               acc_io.ctypes.data, ctypes.addressof(tau))
+    return complex(acc_io[0], acc_io[1]), float(tau.value)
+
+
+def timing_sample(last: np.ndarray, x: np.ndarray, tau: float, sps: int) -> np.ndarray:
+    """One complex value per symbol at offset tau by linear interpolation over
+    [last | x] (last: sps + 1 samples): [N] -> [N/sps]."""
+    last, x = _cf(last), _cf(x)
+    if last.size != sps + 1:
+        raise ValueError(f"last holds {last.size} samples, expected {sps + 1}")
+    out = np.empty(x.size // sps, np.complex64)
+    load().orc_timing_sample_c(last.ctypes.data, x.ctypes.data, x.size, sps, tau,
+                               out.ctypes.data)
+    return out
+
+
+def channelize(x: np.ndarray, proto: np.ndarray, m: int) -> np.ndarray:
+    """Analysis bank from rest: [N] -> [m, N/m], channel m at +m/M."""
+    x, proto = _cf(x), _f32(proto)
+    out = np.empty((m, x.size // m), np.complex64)
+    load().orc_channelize(x.ctypes.data, x.size, proto.ctypes.data, proto.size, m,
+                          out.ctypes.data)
+    return out
+
+
+def channelize_stream(x: np.ndarray, proto: np.ndarray, m: int, hist: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Streaming analysis bank with a carried tail. hist: [T-1] complex64 (T =
+    the prototype padded to a multiple of m). Returns (y [m, N/m], new_hist)."""
+    x, proto = _cf(x), _f32(proto)
+    t = ((proto.size + m - 1) // m) * m
+    hist = _cf(hist).copy()
+    if hist.size != t - 1:
+        raise ValueError(f"hist holds {hist.size} samples, expected {t - 1}")
+    out = np.empty((m, x.size // m), np.complex64)
+    load().orc_channelize_stream(x.ctypes.data, x.size, proto.ctypes.data, proto.size, m,
+                                 hist.ctypes.data, out.ctypes.data)
+    return out, hist
+
+
+def channelize_os2(x: np.ndarray, proto: np.ndarray, m: int) -> np.ndarray:
+    """2x-oversampled analysis bank from rest: frames advance by m/2, per-frame
+    twiddle (-1)^{ch*k}: [N] -> [m, 2N/m]."""
+    x, proto = _cf(x), _f32(proto)
+    out = np.empty((m, x.size // (m // 2)), np.complex64)
+    load().orc_channelize_os2(x.ctypes.data, x.size, proto.ctypes.data, proto.size, m,
+                              out.ctypes.data)
+    return out
+
+
+def _synth(fn, y: np.ndarray, proto: np.ndarray, m: int, hop: int) -> np.ndarray:
+    y, proto = _cf(y), _f32(proto)
+    mm, k = y.shape
+    if mm != m:
+        raise ValueError(f"y has {mm} channels, expected {m}")
+    out = np.empty(k * hop, np.complex64)
+    fn(y.ctypes.data, m, k, proto.ctypes.data, proto.size, out.ctypes.data)
+    return out
+
+
+def synthesize(y: np.ndarray, proto: np.ndarray, m: int) -> np.ndarray:
+    """Polyphase synthesis bank from rest: y [m, K] -> x [K*m]."""
+    return _synth(load().orc_synthesize, y, proto, m, m)
+
+
+def synthesize_os2(y: np.ndarray, proto: np.ndarray, m: int) -> np.ndarray:
+    """2x-oversampled synthesis bank from rest: y [m, K] -> x [K*m/2]."""
+    return _synth(load().orc_synthesize_os2, y, proto, m, m // 2)
+
+
+def psk_demod(x: np.ndarray, center_freq: float, taps: np.ndarray, decim: int, sps: int,
+              order: int) -> np.ndarray:
+    """The M-PSK chain from oracle primitives: mix -> matched filter (+decim)
+    -> O&M timing -> V&V carrier -> slicer. Returns symbol indices (with the
+    chain's M-fold phase ambiguity)."""
+    word = int(np.round(((-center_freq) % 1.0) * 4294967296.0) % 4294967296.0)
+    mixed, _ = nco_mix(x, 0, word)
+    bb = fir(mixed, taps, decim=decim)
+    power = (bb.real ** 2 + bb.imag ** 2).astype(np.float32)
+    _, tau = timing_estimate(power, sps)
+    sym = timing_sample(np.zeros(sps + 1, np.complex64), bb, tau, sps)
+    s = sym / np.sqrt(np.mean(np.abs(sym) ** 2) + 1e-12)
+    off = 0.5 if order == 4 else 0.0
+    acc = np.sum(s ** order * np.exp(-2j * np.pi * off))
+    y = s * np.exp(-1j * np.angle(acc) / order)
+    return np.mod(np.round(np.angle(y) * order / (2 * np.pi) - off), order).astype(np.int32)

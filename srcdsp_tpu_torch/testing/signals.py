@@ -7,6 +7,7 @@ seed gives the same data on any host. Callers move the result to a device.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np.ndarray:
@@ -29,3 +30,53 @@ def fsk_baseband(bits, sps: int, dev: float) -> np.ndarray:
     f = np.repeat(f, sps, axis=-1)                            # [..., N]
     ph = np.cumsum(f, axis=-1) - f                            # phase BEFORE each step
     return np.exp(2j * np.pi * (ph % 1.0)).astype(np.complex64)
+
+
+def psk_symbols(rng: np.random.Generator, nsym: int, order: int = 4,
+                channel_shape: tuple = ()) -> tuple[np.ndarray, np.ndarray]:
+    """Random M-PSK symbols. Returns (indices int32 [..., nsym], complex64 symbols):
+    symbol m is exp(j*2pi*(m + off)/M), off = 0.5 for QPSK, else 0."""
+    idx = rng.integers(0, order, size=(*channel_shape, nsym), dtype=np.int32)
+    off = 0.5 if order == 4 else 0.0
+    sym = np.exp(2j * np.pi * (idx.astype(np.float64) + off) / order).astype(np.complex64)
+    return idx, sym
+
+
+def upsample_pulse(symbols, sps: int, pulse) -> np.ndarray | torch.Tensor:
+    """Zero-stuff symbols by sps and pulse-shape (linear modulation TX), with
+    the port's resampler from rest. A tensor stays on its device; a numpy
+    array is shaped on the CPU and comes back as numpy complex64."""
+    from srcdsp_tpu_torch.ops.resample import resample_full
+
+    if isinstance(symbols, torch.Tensor):
+        return resample_full(pulse, symbols, up=sps, down=1)
+    x = torch.from_numpy(np.ascontiguousarray(symbols, np.complex64))
+    return resample_full(pulse, x, up=sps, down=1).numpy()
+
+
+def psk_wideband(rng: np.random.Generator, num_channels: int, nsym: int, order: int = 4,
+                 sps: int = 4, taps_per_phase: int = 8, device=None):
+    """A wideband of `num_channels` M-PSK channels, channel m centred at m/M.
+
+    Per channel: random data, differentially encoded, RRC-shaped at sps
+    samples/symbol of the channel rate (span 4, beta 0.35); then the plain
+    synthesis bank (``chains.channelizer.synthesize_apply`` from rest, the
+    prototype design_prototype(M, taps_per_phase)) puts every channel in its
+    place. Returns (data int32 numpy [M, nsym], prototype, x complex64 tensor
+    [nsym * sps * M] on `device`, the card unless it says otherwise).
+    """
+    from srcdsp_tpu_torch.chains.channelizer import (
+        design_prototype, synthesize_apply, synthesizer_init)
+    from srcdsp_tpu_torch.chains.psk import constellation_offset, diff_encode
+    from srcdsp_tpu_torch.device import resolve
+    from srcdsp_tpu_torch.ops.window import root_raised_cosine
+
+    device = resolve(device)
+    m = num_channels
+    data = rng.integers(0, order, size=(m, nsym), dtype=np.int32)
+    tx = diff_encode(torch.from_numpy(data), order).numpy()
+    sym = np.exp(2j * np.pi * (tx + constellation_offset(order)) / order).astype(np.complex64)
+    bb = upsample_pulse(torch.as_tensor(sym, device=device), sps, root_raised_cosine(sps, 4))
+    proto = design_prototype(m, taps_per_phase=taps_per_phase)
+    _, x = synthesize_apply(proto, synthesizer_init(proto, m, device=device), bb, m)
+    return data, proto, x

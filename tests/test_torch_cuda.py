@@ -315,3 +315,72 @@ def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
         kfc.fftconv_pallas(kc, torch.zeros((1, 2, kc.overlap + kc.block_in()), device=dev))
     with pytest.raises(ValueError, match="powers of two"):
         kfft.make_fft_kernel(16384, device=dev)
+
+
+@pytest.mark.parametrize("m,b_k,sps", [(64, 512, 4), (8, 128, 4), (16, 96, 3), (5, 16, 4)])
+def test_bank_kernels_match_plain(dev, m, b_k, sps):
+    """K12 and K13 against their plain versions (rel L2 < 1e-5 on Y, stats
+    rel L2 < 1e-5), K13's Y == K12's by torch.equal, class-major == the
+    standard lanes permuted, and two launches over halves (each with its
+    hist_cols history columns) == one launch."""
+    from srcdsp_tpu_torch.chains.channelizer import design_prototype
+    from srcdsp_tpu_torch.kernels import bank_pallas as kb
+
+    h = design_prototype(m, 8)
+    k12, hc = kb.make_bank_kernel(h, m, b_k=b_k, device=dev)
+    k13, _ = kb.make_bank_psk_kernel(h, m, sps=sps, b_k=b_k, device=dev)
+    k13c, _ = kb.make_bank_psk_kernel(h, m, sps=sps, b_k=b_k, class_major=True, device=dev)
+    k = 4 * b_k
+    x = torch.as_tensor(np.random.default_rng(m).standard_normal((2, m, hc + k)),
+                        dtype=torch.float32, device=dev)
+    before = dict(_build.LAUNCHES)
+    y = k12(x)
+    y13, st = k13(x)
+    yc, stc = k13c(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bank"] == before["bank"] + 1
+    assert _build.LAUNCHES["bank_psk"] == before["bank_psk"] + 2
+    fn_cpu, _ = kb.make_bank_psk_kernel(h, m, sps=sps, b_k=b_k, device="cpu")
+    py, pst = fn_cpu(x.cpu())
+    assert float(torch.linalg.norm(y.cpu() - py) / torch.linalg.norm(py)) < 1e-5
+    assert float(torch.linalg.norm(st.cpu() - pst) / torch.linalg.norm(pst)) < 1e-5
+    assert torch.equal(y13, y) and torch.equal(stc, st)
+    perm = kb.class_major_index(b_k, sps, dev)
+    assert torch.equal(yc, y.reshape(2 * m, 4, b_k)[..., perm].reshape(2 * m, k))
+    half = k // 2
+    a = k12(x[..., :hc + half].contiguous())
+    b = k12(x[..., half:].contiguous())
+    assert torch.equal(torch.cat([a, b], dim=-1), y)
+    a13 = k13c(x[..., :hc + half].contiguous())
+    b13 = k13c(x[..., half:].contiguous())
+    assert torch.equal(torch.cat([a13[0], b13[0]], dim=-1), yc)
+    assert torch.equal(torch.cat([a13[1], b13[1]], dim=0), stc)
+
+
+def test_bank_kernel_against_oracle(dev):
+    """K12 from zero history against the C++ oracle's channelize: > 100 dB."""
+    from srcdsp_tpu_torch import oracle
+    from srcdsp_tpu_torch.chains.channelizer import design_prototype
+    from srcdsp_tpu_torch.kernels import bank_pallas as kb
+
+    m, k = 64, 1024
+    h = design_prototype(m, 8)
+    fn, hc = kb.make_bank_kernel(h, m, b_k=512, device=dev)
+    rng = np.random.default_rng(2)
+    xs = (rng.standard_normal(k * m) + 1j * rng.standard_normal(k * m)).astype(np.complex64)
+    flat = np.zeros((2, (hc + k) * m), np.float32)
+    flat[0, hc * m:], flat[1, hc * m:] = xs.real, xs.imag
+    y = fn(kb.phase_major(torch.as_tensor(flat, device=dev), m, hc)).cpu()
+    ref = torch.from_numpy(oracle.channelize(xs, h, m))
+    assert _snr(ref, torch.complex(y[:m], y[m:])) > 100
+
+
+def test_cuda_tensor_with_cpu_bank_kernel_raises(dev):
+    from srcdsp_tpu_torch.chains.channelizer import design_prototype
+    from srcdsp_tpu_torch.kernels import bank_pallas as kb
+
+    fn, hc = kb.make_bank_psk_kernel(design_prototype(8, 4), 8, sps=4, b_k=128, device="cpu")
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        fn(torch.zeros((2, 8, hc + 128), device=dev))
+    with pytest.raises(ValueError, match="at most 64"):
+        kb.make_bank_kernel(design_prototype(128, 4), 128, device=dev)

@@ -12,15 +12,17 @@ import pytest
 import torch
 
 from srcdsp_tpu_torch import configs, convert
-from srcdsp_tpu_torch.chains import fsk, sync
+from srcdsp_tpu_torch.chains import channelizer, fsk, psk, sync
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.io import capture
-from srcdsp_tpu_torch.kernels import fft_pallas, fftconv_pallas
+from srcdsp_tpu_torch.kernels import bank_pallas, fft_pallas, fftconv_pallas
 from srcdsp_tpu_torch.kernels import fsk_ctaps, fsk_fused, fsk_preframed, mixfir
 from srcdsp_tpu_torch.kernels import mixfir_ctaps, mixfir_preframed, resample_pallas
 from srcdsp_tpu_torch.kernels import resample_preframed
-from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, nco, planes, resample
+from srcdsp_tpu_torch.ops import channelize_planes, fft_planes, fftconv, fftconv_planes, fir, nco
+from srcdsp_tpu_torch.ops import planes, resample
 from srcdsp_tpu_torch.ops.window import lowpass
+from srcdsp_tpu_torch.testing import signals
 
 TAPS = lowpass(64, 0.03)
 WORDS = np.asarray([1 << 28, 3 << 27], np.uint32)
@@ -39,6 +41,13 @@ def _fsk_state():
                                                                last=np.zeros(9, np.float32)))
 
 
+def _psk_state():
+    return _JaxLike(nco=_JaxLike(phase=np.uint32(0)), fir=_JaxLike(tail=np.zeros(32, np.complex64)),
+                    timing=_JaxLike(acc=np.complex64(0), last=np.zeros(5, np.complex64)),
+                    cr_acc=np.complex64(0))
+
+
+PROTO = channelizer.design_prototype(8, 4)
 ENTRY_POINTS = {
     "build_config1": lambda **d: configs.build_config1(1 << 12, **d),
     "build_config1_kernel": lambda **d: configs.build_config1(1 << 12, use_kernel=True, **d),
@@ -49,6 +58,26 @@ ENTRY_POINTS = {
     "build_config3_onchip": lambda **d: configs.build_config3_onchip(49152, "fused", 1, **d),
     "build_fft": lambda **d: configs.build_fft(16, 256, "kernel", **d),
     "build_config4": lambda **d: configs.build_config4(64, 2, **d),
+    "build_config5": lambda **d: configs.build_config5(64, 8, **d),
+    "build_config5_onchip": lambda **d: configs.build_config5_onchip(256, "fused", 8, 128, **d),
+    "build_config5_onchip_planes": lambda **d: configs.build_config5_onchip(256, "planes", 8,
+                                                                          **d),
+    "make_bank_kernel": lambda **d: bank_pallas.make_bank_kernel(PROTO, 8, **d),
+    "make_bank_psk_kernel": lambda **d: bank_pallas.make_bank_psk_kernel(PROTO, 8, 4, **d),
+    "make_channelize_planes": lambda **d: channelize_planes.make_channelize_planes(PROTO, 8, **d),
+    "make_channelize_os2_planes": lambda **d: channelize_planes.make_channelize_os2_planes(
+        PROTO, 8, **d),
+    "make_synthesize_planes": lambda **d: channelize_planes.make_synthesize_planes(PROTO, 8, **d),
+    "channelizer_init": lambda **d: channelizer.channelizer_init(PROTO, 8, (2,), **d),
+    "synthesizer_init": lambda **d: channelizer.synthesizer_init(PROTO, 8, (2,), **d),
+    "synthesizer_os2_init": lambda **d: channelizer.synthesizer_os2_init(PROTO, 8, (2,), **d),
+    "make_psk_params": lambda **d: psk.make_psk_params(0.17, 2, 4, **d),
+    "psk_params_from": lambda **d: convert.psk_params_from(
+        _JaxLike(freq_word=np.uint32(5), taps=TAPS, decim=2, sps=4, order=4), **d),
+    "psk_state_from": lambda **d: convert.psk_state_from(_psk_state(), **d),
+    "psk_wideband": lambda **d: signals.psk_wideband(np.random.default_rng(0), 4, 16, **d),
+    "channelizer_state_from": lambda **d: convert.channelizer_state_from(
+        _JaxLike(tail=np.zeros(31, np.complex64)), **d),
     "make_fft_kernel": lambda **d: fft_pallas.make_fft_kernel(1024, **d),
     "make_fftconv_kernel": lambda **d: fftconv_pallas.make_fftconv_kernel(TAPS, 2048, **d),
     "make_fft_planes": lambda **d: fft_planes.make_fft_planes(1024, **d),

@@ -71,6 +71,12 @@ def test_window_lowpass_bit_equal(num_taps, cutoff, window):
                                   jwindow.lowpass(num_taps, cutoff, window=window))
 
 
+@pytest.mark.parametrize("sps,span,beta", [(4, 4, 0.35), (8, 8, 0.35), (4, 8, 0.25), (2, 6, 0.0)])
+def test_window_root_raised_cosine_bit_equal(sps, span, beta):
+    np.testing.assert_array_equal(twindow.root_raised_cosine(sps, span, beta),
+                                  jwindow.root_raised_cosine(sps, span, beta))
+
+
 def test_window_primitives_bit_equal():
     np.testing.assert_array_equal(twindow.hamming(65), jwindow.hamming(65))
     np.testing.assert_array_equal(twindow.kaiser(65, 5.65), jwindow.kaiser(65, 5.65))
