@@ -59,6 +59,19 @@ Phases, in order; any failure raises and the run exits non-zero:
    samples; the chan_8x128 fixture through K12 > 100 dB against its gold;
    the qpsk_256sym fixture through psk_apply on the card equal to its gold;
    configs.build_config5 (the complex tier, 2^16 frames), timed.
+12. the coded tier: the coherent coded modem (configs.build_coded_modem:
+   8 channels x 512 codewords of the z = 128 dual-diagonal code, n 1536,
+   QAM16 at sps 2, 13 dB, made on the card by chains.tx; K1 mc -> plane
+   demap -> K15), its K1 mc front end (33 taps, decim 2) within rel L2 1e-5
+   of the plain version on the modem's planes before anything is timed,
+   every syndrome clean and the decoded codewords equal to the
+   transmitted ones; the coded FSK link (configs.build_coded_link: 4 x 256
+   codewords of the (3,6) n = 504 code, 14 dB; K2 -> K14), info BER 0 and
+   every word ok; the QC decoder alone (configs.build_ldpc qc at B 4096,
+   6 iterations), decisions equal to the plain dense layered decoder on the
+   words both converge; turbo (configs.build_turbo: t 512, 4 iterations,
+   B 256, 1.5 dB) through K16, bits and posteriors equal to the plain
+   turbo_decode_batch; each timed.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -70,7 +83,12 @@ class-major == standard permuted, by torch.equal), with one cuBLAS
 torch.matmul of E_comb^T by a prestaged SS^T (TF32 off, staging left out)
 as K12's yardstick and that matmul plus the plain stats epilogue as K13's.
 
-Launch counts are reset just before phase 4 and read after phase 11: every
+Phase 3 also holds K14 (edge-form LDPC, [504, 1024], 10 iterations), K15 (QC
+layered LDPC, [1536, 4096], 6 iterations) and K16 (max-log BCJR, the turbo's
+first half [515, 256]) against their plain versions by torch.equal; no
+PyTorch call computes min-sum or BCJR, so they have no library yardstick.
+
+Launch counts are reset just before phase 4 and read after phase 12: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -108,6 +126,13 @@ C3_ORACLE_SAMPLES = 1 << 16
 C5_CHANNELS, C5_FRAMES, C5_BK, C5_CHUNKS = 64, 1 << 19, 512, 4
 C5_NSYM, C5_SPS, C5_ORDER = 1 << 15, 4, 4
 C5_ORACLE_SAMPLES, C5_COMPLEX_FRAMES = 1 << 16, 1 << 16
+# the coded tier (bench/ldpc_onchip.py, turbo_onchip.py): K14 at B 1024, the QC
+# decoder at B 4096; the dense layered gate runs in chunks of 256 codewords
+C12_EDGES_BATCH, C12_QC_BATCH, C12_DENSE_CHUNK = 1024, 4096, 256
+C12_MODEM_CHANNELS, C12_MODEM_WORDS, C12_LINK_CHANNELS, C12_LINK_WORDS = 8, 512, 4, 256
+C12_TURBO_T, C12_TURBO_BATCH = 512, 256
+# least operations counted per edge and iteration (min-sum), per state and step (BCJR)
+MINSUM_OPS, BCJR_OPS = 12, 16
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -226,17 +251,20 @@ def main() -> int:
     from srcdsp_tpu_torch.chains.fsk_planes import FskPlanesStream, make_timing_tone
     from srcdsp_tpu_torch.configs import (
         C3_CUTOFF, CONFIG1_SERVING, CONFIG2_ONCHIP, CONFIG3_ONCHIP, CONFIG5_ONCHIP, FFT_VARIANTS,
-        build_config1, build_config1_serving, build_config2, build_config2_onchip,
-        build_config3_onchip, build_config5, build_config5_onchip, build_fft, config2_step)
+        build_coded_link, build_coded_modem, build_config1, build_config1_serving, build_config2,
+        build_config2_onchip, build_config3_onchip, build_config5, build_config5_onchip, build_fft,
+        build_ldpc, build_turbo, config2_step)
     from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
     from srcdsp_tpu_torch.kernels import bank_pallas as kbank
+    from srcdsp_tpu_torch.kernels import bcjr_pallas as kbcjr
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
     from srcdsp_tpu_torch.kernels import fsk_fused as kff
     from srcdsp_tpu_torch.kernels import fsk_preframed as kfp
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kldpc
     from srcdsp_tpu_torch.kernels import mixfir as kmf
     from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
     from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
@@ -247,7 +275,9 @@ def main() -> int:
     from srcdsp_tpu_torch.ops.nco import freq_to_word
     from srcdsp_tpu_torch.ops.planes import planes_from_int16
     from srcdsp_tpu_torch.ops.window import lowpass
+    from srcdsp_tpu_torch.qcldpc import ldpc_decode_layered
     from srcdsp_tpu_torch.testing.signals import psk_wideband
+    from srcdsp_tpu_torch.turbo import bcjr_decode_batch
 
     bf16 = torch.bfloat16
 
@@ -649,6 +679,43 @@ def main() -> int:
                True, k_fn, p_fn, flops, tensor_bytes(xp5, out), lib_fn)
         del ref
     del ss5, y12, y13, st13, y13c, st13c
+
+    # K14, K15 and K16 at the coded tier's shapes: K14 on build_ldpc("edges")'s
+    # LLRs [504, 1024] (10 iterations), K15 on build_ldpc("qc")'s [1536, 4096]
+    # (41 circulants, 6 iterations), K16 on the turbo's first half [515, 256]
+    # (terminated); each torch.equal to its plain version. Least work:
+    # MINSUM_OPS per edge and iteration, BCJR_OPS per state and step
+    t0 = time.perf_counter()
+    led = build_ldpc("edges", C12_EDGES_BATCH, device=dev)
+    lqc = build_ldpc("qc", C12_QC_BATCH, device=dev)
+    trb = build_turbo(C12_TURBO_T, batch=C12_TURBO_BATCH, layout="kernel", device=dev)
+    print(f"[3] coded-tier codes and LLRs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    ep, qp, rsc = led.meta["plan"], lqc.meta["plan"], trb.meta["tc"].rsc
+    llr14, llr15 = led.example[0].T.contiguous(), lqc.example[0].T.contiguous()
+    ls16, lp16 = trb.example[0].T.contiguous(), trb.example[1].T.contiguous()
+    k14 = kldpc.make_ldpc_kernel(ep, iters=10, device=dev)
+    k15 = kldpc.make_qc_kernel(qp, iters=6, device=dev)
+    k16 = kbcjr.make_bcjr_kernel(rsc, ls16.shape[0], True, b_tile=min(128, ls16.shape[1]),
+                                 device=dev)
+    for name, src, site, k_fn, p_fn, flops, ins in (
+            ("ldpc_edges", "ldpc.cu", "ldpc_pallas.py:297", lambda: k14(llr14),
+             lambda: kldpc.ldpc_decode_edges_ref(ep, llr14, 10),
+             MINSUM_OPS * int(ep.row_valid.sum()) * 10 * llr14.shape[1], (llr14,)),
+            ("ldpc_qc", "ldpc.cu", "ldpc_pallas.py:527", lambda: k15(llr15),
+             lambda: kldpc.qc_decode_layered_ref(qp, llr15, 6),
+             MINSUM_OPS * qp.n_blocks * qp.z * 6 * llr15.shape[1], (llr15,)),
+            ("bcjr", "bcjr.cu", "bcjr_pallas.py:175", lambda: k16(ls16, lp16),
+             lambda: bcjr_decode_batch(rsc, ls16, lp16, terminated=True)[0],
+             BCJR_OPS * 8 * ls16.numel(), (ls16, lp16))):
+        out, ref = k_fn(), p_fn()
+        eq = bool(torch.equal(out, ref))
+        err = float(torch.max(torch.abs(out - ref)))
+        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+        print(f"    {name}: kernel == plain (torch.equal): {eq}", flush=True)
+        record(name, "srcdsp_tpu_torch/csrc/" + src, "srcdsp_tpu/kernels/" + site, err, rel, eq,
+               bool(torch.equal(out < 0, ref < 0)), k_fn, p_fn, flops, tensor_bytes(ins, out))
+        del out, ref
+    del llr14, llr15, ls16, lp16
 
     # --- 4. config 4 end to end (main path) ------------------------------------
     x4b = x4.to(bf16)
@@ -1094,6 +1161,95 @@ def main() -> int:
           f"samples in {ms:.3f} ms median, {b.samples_per_call / ms / 1e3:.1f} Ms/s wideband",
           flush=True)
     del b, idx, soft
+
+    # --- 12. the coded tier (main paths) ------------------------------------------
+    t0 = time.perf_counter()
+    cm = build_coded_modem(C12_MODEM_CHANNELS, C12_MODEM_WORDS, device=dev)
+    planes = cm.example[0]
+    torch.cuda.synchronize()
+    b12, n12, k12b = cm.meta["channels"] * cm.meta["words"], cm.meta["n"], cm.meta["k"]
+    print(f"[12] coded modem: planes {tuple(planes.shape)} (QAM{cm.meta['order']}, {b12} "
+          f"codewords of n {n12}) made on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the front end's K1 mc (33 RRC taps, decim 2, 8 channels) against its
+    # plain version on the modem's own planes; this comparison launch is not
+    # counted as a main-path launch
+    mm = cm.meta
+    kfront = kmf.make_mix_fir_kernel_mc(mm["taps"], mm["sps"], mm["channels"],
+                                        out_tile=mm["out_tile"], b_rows=mm["b_rows"], device=dev)
+    w0m = [(-kfront.hist * int(w)) % (1 << 32) for w in mm["dwords"]]
+    held = _build.LAUNCHES["mixfir_mc"]
+    err, rel = cplx_err(kfront.fn(w0m, mm["dwords"], planes),
+                        kmf.mix_fir_plain(w0m, mm["dwords"], planes,
+                                          torch.as_tensor(mm["taps"], device=dev), mm["sps"],
+                                          mm["out_tile"], kfront.hist))
+    _build.LAUNCHES["mixfir_mc"] = held
+    print(f"    modem front end: K1 mc ({kfront.num_taps} taps, decim {mm['sps']}) against "
+          f"mix_fir_plain on the modem's planes: max_abs_err {err:.3e} rel_l2 {rel:.3e} "
+          f"(floor 1e-5)", flush=True)
+    require(rel < 1e-5, f"coded modem front end: K1 mc rel L2 {rel} against its plain version")
+    del kfront
+    bits_t, ok = cm.step(planes)
+    torch.cuda.synchronize()
+    same_cw = bool(torch.equal(bits_t.T, cm.meta["cw"]))
+    ms = median_ms(torch, lambda: cm.step(planes))
+    print(f"[12] coded modem (K1 mc -> plane demap -> K15, {cm.meta['iters']} iterations): ok "
+          f"fraction {float(ok.to(torch.float32).mean())}, decoded == transmitted: {same_cw}; "
+          f"{ms:.3f} ms per call, {cm.samples_per_call / ms / 1e3:.1f} Ms/s aggregate, "
+          f"{b12 * n12 / ms / 1e3:.1f} Mb/s coded, {b12 * k12b / ms / 1e3:.1f} Mb/s info",
+          flush=True)
+    require(bool(ok.all()), "coded modem: a syndrome failed")
+    require(same_cw, "coded modem: decoded codewords differ from the transmitted ones")
+    del cm, planes, bits_t, ok
+
+    t0 = time.perf_counter()
+    cl = build_coded_link(C12_LINK_CHANNELS, C12_LINK_WORDS, device=dev)
+    torch.cuda.synchronize()
+    print(f"[12] coded link: planes {tuple(cl.example[0].shape)} made in "
+          f"{time.perf_counter() - t0:.1f} s; lag {cl.meta['lag']}, raw BER "
+          f"{cl.meta['raw_ber']}", flush=True)
+    bits, info, ok = cl.step(*cl.example)
+    torch.cuda.synchronize()
+    info_ber = float((info.reshape(cl.meta["u"].shape) != cl.meta["u"]).to(torch.float32).mean())
+    ok_frac = float(ok.to(torch.float32).mean())
+    ms = median_ms(torch, lambda: cl.step(*cl.example))
+    nb12 = cl.meta["channels"] * cl.meta["words"]
+    print(f"[12] coded link (K2 -> K14, {cl.meta['iters']} iterations): info BER {info_ber}, ok "
+          f"fraction {ok_frac}; {ms:.3f} ms per call, {cl.samples_per_call / ms / 1e3:.1f} Ms/s "
+          f"aggregate, {nb12 * cl.meta['n'] / ms / 1e3:.1f} Mb/s coded", flush=True)
+    require(info_ber == 0.0 and ok_frac == 1.0, f"coded link: info BER {info_ber}, ok {ok_frac}")
+    del cl, bits, info, ok
+
+    llr_q = lqc.example[0]
+    bits, _, ok = lqc.step(llr_q)
+    ms = median_ms(torch, lambda: lqc.step(llr_q))
+    dense = [ldpc_decode_layered(lqc.meta["code"], llr_q[i:i + C12_DENSE_CHUNK], z=qp.z, iters=6)
+             for i in range(0, C12_QC_BATCH, C12_DENSE_CHUNK)]
+    d_bits = torch.cat([d[0] for d in dense])
+    both = ok & torch.cat([d[2] for d in dense])
+    print(f"[12] QC decoder alone (K15, {C12_QC_BATCH} x n {qp.nb * qp.z}, 6 iterations): "
+          f"{ms:.3f} ms per call, {C12_QC_BATCH * qp.nb * qp.z / ms / 1e6:.3f} Gb/s coded; ok "
+          f"fraction {float(ok.to(torch.float32).mean())}; decisions equal to the dense layered "
+          f"tier on the {int(both.sum())} words both converge: "
+          f"{bool(torch.equal(bits[both], d_bits[both]))} (all words equal: "
+          f"{bool(torch.equal(bits, d_bits))})", flush=True)
+    require(float(both.to(torch.float32).mean()) > 0.9, "QC decoder: fewer than 90 % converged")
+    require(bool(torch.equal(bits[both], d_bits[both])), "QC decoder: decisions differ from dense")
+    require(bool(torch.equal(bits[ok], lqc.meta["cw"][ok])), "QC decoder: ok words != sent")
+    del lqc, llr_q, bits, ok, dense, d_bits, both
+
+    plain = build_turbo(C12_TURBO_T, batch=C12_TURBO_BATCH, layout="batch", device=dev)
+    bits, post = trb.step(*trb.example)
+    pbits, ppost = plain.step(*trb.example)
+    same = bool(torch.equal(bits, pbits) and torch.equal(post, ppost))
+    ber = float((bits != trb.meta["u"]).to(torch.float32).mean())
+    ms = median_ms(torch, lambda: trb.step(*trb.example))
+    nt = trb.meta["u"].shape[0]
+    print(f"[12] turbo (K16, t {trb.meta['u'].shape[1]}, {trb.meta['iters']} iterations, B {nt}): "
+          f"bits and posteriors == turbo_decode_batch (torch.equal): {same}; BER {ber}; "
+          f"{ms:.3f} ms per call, {nt * trb.meta['n_coded'] / ms / 1e3:.1f} Mb/s coded", flush=True)
+    require(same, "turbo: K16 path differs from the plain turbo_decode_batch")
+    del trb, plain, bits, post, pbits, ppost
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

@@ -546,3 +546,241 @@ def build_config4(nsym: int = 2048, channels: int = 32, device=None) -> BuiltCon
     return BuiltConfig(lambda s, xb: fsk_apply(params, s, xb), (st, x),
                        int(x.shape[-1]) * channels,
                        dict(channels=channels, impl="torch", bits=bits))
+
+
+# ---------------------------------------------------------------------------
+# The coded tier: counterparts of bench/modem_onchip.py, coded_link_onchip.py,
+# ldpc_onchip.py and turbo_onchip.py at their default sizes
+# ---------------------------------------------------------------------------
+
+def _awgn(rng: np.random.Generator, shape: tuple, sigma: float) -> np.ndarray:
+    """Complex white noise of `sigma` per real part, complex64."""
+    return (sigma * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            ).astype(np.complex64)
+
+
+def _planes(x: torch.Tensor, hist: int) -> torch.Tensor:
+    """Complex [C, N] -> float32 planes [C, 2, hist + N], the history zero."""
+    out = torch.zeros((x.shape[0], 2, hist + x.shape[-1]), dtype=torch.float32, device=x.device)
+    out[:, 0, hist:] = x.real
+    out[:, 1, hist:] = x.imag
+    return out
+
+
+def build_coded_modem(channels: int = 8, words: int = 512, iters: int = 6, snr_db: float = 13.0,
+                      order: int = 16, z: int = 128, out_tile: int = 512, b_rows: int = 32,
+                      b_tile: int = 128, device=None) -> BuiltConfig:
+    """The coherent coded modem, ``bench/modem_onchip.py``'s run: QC code
+    ``make_dual_diagonal_base(4, 12, z, seed=0)`` (n 1536, k 1024 at z 128),
+    `words` codewords per channel (seed-0 info bits), the bit-plane map to
+    QAM`order`, ``chains.tx`` at sps 2 through ``root_raised_cosine(2, 16,
+    0.35)`` (33 taps) on the device, channel c at 0.05 + 0.03*c, AWGN at
+    `snr_db`; the receive gain and lag come from the tx impulse response
+    convolved with the taps, as in the bench.
+
+    step(planes [C, 2, hist+N]) -> (bits_t [n, C*words] int32, ok [C*words]);
+    meta ``cw`` [C*words, n] int32 is the transmitted codewords (the gold),
+    ``u`` the info bits, ``n``, ``k``; ``taps`` (gain-scaled), ``dwords``,
+    ``sps``, ``out_tile`` and ``b_rows`` are the front end's K1 mc arguments.
+    """
+    from srcdsp_tpu_torch.chains.modem import make_coherent_modem, map_codewords_to_symbols
+    from srcdsp_tpu_torch.chains.tx import linear_tx_apply, linear_tx_init, make_linear_tx, qam_map
+    from srcdsp_tpu_torch.kernels.ldpc_pallas import plan_qc
+    from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.window import root_raised_cosine
+    from srcdsp_tpu_torch.qcldpc import make_dual_diagonal_base, make_qc_ldpc, qc_encode_dual_diagonal
+
+    device = resolve(device)
+    c, nw, sps, mb, nb = channels, words, 2, 4, 12
+    base = make_dual_diagonal_base(mb, nb, z, seed=0)
+    code = make_qc_ldpc(base, z, device=device)
+    plan = plan_qc(base, z)
+    n, k = nb * z, (nb - mb) * z
+    spc = n // (int(order).bit_length() - 1)
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(rng.integers(0, 2, (c * nw, k)), device=device)
+    cw = qc_encode_dual_diagonal(base, z, u)
+    taps = root_raised_cosine(sps, 16, beta=0.35)
+    centers = np.asarray([0.05 + 0.03 * ch for ch in range(c)])
+    blk = b_rows * out_tile
+    nsym_pad = -(-(nw * spc + len(taps)) // blk) * blk
+    sym = qam_map(map_codewords_to_symbols(cw, order).reshape(c, nw * spc), order)
+    sym = torch.cat([sym, torch.zeros((c, nsym_pad - nw * spc), dtype=sym.dtype, device=device)],
+                    dim=-1)
+    params = make_linear_tx(centers, taps, sps, device=device)
+    _, x = linear_tx_apply(params, linear_tx_init(params, (c,)), sym)
+    imp = torch.zeros(64, dtype=torch.complex64, device=device)
+    imp[0] = 1.0
+    p0 = make_linear_tx(0.0, taps, sps, device=device)
+    _, pulse = linear_tx_apply(p0, linear_tx_init(p0), imp)
+    cas = np.convolve(pulse.real.cpu().numpy(), taps)
+    g, lag_samp = float(cas.max()), int(cas.argmax())
+    if lag_samp % sps:
+        raise ValueError("cascade delay must be whole symbols")
+    sigma = 10.0 ** (-snr_db / 20.0) / np.sqrt(2.0)
+    x = x + torch.as_tensor(_awgn(rng, tuple(x.shape), sigma), device=device)
+    dwords = np.asarray([freq_to_word(-f) for f in centers], np.uint32)
+    rx_taps = (taps / g).astype(np.float32)
+    pipeline, hist = make_coherent_modem(rx_taps, dwords, sps, order, code, plan, nw=nw,
+                                         lag=lag_samp // sps, iters=iters, out_tile=out_tile,
+                                         b_rows=b_rows, b_tile=b_tile, device=device)
+    n_in = nsym_pad * sps
+    return BuiltConfig(pipeline, (_planes(x, hist),), c * n_in,
+                       dict(impl="modem", channels=c, words=nw, n=n, k=k, order=order,
+                            iters=iters, cw=cw, u=u, code=code, plan=plan, taps=rx_taps,
+                            dwords=dwords, sps=sps, out_tile=out_tile, b_rows=b_rows))
+
+
+def build_coded_link(channels: int = 4, words: int = 256, iters: int = 10, snr_db: float = 14.0,
+                     out_tile: int = 512, b_rows: int = 32, device=None) -> BuiltConfig:
+    """The coded FSK link, ``bench/coded_link_onchip.py``'s run: the (3,6)
+    regular n = 504 code (seed 0), `words` codewords per channel of seed-0
+    info bits, CPFSK at sps 8 x decim 4 (dev 0.05/4 at the input rate), channel
+    c at 0.05 + 0.01*c, AWGN at `snr_db`; K2 class-major (``lowpass(64,
+    0.03)``), the demod lag resolved once on the hard bits (0..2), LLRs =
+    -soft into K14 (`make_ldpc_decoder`, B = C*words).
+
+    step(planes [C, 2, hist+N]) -> (bits [B, 504], info [B, k], ok [B]);
+    meta ``u`` [C, words, k] is the gold info bits, ``cw`` the codewords,
+    ``lag``, ``raw_ber`` (hard-bit BER before decoding).
+    """
+    from srcdsp_tpu_torch.kernels.fsk_fused import fsk_demod_fused, make_fsk_mc_kernel
+    from srcdsp_tpu_torch.kernels.ldpc_pallas import make_ldpc_decoder, plan_edges
+    from srcdsp_tpu_torch.ldpc import ldpc_encode, make_ldpc_code, make_regular_ldpc
+    from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.window import lowpass
+    from srcdsp_tpu_torch.testing.signals import fsk_baseband, tone
+
+    device = resolve(device)
+    cch, decim, sps, ncode, nw = channels, 4, 8, 504, words
+    h = make_regular_ldpc(ncode, 3, 6, seed=0)
+    code = make_ldpc_code(h, device=device)
+    plan = plan_edges(h)
+    blk_sym = b_rows * out_tile // sps
+    nsym = -(-(nw * ncode + 8) // blk_sym) * blk_sym
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(rng.integers(0, 2, (cch, nw, code.k)), device=device)
+    taps = lowpass(64, 0.03)
+    centers = [0.05 + 0.01 * ch for ch in range(cch)]
+    words_ = np.asarray([freq_to_word(-f) for f in centers], np.uint32)
+    cw = ldpc_encode(code, u.reshape(-1, code.k))
+    bits_tx = cw.reshape(cch, nw * ncode).cpu().numpy()
+    bits_pad = np.concatenate([bits_tx, np.zeros((cch, nsym - nw * ncode), np.int32)], axis=-1)
+    n = nsym * decim * sps
+    bb = fsk_baseband(bits_pad, decim * sps, 0.05 / decim)
+    x = np.stack([bb[ch] * tone(n, centers[ch]) for ch in range(cch)])
+    x = x + _awgn(rng, x.shape, float(10.0 ** (-snr_db / 20.0)) / np.sqrt(2.0))
+    fn, hist = make_fsk_mc_kernel(taps, decim, cch, sps, out_tile=out_tile, b_rows=b_rows,
+                                  class_major=True, device=device)
+    planes = _planes(torch.as_tensor(x, device=device), hist)
+    words0 = [(-hist * int(w)) % (1 << 32) for w in words_]
+    dec = make_ldpc_decoder(code, plan, iters=iters, device=device)
+
+    def demod(p):
+        return fsk_demod_fused(fn, hist, out_tile, words0, words_, p, sps, class_major=True)[1]
+
+    br = demod(planes)[0].cpu().numpy()
+    lag, raw_ber = 0, 1.0
+    for cand in range(0, 3):
+        nn = nw * ncode - cand
+        ber = float((br[:, cand:cand + nn] != bits_tx[:, :nn]).mean())
+        if ber < raw_ber:
+            lag, raw_ber = cand, ber
+
+    def step(p):
+        soft = demod(p)[1][:, lag:lag + nw * ncode]
+        return dec(-soft.reshape(cch * nw, ncode))
+
+    return BuiltConfig(step, (planes,), cch * n,
+                       dict(impl="coded_link", channels=cch, words=nw, n=ncode, k=code.k,
+                            iters=iters, u=u, cw=cw, lag=lag, raw_ber=raw_ber, code=code,
+                            plan=plan))
+
+
+LDPC_VARIANTS = ("qc", "edges")
+
+
+def build_ldpc(variant: str = "qc", batch: int = 4096, iters: int | None = None,
+               device=None) -> BuiltConfig:
+    """A decoder alone, ``bench/ldpc_onchip.py``'s runs at `batch` codewords
+    of seed-0 info bits over BPSK + AWGN, LLR = 2y/sigma^2:
+
+    - ``qc`` (``--qc``): the 4x12 dual-diagonal code at z = 128 (n 1536,
+      k 1024, seed 0), O(N) encode, sigma 0.5, K15 (`make_qc_decoder`),
+      6 iterations by default;
+    - ``edges`` (``--kernel``): the (3,6) regular n = 504 code (seed 0),
+      sigma 0.55, K14 (`make_ldpc_decoder`), 10 iterations by default.
+
+    step(llr [B, N]) -> (bits, info, ok); meta ``cw`` / ``u`` are the gold,
+    ``code`` and ``plan`` the code (``z`` for qc).
+    """
+    from srcdsp_tpu_torch.kernels.ldpc_pallas import (
+        make_ldpc_decoder, make_qc_decoder, plan_edges, plan_qc)
+    from srcdsp_tpu_torch.ldpc import ldpc_encode, make_ldpc_code, make_regular_ldpc
+    from srcdsp_tpu_torch.qcldpc import make_dual_diagonal_base, make_qc_ldpc, qc_encode_dual_diagonal
+
+    if variant not in LDPC_VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {LDPC_VARIANTS}")
+    device = resolve(device)
+    rng = np.random.default_rng(0)
+    meta = dict(impl=variant, batch=batch)
+    if variant == "qc":
+        z = 128
+        base = make_dual_diagonal_base(4, 12, z, seed=0)
+        code, plan = make_qc_ldpc(base, z, device=device), plan_qc(base, z)
+        u = torch.as_tensor(rng.integers(0, 2, (batch, code.k)), device=device)
+        cw = qc_encode_dual_diagonal(base, z, u)
+        sigma, iters = 0.5, 6 if iters is None else iters
+        dec = make_qc_decoder(code, plan, iters=iters, device=device)
+        meta.update(z=z)
+    else:
+        h = make_regular_ldpc(504, 3, 6, seed=0)
+        code, plan = make_ldpc_code(h, device=device), plan_edges(h)
+        u = torch.as_tensor(rng.integers(0, 2, (batch, code.k)), device=device)
+        cw = ldpc_encode(code, u)
+        sigma, iters = 0.55, 10 if iters is None else iters
+        dec = make_ldpc_decoder(code, plan, iters=iters, device=device)
+    y = (1.0 - 2.0 * cw.cpu().numpy()) + sigma * rng.standard_normal(tuple(cw.shape))
+    llr = torch.as_tensor((2.0 / sigma ** 2 * y).astype(np.float32), device=device)
+    meta.update(cw=cw, u=u, code=code, plan=plan, iters=iters, n=code.n, k=code.k)
+    return BuiltConfig(dec, (llr,), batch * code.n, meta)
+
+
+TURBO_LAYOUTS = ("kernel", "batch")
+
+
+def build_turbo(t: int = 512, iters: int = 4, batch: int = 256, snr_db: float = 1.5,
+                layout: str = "kernel", device=None) -> BuiltConfig:
+    """Turbo decoding, ``bench/turbo_onchip.py``'s run: `make_turbo(t,
+    seed=0)` (LTE constituent code), `batch` blocks of seed-0 info bits,
+    BPSK + AWGN at `snr_db` (sigma = 10^(-snr/20)), LLR = 2y/sigma^2 for the
+    systematic, parity-1 and parity-2 streams in that order. Layouts:
+    ``kernel`` = `turbo_decode_pallas` (K16, ``--layout pallas``), ``batch``
+    = the plain `turbo_decode_batch`.
+
+    step(llr_sys, llr_par1, llr_par2) -> (bits [B, t] int32, posterior);
+    meta ``u`` [B, t] is the gold, ``n_coded`` the coded bits per block.
+    """
+    from srcdsp_tpu_torch.kernels.bcjr_pallas import turbo_decode_pallas
+    from srcdsp_tpu_torch.turbo import make_turbo, turbo_decode_batch, turbo_encode
+
+    if layout not in TURBO_LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {TURBO_LAYOUTS}")
+    device = resolve(device)
+    tc = make_turbo(t, seed=0)
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 2, (batch, t))
+    streams = turbo_encode(tc, u)
+    sigma = float(10.0 ** (-snr_db / 20.0))
+    llrs = tuple(torch.as_tensor((2.0 / sigma ** 2 * ((1.0 - 2.0 * s.numpy())
+                                                       + sigma * rng.standard_normal(s.shape))
+                                  ).astype(np.float32), device=device) for s in streams)
+    if layout == "kernel":
+        def step(a, b, c):
+            return turbo_decode_pallas(tc, a, b, c, iters=iters, b_tile=min(128, batch))
+    else:
+        def step(a, b, c):
+            return turbo_decode_batch(tc, a, b, c, iters=iters)
+    return BuiltConfig(step, llrs, batch * t,
+                       dict(impl=layout, tc=tc, u=torch.as_tensor(u, device=device),
+                            iters=iters, n_coded=sum(s.shape[-1] for s in streams)))

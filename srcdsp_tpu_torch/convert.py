@@ -1,10 +1,11 @@
 """Carry parameters and streaming state between the JAX package and this one.
 
-For this DSP system the "weights" are the taps, the tuning words and the
-carried streaming state. The JAX objects are read through their attributes
-and ``np.asarray`` (no JAX import here), so a stream started by the JAX
-package continues here with no seam; `fsk_state_to_numpy` gives back plain
-arrays from which the JAX ``FskState`` is rebuilt.
+For this DSP system the "weights" are the taps, the tuning words, the code
+descriptions (LDPC, QC and turbo) and the carried streaming state. The JAX
+objects are read through their attributes and ``np.asarray`` (no JAX import
+here), so a stream started by the JAX package continues here with no seam;
+`fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
+is rebuilt.
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ from srcdsp_tpu_torch.chains.psk import PskParams, PskState
 from srcdsp_tpu_torch.chains.sync import TimingState
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
+from srcdsp_tpu_torch.kernels.ldpc_pallas import EdgePlan, QcPlan
+from srcdsp_tpu_torch.ldpc import LdpcCode
 from srcdsp_tpu_torch.ops.fftconv import FftConvState
 from srcdsp_tpu_torch.ops.fir import FirState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState
+from srcdsp_tpu_torch.turbo import RscCode, TurboCode
 
 
 def fsk_params_from(p, device=None) -> FskParams:
@@ -131,3 +135,41 @@ def fftconv_stream_from(stream, kernel: FftConvKernel) -> FftConvStream:
     out = FftConvStream(kernel)
     out.hist = torch.as_tensor(hist, device=kernel.device)
     return out
+
+
+def ldpc_code_from(c, device=None) -> LdpcCode:
+    """LdpcCode from any object with the JAX LdpcCode fields (h, gp,
+    col_perm arrays; n, k)."""
+    device = resolve(device)
+    return LdpcCode(h=torch.as_tensor(np.array(c.h, np.float32), device=device),
+                    gp=torch.as_tensor(np.array(c.gp, np.float32), device=device),
+                    col_perm=torch.as_tensor(np.array(c.col_perm, np.int64), device=device),
+                    n=int(c.n), k=int(c.k))
+
+
+def edge_plan_from(p) -> EdgePlan:
+    """EdgePlan (host arrays) from any object with the JAX EdgePlan fields
+    (its dense `perm` is not needed: the port gathers through col_src)."""
+    return EdgePlan(row_valid=np.array(p.row_valid, np.float32),
+                    col_src=np.array(p.col_src, np.int32), row_src=np.array(p.row_src, np.int32),
+                    n=int(p.n), m=int(p.m), n_pad=int(p.n_pad), m_pad=int(p.m_pad),
+                    dv=int(p.dv), dc=int(p.dc))
+
+
+def qc_plan_from(p) -> QcPlan:
+    """QcPlan from any object with the JAX QcPlan fields."""
+    layers = tuple((tuple(int(c) for c in cols), tuple(int(s) for s in shifts))
+                   for cols, shifts in p.layers)
+    return QcPlan(layers=layers, z=int(p.z), nb=int(p.nb), n_blocks=int(p.n_blocks))
+
+
+def rsc_code_from(c) -> RscCode:
+    """RscCode (host tables) from any object with the JAX RscCode fields."""
+    return RscCode(k=int(c.k), fb=int(c.fb), g=int(c.g),
+                   **{f: np.array(getattr(c, f), np.int32)
+                      for f in ("next_state", "parity", "tail_bit", "prev_state", "prev_parity")})
+
+
+def turbo_code_from(tc) -> TurboCode:
+    """TurboCode from any object with the JAX TurboCode fields (rsc, perm)."""
+    return TurboCode(rsc=rsc_code_from(tc.rsc), perm=np.array(tc.perm, np.int64))

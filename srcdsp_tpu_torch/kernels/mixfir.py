@@ -105,6 +105,16 @@ def cuda_or_cpu(x: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {x.device}")
 
 
+def check_f32_operand(x: torch.Tensor, device: torch.device, name: str) -> bool:
+    """Validate a float32 operand of a kernel built for `device`; True for a
+    CUDA tensor (launch the kernel), False for a CPU one (run the plain version)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name} dtype {x.dtype} != float32")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, kernel built for {device}")
+    return cuda_or_cpu(x)
+
+
 def fir_decim_rows(u: torch.Tensor, taps: torch.Tensor, decim: int, hist: int
                    ) -> torch.Tensor:
     """Plain FIR + decimate of history-prepended planes.

@@ -1,10 +1,13 @@
 """ctypes binding of the C++ golden oracle ``cpp/oracle/oracle.cc``: the
-port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that configs 2,
-3 and 5 and the FFT need, with the same arguments and results: `nco_mix`,
-`fir` with real taps, `resample`, `resample_stream`, `fft`; the channelizer
-and synthesis banks (`channelize`, `channelize_stream`, `channelize_os2`,
-`synthesize`, `synthesize_os2`); the symbol timing (`timing_estimate`,
-`timing_sample`); and the PSK chain composed from them (`psk_demod`).
+port's own copy of the functions of ``srcdsp_tpu/oracle.py`` that the ported
+slices are held to, with the same arguments and results: the int16
+conversions (`i16_to_f32`, `f32_to_i16`); `nco_phasor`, `nco_mix`; `fir` with
+real taps and `fir_stream`; `resample`, `resample_stream`, `fft`; the
+channelizer and synthesis banks (`channelize`, `channelize_stream`,
+`channelize_os2`, `synthesize`, `synthesize_os2`); the discriminator and the
+symbol timing (`discriminate`, `timing_estimate`, `timing_sample`); the FSK
+and PSK chains composed from them (`fsk_demod`, `psk_demod`); and the CPM
+transmitter (`cpm_tx`).
 
 The library is built at first use by the repository's own Makefile into
 ``build/srcdsp_tpu_torch/oracle/<hash of oracle.cc and the Makefile>/``
@@ -25,6 +28,12 @@ from srcdsp_tpu_torch._native import MakeLibrary
 
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
+    "orc_i16_to_f32": [_P, _P, _L, _F],
+    "orc_f32_to_i16": [_P, _P, _L, _F],
+    "orc_nco_phasor": [_U, _U, _L, _P],
+    "orc_discriminate": [_P, _L, _P],
+    "orc_fir_stream": [_P, _L, _P, _L, _I, _P, _P],
+    "orc_cpm_tx": [_P, _L, _P, _I, _I, ctypes.c_int32, _P, _P, _P],
     "orc_fir": [_P, _L, _P, _L, _I, _P],
     "orc_nco_mix": [_P, _L, _U, _U, _P, _P],
     "orc_resample": [_P, _L, _P, _L, _I, _I, _P],
@@ -47,6 +56,88 @@ library_path, build, load = _LIB.path, _LIB.build, _LIB.load
 
 def _cf(x) -> np.ndarray:
     return np.ascontiguousarray(x, np.complex64)
+
+
+def _f32(x) -> np.ndarray:
+    return np.ascontiguousarray(x, np.float32)
+
+
+def i16_to_f32(x: np.ndarray, scale: float = 32767.0) -> np.ndarray:
+    """int16 -> float32 by division by `scale` (the same shape)."""
+    x = np.ascontiguousarray(x, np.int16)
+    out = np.empty(x.shape, np.float32)
+    load().orc_i16_to_f32(x.ctypes.data, out.ctypes.data, x.size, scale)
+    return out
+
+
+def f32_to_i16(x: np.ndarray, scale: float = 32767.0) -> np.ndarray:
+    """float32 -> int16: x*scale rounded half to even, saturated."""
+    x = _f32(x)
+    out = np.empty(x.shape, np.int16)
+    load().orc_f32_to_i16(x.ctypes.data, out.ctypes.data, x.size, scale)
+    return out
+
+
+def nco_phasor(word0: int, dword: int, n: int) -> np.ndarray:
+    """n samples of e^{j 2 pi (word0 + k*dword) / 2^32}, computed in double."""
+    out = np.empty(n, np.complex64)
+    load().orc_nco_phasor(word0 % (1 << 32), dword % (1 << 32), n, out.ctypes.data)
+    return out
+
+
+def discriminate(x: np.ndarray) -> np.ndarray:
+    """d[i] = angle(x[i] conj(x[i-1])) / 2pi with x[-1] = 0: [N] -> [N] float32."""
+    x = _cf(x)
+    out = np.empty(x.size, np.float32)
+    load().orc_discriminate(x.ctypes.data, x.size, out.ctypes.data)
+    return out
+
+
+def fir_stream(x: np.ndarray, taps: np.ndarray, hist: np.ndarray, decim: int = 1
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Streaming FIR with a carried delay line. hist: [T-1] complex64 (zeros
+    at stream start). Returns (y [N/decim], new_hist); outputs concatenated
+    over blocks equal one `fir` call."""
+    x = _cf(x)
+    taps = _f32(taps)
+    hist = _cf(hist).copy()
+    if hist.size != taps.size - 1:
+        raise ValueError(f"hist holds {hist.size} samples, expected {taps.size - 1}")
+    out = np.empty(x.size // decim, np.complex64)
+    load().orc_fir_stream(x.ctypes.data, x.size, taps.ctypes.data, taps.size, decim,
+                          hist.ctypes.data, out.ctypes.data)
+    return out, hist
+
+
+def fsk_demod(x: np.ndarray, center_freq: float, taps: np.ndarray, decim: int, sps: int
+              ) -> np.ndarray:
+    """The FSK chain from oracle primitives: mix -> FIR (+decim) ->
+    discriminator -> O&M timing on d^2 -> sample -> slice. Returns bits int32."""
+    word = int(np.round(((-center_freq) % 1.0) * 4294967296.0) % 4294967296.0)
+    mixed, _ = nco_mix(x, 0, word)
+    d = discriminate(fir(mixed, taps, decim=decim))
+    _, tau = timing_estimate(d * d, sps)
+    soft = timing_sample(np.zeros(sps + 1, np.complex64), d.astype(np.complex64), tau, sps)
+    return (soft.real > 0).astype(np.int32)
+
+
+def cpm_tx(bits: np.ndarray, words: np.ndarray, sps: int, phase0: int = 0
+           ) -> tuple[np.ndarray, np.ndarray]:
+    """CPM transmitter over the same int32 phase-increment words [nspan, sps]
+    as ``chains.tx``: returns (baseband complex64 [nsym*sps], phase words int32
+    [nsym*sps], the phase before each sample)."""
+    bits = np.ascontiguousarray(bits, np.uint8)
+    words = np.ascontiguousarray(words, np.int32)
+    nspan = words.shape[0]
+    if words.shape[1] != sps:
+        raise ValueError(f"words {words.shape} do not have sps={sps} columns")
+    n = bits.size * sps
+    ph = np.empty(n, np.int32)
+    re = np.empty(n, np.float32)
+    im = np.empty(n, np.float32)
+    load().orc_cpm_tx(bits.ctypes.data, bits.size, words.ctypes.data, nspan, sps, phase0,
+                      ph.ctypes.data, re.ctypes.data, im.ctypes.data)
+    return (re + 1j * im).astype(np.complex64), ph
 
 
 def fir(x: np.ndarray, taps: np.ndarray, decim: int = 1) -> np.ndarray:
@@ -112,10 +203,6 @@ def fft(x: np.ndarray, inverse: bool = False) -> np.ndarray:
     out = np.empty(n, np.complex64)
     load().orc_fft(x.ctypes.data, out.ctypes.data, n, 1 if inverse else 0)
     return out
-
-
-def _f32(x) -> np.ndarray:
-    return np.ascontiguousarray(x, np.float32)
 
 
 def timing_estimate(metric: np.ndarray, sps: int, acc: complex = 0.0,

@@ -18,7 +18,7 @@ from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
 from srcdsp_tpu_torch.kernels import resample_pallas as krs
 from srcdsp_tpu_torch.kernels import resample_preframed as krp
 from srcdsp_tpu_torch.ops.nco import freq_to_word
-from srcdsp_tpu_torch.ops.window import lowpass
+from srcdsp_tpu_torch.ops.window import lowpass, root_raised_cosine
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, random_bits, tone
 
 pytestmark = pytest.mark.cuda
@@ -60,6 +60,20 @@ def test_mixfir_kernel_matches_plain(dev, per_channel):
                                DECIM, OT, k.hist)
     got = torch.complex(yr, yi)
     ref = torch.complex(pr, pi)
+    assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) < 1e-5
+
+
+def test_mixfir_kernel_matches_plain_modem_front_end(dev):
+    """K1 mc as the coded modem runs it: 33 RRC taps (odd), decim 2."""
+    planes, words = _fsk_planes(dev)
+    taps = root_raised_cosine(2, 16, beta=0.35)
+    k = kmf.make_mix_fir_kernel_mc(taps, 2, C, out_tile=OT, b_rows=8, device=dev)
+    assert k.num_taps == 33
+    words0 = [(-k.hist * int(w)) % (1 << 32) for w in words]
+    yr, yi = k.fn(words0, words, planes)
+    pr, pi = kmf.mix_fir_plain(words0, words, planes, torch.as_tensor(taps, device=dev), 2, OT,
+                               k.hist)
+    got, ref = torch.complex(yr, yi), torch.complex(pr, pi)
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) < 1e-5
 
 
@@ -384,3 +398,136 @@ def test_cuda_tensor_with_cpu_bank_kernel_raises(dev):
         fn(torch.zeros((2, 8, hc + 128), device=dev))
     with pytest.raises(ValueError, match="at most 64"):
         kb.make_bank_kernel(design_prototype(128, 4), 128, device=dev)
+
+
+# --- the coded tier: K14, K15, K16 -------------------------------------------
+
+def _ldpc_llr(cw: np.ndarray, sigma: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (2.0 / sigma ** 2 * ((1.0 - 2.0 * cw) + sigma * rng.standard_normal(cw.shape))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("irregular", [False, True])
+def test_ldpc_edges_kernel_equals_plain(dev, irregular):
+    """K14 == plain on the card, bit for bit, on a regular and an irregular H
+    (n 120) at B 256; and the serving decoder at an odd B."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+    from srcdsp_tpu_torch.ldpc import ldpc_encode, make_ldpc_code, make_regular_ldpc
+
+    h = make_regular_ldpc(120, 3, 6, seed=3)
+    if irregular:
+        h[0, np.flatnonzero(h[0])[0]] = 0
+        h[5, np.flatnonzero(h[5])[0]] = 0
+    code = make_ldpc_code(h, device=dev)
+    plan = kl.plan_edges(h)
+    u = torch.as_tensor(np.random.default_rng(1).integers(0, 2, (256, code.k)), device=dev)
+    cw = ldpc_encode(code, u)
+    llr = torch.as_tensor(_ldpc_llr(cw.cpu().numpy(), 0.6, 2).T.copy(), device=dev)
+    before = _build.LAUNCHES["ldpc_edges"]
+    post = kl.make_ldpc_kernel(plan, iters=6, device=dev)(llr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldpc_edges"] == before + 1
+    assert torch.equal(post, kl.ldpc_decode_edges_ref(plan, llr, iters=6))
+    bits, info, ok = kl.make_ldpc_decoder(code, plan, iters=10, device=dev)(llr.T[:201])
+    assert float(ok.to(torch.float32).mean()) > 0.9
+    assert torch.equal(bits[ok], cw[:201][ok])
+
+
+def _qc_case(dev, z, zero_blocks):
+    from srcdsp_tpu_torch.qcldpc import make_qc_base, make_qc_ldpc
+    from srcdsp_tpu_torch.ldpc import ldpc_encode
+
+    base = make_qc_base(3, 8, z, seed=2)
+    for i, j in zero_blocks:
+        base[i, j] = -1
+    code = make_qc_ldpc(base, z, device=dev)
+    u = torch.as_tensor(np.random.default_rng(4).integers(0, 2, (256, code.k)), device=dev)
+    cw = ldpc_encode(code, u)
+    return base, code, cw, torch.as_tensor(_ldpc_llr(cw.cpu().numpy(), 0.6, 5), device=dev)
+
+
+@pytest.mark.parametrize("z", [16, 128])
+def test_ldpc_qc_kernel_equals_plain(dev, z):
+    """K15 == plain on the card, bit for bit (a zero block at z 16), and the
+    two serving entries at an odd B (the ragged last block)."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+
+    base, code, cw, llr = _qc_case(dev, z, [(0, 3), (2, 6)] if z == 16 else [])
+    plan = kl.plan_qc(base, z)
+    lt = llr.T.contiguous()
+    before = _build.LAUNCHES["ldpc_qc"]
+    post = kl.make_qc_kernel(plan, iters=4, device=dev)(lt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldpc_qc"] == before + 1
+    assert torch.equal(post, kl.qc_decode_layered_ref(plan, lt, iters=4))
+    bits, _, ok = kl.make_qc_decoder(code, plan, iters=4, device=dev)(llr[:199])
+    assert torch.equal(bits, (kl.qc_decode_layered_ref(plan, lt[:, :199], 4).T < 0).to(torch.int32))
+    bits_t, ok_t = kl.make_qc_decoder_t(code, plan, iters=4, device=dev)(lt[:, :128])
+    assert torch.equal(bits_t.T, bits[:128]) and torch.equal(ok_t, ok[:128])
+
+
+@pytest.mark.parametrize("t_len,terminated,b", [(67, True, 128), (61, False, 128),
+                                                (515, True, 10)])
+def test_bcjr_kernel_equals_plain(dev, t_len, terminated, b):
+    """K16 == bcjr_decode_batch on the card, bit for bit; B = 10 leaves half
+    a block of four codewords empty."""
+    from srcdsp_tpu_torch.kernels import bcjr_pallas as kb
+    from srcdsp_tpu_torch.turbo import bcjr_decode_batch, make_rsc
+
+    rng = np.random.default_rng(t_len)
+    ls, lp = (torch.as_tensor((4.0 * rng.standard_normal((t_len, b))).astype(np.float32),
+                              device=dev) for _ in range(2))
+    code = make_rsc()
+    fn = kb.make_bcjr_kernel(code, t_len, terminated, b_tile=b if b < 128 else 128, device=dev)
+    before = _build.LAUNCHES["bcjr"]
+    post = fn(ls, lp)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bcjr"] == before + 1
+    assert torch.equal(post, bcjr_decode_batch(code, ls, lp, terminated=terminated)[0])
+
+
+def test_turbo_pallas_equals_batch_on_card(dev):
+    from srcdsp_tpu_torch import configs
+
+    outs = [configs.build_turbo(t=64, iters=2, batch=128, layout=layout, device=dev)
+            for layout in configs.TURBO_LAYOUTS]
+    got = [b.step(*b.example) for b in outs]
+    assert all(torch.equal(a, c) for a, c in zip(*got))
+
+
+def test_coded_kernels_refuse_bad_input_before_launch(dev):
+    """A CUDA tensor meets a CPU-built factory, a wrong dtype or a B off the
+    tile: each raises and launches nothing."""
+    from srcdsp_tpu_torch.kernels import bcjr_pallas as kb
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+    from srcdsp_tpu_torch.ldpc import make_regular_ldpc
+    from srcdsp_tpu_torch.qcldpc import make_dual_diagonal_base
+    from srcdsp_tpu_torch.turbo import make_rsc
+
+    ep = kl.plan_edges(make_regular_ldpc(120, 3, 6, seed=1))
+    qp = kl.plan_qc(make_dual_diagonal_base(4, 12, 16, seed=1), 16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        kl.make_ldpc_kernel(ep, device="cpu")(torch.zeros((120, 128), device=dev))
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        kl.make_qc_kernel(qp, device="cpu")(torch.zeros((192, 128), device=dev))
+    with pytest.raises(ValueError, match="kernel built for cpu"):
+        kb.make_bcjr_kernel(make_rsc(), 16, True, device="cpu")(
+            torch.zeros((16, 128), device=dev), torch.zeros((16, 128), device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        kl.make_ldpc_kernel(ep, device=dev)(torch.zeros((120, 128), dtype=torch.float64,
+                                                        device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        kl.make_qc_kernel(qp, device=dev)(torch.zeros((192, 128), dtype=BF16, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        kb.make_bcjr_kernel(make_rsc(), 16, True, device=dev)(
+            torch.zeros((16, 128), device=dev), torch.zeros((16, 128), dtype=BF16, device=dev))
+    with pytest.raises(ValueError, match="tile 128"):
+        kl.make_ldpc_kernel(ep, device=dev)(torch.zeros((120, 96), device=dev))
+    with pytest.raises(ValueError, match="tile 128"):
+        kl.make_qc_kernel(qp, device=dev)(torch.zeros((192, 96), device=dev))
+    with pytest.raises(ValueError, match="b_tile=128"):
+        kb.make_bcjr_kernel(make_rsc(), 16, True, device=dev)(
+            torch.zeros((16, 96), device=dev), torch.zeros((16, 96), device=dev))
+    assert _build.LAUNCHES == before

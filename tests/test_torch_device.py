@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from srcdsp_tpu_torch import configs, convert
-from srcdsp_tpu_torch.chains import channelizer, fsk, psk, sync
+from srcdsp_tpu_torch import ldpc, qcldpc, turbo
+from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.io import capture
-from srcdsp_tpu_torch.kernels import bank_pallas, fft_pallas, fftconv_pallas
+from srcdsp_tpu_torch.kernels import bank_pallas, bcjr_pallas, fft_pallas, fftconv_pallas, ldpc_pallas
 from srcdsp_tpu_torch.kernels import fsk_ctaps, fsk_fused, fsk_preframed, mixfir
 from srcdsp_tpu_torch.kernels import mixfir_ctaps, mixfir_preframed, resample_pallas
 from srcdsp_tpu_torch.kernels import resample_preframed
@@ -48,7 +49,35 @@ def _psk_state():
 
 
 PROTO = channelizer.design_prototype(8, 4)
+H120 = ldpc.make_regular_ldpc(120, 3, 6, seed=1)
+QC_BASE = qcldpc.make_dual_diagonal_base(4, 12, 16, seed=1)
+QC_CODE = qcldpc.make_qc_ldpc(QC_BASE, 16, device="cpu")
 ENTRY_POINTS = {
+    "make_ldpc_code": lambda **d: ldpc.make_ldpc_code(H120, **d),
+    "make_qc_ldpc": lambda **d: qcldpc.make_qc_ldpc(QC_BASE, 16, **d),
+    "ldpc_code_from": lambda **d: convert.ldpc_code_from(QC_CODE, **d),
+    "make_ldpc_kernel": lambda **d: ldpc_pallas.make_ldpc_kernel(ldpc_pallas.plan_edges(H120), **d),
+    "make_ldpc_decoder": lambda **d: ldpc_pallas.make_ldpc_decoder(
+        QC_CODE, ldpc_pallas.plan_edges(QC_CODE.h.numpy()), **d),
+    "make_qc_kernel": lambda **d: ldpc_pallas.make_qc_kernel(ldpc_pallas.plan_qc(QC_BASE, 16), **d),
+    "make_qc_decoder": lambda **d: ldpc_pallas.make_qc_decoder(
+        QC_CODE, ldpc_pallas.plan_qc(QC_BASE, 16), **d),
+    "make_qc_decoder_t": lambda **d: ldpc_pallas.make_qc_decoder_t(
+        QC_CODE, ldpc_pallas.plan_qc(QC_BASE, 16), **d),
+    "make_bcjr_kernel": lambda **d: bcjr_pallas.make_bcjr_kernel(turbo.make_rsc(), 16, True, **d),
+    "make_coherent_modem": lambda **d: modem.make_coherent_modem(
+        TAPS, WORDS, 2, 16, QC_CODE, ldpc_pallas.plan_qc(QC_BASE, 16), nw=64, **d),
+    "make_qam_params": lambda **d: qam.make_qam_params(0.1, 2, 4, **d),
+    "qam_modulate": lambda **d: qam.qam_modulate(np.random.default_rng(0), 8, 16, **d),
+    "make_linear_tx": lambda **d: tx.make_linear_tx(0.1, TAPS, 4, **d),
+    "make_cpfsk_tx": lambda **d: tx.make_cpfsk_tx(0.1, 8, 0.03, **d),
+    "make_gmsk_tx": lambda **d: tx.make_gmsk_tx(0.1, 8, **d),
+    "build_coded_modem": lambda **d: configs.build_coded_modem(
+        2, 4, iters=1, z=16, out_tile=128, b_rows=2, b_tile=8, **d),
+    "build_coded_link": lambda **d: configs.build_coded_link(1, 2, iters=1, out_tile=128,
+                                                             b_rows=2, **d),
+    "build_ldpc": lambda **d: configs.build_ldpc("edges", batch=4, iters=1, **d),
+    "build_turbo": lambda **d: configs.build_turbo(t=16, iters=1, batch=4, **d),
     "build_config1": lambda **d: configs.build_config1(1 << 12, **d),
     "build_config1_kernel": lambda **d: configs.build_config1(1 << 12, use_kernel=True, **d),
     "build_config1_serving": lambda **d: configs.build_config1_serving(1 << 15, "ctaps", **d),
