@@ -71,7 +71,20 @@ Phases, in order; any failure raises and the run exits non-zero:
    6 iterations), decisions equal to the plain dense layered decoder on the
    words both converge; turbo (configs.build_turbo: t 512, 4 iterations,
    B 256, 1.5 dB) through K16, bits and posteriors equal to the plain
-   turbo_decode_batch; each timed.
+   turbo_decode_batch; each timed;
+13. config 1's alternate front ends and the decimation tier: at config-1
+   shape (2^26 samples, lowpass(64, 0.2), decim 2, word freq_to_word(0.11),
+   out_tile 512, b_rows 32) K17 (history as its own operand) equal to K4 bit
+   for bit, in one launch and in 4 chunks with carried history, and K18 (mix
+   once by a factored phasor) within rel L2 2e-6 of K1, the four timed in
+   turns; two DDCs (make_ddc(0.21, 0.004, 70 dB): D 187; make_ddc(0.21,
+   0.0155): D 48, four half-bands and a residual 3) over 32 channels made on
+   the card, 4 blocks of D*2^14 samples each: in-band tone within 5 %,
+   residual below -55 dB, 4 blocks against one within 3e-6, channel 0
+   against the port's CPU run within rel L2 1e-5, timed; the IIR DC blocker
+   over 32 x 2^22 above 80 dB against the C++ oracle's iir_stream, its two
+   inter-block forms within rel L2 1e-5, timed; the AGC settled within 5 %
+   of its target; Welch of the D = 48 output peaking at the tone's bin.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -87,8 +100,10 @@ Phase 3 also holds K14 (edge-form LDPC, [504, 1024], 10 iterations), K15 (QC
 layered LDPC, [1536, 4096], 6 iterations) and K16 (max-log BCJR, the turbo's
 first half [515, 256]) against their plain versions by torch.equal; no
 PyTorch call computes min-sum or BCJR, so they have no library yardstick.
+It holds K17 and K18 at config-1 shape against their plain versions (rel L2
+1e-5 and 2e-6); no PyTorch call computes a mix with a FIR.
 
-Launch counts are reset just before phase 4 and read after phase 12: every
+Launch counts are reset just before phase 4 and read after phase 13: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -133,6 +148,9 @@ C12_MODEM_CHANNELS, C12_MODEM_WORDS, C12_LINK_CHANNELS, C12_LINK_WORDS = 8, 512,
 C12_TURBO_T, C12_TURBO_BATCH = 512, 256
 # least operations counted per edge and iteration (min-sum), per state and step (BCJR)
 MINSUM_OPS, BCJR_OPS = 12, 16
+# phase 13: K17 chunks; the DDCs' channels, blocks and outputs per block; the IIR
+C13_K17_CHUNKS, C13_CHANNELS, C13_DDC_BLOCKS, C13_DDC_BLOCK_OUT = 4, 32, 4, 1 << 14
+C13_SETTLE, C13_IIR_SAMPLES, C13_ORACLE_SAMPLES = 256, 1 << 22, 1 << 16
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -235,6 +253,156 @@ def config4_signal(torch, dev, seed: int = 0):
     return bits, host.to(dev), words
 
 
+def tone_fit(torch, y, f: float):
+    """Per row of y [C, N]: the tone's amplitude |sum y[n] e^{-j 2 pi f n}| / N
+    (the reference's goertzel) and the mean power left once that tone is
+    taken out, in complex128 (the reference's mean|y|^2 - amplitude^2, without
+    the cancellation)."""
+    n = torch.arange(y.shape[-1], dtype=torch.float64, device=y.device)
+    e = torch.polar(torch.ones_like(n), 2 * np.pi * f * n)
+    y = y.to(torch.complex128)
+    c = (y @ e.conj()) / y.shape[-1]
+    return c.abs(), (y - c[:, None] * e).abs().pow(2).mean(-1)
+
+
+def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> None:
+    """Config 1 through K17 and K18 beside K4 and K1, the two DDCs, the IIR,
+    the AGC and the spectrum (all on the main path: launches counted)."""
+    from srcdsp_tpu_torch import oracle
+    from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
+    from srcdsp_tpu_torch.ops import agc as oagc
+    from srcdsp_tpu_torch.ops import ddc as oddc
+    from srcdsp_tpu_torch.ops import iir as oiir
+    from srcdsp_tpu_torch.ops import spectrum as ospec
+    from srcdsp_tpu_torch.ops.nco import NcoState, freq_to_word, nco_phasor
+
+    # A. K17 == K4 bit for bit (one launch, and 4 chunks with carried history);
+    # K18 against K1; the four timed in turns
+    hist = k17.hist
+    k4 = kcm.make_mix_fir_ctaps_kernel(taps1_np, word1, 2, out_tile=OUT_TILE, b_rows=B_ROWS,
+                                       device=dev)
+    y4 = k4.fn(w01, x1)
+    xh, xb = x1[:, :hist], x1[:, hist:].view(2, -1, OUT_TILE * 2)
+    y17 = k17.fn(0, xh, xb)
+    require(torch.equal(y17[0], y4[0]) and torch.equal(y17[1], y4[1]),
+            "K17 != K4 on the same stream (torch.equal)")
+    q = C1_SAMPLES // C13_K17_CHUNKS
+    parts = []
+    for i in range(C13_K17_CHUNKS):
+        lo = hist + i * q
+        parts.append(k17.fn((i * q * word1) % (1 << 32), x1[:, lo - hist:lo],
+                           x1[:, lo:lo + q].view(2, -1, OUT_TILE * 2)))
+    require(all(torch.equal(torch.cat([p[j] for p in parts]), y17[j]) for j in range(2)),
+            "K17: 4 chunks with carried history != one launch (torch.equal)")
+    y1 = c1.step(x1)
+    y18 = k18.fn(w01, word1, x3r, n=n3r)
+    got = torch.complex(y18[0].reshape(-1), y18[1].reshape(-1))
+    ref = torch.complex(y1[0].reshape(-1), y1[1].reshape(-1))
+    rel18 = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    require(rel18 < 2e-6, f"K18 against K1: rel L2 {rel18}")
+    del y4, y17, parts, y1, y18, got, ref
+    fns = {"K17": lambda: k17.fn(0, xh, xb), "K4": lambda: k4.fn(w01, x1),
+           "K18": lambda: k18.fn(w01, word1, x3r, n=n3r), "K1": lambda: c1.step(x1)}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for rnd in range(2 * REPS):
+        for name in (fns if rnd % 2 == 0 else reversed(list(fns))):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[name]()
+            e1.record()
+            e1.synchronize()
+            times[name].append(e0.elapsed_time(e1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    d17 = np.asarray(times["K17"]) - np.asarray(times["K4"])
+    d18 = np.asarray(times["K18"]) - np.asarray(times["K1"])
+    print(f"[13] config 1 front ends, {C1_SAMPLES} samples, {2 * REPS} turns each: "
+          + ", ".join(f"{k} {v:.4f} ms ({C1_SAMPLES / v / 1e3:.1f} Ms/s)" for k, v in med.items())
+          + f"; K17 - K4 median {np.median(d17):+.4f} ms (range {d17.min():+.4f} .. "
+          f"{d17.max():+.4f}), K18 - K1 median {np.median(d18):+.4f} ms (range "
+          f"{d18.min():+.4f} .. {d18.max():+.4f}); K17 == K4 and 4 chunks == one launch "
+          f"(torch.equal), K18 against K1 rel L2 {rel18:.3e} (floor 2e-6)", flush=True)
+
+    # B. the down-converter: 32 channels, 4 blocks of D*2^14 samples each
+    gen = np.random.default_rng(13)
+    y48 = None
+    for label, ddc, f_in, f_nb in (
+            ("ddc(0.21, 0.004, 70 dB)", oddc.make_ddc(0.21, 0.004, atten_db=70.0), 0.0012, 0.02),
+            ("ddc(0.21, 0.0155)", oddc.make_ddc(0.21, 0.0155), 240 / 49152, 0.03)):
+        d = ddc.decim
+        blk = d * C13_DDC_BLOCK_OUT
+        n = C13_DDC_BLOCKS * blk
+        st0 = NcoState(phase=torch.as_tensor(gen.integers(0, 1 << 32, C13_CHANNELS),
+                                             device=dev))
+        x = (nco_phasor(int(freq_to_word(0.21 + f_in)), st0, n)[1]
+             + 0.9 * nco_phasor(int(freq_to_word(0.21 + f_nb)), st0, n)[1])
+        torch.cuda.synchronize()
+        _, one = oddc.ddc_apply(ddc, oddc.ddc_init(ddc, (C13_CHANNELS,), device=dev), x)
+        st = oddc.ddc_init(ddc, (C13_CHANNELS,), device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = []
+        for i in range(C13_DDC_BLOCKS):
+            st, yb = oddc.ddc_apply(ddc, st, x[:, i * blk:(i + 1) * blk])
+            outs.append(yb)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        y = torch.cat(outs, dim=-1)
+        stream_err = float((y - one).abs().max())
+        _, cpu0 = oddc.ddc_apply(ddc, oddc.ddc_init(ddc, (1,), device="cpu"), x[:1, :blk].cpu())
+        rel_cpu = float(torch.linalg.norm(outs[0][:1].cpu() - cpu0) / torch.linalg.norm(cpu0))
+        ys = y[:, C13_SETTLE:]
+        amp, resid = tone_fit(torch, ys, f_in * d)
+        resid_db = 10 * torch.log10(resid / 0.81)
+        print(f"[13] {label}: D {d} (half-bands {[len(h) for h in ddc.plan.halfband_taps]}, "
+              f"final {0 if ddc.plan.final_taps is None else len(ddc.plan.final_taps)} taps / "
+              f"{ddc.plan.final_decim}), {C13_CHANNELS} ch x {C13_DDC_BLOCKS} blocks of {blk}: "
+              f"{secs * 1e3:.3f} ms, {C13_CHANNELS * n / secs / 1e6:.1f} Ms/s input (host clock);"
+              f" tone amplitude {float(amp.min()):.5f} .. {float(amp.max()):.5f} (within 5 %), "
+              f"residual worst {float(resid_db.max()):.2f} dB (floor -55); 4 blocks against one: "
+              f"max abs {stream_err:.3e} (floor 3e-6); channel 0 against the CPU: rel L2 "
+              f"{rel_cpu:.3e} (floor 1e-5)", flush=True)
+        require(bool(((amp - 1.0).abs() < 0.05).all()), f"{label}: tone amplitude {amp}")
+        require(float(resid_db.max()) < -55.0, f"{label}: residual {resid_db} dB")
+        require(stream_err < 3e-6, f"{label}: 4 blocks differ from one by {stream_err}")
+        require(rel_cpu < 1e-5, f"{label}: card against CPU rel L2 {rel_cpu}")
+        y48 = y if d == 48 else y48
+        del x, one, outs, y, ys, cpu0
+
+    # C. the IIR (DC blocker) and the AGC over 32 x 2^22, Welch of the D = 48 output
+    b, a = oiir.dc_block_coeffs()
+    xi = (torch.randn((C13_CHANNELS, C13_IIR_SAMPLES), dtype=torch.complex64, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(13))
+          + torch.tensor(2.0 - 1.0j, dtype=torch.complex64, device=dev))
+    xi = xi * torch.linspace(0.5, 1.5, C13_CHANNELS, device=dev)[:, None]
+    prm = oiir.make_iir_params(b, a, device=dev)
+    st = oiir.iir_init(prm, (C13_CHANNELS,), device=dev)
+    _, yi = oiir.iir_apply(prm, st, xi)
+    _, ys = oiir.iir_apply(prm, st, xi, inter_block="scan")
+    rel_forms = float(torch.linalg.norm(yi - ys) / torch.linalg.norm(ys))
+    ref, _ = oracle.iir_stream(xi[0, :C13_ORACLE_SAMPLES].cpu().numpy(), b, a)
+    snr_o = snr_db(torch, torch.from_numpy(ref), yi[0, :C13_ORACLE_SAMPLES].cpu())
+    iir_ms = median_ms(torch, lambda: oiir.iir_apply(prm, st, xi))
+    agc = oagc.make_agc_params(device=dev)
+    ya = oagc.agc_full(agc, xi)
+    pw = ya[:, C13_IIR_SAMPLES // 2:].abs().pow(2).mean(-1)
+    del ys
+    psd = ospec.welch(y48, 1024)
+    peak = psd.argmax(-1)
+    print(f"[13] IIR dc_block over {C13_CHANNELS} x {C13_IIR_SAMPLES}: {iir_ms:.3f} ms median "
+          f"({C13_CHANNELS * C13_IIR_SAMPLES / iir_ms / 1e3:.1f} Ms/s); against the C++ oracle's "
+          f"iir_stream on {C13_ORACLE_SAMPLES} samples of channel 0: SNR {snr_o:.2f} dB (floor "
+          f"80); assoc against scan rel L2 {rel_forms:.3e} (floor 1e-5); AGC settled power "
+          f"{float(pw.min()):.4f} .. {float(pw.max()):.4f} (target 1, within 5 %); Welch of the "
+          f"D = 48 output peaks at bins {sorted(set(peak.tolist()))} (tone at bin 240)",
+          flush=True)
+    require(snr_o > 80.0, f"IIR: SNR {snr_o} dB against the oracle")
+    require(rel_forms < 1e-5, f"IIR: assoc against scan rel L2 {rel_forms}")
+    require(bool(((pw - 1.0).abs() < 0.05).all()), f"AGC: settled power {pw}")
+    require(bool((peak == 240).all()), f"Welch: peak bins {peak}")
+
+
 def main() -> int:
     import torch
 
@@ -259,6 +427,7 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import _build
     from srcdsp_tpu_torch.kernels import bank_pallas as kbank
     from srcdsp_tpu_torch.kernels import bcjr_pallas as kbcjr
+    from srcdsp_tpu_torch.kernels import ctaps_aligned as kca
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
@@ -268,6 +437,7 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import mixfir as kmf
     from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
     from srcdsp_tpu_torch.kernels import mixfir_preframed as kpf
+    from srcdsp_tpu_torch.kernels import mixfir_rows as krw
     from srcdsp_tpu_torch.kernels import resample_pallas as krs
     from srcdsp_tpu_torch.kernels import resample_preframed as krp
     from srcdsp_tpu_torch.ops.channelize_planes import combined_matrix, make_channelizer_mats
@@ -443,6 +613,32 @@ def main() -> int:
                                                  OUT_TILE, hist),
                y5[0].numel() * 64 * 4, tensor_bytes(fr, y5))
         del xin, fr, kfr, y4, y5
+
+    # K17 (history as its own operand: x1's first hist samples and the rest,
+    # slices of one array; word0 0 is body sample 0's word) and K18 (mix once
+    # by the factored row x lane phasor) at config-1 shape
+    k17 = kca.make_ctaps_aligned_kernel(taps1_np, word1, 2, out_tile=OUT_TILE, b_rows=B_ROWS,
+                                       device=dev)
+    xh1, xb1 = x1[:, :hist], x1[:, hist:].view(2, -1, OUT_TILE * 2)
+    y17 = k17.fn(0, xh1, xb1)
+    err, rel = cplx_err(y17, kca.ctaps_aligned_plain(0, word1, xh1, xb1, g1r, g1i, 2, OUT_TILE,
+                                                     hist))
+    record("ctaps_aligned", "srcdsp_tpu_torch/csrc/ctaps.cu",
+           "srcdsp_tpu/kernels/ctaps_aligned.py:191", err, rel, rel < 1e-5, True,
+           lambda: k17.fn(0, xh1, xb1),
+           lambda: kca.ctaps_aligned_plain(0, word1, xh1, xb1, g1r, g1i, 2, OUT_TILE, hist),
+           y17[0].numel() * 64 * 4, tensor_bytes(x1, y17))
+    k18 = krw.make_mix_fir_rows_kernel(taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=dev)
+    x3r, n3r = krw.rows_view(k18, x1)
+    y18 = k18.fn(w01, word1, x3r, n=n3r)
+    err, rel = cplx_err(y18, krw.mix_fir_rows_plain(w01, word1, x3r, taps1, 2, OUT_TILE, hist,
+                                                    n3r))
+    record("mixfir_rows", "srcdsp_tpu_torch/csrc/rows.cu",
+           "srcdsp_tpu/kernels/mixfir_rows.py:190", err, rel, rel < 2e-6, True,
+           lambda: k18.fn(w01, word1, x3r, n=n3r),
+           lambda: krw.mix_fir_rows_plain(w01, word1, x3r, taps1, 2, OUT_TILE, hist, n3r),
+           y18[0].numel() * 64 * 4, tensor_bytes(x1, y18))
+    del y17, y18
 
     # K3 on bf16 input, and K7 over frames of the same chunk in both dtypes
     k3b, _ = kct.make_fsk_ctaps_kernel(taps4, words, DECIM, SPS, out_tile=OUT_TILE,
@@ -1250,6 +1446,9 @@ def main() -> int:
           f"{ms:.3f} ms per call, {nt * trb.meta['n_coded'] / ms / 1e3:.1f} Mb/s coded", flush=True)
     require(same, "turbo: K16 path differs from the plain turbo_decode_batch")
     del trb, plain, bits, post, pbits, ppost
+
+    # --- 13. config 1's alternate front ends, the down-converter, IIR, spectrum ---
+    phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01)
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

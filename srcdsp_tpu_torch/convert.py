@@ -1,7 +1,8 @@
 """Carry parameters and streaming state between the JAX package and this one.
 
 For this DSP system the "weights" are the taps, the tuning words, the code
-descriptions (LDPC, QC and turbo) and the carried streaming state. The JAX
+descriptions (LDPC, QC and turbo), the filter designs (IIR, decimation plan,
+DDC, AGC, AFC) and the carried streaming state. The JAX
 objects are read through their attributes and ``np.asarray`` (no JAX import
 here), so a stream started by the JAX package continues here with no seam;
 `fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
@@ -21,8 +22,16 @@ from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
 from srcdsp_tpu_torch.kernels.ldpc_pallas import EdgePlan, QcPlan
 from srcdsp_tpu_torch.ldpc import LdpcCode
+from srcdsp_tpu_torch.ops.afc import AfcParams, AfcState
+from srcdsp_tpu_torch.ops.agc import AgcParams
+from srcdsp_tpu_torch.ops.cic import CicState
+from srcdsp_tpu_torch.ops.ddc import DdcParams, DdcState
+from srcdsp_tpu_torch.ops.decimplan import DecimPlan, DecimPlanState
+from srcdsp_tpu_torch.ops.farrow import FarrowState
 from srcdsp_tpu_torch.ops.fftconv import FftConvState
 from srcdsp_tpu_torch.ops.fir import FirState
+from srcdsp_tpu_torch.ops.halfband import HalfbandState
+from srcdsp_tpu_torch.ops.iir import IirParams, IirState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState
 from srcdsp_tpu_torch.turbo import RscCode, TurboCode
@@ -173,3 +182,98 @@ def rsc_code_from(c) -> RscCode:
 def turbo_code_from(tc) -> TurboCode:
     """TurboCode from any object with the JAX TurboCode fields (rsc, perm)."""
     return TurboCode(rsc=rsc_code_from(tc.rsc), perm=np.array(tc.perm, np.int64))
+
+
+# ---------- the decimation tier and the IIR family ----------
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    """A JAX value as a tensor on `device`, keeping its numpy dtype unless
+    one is given."""
+    return torch.as_tensor(np.array(a, dtype), device=device)
+
+
+def iir_params_from(p, device=None) -> IirParams:
+    """IirParams from any object with the JAX IirParams fields (al, f, g, h
+    float32; block, order)."""
+    device = resolve(device)
+    return IirParams(**{f: _t(getattr(p, f), device, np.float32) for f in ("al", "f", "g", "h")},
+                     block=int(p.block), order=int(p.order))
+
+
+def iir_state_from(s, device=None) -> IirState:
+    """IirState from any object with an ``s`` field (dtype kept)."""
+    return IirState(s=_t(s.s, resolve(device)))
+
+
+def decim_plan_from(plan) -> DecimPlan:
+    """DecimPlan (host arrays) from any object with the JAX DecimPlan fields."""
+    final = None if plan.final_taps is None else np.array(plan.final_taps, np.float32)
+    return DecimPlan(halfband_taps=tuple(np.array(h, np.float64) for h in plan.halfband_taps),
+                     final_taps=final, final_decim=int(plan.final_decim),
+                     decim=int(plan.decim), passband=float(plan.passband),
+                     atten_db=float(plan.atten_db), macs_per_input=float(plan.macs_per_input))
+
+
+def ddc_params_from(p) -> DdcParams:
+    """DdcParams (host values) from any object with the JAX DdcParams fields."""
+    return DdcParams(freq_word=np.uint32(np.asarray(p.freq_word, np.uint32)),
+                     plan=decim_plan_from(p.plan), decim=int(p.decim))
+
+
+def agc_params_from(p, device=None) -> AgcParams:
+    """AgcParams from any object with the JAX AgcParams fields."""
+    return AgcParams(smoother=iir_params_from(p.smoother, device), target=float(p.target),
+                     floor=float(p.floor))
+
+
+def afc_params_from(p, device=None) -> AfcParams:
+    """AfcParams from any object with the JAX AfcParams fields."""
+    device = resolve(device)
+    return AfcParams(upper_taps=_t(p.upper_taps, device, np.complex64),
+                     lower_taps=_t(p.lower_taps, device, np.complex64), bw=float(p.bw),
+                     gain=float(p.gain))
+
+
+def cic_state_from(s, device=None) -> CicState:
+    """CicState from any object with ``integ`` and ``combs`` (int32 or
+    float32, kept)."""
+    device = resolve(device)
+    return CicState(integ=_t(s.integ, device), combs=_t(s.combs, device))
+
+
+def halfband_state_from(s, device=None) -> HalfbandState:
+    """HalfbandState from any object shaped like the JAX one (s.even.tail,
+    s.odd)."""
+    device = resolve(device)
+    return HalfbandState(even=FirState(tail=_t(s.even.tail, device)), odd=_t(s.odd, device))
+
+
+def decim_plan_state_from(s, device=None) -> DecimPlanState:
+    """DecimPlanState from any object shaped like the JAX one (s.hb, s.fir)."""
+    device = resolve(device)
+    return DecimPlanState(hb=tuple(halfband_state_from(h, device) for h in s.hb),
+                          fir=None if s.fir is None else FirState(tail=_t(s.fir.tail, device)))
+
+
+def ddc_state_from(s, device=None) -> DdcState:
+    """DdcState from any object shaped like the JAX one (s.nco.phase u32,
+    s.plan)."""
+    device = resolve(device)
+    return DdcState(nco=NcoState(phase=word_tensor(np.asarray(s.nco.phase, np.uint32), device)),
+                    plan=decim_plan_state_from(s.plan, device))
+
+
+def farrow_state_from(s, device=None) -> FarrowState:
+    """FarrowState from any object with ``tail`` and ``p`` (int32) fields."""
+    device = resolve(device)
+    return FarrowState(tail=_t(s.tail, device), p=_t(s.p, device, np.int32))
+
+
+def afc_state_from(s, device=None) -> AfcState:
+    """AfcState from any object shaped like the JAX one (s.freq f32,
+    s.nco.phase u32, s.up.tail, s.lo.tail)."""
+    device = resolve(device)
+    return AfcState(freq=_t(s.freq, device, np.float32),
+                    nco=NcoState(phase=word_tensor(np.asarray(s.nco.phase, np.uint32), device)),
+                    up=FirState(tail=_t(s.up.tail, device)),
+                    lo=FirState(tail=_t(s.lo.tail, device)))

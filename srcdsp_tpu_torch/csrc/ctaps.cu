@@ -1,13 +1,19 @@
-// Complex-taps FIR + decimate with one phasor per output (K4, K5).
+// Complex-taps FIR + decimate with one phasor per output (K4, K5, K17).
 //
-// Two kernels from one template body, ctaps_kernel<Src>:
+// Three kernels from one template body, ctaps_kernel<Src>:
 //  * K4, mixfir_ctaps (raw planes [2, L]), replaces
 //    srcdsp_tpu/kernels/mixfir_ctaps.py make_mix_fir_ctaps_kernel (_compute);
 //  * K5, ctaps_preframed (producer frames [NT, span]), replaces
 //    srcdsp_tpu/kernels/mixfir_preframed.py make_ctaps_preframed_kernel
 //    (_kernel). Row r's window is exactly frame row r, so K5 gives K4's bits
-//    on the same stream.
-// Both take f32 or bf16 input (bf16 ingest: converted once at staging, taps
+//    on the same stream;
+//  * K17, ctaps_aligned (history [2, hist] and body [2, N] as two operands,
+//    the Split source), replaces srcdsp_tpu/kernels/ctaps_aligned.py
+//    make_ctaps_aligned_kernel (_kernel). Launched with K4's word
+//    w0 = word0 - hist*dword it reads the same stream K4 reads from the
+//    concatenation, so it gives K4's bits in every column block; the caller
+//    carries the history instead of prepending it, and nothing is copied.
+// K4 and K5 take f32 or bf16 input (bf16 ingest: converted once at staging, taps
 // and sums f32; the TPU variant rounds its packed taps to bf16 only to keep
 // its matrix unit's passes homogeneous).
 //
@@ -98,5 +104,18 @@ extern "C" int srcdsp_ctaps_preframed(const void* xr_f, const void* xi_f,
                                         (const __nv_bfloat16*)xi_f, NT, stride, span},
                   taps_re, taps_im, yr, yi, w0, dw, NT, OT, decim, T, hist, stream);
   return launch(Frames<float>{(const float*)xr_f, (const float*)xi_f, NT, stride, span},
+                taps_re, taps_im, yr, yi, w0, dw, NT, OT, decim, T, hist, stream);
+}
+
+// K17: x_hist [2, hist] and x_body [2, N] f32, each plane contiguous, plane
+// strides hist_stride and body_stride; w0 is K4's word for the concatenated
+// stream (word0 - hist*dword); else as K4.
+extern "C" int srcdsp_ctaps_aligned(const void* x_hist, const void* x_body, const void* taps_re,
+                                    const void* taps_im, void* yr, void* yi, unsigned int w0,
+                                    unsigned int dw, long long hist_stride,
+                                    long long body_stride, int N, int NT, int OT, int decim,
+                                    int T, int hist, void* stream) {
+  return launch(Split<float>{(const float*)x_hist, (const float*)x_body, hist, N, hist_stride,
+                             body_stride},
                 taps_re, taps_im, yr, yi, w0, dw, NT, OT, decim, T, hist, stream);
 }

@@ -68,6 +68,29 @@ struct Frames {
   }
 };
 
+// History and body as two operands, one channel: x_hist [2, H] and x_body
+// [2, N], each plane contiguous, with plane strides hs and bs (so slices of
+// one [2, H + N] array serve as they are). Stream sample g is x_hist[g] for
+// g < H and x_body[g - H] after it: the history-prepended stream without the
+// concat.
+template <typename T>
+struct Split {
+  const T* xh;
+  const T* xb;
+  long long H, N, hs, bs;
+  __device__ __forceinline__ bool load(int, int, long long g, float* a, float* b) const {
+    if (g < 0 || g >= H + N) return false;
+    if (g < H) {
+      *a = to_f32(xh[g]);
+      *b = to_f32(xh[hs + g]);
+    } else {
+      *a = to_f32(xb[g - H]);
+      *b = to_f32(xb[bs + g - H]);
+    }
+    return true;
+  }
+};
+
 // Stage samples [base, base + len) of channel c into shared memory (zero
 // where the source has none). With MIX, each sample is multiplied once by the
 // NCO phasor of its u32 word w0 + g * dw.
@@ -105,6 +128,20 @@ __device__ __forceinline__ void ctaps_dot(const float* sr, const float* si,
     const float gi = hi[a];
     ar = fmaf(gr, vr, fmaf(-gi, vi, ar));
     ai = fmaf(gr, vi, fmaf(gi, vr, ai));
+  }
+  *yr = ar;
+  *yi = ai;
+}
+
+// Real-tap FIR output from a staged (mixed) window: sum_a h[a] * s[e - a],
+// one FMA chain per plane, as K1 and K18 share it.
+__device__ __forceinline__ void real_dot(const float* sr, const float* si, const float* h,
+                                         int e, int T, float* yr, float* yi) {
+  float ar = 0.f, ai = 0.f;
+  for (int a = 0; a < T; ++a) {
+    const float w = h[a];
+    ar = fmaf(w, sr[e - a], ar);
+    ai = fmaf(w, si[e - a], ai);
   }
   *yr = ar;
   *yi = ai;

@@ -46,15 +46,7 @@ __global__ void mixfir_kernel(const float* __restrict__ x,
 
   const long long out = ((long long)c * NT + r) * OT;
   for (int j = threadIdx.x; j < OT; j += blockDim.x) {
-    const int e = j * decim + hist;
-    float ar = 0.f, ai = 0.f;
-    for (int a = 0; a < T; ++a) {
-      const float h = sh[a];
-      ar = fmaf(h, sr[e - a], ar);
-      ai = fmaf(h, si[e - a], ai);
-    }
-    yr[out + j] = ar;
-    yi[out + j] = ai;
+    real_dot(sr, si, sh, j * decim + hist, T, &yr[out + j], &yi[out + j]);
   }
 }
 

@@ -29,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu", "fft.cu", "fftconv.cu",
-           "bank.cu", "ldpc.cu", "bcjr.cu")
+           "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu")
 HEADERS = ("fsk_common.cuh", "fft_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +42,8 @@ LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0,
             "fsk_preframed": 0, "fsk_preframed_bf16": 0, "mix_resample": 0,
             "mix_resample_mc": 0, "resample_preframed": 0, "resample_preframed_bf16": 0,
             "fft": 0, "fft_digit": 0, "fft_nat": 0, "fftconv": 0, "fftconv_per_channel": 0,
-            "bank": 0, "bank_psk": 0, "ldpc_edges": 0, "ldpc_qc": 0, "bcjr": 0}
+            "bank": 0, "bank_psk": 0, "ldpc_edges": 0, "ldpc_qc": 0, "bcjr": 0,
+            "ctaps_aligned": 0, "mixfir_rows": 0}
 
 _P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong,
                       ctypes.c_float)
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "srcdsp_fsk_preframed": [_P] * 7 + [_I] * 10 + [_P],
     "srcdsp_mixfir_ctaps": [_P] * 5 + [_U, _U] + [_I] * 7 + [_P],
     "srcdsp_ctaps_preframed": [_P] * 6 + [_U, _U] + [_I] * 7 + [_P],
+    "srcdsp_ctaps_aligned": [_P] * 6 + [_U, _U, _LL, _LL] + [_I] * 6 + [_P],
+    "srcdsp_mixfir_rows": [_P] * 4 + [_U, _U, _LL] + [_I] * 5 + [_P],
     "srcdsp_frame": [_P] * 3 + [_I] * 6 + [_P],
     "srcdsp_mix_resample": [_P] * 6 + [_I] * 8 + [_P],
     "srcdsp_resample_preframed": [_P] * 5 + [_U, _U] + [_I] * 8 + [_P],

@@ -33,6 +33,23 @@ def freq_to_word(freq) -> np.ndarray:
     return word.astype(np.uint32)
 
 
+def _mod_f32(x: torch.Tensor, m: float) -> torch.Tensor:
+    """Floating modulus with the divisor's sign, as ``jnp.mod`` computes it:
+    the exact ``fmod``, plus the divisor where the signs differ."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & ((r < 0) != (m < 0)), r + np.float32(m), r)
+
+
+def freq_to_word_traced(freq) -> torch.Tensor:
+    """u32 tuning word (an int64 tensor) from a float32 frequency on the
+    device, for loops that retune per block (``ops.afc``). The JAX package's
+    contract bit for bit: the modular maths in float32, rounding half to
+    even, then the word through int64."""
+    f = torch.as_tensor(freq, dtype=torch.float32)
+    w = _mod_f32(torch.round(_mod_f32(f, 1.0) * np.float32(_SCALE)), _SCALE)
+    return w.to(torch.int64) & MASK32
+
+
 def word_tensor(words, device=None) -> torch.Tensor:
     """u32 tuning/phase words as an int64 tensor in [0, 2^32).
 

@@ -4,7 +4,8 @@ slices are held to, with the same arguments and results: the int16
 conversions (`i16_to_f32`, `f32_to_i16`); `nco_phasor`, `nco_mix`; `fir` with
 real taps and `fir_stream`; `resample`, `resample_stream`, `fft`; the
 channelizer and synthesis banks (`channelize`, `channelize_stream`,
-`channelize_os2`, `synthesize`, `synthesize_os2`); the discriminator and the
+`channelize_os2`, `synthesize`, `synthesize_os2`); the streaming IIR
+(`iir_stream`); the discriminator and the
 symbol timing (`discriminate`, `timing_estimate`, `timing_sample`); the FSK
 and PSK chains composed from them (`fsk_demod`, `psk_demod`); and the CPM
 transmitter (`cpm_tx`).
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "orc_synthesize_os2": [_P, _I, _L, _P, _L, _P],
     "orc_timing_estimate": [_P, _L, _I, _F, _P, _P],
     "orc_timing_sample_c": [_P, _P, _L, _I, _F, _P],
+    "orc_iir_stream": [_P, _L, _P, _P, _L, _P, _P],
 }
 
 
@@ -107,6 +109,28 @@ def fir_stream(x: np.ndarray, taps: np.ndarray, hist: np.ndarray, decim: int = 1
     load().orc_fir_stream(x.ctypes.data, x.size, taps.ctypes.data, taps.size, decim,
                           hist.ctypes.data, out.ctypes.data)
     return out, hist
+
+
+def iir_stream(x: np.ndarray, b: np.ndarray, a: np.ndarray, z: np.ndarray | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Streaming IIR b(z)/a(z), direct form II transposed with double
+    accumulation. z: the carried delay line [p] complex64 (zeros at stream
+    start, p = max(len(a), len(b)) - 1). Returns (y [N], new_z); outputs
+    concatenated over blocks equal one whole-signal run."""
+    x = _cf(x)
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    b, a = b / a[0], a / a[0]
+    p = max(a.size, b.size) - 1
+    b = np.ascontiguousarray(np.concatenate([b, np.zeros(p + 1 - b.size)]))
+    a = np.ascontiguousarray(np.concatenate([a, np.zeros(p + 1 - a.size)]))
+    z = np.zeros(p, np.complex64) if z is None else _cf(z).copy()
+    if z.size != p:
+        raise ValueError(f"z holds {z.size} samples, expected {p}")
+    out = np.empty(x.size, np.complex64)
+    load().orc_iir_stream(x.ctypes.data, x.size, b.ctypes.data, a.ctypes.data, p,
+                          z.ctypes.data, out.ctypes.data)
+    return out, z
 
 
 def fsk_demod(x: np.ndarray, center_freq: float, taps: np.ndarray, decim: int, sps: int

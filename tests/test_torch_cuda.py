@@ -531,3 +531,76 @@ def test_coded_kernels_refuse_bad_input_before_launch(dev):
         kb.make_bcjr_kernel(make_rsc(), 16, True, device=dev)(
             torch.zeros((16, 96), device=dev), torch.zeros((16, 96), device=dev))
     assert _build.LAUNCHES == before
+
+
+def test_ctaps_aligned_equals_k4_and_streams(dev):
+    """K17 == K4 bit for bit on the same stream (history as its own operand,
+    slices of one array), and 4 chunks with carried history == one launch."""
+    from srcdsp_tpu_torch.kernels import ctaps_aligned as kca
+    taps, word = lowpass(64, 0.2), int(freq_to_word(0.11))
+    ka = kca.make_ctaps_aligned_kernel(taps, word, 2, out_tile=OT, b_rows=8, device=dev)
+    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=8, device=dev)
+    h, n = ka.hist, 8 * ka.block_in()
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, h + n)).astype(np.float32),
+                        device=dev)
+    before = _build.LAUNCHES["ctaps_aligned"]
+    yr, yi = kca.ctaps_aligned(ka, 0, x[:, :h], x[:, h:])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ctaps_aligned"] == before + 1
+    rr, ri = kmc.mix_fir_ctaps(k4, (-h * word) % (1 << 32), x)
+    assert torch.equal(yr, rr) and torch.equal(yi, ri)
+    gr, gi = (torch.as_tensor(g[0], device=dev) for g in kct.ctaps_host(taps, [word], 2)[:2])
+    pr, pi = kca.ctaps_aligned_plain(0, word, x[:, :h], x[:, h:].reshape(2, -1, OT * 2), gr, gi,
+                                     2, OT, h)
+    assert _rel((yr.reshape(pr.shape), yi.reshape(pi.shape)), (pr, pi)) < 1e-5
+    q, parts = n // 4, []
+    for i in range(4):
+        lo = h + i * q
+        parts.append(kca.ctaps_aligned(ka, (i * q * word) % (1 << 32), x[:, lo - h:lo],
+                                       x[:, lo:lo + q]))
+    assert torch.equal(torch.cat([p[0] for p in parts], -1), yr)
+    assert torch.equal(torch.cat([p[1] for p in parts], -1), yi)
+
+
+@pytest.mark.parametrize("t,decim,ot", [(64, 2, 512), (33, 4, 256)])
+def test_mixfir_rows_matches_plain_and_k1(dev, t, decim, ot):
+    from srcdsp_tpu_torch.kernels import mixfir_rows as krw
+    taps, word = lowpass(t, 0.4 / decim), int(freq_to_word(0.11))
+    kr = krw.make_mix_fir_rows_kernel(taps, decim, out_tile=ot, b_rows=8, device=dev)
+    k1 = kmf.make_mix_fir_kernel(taps, decim, out_tile=ot, b_rows=8, device=dev)
+    n = 4 * kr.block_in()
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, kr.hist + n))
+                        .astype(np.float32), device=dev)
+    w0 = (-kr.hist * word) % (1 << 32)
+    before = _build.LAUNCHES["mixfir_rows"]
+    got = krw.mix_fir_rows(kr, w0, word, x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mixfir_rows"] == before + 1
+    x3, _ = krw.rows_view(kr, x)
+    plain = krw.mix_fir_rows_plain(w0, word, x3, torch.as_tensor(taps, device=dev), decim, ot,
+                                   kr.hist, n)
+    assert _rel(got, tuple(p.reshape(1, -1) for p in plain)) < 2e-6
+    assert _rel(got, kmf.mix_fir_decim(k1, w0, word, x)) < 2e-6
+
+
+def test_ddc_and_iir_on_cuda_tensors_match_the_cpu(dev):
+    from srcdsp_tpu_torch.ops import ddc as oddc
+    from srcdsp_tpu_torch.ops import iir as oiir
+    ddc = oddc.make_ddc(center=0.21, bandwidth=0.0155)
+    n = ddc.decim * 2048
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))).astype(np.complex64)
+    _, yc = oddc.ddc_apply(ddc, oddc.ddc_init(ddc, (3,), device=dev),
+                           torch.as_tensor(x, device=dev))
+    _, yh = oddc.ddc_apply(ddc, oddc.ddc_init(ddc, (3,), device="cpu"), torch.from_numpy(x))
+    assert yc.device.type == "cuda"
+    assert float(torch.linalg.norm(yc.cpu() - yh) / torch.linalg.norm(yh)) < 1e-5
+    b, a = oiir.dc_block_coeffs()
+    for form in ("assoc", "scan"):
+        pc = oiir.make_iir_params(b, a, device=dev)
+        ph = oiir.make_iir_params(b, a, device="cpu")
+        _, zc = oiir.iir_apply(pc, oiir.iir_init(pc, (3,), device=dev),
+                               torch.as_tensor(x[:, :8192], device=dev), inter_block=form)
+        _, zh = oiir.iir_apply(ph, oiir.iir_init(ph, (3,), device="cpu"),
+                               torch.from_numpy(x[:, :8192]), inter_block=form)
+        assert float(torch.linalg.norm(zc.cpu() - zh) / torch.linalg.norm(zh)) < 1e-5

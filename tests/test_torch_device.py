@@ -18,10 +18,11 @@ from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.io import capture
 from srcdsp_tpu_torch.kernels import bank_pallas, bcjr_pallas, fft_pallas, fftconv_pallas, ldpc_pallas
 from srcdsp_tpu_torch.kernels import fsk_ctaps, fsk_fused, fsk_preframed, mixfir
-from srcdsp_tpu_torch.kernels import mixfir_ctaps, mixfir_preframed, resample_pallas
-from srcdsp_tpu_torch.kernels import resample_preframed
-from srcdsp_tpu_torch.ops import channelize_planes, fft_planes, fftconv, fftconv_planes, fir, nco
-from srcdsp_tpu_torch.ops import planes, resample
+from srcdsp_tpu_torch.kernels import ctaps_aligned, mixfir_ctaps, mixfir_preframed, mixfir_rows
+from srcdsp_tpu_torch.kernels import resample_pallas, resample_preframed
+from srcdsp_tpu_torch.ops import afc, agc, channelize_planes, cic, ddc, decimplan, farrow
+from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, halfband, iir, nco
+from srcdsp_tpu_torch.ops import planes, resample, spectrum
 from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing import signals
 
@@ -42,6 +43,10 @@ def _fsk_state():
                                                                last=np.zeros(9, np.float32)))
 
 
+def _halfband_state():
+    return _JaxLike(even=_JaxLike(tail=np.zeros(5, np.complex64)), odd=np.zeros(3, np.complex64))
+
+
 def _psk_state():
     return _JaxLike(nco=_JaxLike(phase=np.uint32(0)), fir=_JaxLike(tail=np.zeros(32, np.complex64)),
                     timing=_JaxLike(acc=np.complex64(0), last=np.zeros(5, np.complex64)),
@@ -49,6 +54,11 @@ def _psk_state():
 
 
 PROTO = channelizer.design_prototype(8, 4)
+DDC = ddc.make_ddc(0.21, 0.0155)
+HB = halfband.design_halfband(11)
+IIR_P = iir.make_iir_params(*iir.dc_block_coeffs(), device="cpu")
+AFC_P = afc.make_afc(0.125, device="cpu")
+AGC_P = agc.make_agc_params(device="cpu")
 H120 = ldpc.make_regular_ldpc(120, 3, 6, seed=1)
 QC_BASE = qcldpc.make_dual_diagonal_base(4, 12, 16, seed=1)
 QC_CODE = qcldpc.make_qc_ldpc(QC_BASE, 16, device="cpu")
@@ -114,6 +124,44 @@ ENTRY_POINTS = {
     "make_freq_response": lambda **d: fftconv.make_freq_response(TAPS, 1024, **d),
     "fftconv_init": lambda **d: fftconv.fftconv_init(64, 1024, (2,), **d),
     "make_mix_fir_kernel": lambda **d: mixfir.make_mix_fir_kernel(TAPS, 2, **d),
+    "make_ctaps_aligned_kernel": lambda **d: ctaps_aligned.make_ctaps_aligned_kernel(
+        TAPS, 1 << 28, 2, **d),
+    "make_mix_fir_rows_kernel": lambda **d: mixfir_rows.make_mix_fir_rows_kernel(TAPS, 2, **d),
+    "ddc_init": lambda **d: ddc.ddc_init(DDC, (2,), **d),
+    "decim_plan_init": lambda **d: decimplan.decim_plan_init(DDC.plan, (2,), **d),
+    "halfband_init": lambda **d: halfband.halfband_init(HB, (2,), **d),
+    "cascade_init": lambda **d: halfband.cascade_init([HB, HB], (2,), **d),
+    "cic_decim_init": lambda **d: cic.cic_decim_init(4, 1, (2,), **d),
+    "cic_interp_init": lambda **d: cic.cic_interp_init(4, 1, (2,), **d),
+    "farrow_init": lambda **d: farrow.farrow_init((2,), **d),
+    "make_iir_params": lambda **d: iir.make_iir_params(*iir.dc_block_coeffs(), **d),
+    "make_sos_params": lambda **d: iir.make_sos_params(np.array([[1.0, 0, 0, 1, -0.5, 0]]), **d),
+    "iir_init": lambda **d: iir.iir_init(IIR_P, (2,), **d),
+    "sos_init": lambda **d: iir.sos_init((IIR_P, IIR_P), (2,), **d),
+    "make_agc_params": lambda **d: agc.make_agc_params(**d),
+    "agc_init": lambda **d: agc.agc_init(AGC_P, (2,), **d),
+    "make_afc": lambda **d: afc.make_afc(0.125, **d),
+    "afc_init": lambda **d: afc.afc_init(AFC_P, **d),
+    "welch_stream_init": lambda **d: spectrum.welch_stream_init(64, 32, (2,), **d),
+    "iir_params_from": lambda **d: convert.iir_params_from(IIR_P, **d),
+    "iir_state_from": lambda **d: convert.iir_state_from(_JaxLike(s=np.zeros(1, np.complex64)),
+                                                         **d),
+    "agc_params_from": lambda **d: convert.agc_params_from(AGC_P, **d),
+    "afc_params_from": lambda **d: convert.afc_params_from(AFC_P, **d),
+    "cic_state_from": lambda **d: convert.cic_state_from(
+        _JaxLike(integ=np.zeros(4, np.int32), combs=np.zeros((4, 1), np.int32)), **d),
+    "halfband_state_from": lambda **d: convert.halfband_state_from(_halfband_state(), **d),
+    "decim_plan_state_from": lambda **d: convert.decim_plan_state_from(
+        _JaxLike(hb=(_halfband_state(),), fir=None), **d),
+    "ddc_state_from": lambda **d: convert.ddc_state_from(
+        _JaxLike(nco=_JaxLike(phase=np.uint32(7)),
+                 plan=_JaxLike(hb=(), fir=_JaxLike(tail=np.zeros(8, np.complex64)))), **d),
+    "farrow_state_from": lambda **d: convert.farrow_state_from(
+        _JaxLike(tail=np.zeros(3, np.complex64), p=np.int32(-3)), **d),
+    "afc_state_from": lambda **d: convert.afc_state_from(
+        _JaxLike(freq=np.float32(0.01), nco=_JaxLike(phase=np.uint32(0)),
+                 up=_JaxLike(tail=np.zeros(63, np.complex64)),
+                 lo=_JaxLike(tail=np.zeros(63, np.complex64))), **d),
     "make_mix_fir_kernel_mc": lambda **d: mixfir.make_mix_fir_kernel_mc(TAPS, 2, 2, **d),
     "make_mix_fir_ctaps_kernel": lambda **d: mixfir_ctaps.make_mix_fir_ctaps_kernel(
         TAPS, 1 << 28, 2, **d),

@@ -1,4 +1,4 @@
-"""The port's FSK, NCO, FIR-stream, int16 and CPM-transmit slices against the
+"""The port's FSK, NCO, FIR-stream, int16, CPM-transmit and IIR slices against the
 C++ golden oracle (``cpp/oracle/oracle.cc``, bound by
 ``srcdsp_tpu_torch/oracle.py``), as ``tests/unit/test_oracle.py`` and
 ``tests/unit/test_tx.py`` hold the reference's.
@@ -6,8 +6,9 @@ C++ golden oracle (``cpp/oracle/oracle.cc``, bound by
 Contracts (the reference's): integer paths bit-exact (int16 conversions, the
 u32 NCO end phase, the CPM phase words); float paths within an SNR floor
 (NCO phasor > 120 dB, NCO mix > 100 dB, discriminator > 100 dB, streaming FIR
-> 100 dB, the CPM waveform within 2e-6); the FSK chain's bits equal; the
-oracle's streaming FIR in blocks equal to its one-shot FIR.
+> 100 dB, the CPM waveform within 2e-6, the streaming IIR > 80 dB); the FSK
+chain's bits equal; the oracle's streaming FIR in blocks equal to its
+one-shot FIR.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from srcdsp_tpu_torch import oracle
 from srcdsp_tpu_torch.chains.fsk import discriminate, fsk_apply, fsk_init, make_fsk_params
 from srcdsp_tpu_torch.chains.tx import cpm_tx_apply, cpm_tx_init, make_gmsk_tx
 from srcdsp_tpu_torch.ops.fir import fir_apply, fir_init
+from srcdsp_tpu_torch.ops.iir import dc_block_coeffs, iir_apply, iir_init, make_iir_params
 from srcdsp_tpu_torch.ops.nco import freq_to_word, nco_apply, nco_init, nco_phasor
 from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, random_bits, tone
@@ -109,3 +111,20 @@ def test_cpm_tx_vs_oracle():
     ph = ((np.cumsum(w) - w) % (1 << 32)).astype(np.uint32).astype(np.int32)
     np.testing.assert_array_equal(ph, ph_cpp)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+
+
+def test_iir_stream_vs_port_iir_apply():
+    """The oracle's DF2T IIR, state carried over two blocks, against the
+    port's block state-space `iir_apply` (both inter-block forms) above 80 dB
+    (tests/unit/test_iir.py::test_vs_cpp_oracle_streaming's floor)."""
+    x = _noise(4096, seed=7) + np.complex64(0.5 - 0.25j)
+    for b, a in ((np.array([0.0675, 0.1349, 0.0675]), np.array([1.0, -1.143, 0.4128])),
+                 dc_block_coeffs(0.995)):
+        p = make_iir_params(b, a, block=128, device="cpu")
+        for form in ("assoc", "scan"):
+            st, z = iir_init(p, device="cpu"), None
+            for i in range(0, 4096, 2048):
+                blk = x[i:i + 2048]
+                st, y = iir_apply(p, st, torch.from_numpy(blk), inter_block=form)
+                ref, z = oracle.iir_stream(blk, b, a, z)
+                assert _snr_db(ref.astype(np.complex128), y.numpy()) > 80
