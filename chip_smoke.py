@@ -84,7 +84,22 @@ Phases, in order; any failure raises and the run exits non-zero:
    against the port's CPU run within rel L2 1e-5, timed; the IIR DC blocker
    over 32 x 2^22 above 80 dB against the C++ oracle's iir_stream, its two
    inter-block forms within rel L2 1e-5, timed; the AGC settled within 5 %
-   of its target; Welch of the D = 48 output peaking at the tone's bin.
+   of its target; Welch of the D = 48 output peaking at the tone's bin;
+14. the distribution tier: the card count, then on C14_SHARDS time shards of
+   one card (and again on 2 shards across cuda:0 and cuda:1 where the
+   machine has two cards; else "cross-card leg: 1 device, not run"): K19 on
+   config 1's planes (halo 128) and config 3's 32 rows (halo 1024), equal to
+   dist.halo's copies, timed in turns against a copy_ yardstick; K20 and
+   mix_fir_time_sharded over 2 buffers of 2^26, both equal to K1 over the
+   unsharded stream, carried tails equal, the three timed in turns (CUDA
+   events on one card; on two, the host clock around a synchronize of both);
+   fftconv_time_sharded over 5 shards (phase 10's chunks) in 2 buffers equal
+   to one K11 launch; build_config5's mesh form (indices equal to the single
+   device, soft within 2e-5) and the pre-filter -> channelizer -> PSK stream
+   of __graft_entry__.py in 2 buffers (the FIR stream equal to fir_full and
+   the channelizer stream to channelize_full, PSK indices equal, soft
+   within 2e-5); codeword-sharded K14, block-sharded K16 and channel-sharded
+   FSK through map_shards against the unsharded calls.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -101,9 +116,12 @@ layered LDPC, [1536, 4096], 6 iterations) and K16 (max-log BCJR, the turbo's
 first half [515, 256]) against their plain versions by torch.equal; no
 PyTorch call computes min-sum or BCJR, so they have no library yardstick.
 It holds K17 and K18 at config-1 shape against their plain versions (rel L2
-1e-5 and 2e-6); no PyTorch call computes a mix with a FIR.
+1e-5 and 2e-6); no PyTorch call computes a mix with a FIR. It holds K19 on 4
+column slices of config 1's body (halo 128) to dist.halo's copies by
+torch.equal, with the copy_ of each halo as its library yardstick, and K20 on
+the same slices to its plain version per shard (rel L2 1e-5).
 
-Launch counts are reset just before phase 4 and read after phase 13: every
+Launch counts are reset just before phase 4 and read after phase 14: every
 kernel must have run on the main path. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -151,6 +169,11 @@ MINSUM_OPS, BCJR_OPS = 12, 16
 # phase 13: K17 chunks; the DDCs' channels, blocks and outputs per block; the IIR
 C13_K17_CHUNKS, C13_CHANNELS, C13_DDC_BLOCKS, C13_DDC_BLOCK_OUT = 4, 32, 4, 1 << 14
 C13_SETTLE, C13_IIR_SAMPLES, C13_ORACLE_SAMPLES = 256, 1 << 22, 1 << 16
+# phase 14: time shards of config 1 (and K19 on config 3's 32 rows), K11's
+# shards (phase 10's chunks), the distributed config-5 pipeline's pre-filter
+# taps and buffers, the sharded FSK body's channels and symbols
+C14_SHARDS, C14_FFT_SHARDS, C14_BUFFERS = 4, 5, 2
+C14_PRE_TAPS, C14_FSK_CHANNELS, C14_FSK_SYMBOLS = 16, 8, 4096
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -403,6 +426,258 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
     require(bool((peak == 240).all()), f"Welch: peak bins {peak}")
 
 
+def in_turns(torch, fns: dict, turns: int, cards=None) -> dict:
+    """Times in ms of each fn over `turns` rounds, in alternating order
+    (forward, then backward), after one warm-up call each. CUDA events on the
+    current device; with `cards` (device indices, more than one), the host
+    clock between synchronizes of every card, since the events of one card
+    do not wait for another's work."""
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for rnd in range(turns):
+        for name in (fns if rnd % 2 == 0 else reversed(list(fns))):
+            if cards and len(cards) > 1:
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                t0 = time.perf_counter()
+                fns[name]()
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                continue
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[name]()
+            e1.record()
+            e1.synchronize()
+            times[name].append(e0.elapsed_time(e1))
+    return times
+
+
+def phase14(torch, dev, x1, taps1_np, word1) -> None:
+    """The distribution tier (all on the main path: launches counted): K19 and
+    K20 on time shards of one card (and across two where the machine has
+    them), K1 and K11 on time shards, the distributed config-5 pipeline and
+    the sharded coded bodies, each against its unsharded form."""
+    from srcdsp_tpu_torch.chains.channelizer import (
+        channelize_full, design_prototype, pad_prototype)
+    from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
+    from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
+    from srcdsp_tpu_torch.configs import C3_CUTOFF, build_config5, build_ldpc, build_turbo
+    from srcdsp_tpu_torch.dist import channelize as dchan
+    from srcdsp_tpu_torch.dist import fused as dfused
+    from srcdsp_tpu_torch.dist import halo as dhalo
+    from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+    from srcdsp_tpu_torch.kernels import halo_dma as k19
+    from srcdsp_tpu_torch.kernels import halo_fused as khf
+    from srcdsp_tpu_torch.kernels import mixfir as kmf
+    from srcdsp_tpu_torch.kernels.bcjr_pallas import turbo_decode_pallas
+    from srcdsp_tpu_torch.ops.fir import fir_full
+    from srcdsp_tpu_torch.ops.window import lowpass
+    from srcdsp_tpu_torch.testing.signals import fsk_baseband, random_bits, tone
+
+    hist, n1 = 128, C1_SAMPLES
+    cards = torch.cuda.device_count()
+    legs = [("one card", dmesh.make_mesh(time=C14_SHARDS, devices=[dev] * C14_SHARDS))]
+    if cards >= 2:
+        legs.append(("two cards", dmesh.make_mesh(time=2)))
+    print(f"[14] {cards} CUDA device(s); {C14_SHARDS} time shards on {dev}; cross-card leg: "
+          + ("cuda:0 + cuda:1, run" if cards >= 2 else "1 device, not run"), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    stream = torch.cat([x1[:, hist:], torch.randn((2, n1), generator=gen, device=dev)], dim=-1)
+    x3 = torch.randn((C3_CHANNELS, 2, C14_BUFFERS * C3_SAMPLES), generator=gen, device=dev)
+    torch.cuda.synchronize()
+
+    # K1 over the whole unsharded stream of C14_BUFFERS config-1 buffers, from rest
+    k1 = kmf.make_mix_fir_kernel(taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=dev)
+    w0pad = (-hist * word1) % (1 << 32)
+    one = k1.fn(w0pad, word1, torch.cat([torch.zeros((2, hist), device=dev), stream], dim=-1))
+    one = torch.stack([one[0].reshape(-1), one[1].reshape(-1)])
+    for label, mesh in legs:
+        devs = mesh.axis_devices()
+        p14 = len(devs)
+        cards_used = sorted({d.index for d in devs})
+        clock = "host clock" if len(cards_used) > 1 else "CUDA events"
+        # K19: config 1's buffer 0 (halo 128 = K1's hist) and config 3's 32 rows
+        # (halo 1024 = K11's overlap at 1024 taps), each equal to the torch copies
+        rows3 = x3[..., :C3_SAMPLES].reshape(2 * C3_CHANNELS, -1)
+        for what, src, halo in (("config-1 planes", stream[:, :n1], hist),
+                                ("config-3 rows", rows3, 1024)):
+            shards = dmesh.shard(src, mesh)
+            got = k19.halo_from_left_pallas(shards, halo)
+            ref = dhalo.halo_from_left(shards, halo)
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"K19 ({label}, {what}) != dist.halo.halo_from_left")
+            outs = [torch.empty_like(a) for a in got]
+
+            def yard(shards=shards, outs=outs, halo=halo):
+                outs[0].zero_()
+                for p in range(1, p14):
+                    outs[p].copy_(shards[p - 1][:, shards[p - 1].shape[-1] - halo:])
+
+            t = in_turns(torch, {"K19": lambda s=shards, h=halo: k19.halo_from_left_pallas(s, h),
+                                 "copy_": yard}, 2 * REPS, cards_used)
+            print(f"[14] K19 {label}, {p14} shards of {what} {tuple(shards[0].shape)}, halo "
+                  f"{halo}: == dist.halo.halo_from_left (torch.equal); K19 "
+                  f"{np.median(t['K19']):.4f} ms, copy_ yardstick {np.median(t['copy_']):.4f} ms "
+                  f"({2 * REPS} turns, {clock})", flush=True)
+            del shards, got, ref, outs
+        # K20 and K1 on time shards, C14_BUFFERS buffers with the carried tail
+        kf = dmesh.per_device(lambda d: khf.make_halo_fused_kernel(
+            taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=d), devs)
+        k1s = dmesh.per_device(lambda d: kmf.make_mix_fir_kernel(
+            taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=d), devs)
+        tail_a = tail_b = torch.zeros((2, hist), device=devs[0])
+        ya, yb = [], []
+        for b in range(C14_BUFFERS):
+            shards = dmesh.shard(stream[:, b * n1:(b + 1) * n1], mesh)
+            w0 = (b * n1 * word1) % (1 << 32)
+            tail_a, y = khf.mix_fir_halo_sharded(kf, w0, word1, tail_a, shards, mesh)
+            ya.append(torch.cat([v.to(dev) for v in y], dim=-1))
+            tail_b, y = dfused.mix_fir_time_sharded(k1s, w0, word1, tail_b, shards, mesh)
+            yb.append(torch.cat([v.to(dev) for v in y], dim=-1))
+        ya, yb = torch.cat(ya, dim=-1), torch.cat(yb, dim=-1)
+        require(torch.equal(ya, one), f"K20 ({label}) != K1 over the unsharded stream")
+        require(torch.equal(yb, one), f"mix_fir_time_sharded ({label}) != K1 unsharded")
+        require(torch.equal(tail_a, tail_b) and torch.equal(tail_a.to(dev), stream[:, -hist:]),
+                f"K20 / mix_fir_time_sharded ({label}): carried tails differ")
+        t = in_turns(torch, {
+            "K20": lambda: khf.mix_fir_halo_sharded(kf, 0, word1, tail_a, shards, mesh),
+            "mix_fir_time_sharded": lambda: dfused.mix_fir_time_sharded(k1s, 0, word1, tail_b,
+                                                                        shards, mesh),
+            "K1 unsharded": lambda: k1.fn(w0pad, word1, x1)}, 2 * REPS, cards_used)
+        med = {k: float(np.median(v)) for k, v in t.items()}
+        print(f"[14] K20 {label}, {p14} shards x {C14_BUFFERS} buffers of {n1} samples: == K1 "
+              f"unsharded and == mix_fir_time_sharded (torch.equal), tails equal; per buffer "
+              + ", ".join(f"{k} {v:.4f} ms ({n1 / v / 1e3:.1f} Ms/s)" for k, v in med.items())
+              + f" ({2 * REPS} turns, {clock})", flush=True)
+        del kf, k1s, ya, yb, shards, y, tail_a, tail_b
+    del one, stream
+
+    # K11 on C14_FFT_SHARDS time shards (phase 10's chunks), C14_BUFFERS buffers
+    mesh5 = dmesh.make_mesh(time=C14_FFT_SHARDS, devices=[dev] * C14_FFT_SHARDS)
+    k11 = kfc.make_fftconv_kernel(lowpass(1024, C3_CUTOFF), 4096, num_channels=C3_CHANNELS,
+                                  b_frames=16, karatsuba=True, device=dev)
+    tail = torch.zeros((C3_CHANNELS, 2, k11.overlap), device=dev)
+    rs, is_ = [], []
+    for b in range(C14_BUFFERS):
+        shards = dmesh.shard(x3[..., b * C3_SAMPLES:(b + 1) * C3_SAMPLES], mesh5)
+        tail, yr, yi = dfused.fftconv_time_sharded(k11, tail, shards, mesh5)
+        rs.append(torch.cat(yr, dim=-1))
+        is_.append(torch.cat(yi, dim=-1))
+    xin = torch.cat([torch.zeros((C3_CHANNELS, 2, k11.overlap), device=dev), x3], dim=-1)
+    r1, i1 = kfc.fftconv_pallas(k11, xin)
+    require(torch.equal(torch.cat(rs, dim=-1), r1) and torch.equal(torch.cat(is_, dim=-1), i1),
+            "fftconv_time_sharded != one K11 launch")
+    require(torch.equal(tail, x3[..., -k11.overlap:]), "fftconv_time_sharded: carried tail")
+    del rs, is_, r1, i1, xin
+    xb = torch.cat([tail, x3[..., :C3_SAMPLES]], dim=-1)
+    t = in_turns(torch, {"sharded": lambda: dfused.fftconv_time_sharded(k11, tail, shards, mesh5),
+                         "K11 one launch": lambda: kfc.fftconv_pallas(k11, xb)}, 2 * REPS)
+    print(f"[14] fftconv_time_sharded: {C3_CHANNELS} ch x {C14_BUFFERS} buffers of {C3_SAMPLES} "
+          f"samples over {C14_FFT_SHARDS} shards == one K11 launch over both (torch.equal), tail "
+          f"equal; per buffer sharded {np.median(t['sharded']):.4f} ms, one launch "
+          f"{np.median(t['K11 one launch']):.4f} ms ({2 * REPS} turns)", flush=True)
+    del x3, xb, shards, tail
+
+    # the distributed config-5 pipeline at the complex tier: build_config5's
+    # mesh form, then the pre-filter and channelizer streams (C14_BUFFERS
+    # buffers) and the PSK demod on the channel shards
+    mesh4 = legs[0][1]
+    b1 = build_config5(C5_COMPLEX_FRAMES, C5_CHANNELS, device=dev)
+    bm = build_config5(C5_COMPLEX_FRAMES, C5_CHANNELS, mesh=mesh4)
+    idx1, soft1 = b1.step(*b1.example)
+    idxm, softm = bm.step(*bm.example)
+    dsoft = float((softm - soft1).abs().max())
+    require(torch.equal(idxm, idx1) and dsoft <= 2e-5,
+            f"build_config5 mesh form: indices equal {torch.equal(idxm, idx1)}, soft {dsoft}")
+    t = in_turns(torch, {"mesh": lambda: bm.step(*bm.example),
+                         "single": lambda: b1.step(*b1.example)}, REPS)
+    x5 = b1.example[0]
+    pre = lowpass(C14_PRE_TAPS, 0.45)
+    proto = design_prototype(C5_CHANNELS, 8)
+    nb = x5.shape[-1] // C14_BUFFERS
+    tail_f = torch.zeros(C14_PRE_TAPS - 1, dtype=torch.complex64, device=dev)
+    tail_c = torch.zeros(pad_prototype(proto, C5_CHANNELS).shape[0] - 1, dtype=torch.complex64,
+                         device=dev)
+    tail_c1 = tail_c
+    fouts, couts, cexact = [], [], []
+    y1 = fir_full(pre, x5)
+    for b in range(C14_BUFFERS):
+        tail_f, ys = dhalo.fir_time_sharded_stream(pre, tail_f,
+                                                   dmesh.shard(x5[b * nb:(b + 1) * nb], mesh4),
+                                                   mesh4)
+        tail_c, banks = dchan.channelize_time_sharded_stream(proto, tail_c, ys, C5_CHANNELS,
+                                                             mesh4)
+        fouts.append(dmesh.unshard(ys, dev))
+        couts.append(banks)
+        tail_c1, exact = dchan.channelize_time_sharded_stream(
+            proto, tail_c1, dmesh.shard(y1[b * nb:(b + 1) * nb], mesh4), C5_CHANNELS, mesh4)
+        cexact.append(dmesh.unshard(exact, dev, dim=0))
+    yf = torch.cat(fouts)
+    f_eq = bool(torch.equal(yf, y1))
+    bank1 = channelize_full(proto, y1, C5_CHANNELS)
+    c_eq = bool(torch.equal(torch.cat(cexact, dim=-1), bank1))
+    psk = make_psk_params(0.0, decim=1, sps=C5_SPS, order=C5_ORDER, rrc_span=4, device=dev)
+    shards_c = tuple(torch.cat([c[q] for c in couts], dim=-1) for q in range(C14_SHARDS))
+    outs = dmesh.map_shards(lambda bk: psk_apply(psk, psk_init(psk, (bk.shape[0],)), bk)[1],
+                            mesh4, shards_c)
+    pidx = torch.cat([o[0] for o in outs])
+    psoft = torch.cat([o[1] for o in outs])
+    ridx, rsoft = psk_apply(psk, psk_init(psk, (C5_CHANNELS,)), bank1)[1]
+    p_soft = float((psoft - rsoft).abs().max())
+    print(f"[14] config 5 mesh form ({C14_SHARDS} shards, {C5_CHANNELS} ch x {C5_COMPLEX_FRAMES} "
+          f"frames): indices == single device, soft max diff {dsoft:.3e} (floor 2e-5); step "
+          f"{np.median(t['mesh']):.3f} ms against {np.median(t['single']):.3f} ms single-device "
+          f"({REPS} turns); pipeline ({C14_BUFFERS} buffers, pre-filter lowpass"
+          f"({C14_PRE_TAPS}, 0.45)): FIR stream == fir_full {f_eq}, channelizer stream == "
+          f"channelize_full {c_eq}, PSK on channel shards: indices "
+          f"== single-device pipeline {bool(torch.equal(pidx, ridx))}, soft max diff "
+          f"{p_soft:.3e} (floor 2e-5)", flush=True)
+    require(f_eq, "pipeline FIR stream != fir_full (torch.equal)")
+    require(c_eq, "pipeline channelizer stream != channelize_full (torch.equal)")
+    require(torch.equal(pidx, ridx) and p_soft <= 2e-5,
+            f"pipeline PSK: indices equal {torch.equal(pidx, ridx)}, soft {p_soft}")
+    del b1, bm, idx1, soft1, idxm, softm, x5, y1, yf, fouts, couts, cexact, bank1, shards_c
+
+    # bodies with no collective: codeword-sharded K14, block-sharded K16,
+    # channel-sharded FSK demod, each equal to the unsharded call
+    led = build_ldpc("edges", C12_EDGES_BATCH, device=dev)
+    llr = led.example[0]
+    ref = led.step(llr)
+    got = dmesh.map_shards(led.step, mesh4, dmesh.shard(llr, mesh4, dim=0))
+    ldpc_eq = all(torch.equal(torch.cat([g[j] for g in got]), ref[j]) for j in range(3))
+    trb = build_turbo(C12_TURBO_T, batch=C12_TURBO_BATCH, layout="kernel", device=dev)
+    ref = trb.step(*trb.example)
+    bt = C12_TURBO_BATCH // C14_SHARDS
+    got = dmesh.map_shards(lambda a, b, c: turbo_decode_pallas(trb.meta["tc"], a, b, c,
+                                                               iters=trb.meta["iters"],
+                                                               b_tile=bt),
+                           mesh4, *(dmesh.shard(v, mesh4, dim=0) for v in trb.example))
+    turbo_eq = all(torch.equal(torch.cat([g[j] for g in got]), ref[j]) for j in range(2))
+    nsym, decim, sps, fdev = C14_FSK_SYMBOLS, 4, 8, 0.05
+    bits = random_bits(np.random.default_rng(14), (C14_FSK_CHANNELS, nsym))
+    xf = torch.as_tensor(fsk_baseband(bits, decim * sps, fdev / decim)
+                         * tone(nsym * decim * sps, 0.11), device=dev)
+    prm = make_fsk_params(0.11, 64, 0.03, decim, sps, fdev, device=dev)
+    meshc = dmesh.make_mesh(channel=C14_SHARDS, devices=[dev] * C14_SHARDS)
+    got = dmesh.map_shards(lambda v: fsk_apply(prm, fsk_init(prm, (v.shape[0],)), v)[1], meshc,
+                           dmesh.shard(xf, meshc, "channel", dim=0), axis="channel")
+    rx, soft = fsk_apply(prm, fsk_init(prm, (C14_FSK_CHANNELS,)), xf)[1]
+    gsoft = torch.cat([g[1] for g in got])
+    fsk_bits = bool(torch.equal(torch.cat([g[0] for g in got]), rx))
+    fsk_rel = float(torch.linalg.norm(gsoft - soft) / torch.linalg.norm(soft))
+    print(f"[14] sharded bodies over {C14_SHARDS} shards: K14 decode of {C12_EDGES_BATCH} "
+          f"codewords == unsharded {ldpc_eq}; K16 turbo of {C12_TURBO_BATCH} blocks == unsharded "
+          f"{turbo_eq}; FSK demod of {C14_FSK_CHANNELS} channels: bits == unsharded {fsk_bits}, "
+          f"soft equal {bool(torch.equal(gsoft, soft))} (rel L2 {fsk_rel:.3e}, floor 1e-6)",
+          flush=True)
+    require(ldpc_eq and turbo_eq, "sharded K14 / K16 decode != unsharded")
+    require(fsk_bits and fsk_rel <= 1e-6, f"sharded FSK: bits {fsk_bits}, rel L2 {fsk_rel}")
+
+
 def main() -> int:
     import torch
 
@@ -422,6 +697,9 @@ def main() -> int:
         build_coded_link, build_coded_modem, build_config1, build_config1_serving, build_config2,
         build_config2_onchip, build_config3_onchip, build_config5, build_config5_onchip, build_fft,
         build_ldpc, build_turbo, config2_step)
+    from srcdsp_tpu_torch.dist import fused as dfused
+    from srcdsp_tpu_torch.dist import halo as dhalo
+    from srcdsp_tpu_torch.dist import mesh as dmesh
     from srcdsp_tpu_torch.io import framer
     from srcdsp_tpu_torch.io.capture import read_capture
     from srcdsp_tpu_torch.kernels import _build
@@ -433,6 +711,8 @@ def main() -> int:
     from srcdsp_tpu_torch.kernels import fsk_ctaps as kct
     from srcdsp_tpu_torch.kernels import fsk_fused as kff
     from srcdsp_tpu_torch.kernels import fsk_preframed as kfp
+    from srcdsp_tpu_torch.kernels import halo_dma as k19
+    from srcdsp_tpu_torch.kernels import halo_fused as khf
     from srcdsp_tpu_torch.kernels import ldpc_pallas as kldpc
     from srcdsp_tpu_torch.kernels import mixfir as kmf
     from srcdsp_tpu_torch.kernels import mixfir_ctaps as kcm
@@ -483,16 +763,17 @@ def main() -> int:
                         x4[:, :, :C4_CHUNK]], dim=-1)
 
     def record(name, source, replaces, err, rel, within, agree, k_fn, p_fn, flops, nbytes,
-               lib_fn=None):
+               lib_fn=None, per_call=1):
         """Time kernel and plain version (and the library call where one
         computes the same function); flops counts the least multiply-adds of
         the function's filter sums: real taps on complex samples, 4 flop per
         tap and output whatever form the kernel uses (complex taps are the
         kernel's choice; phasors and atan2 left out), nbytes the inputs and
-        outputs once each (taps, at most 2 KB, left out)."""
+        outputs once each (taps, at most 2 KB, left out); per_call the
+        launches in one k_fn call (one per shard for K19 and K20)."""
         before = _build.LAUNCHES[name]
         ms, plain_ms = median_ms(torch, k_fn), median_ms(torch, p_fn)
-        require(_build.LAUNCHES[name] == before + REPS + 1, f"{name}: launch count")
+        require(_build.LAUNCHES[name] == before + per_call * (REPS + 1), f"{name}: launch count")
         lib_ms = median_ms(torch, lib_fn) if lib_fn is not None else None
         bound_ms, bound_by = roofline_ms(flops, nbytes)
         print(f"    {name}: max_abs_err {err:.3e} rel_l2 {rel:.3e} decisions_equal {agree} "
@@ -639,6 +920,47 @@ def main() -> int:
            lambda: krw.mix_fir_rows_plain(w01, word1, x3r, taps1, 2, OUT_TILE, hist, n3r),
            y18[0].numel() * 64 * 4, tensor_bytes(x1, y18))
     del y17, y18
+
+    # K19 and K20 on C14_SHARDS time shards of config 1's body (x1 without its
+    # history, column slices of one array) on one card: K19 moves each shard's
+    # last 128 columns (K1's hist) to its right neighbour, against the torch
+    # copies of dist.halo and the copy_ yardstick; K20 against its plain
+    # version (the concatenation + mix_fir_plain per shard)
+    mesh_row = dmesh.make_mesh(time=C14_SHARDS, devices=[dev] * C14_SHARDS)
+    body1 = x1[:, hist:]
+    sl1 = tuple(body1.chunk(C14_SHARDS, dim=-1))
+    s14 = C1_SAMPLES // C14_SHARDS
+    y19 = k19.halo_from_left_pallas(sl1, hist)
+    p19 = dhalo.halo_from_left(sl1, hist)
+    eq19 = all(torch.equal(a, b) for a, b in zip(y19, p19))
+    out19 = [torch.empty_like(a) for a in y19]
+
+    def copy19():
+        out19[0].zero_()
+        for p in range(1, C14_SHARDS):
+            out19[p].copy_(sl1[p - 1][:, s14 - hist:])
+
+    record("halo_dma", "srcdsp_tpu_torch/csrc/halo.cu", "srcdsp_tpu/kernels/halo_dma.py:77",
+           0.0 if eq19 else float("inf"), 0.0, eq19, True,
+           lambda: k19.halo_from_left_pallas(sl1, hist),
+           lambda: dhalo.halo_from_left(sl1, hist), 0,
+           (2 * C14_SHARDS - 1) * 2 * hist * 4, copy19, per_call=C14_SHARDS)
+    k20 = khf.make_halo_fused_kernel(taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=dev)
+    tail14 = torch.zeros((2, hist), device=dev)
+    _, y20 = khf.mix_fir_halo_sharded(k20, 0, word1, tail14, sl1, mesh_row)
+
+    def plain20():
+        return tuple(khf.halo_fused_plain(
+            dfused.shard_word(0, word1, p, s14, hist), word1,
+            tail14 if p == 0 else sl1[p - 1][:, s14 - hist:], x, taps1, 2, OUT_TILE, hist)
+            for p, x in enumerate(sl1))
+
+    err, rel = cplx_err(torch.cat(y20, dim=-1), torch.cat(plain20(), dim=-1))
+    record("halo_fused", "srcdsp_tpu_torch/csrc/mixfir.cu",
+           "srcdsp_tpu/kernels/halo_fused.py:169", err, rel, rel < 1e-5, True,
+           lambda: khf.mix_fir_halo_sharded(k20, 0, word1, tail14, sl1, mesh_row), plain20,
+           C1_SAMPLES // 2 * 64 * 4, tensor_bytes(body1, y20), per_call=C14_SHARDS)
+    del y19, p19, out19, y20
 
     # K3 on bf16 input, and K7 over frames of the same chunk in both dtypes
     k3b, _ = kct.make_fsk_ctaps_kernel(taps4, words, DECIM, SPS, out_tile=OUT_TILE,
@@ -1449,6 +1771,10 @@ def main() -> int:
 
     # --- 13. config 1's alternate front ends, the down-converter, IIR, spectrum ---
     phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01)
+
+    # --- 14. the distribution tier ------------------------------------------------
+    del x3r
+    phase14(torch, dev, x1, taps1_np, word1)
 
     launches = dict(_build.LAUNCHES)
     print(f"    main-path launches: {launches}")

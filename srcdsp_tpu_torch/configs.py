@@ -411,35 +411,61 @@ def build_fft(batch: int = 8192, n: int = 4096, variant: str = "kernel", device=
 C5_SPS, C5_ORDER, C5_TAPS_PER_PHASE = 4, 4, 8
 
 
-def build_config5(frames: int = 512, num_channels: int = 64, device=None) -> BuiltConfig:
+def build_config5(frames: int = 512, num_channels: int = 64, device=None,
+                  mesh=None) -> BuiltConfig:
     """64-channel polyphase channelizer + per-channel QPSK demod, the complex
     tier: ``chains.channelizer.channelize_full`` then ``chains.psk.psk_apply``
     (decim 1, sps 4, RRC span 4) over the seed-0 complex input of
     frames * num_channels samples, as the JAX preset's single-device form.
-    Its ``mesh`` form (time-sharded input, all_to_all to channel shards) waits
-    for the distribution slice.
 
     step(x [N]) -> (idx int32 [M, frames/4], soft complex64 [M, frames/4]).
+
+    With `mesh` (``dist.make_mesh``), the distributed form: the input is
+    time-sharded over the mesh's time axis (the example is its shards), the
+    channelizer re-shards it to channels (``dist.channelize_time_sharded``),
+    and the demod runs on each channel shard with no collective
+    (``dist.mesh.map_shards``); step(shards) gathers the outputs onto
+    `device`, which defaults to the mesh's first device.
     """
     from srcdsp_tpu_torch.chains.channelizer import channelize_full, design_prototype
     from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
 
-    device = resolve(device)
+    device = resolve(mesh.devices[0][0] if mesh is not None and device is None else device)
     proto = design_prototype(num_channels, taps_per_phase=C5_TAPS_PER_PHASE)
-    psk = make_psk_params(0.0, decim=1, sps=C5_SPS, order=C5_ORDER, rrc_span=4, device=device)
     n = frames * num_channels
     rng = np.random.default_rng(0)
     x = torch.as_tensor(
         (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64),
         device=device)
 
-    def step(xw):
-        bank = channelize_full(proto, xw, num_channels)
-        _, out = psk_apply(psk, psk_init(psk, (num_channels,)), bank)
-        return out
+    def psk_for(dev):
+        return make_psk_params(0.0, decim=1, sps=C5_SPS, order=C5_ORDER, rrc_span=4, device=dev)
 
-    return BuiltConfig(step, (x,), n, dict(channels=num_channels, impl="torch",
-                                           distributed=False))
+    def demod(psk, bank):
+        return psk_apply(psk, psk_init(psk, (bank.shape[0],)), bank)[1]
+
+    if mesh is None:
+        psk = psk_for(device)
+
+        def step(xw):
+            return demod(psk, channelize_full(proto, xw, num_channels))
+
+        example = (x,)
+    else:
+        from srcdsp_tpu_torch.dist import channelize_time_sharded, shard, unshard
+        from srcdsp_tpu_torch.dist.mesh import map_shards, per_device
+
+        psks = per_device(psk_for, mesh.axis_devices())
+
+        def step(shards):
+            bank = channelize_time_sharded(proto, shards, num_channels, mesh)
+            outs = map_shards(demod, mesh, psks, bank)
+            return (unshard([o[0] for o in outs], device, dim=0),
+                    unshard([o[1] for o in outs], device, dim=0))
+
+        example = (shard(x, mesh),)
+    return BuiltConfig(step, example, n, dict(channels=num_channels, impl="torch",
+                                              distributed=mesh is not None))
 
 
 CONFIG5_ONCHIP = ("fused", "fused_std", "bank", "planes")

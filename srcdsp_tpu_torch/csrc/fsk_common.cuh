@@ -169,4 +169,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Makes `device` current for an entry point's launch and gives the caller's
+// device back on return, so a launch on another card leaves the calling
+// thread's current device as it was. err holds the first failure.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace srcdsp

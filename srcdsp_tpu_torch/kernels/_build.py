@@ -29,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu", "fft.cu", "fftconv.cu",
-           "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu")
+           "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu", "halo.cu")
 HEADERS = ("fsk_common.cuh", "fft_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,7 +43,7 @@ LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0,
             "mix_resample_mc": 0, "resample_preframed": 0, "resample_preframed_bf16": 0,
             "fft": 0, "fft_digit": 0, "fft_nat": 0, "fftconv": 0, "fftconv_per_channel": 0,
             "bank": 0, "bank_psk": 0, "ldpc_edges": 0, "ldpc_qc": 0, "bcjr": 0,
-            "ctaps_aligned": 0, "mixfir_rows": 0}
+            "ctaps_aligned": 0, "mixfir_rows": 0, "halo_dma": 0, "halo_fused": 0}
 
 _P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong,
                       ctypes.c_float)
@@ -66,6 +66,9 @@ _SIGNATURES = {
     "srcdsp_ldpc_edges": [_P] * 4 + [_I] * 7 + [_F, _P],
     "srcdsp_ldpc_qc": [_P] * 5 + [_I] * 7 + [_F, _P],
     "srcdsp_bcjr": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    "srcdsp_halo": [_P, _LL, _P, _I, _I, _I, _P],
+    "srcdsp_halo_fused": [_P] * 5 + [_U, _U, _LL, _LL] + [_I] * 7 + [_P],
+    "srcdsp_enable_peer": [_I, _I],
 }
 
 

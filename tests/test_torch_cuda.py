@@ -604,3 +604,104 @@ def test_ddc_and_iir_on_cuda_tensors_match_the_cpu(dev):
         _, zh = oiir.iir_apply(ph, oiir.iir_init(ph, (3,), device="cpu"),
                                torch.from_numpy(x[:, :8192]), inter_block=form)
         assert float(torch.linalg.norm(zc.cpu() - zh) / torch.linalg.norm(zh)) < 1e-5
+
+
+def _halo_case(dev, p=4, rows=2, per=4096):
+    from srcdsp_tpu_torch.dist import mesh as dm
+    mesh = dm.make_mesh(time=p, devices=[dev] * p)
+    x = torch.as_tensor(np.random.default_rng(rows).standard_normal((rows, p * per))
+                        .astype(np.float32), device=dev)
+    return mesh, x
+
+
+@pytest.mark.parametrize("rows,halo", [(2, 128), (32, 1024)])
+def test_halo_dma_equals_the_copy_path(dev, rows, halo):
+    """K19 on 4 shards of one card, as whole shards and as column slices of
+    one wider array (row stride passed to the kernel)."""
+    from srcdsp_tpu_torch.dist import halo as dh
+    from srcdsp_tpu_torch.dist import mesh as dm
+    from srcdsp_tpu_torch.kernels import halo_dma as k19
+    mesh, x = _halo_case(dev, rows=rows)
+    for shards in (dm.shard(x, mesh), tuple(x.chunk(4, dim=-1))):
+        before = _build.LAUNCHES["halo_dma"]
+        got = k19.halo_from_left_pallas(shards, halo)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["halo_dma"] == before + 4
+        ref = dh.halo_from_left(shards, halo)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert not bool(got[0].any())
+
+
+def test_halo_fused_equals_k1_and_the_copy_path(dev):
+    """K20 on 4 shards of one card, 2 buffers: == K1 over the unsharded
+    stream, == mix_fir_time_sharded, tails equal; the per-shard call == its
+    plain version within K1's tolerance."""
+    from srcdsp_tpu_torch.dist import fused as df
+    from srcdsp_tpu_torch.dist import mesh as dm
+    from srcdsp_tpu_torch.kernels import halo_fused as k20
+    taps, decim, word = lowpass(64, 0.2), 2, int(freq_to_word(0.11))
+    kf = k20.make_halo_fused_kernel(taps, decim, out_tile=OT, b_rows=8, device=dev)
+    k1 = kmf.make_mix_fir_kernel(taps, decim, out_tile=OT, b_rows=8, device=dev)
+    n = 4 * 2 * k1.block_in()
+    mesh, x = _halo_case(dev, per=2 * n // 4)
+    tail_a = tail_b = torch.zeros((2, kf.hist), device=dev)
+    ya, yb = [], []
+    for b in range(2):
+        shards = dm.shard(x[:, b * n:(b + 1) * n], mesh)
+        w0 = (b * n * word) % (1 << 32)
+        before = _build.LAUNCHES["halo_fused"]
+        tail_a, y = k20.mix_fir_halo_sharded(kf, w0, word, tail_a, shards, mesh)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["halo_fused"] == before + 4
+        ya.append(torch.cat(y, dim=-1))
+        tail_b, y = df.mix_fir_time_sharded(k1, w0, word, tail_b, shards, mesh)
+        yb.append(torch.cat(y, dim=-1))
+    a, b_ = torch.cat(ya, dim=-1), torch.cat(yb, dim=-1)
+    xpad = torch.cat([torch.zeros((2, k1.hist), device=dev), x], dim=-1)
+    rr, ri = k1.fn((-k1.hist * word) % (1 << 32), word, xpad)
+    assert torch.equal(a[0], rr.reshape(-1)) and torch.equal(a[1], ri.reshape(-1))
+    assert torch.equal(a, b_) and torch.equal(tail_a, tail_b)
+    assert torch.equal(tail_a, x[:, -kf.hist:])
+    hist = x[:, :kf.hist].contiguous()
+    body = x[:, kf.hist:kf.hist + k1.block_in()].contiguous()
+    got = kf.fn(w0, word, hist, body)
+    pr, pi = kmf.mix_fir_plain(w0, word, torch.cat([hist, body], dim=-1)[None],
+                               torch.as_tensor(taps, device=dev), decim, OT, kf.hist)
+    assert _rel(got, (pr[0], pi[0])) < 1e-5
+
+
+def test_halo_kernels_across_two_cards(dev):
+    """The cross-card form: a 2-shard mesh over cuda:0 and cuda:1 with peer
+    access; K19 and K20 read the left card's memory in place."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from srcdsp_tpu_torch.dist import fused as df
+    from srcdsp_tpu_torch.dist import halo as dh
+    from srcdsp_tpu_torch.dist import mesh as dm
+    from srcdsp_tpu_torch.kernels import halo_dma as k19
+    from srcdsp_tpu_torch.kernels import halo_fused as k20
+    mesh = dm.make_mesh(time=2)
+    cards = mesh.axis_devices()
+    assert {d.index for d in cards} == {0, 1}
+    taps, decim, word = lowpass(64, 0.2), 2, int(freq_to_word(0.11))
+    kfs = dm.per_device(lambda d: k20.make_halo_fused_kernel(taps, decim, out_tile=OT, b_rows=8,
+                                                             device=d), cards)
+    k1s = dm.per_device(lambda d: kmf.make_mix_fir_kernel(taps, decim, out_tile=OT, b_rows=8,
+                                                          device=d), cards)
+    n = 2 * 4 * k1s[0].block_in()
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, n)).astype(np.float32))
+    shards = dm.shard(x, mesh)
+    got = k19.halo_from_left_pallas(shards, 128)
+    ref = dh.halo_from_left(shards, 128)
+    assert all(torch.equal(g.cpu(), r.cpu()) for g, r in zip(got, ref))
+    assert got[1].device == cards[1]
+    tail = torch.zeros((2, kfs[0].hist), device=cards[0])
+    ta, ya = k20.mix_fir_halo_sharded(kfs, 0, word, tail, shards, mesh)
+    tb, yb = df.mix_fir_time_sharded(k1s, 0, word, tail, shards, mesh)
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ya, yb))
+    assert torch.equal(ta, tb) and ta.device == cards[0]
+    # a per-shard call on cuda:1 (its history read from cuda:0) leaves the
+    # thread's current device as it was
+    torch.cuda.set_device(cards[0])
+    kfs[1].fn(0, word, shards[0][:, -kfs[1].hist:], shards[1])
+    assert torch.cuda.current_device() == cards[0].index

@@ -15,10 +15,15 @@ from srcdsp_tpu_torch import configs, convert
 from srcdsp_tpu_torch import ldpc, qcldpc, turbo
 from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
 from srcdsp_tpu_torch.device import resolve
+from srcdsp_tpu_torch.dist import channelize as dchan
+from srcdsp_tpu_torch.dist import fused as dfused
+from srcdsp_tpu_torch.dist import halo as dhalo
+from srcdsp_tpu_torch.dist import mesh as dmesh
 from srcdsp_tpu_torch.io import capture
 from srcdsp_tpu_torch.kernels import bank_pallas, bcjr_pallas, fft_pallas, fftconv_pallas, ldpc_pallas
 from srcdsp_tpu_torch.kernels import fsk_ctaps, fsk_fused, fsk_preframed, mixfir
 from srcdsp_tpu_torch.kernels import ctaps_aligned, mixfir_ctaps, mixfir_preframed, mixfir_rows
+from srcdsp_tpu_torch.kernels import halo_dma, halo_fused
 from srcdsp_tpu_torch.kernels import resample_pallas, resample_preframed
 from srcdsp_tpu_torch.ops import afc, agc, channelize_planes, cic, ddc, decimplan, farrow
 from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, halfband, iir, nco
@@ -62,7 +67,57 @@ AGC_P = agc.make_agc_params(device="cpu")
 H120 = ldpc.make_regular_ldpc(120, 3, 6, seed=1)
 QC_BASE = qcldpc.make_dual_diagonal_base(4, 12, 16, seed=1)
 QC_CODE = qcldpc.make_qc_ldpc(QC_BASE, 16, device="cpu")
+
+
+def _on_mesh(run, device=None):
+    """run(mesh) on a 2-shard time mesh: the card's by default (make_mesh
+    raises without one), else `device` repeated."""
+    return run(dmesh.make_mesh(time=2, devices=None if device is None else [device] * 2))
+
+
+def _cshards(mesh, n=1024):
+    return dmesh.shard(torch.zeros(n, dtype=torch.complex64), mesh)
+
+
+def _pshards(mesh, n=1024):
+    return dmesh.shard(torch.zeros((2, n)), mesh)
+
+
+def _k20(mesh):
+    return halo_fused.make_halo_fused_kernel(TAPS, 2, b_rows=2, device=mesh.devices[0][0])
+
+
 ENTRY_POINTS = {
+    "make_mesh": lambda **d: _on_mesh(lambda m: m, **d),
+    "fir_time_sharded": lambda **d: _on_mesh(
+        lambda m: dhalo.fir_time_sharded(TAPS, _cshards(m), m), **d),
+    "fir_time_sharded_stream": lambda **d: _on_mesh(
+        lambda m: dhalo.fir_time_sharded_stream(TAPS, torch.zeros(63, dtype=torch.complex64),
+                                                _cshards(m), m), **d),
+    "channelize_time_sharded": lambda **d: _on_mesh(
+        lambda m: dchan.channelize_time_sharded(PROTO, _cshards(m), 8, m), **d),
+    "channelize_time_sharded_stream": lambda **d: _on_mesh(
+        lambda m: dchan.channelize_time_sharded_stream(
+            PROTO, torch.zeros(31, dtype=torch.complex64), _cshards(m), 8, m), **d),
+    "channelize_os2_time_sharded": lambda **d: _on_mesh(
+        lambda m: dchan.channelize_os2_time_sharded(PROTO, _cshards(m), 8, m), **d),
+    "mix_fir_time_sharded": lambda **d: _on_mesh(
+        lambda m: dfused.mix_fir_time_sharded(
+            mixfir.make_mix_fir_kernel(TAPS, 2, out_tile=128, b_rows=2, device=m.devices[0][0]),
+            0, 1 << 28, torch.zeros(2, 128), _pshards(m), m), **d),
+    "fftconv_time_sharded": lambda **d: _on_mesh(
+        lambda m: dfused.fftconv_time_sharded(
+            fftconv_pallas.make_fftconv_kernel(TAPS, 2048, b_frames=1, device=m.devices[0][0]),
+            torch.zeros(1, 2, 1024), dmesh.shard(torch.zeros(1, 2, 2048), m), m), **d),
+    "halo_from_left_pallas": lambda **d: _on_mesh(
+        lambda m: halo_dma.halo_from_left_pallas(_pshards(m), 16), **d),
+    "make_halo_fused_kernel": lambda **d: halo_fused.make_halo_fused_kernel(TAPS, 2, **d),
+    "mix_fir_halo_sharded": lambda **d: _on_mesh(
+        lambda m: halo_fused.mix_fir_halo_sharded(_k20(m), 0, 1 << 28, torch.zeros(2, 128),
+                                                  _pshards(m), m), **d),
+    "build_config5_mesh": lambda **d: _on_mesh(
+        lambda m: configs.build_config5(64, 8, mesh=m).step(*configs.build_config5(
+            64, 8, mesh=m).example), **d),
     "make_ldpc_code": lambda **d: ldpc.make_ldpc_code(H120, **d),
     "make_qc_ldpc": lambda **d: qcldpc.make_qc_ldpc(QC_BASE, 16, **d),
     "ldpc_code_from": lambda **d: convert.ldpc_code_from(QC_CODE, **d),

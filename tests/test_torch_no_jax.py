@@ -45,3 +45,13 @@ def test_build_flags_are_sm90a_without_fast_math():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
+
+
+def test_scan_covers_the_distribution_tier_and_halo_cu_is_built():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("__init__", "mesh", "halo", "fused", "channelize"):
+        assert f"srcdsp_tpu_torch/dist/{mod}.py" in names
+    assert {"srcdsp_tpu_torch/kernels/halo_dma.py", "srcdsp_tpu_torch/kernels/halo_fused.py"} <= names
+    assert "halo.cu" in _build.SOURCES
+    assert {"srcdsp_halo", "srcdsp_halo_fused", "srcdsp_enable_peer"} <= set(_build._SIGNATURES)
+    assert {"halo_dma", "halo_fused"} <= set(_build.LAUNCHES)
