@@ -40,7 +40,9 @@ Phases, in order; any failure raises and the run exits non-zero:
 9. the FFT: the four configs.build_fft variants at 8192 frames of 4096 (K10
    in natural, digit and kernel-natural order; the matrix FFT of
    ops.fft_planes), each timed, with 5 N log2 N GFLOP/s and the share of the
-   bound; the conj inverse round trip above 110 dB;
+   bound; the conj inverse round trip above 110 dB; the three K10 variants
+   and cuFFT (torch.fft.fft) timed in turns on the same frames, one call per
+   turn (host path included) and 5 back to back (the card's time);
 10. config 3 end to end: 16 channels x 8,355,840 samples (2^23 rounded down
    to 170 blocks of 49,152) through K11 (1024 taps, fft 4096, hop 3072) in
    one launch, equal bit for bit to 5 chunks through FftConvStream; SNR >
@@ -89,7 +91,8 @@ Phases, in order; any failure raises and the run exits non-zero:
    one card (and again on 2 shards across cuda:0 and cuda:1 where the
    machine has two cards; else "cross-card leg: 1 device, not run"): K19 on
    config 1's planes (halo 128) and config 3's 32 rows (halo 1024), equal to
-   dist.halo's copies, timed in turns against a copy_ yardstick; K20 and
+   dist.halo's copies in one launch per card, timed in turns against a copy_
+   yardstick; K20 and
    mix_fir_time_sharded over 2 buffers of 2^26, both equal to K1 over the
    unsharded stream, carried tails equal, the three timed in turns (CUDA
    events on one card; on two, the host clock around a synchronize of both);
@@ -103,7 +106,9 @@ Phases, in order; any failure raises and the run exits non-zero:
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
-torch.equal) and K11 (shared and per-channel taps, one config-3 chunk of
+torch.equal, natural_order=True running no transpose, each order's time as
+a multiple of cuFFT's and its share of the bound, at least 4 resident blocks
+per SM) and K11 (shared and per-channel taps, one config-3 chunk of
 16 x 1,671,168) against their plain versions, with cuFFT (torch.fft.fft) and
 cuDNN conv1d (TF32 off) as their library yardsticks, and K12 and K13 at the
 config-5 shape ([2, 64, 128 + 2^19] phase-major, b_k 512; K13's Y == K12's,
@@ -117,8 +122,9 @@ first half [515, 256]) against their plain versions by torch.equal; no
 PyTorch call computes min-sum or BCJR, so they have no library yardstick.
 It holds K17 and K18 at config-1 shape against their plain versions (rel L2
 1e-5 and 2e-6); no PyTorch call computes a mix with a FIR. It holds K19 on 4
-column slices of config 1's body (halo 128) to dist.halo's copies by
-torch.equal, with the copy_ of each halo as its library yardstick, and K20 on
+column slices of config 1's body (halo 128; one launch per card) to
+dist.halo's copies by torch.equal, with the copy_ of each halo as its
+library yardstick, and K20 on
 the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
@@ -426,12 +432,14 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
     require(bool((peak == 240).all()), f"Welch: peak bins {peak}")
 
 
-def in_turns(torch, fns: dict, turns: int, cards=None) -> dict:
+def in_turns(torch, fns: dict, turns: int, cards=None, calls: int = 1) -> dict:
     """Times in ms of each fn over `turns` rounds, in alternating order
     (forward, then backward), after one warm-up call each. CUDA events on the
     current device; with `cards` (device indices, more than one), the host
     clock between synchronizes of every card, since the events of one card
-    do not wait for another's work."""
+    do not wait for another's work. With `calls` > 1 a turn times that many
+    calls back to back (the card then waits on no host work between them)
+    and reports the time per call."""
     times = {k: [] for k in fns}
     for fn in fns.values():
         fn()
@@ -448,10 +456,11 @@ def in_turns(torch, fns: dict, turns: int, cards=None) -> dict:
                 continue
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            fns[name]()
+            for _ in range(calls):
+                fns[name]()
             e1.record()
             e1.synchronize()
-            times[name].append(e0.elapsed_time(e1))
+            times[name].append(e0.elapsed_time(e1) / calls)
     return times
 
 
@@ -469,6 +478,7 @@ def phase14(torch, dev, x1, taps1_np, word1) -> None:
     from srcdsp_tpu_torch.dist import fused as dfused
     from srcdsp_tpu_torch.dist import halo as dhalo
     from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.kernels import _build
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.kernels import halo_dma as k19
     from srcdsp_tpu_torch.kernels import halo_fused as khf
@@ -506,7 +516,10 @@ def phase14(torch, dev, x1, taps1_np, word1) -> None:
         for what, src, halo in (("config-1 planes", stream[:, :n1], hist),
                                 ("config-3 rows", rows3, 1024)):
             shards = dmesh.shard(src, mesh)
+            before = _build.LAUNCHES["halo_dma"]
             got = k19.halo_from_left_pallas(shards, halo)
+            require(_build.LAUNCHES["halo_dma"] == before + len(cards_used),
+                    f"K19 ({label}): not one launch per card")
             ref = dhalo.halo_from_left(shards, halo)
             require(all(torch.equal(a, b) for a, b in zip(got, ref)),
                     f"K19 ({label}, {what}) != dist.halo.halo_from_left")
@@ -519,10 +532,11 @@ def phase14(torch, dev, x1, taps1_np, word1) -> None:
 
             t = in_turns(torch, {"K19": lambda s=shards, h=halo: k19.halo_from_left_pallas(s, h),
                                  "copy_": yard}, 2 * REPS, cards_used)
+            k19_ms, copy_ms = np.median(t["K19"]), np.median(t["copy_"])
             print(f"[14] K19 {label}, {p14} shards of {what} {tuple(shards[0].shape)}, halo "
-                  f"{halo}: == dist.halo.halo_from_left (torch.equal); K19 "
-                  f"{np.median(t['K19']):.4f} ms, copy_ yardstick {np.median(t['copy_']):.4f} ms "
-                  f"({2 * REPS} turns, {clock})", flush=True)
+                  f"{halo}: == dist.halo.halo_from_left (torch.equal), {len(cards_used)} "
+                  f"launch(es) per call; K19 {k19_ms:.4f} ms, copy_ yardstick {copy_ms:.4f} ms, "
+                  f"ratio {k19_ms / copy_ms:.3f} ({2 * REPS} turns, {clock})", flush=True)
             del shards, got, ref, outs
         # K20 and K1 on time shards, C14_BUFFERS buffers with the carried tail
         kf = dmesh.per_device(lambda d: khf.make_halo_fused_kernel(
@@ -770,7 +784,8 @@ def main() -> int:
         tap and output whatever form the kernel uses (complex taps are the
         kernel's choice; phasors and atan2 left out), nbytes the inputs and
         outputs once each (taps, at most 2 KB, left out); per_call the
-        launches in one k_fn call (one per shard for K19 and K20)."""
+        launches in one k_fn call (one per shard for K20, one per card for
+        K19)."""
         before = _build.LAUNCHES[name]
         ms, plain_ms = median_ms(torch, k_fn), median_ms(torch, p_fn)
         require(_build.LAUNCHES[name] == before + per_call * (REPS + 1), f"{name}: launch count")
@@ -944,7 +959,7 @@ def main() -> int:
            0.0 if eq19 else float("inf"), 0.0, eq19, True,
            lambda: k19.halo_from_left_pallas(sl1, hist),
            lambda: dhalo.halo_from_left(sl1, hist), 0,
-           (2 * C14_SHARDS - 1) * 2 * hist * 4, copy19, per_call=C14_SHARDS)
+           (2 * C14_SHARDS - 1) * 2 * hist * 4, copy19, per_call=1)  # one launch per card
     k20 = khf.make_halo_fused_kernel(taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=dev)
     tail14 = torch.zeros((2, hist), device=dev)
     _, y20 = khf.mix_fir_halo_sharded(k20, 0, word1, tail14, sl1, mesh_row)
@@ -1074,9 +1089,31 @@ def main() -> int:
         record(name, "srcdsp_tpu_torch/csrc/fft.cu", "srcdsp_tpu/kernels/" + site, err, rel,
                rel < 1e-5, True, lambda kf=kf: kf.fn(fxr, fxi), fft_plain, fft_flops, fft_bytes,
                lambda: torch.fft.fft(fxc, dim=-1))
+        r10 = rows[-1]
+        print(f"    {name}: {r10['ms'] / r10['library_ms']:.3f} x cuFFT's time, "
+              f"{r10['bound_ms'] / r10['ms']:.3f} of the {r10['bound_ms']:.4f} ms bound",
+              flush=True)
         fft_out[name] = (yf, kf)
     nat = fft_out["fft"][0]
     kd = fft_out["fft_digit"][1]
+    # natural_order=True stores natural order itself: the digit-order
+    # unscramble (a torch transpose) must not run
+    unscramble = kfft.unscramble
+
+    def no_transpose(*args):
+        raise SmokeFailure("fft: natural_order=True ran the unscramble transpose")
+
+    kfft.unscramble = no_transpose
+    try:
+        nat_again = fft_out["fft"][1].fn(fxr, fxi)
+    finally:
+        kfft.unscramble = unscramble
+    require(same(nat_again, nat), "fft: natural_order=True differs between two calls")
+    occ = kfft.fft_occupancy(FFT_N)
+    print(f"    fft: natural_order=True ran no transpose; {occ} resident blocks per SM at "
+          f"N = {FFT_N} (floor 4)", flush=True)
+    require(occ >= 4, f"fft: {occ} blocks per SM at N = {FFT_N}")
+    del nat_again
     require(same(nat, fft_out["fft_nat"][0]), "fft_nat: kernel-natural store != natural")
     require(same(nat, tuple(kfft.unscramble(y, kd.n1, kd.n2) for y in fft_out["fft_digit"][0])),
             "fft: digit store + unscramble != natural store (torch.equal)")
@@ -1506,6 +1543,20 @@ def main() -> int:
             require(min(snr_r, snr_i) > 110.0, f"fft round trip: SNR {snr_r}, {snr_i} dB")
             del rr, ri
         del b, yr, yi
+    # the three K10 variants and cuFFT on the same frames, in turns
+    steps = {v: build_fft(FFT_BATCH, FFT_N, v, device=dev) for v in FFT_VARIANTS[:3]}
+    fx = steps["kernel"].example
+    fxc = torch.complex(*fx)
+    fns = {v: (lambda b=b: b.step(*fx)) for v, b in steps.items()}
+    fns["cuFFT"] = lambda: torch.fft.fft(fxc, dim=-1)
+    for calls in (1, REPS):
+        t = {k: float(np.median(v))
+             for k, v in in_turns(torch, fns, 2 * REPS, calls=calls).items()}
+        print(f"[9] in turns ({2 * REPS} turns of {calls} call(s) back to back, CUDA events, "
+              f"per call): " + ", ".join(
+                  f"{k} {v:.4f} ms ({v / t['cuFFT']:.3f} x cuFFT, {fft_bound_ms / v:.3f} of the "
+                  f"bound)" for k, v in t.items()), flush=True)
+    del steps, fx, fxc, fns
 
     # --- 10. config 3 (main path) ---------------------------------------------
     torch.cuda.synchronize()

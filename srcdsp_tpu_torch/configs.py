@@ -378,10 +378,10 @@ def build_fft(batch: int = 8192, n: int = 4096, variant: str = "kernel", device=
               ) -> BuiltConfig:
     """The batched FFT: the counterpart of ``bench/run.py``'s ``run_fft``
     (seed-0 standard_normal planes [batch, n], batch rounded down to whole
-    b_frames of 16). Variants: ``kernel`` (K10, natural order through the
-    digit-order kernel and a transpose), ``kernel_digit``
-    (natural_order=False), ``kernel_nat`` (natural_order="kernel", the
-    kernel stores natural order) and ``planes`` (``ops.fft_planes``).
+    b_frames of 16). Variants: ``kernel`` (K10, natural_order=True: on the
+    card the kernel stores natural order, no transpose), ``kernel_digit``
+    (natural_order=False), ``kernel_nat`` (natural_order="kernel", the same
+    natural store counted apart) and ``planes`` (``ops.fft_planes``).
 
     step(xr, xi) -> (yr, yi): [B, N], or [B*n1, n2] in digit order for
     kernel_digit. meta ``flops_5nlogn`` is 5 N log2 N per frame times B.

@@ -3,8 +3,8 @@
 // Replaces srcdsp_tpu/kernels/halo_dma.py halo_from_left_pallas (_halo_kernel):
 // there each shard pushes its trailing `halo` columns to its right neighbour by
 // a remote DMA over a closed ring, and shard 0 then overwrites what it received
-// with zeros. Here the destination pulls: one launch per destination shard p,
-// on p's device and stream,
+// with zeros. Here the destination pulls: one launch per device serves every
+// destination shard on it, entry p of a table passed by value,
 //   out_p[r, j] = (p == 0) ? 0 : x_{p-1}[r, S_{p-1} - halo + j],
 // reading through the left shard's pointer with its row stride, so a slice of
 // a wider array serves without a copy. Across cards the read is a peer read
@@ -13,36 +13,62 @@
 // left shard's data is complete before the launch, ordered by stream events in
 // the wrapper (srcdsp_tpu_torch/kernels/halo_dma.py).
 //
-// What bounds it: R * halo floats in and out, nanoseconds of bandwidth; the
-// launch itself (a few microseconds) sets its time.
+// What bounds it: R * halo floats in and out per shard, nanoseconds of
+// bandwidth; the launch and the host work around it set its time, so a call
+// makes one launch per device (one on one card, whatever the shard count).
+#include <cstring>
+
 #include "fsk_common.cuh"
 
 using namespace srcdsp;
 
-__global__ void halo_kernel(const float* __restrict__ src, long long src_stride,
-                            float* __restrict__ out, int R, int halo) {
+namespace {
+
+constexpr int kHaloMaxEntries = 64;  // destination shards of one device in one launch
+
+// One destination shard: its left neighbour's first halo column (null: zeros),
+// that shard's row stride in floats, and the [R, halo] output.
+struct HaloEntry {
+  const float* src;
+  long long src_stride;
+  float* out;
+};
+
+struct HaloTable {
+  HaloEntry e[kHaloMaxEntries];  // 1536 bytes of kernel parameters
+};
+
+// blockIdx.y selects the entry; the blocks along x stride over its R * halo.
+__global__ void halo_kernel(const __grid_constant__ HaloTable table, int R, int halo) {
+  const HaloEntry& e = table.e[blockIdx.y];
   const long long n = (long long)R * halo;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / halo;
     const long long j = i - r * halo;
-    out[i] = src ? src[r * src_stride + j] : 0.f;
+    e.out[i] = e.src ? e.src[r * e.src_stride + j] : 0.f;
   }
 }
 
-// src: the left shard's first halo column (null for shard 0: zeros), rows
-// src_stride floats apart; out [R, halo] contiguous on `device`. Returns the
-// launch's cudaError_t as an int (0 on success); the caller's current device
-// is restored on return.
-extern "C" int srcdsp_halo(const void* src, long long src_stride, void* out, int R, int halo,
-                           int device, void* stream) {
+}  // namespace
+
+// entries: `count` HaloEntry records in host memory ({src, src_stride, out}
+// as three 8-byte words each), every out on `device`; R rows of halo columns.
+// Returns the launch's cudaError_t as an int (0 on success;
+// cudaErrorInvalidValue for more than kHaloMaxEntries entries); the caller's
+// current device is restored on return.
+extern "C" int srcdsp_halo(const void* entries, int count, int R, int halo, int device,
+                           void* stream) {
+  if (count < 1 || count > kHaloMaxEntries || R < 0 || halo < 0)
+    return (int)cudaErrorInvalidValue;
   DeviceScope on(device);
   if (on.err != cudaSuccess) return (int)on.err;
+  HaloTable table{};
+  std::memcpy(table.e, entries, (size_t)count * sizeof(HaloEntry));
   const int threads = 256;
   const long long want = ((long long)R * halo + threads - 1) / threads;
   const int blocks = (int)(want < 1 ? 1 : (want > 1024 ? 1024 : want));
-  halo_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>((const float*)src, src_stride,
-                                                           (float*)out, R, halo);
+  halo_kernel<<<dim3(blocks, count), threads, 0, (cudaStream_t)stream>>>(table, R, halo);
   return (int)cudaGetLastError();
 }
 

@@ -3,16 +3,22 @@
 (xr, xi) [B, N] float32 planes -> the DFT of each frame. The JAX kernel runs
 the four-step factorization N = n1 * n2 (n1 = N / n2) as two DFT matrix
 products and emits each frame in the four-step's digit order: frame row k1,
-lane k2 holds X[k1 + n1*k2]. `natural_order=True` adds the [B, n1, n2] ->
-[B, n2, n1] transpose that gives index-linear spectra; `natural_order=False`
-returns the digit order; `natural_order="kernel"` has the kernel store in
-natural order itself.
+lane k2 holds X[k1 + n1*k2]. There `natural_order=True` adds the [B, n1,
+n2] -> [B, n2, n1] transpose that gives index-linear spectra,
+`natural_order=False` returns the digit order and `natural_order="kernel"`
+has the kernel store in natural order itself.
 
-The CUDA kernel (``csrc/fft.cu``) is a radix-2/4 FFT in shared memory, one
-block per frame, for powers of two 256 <= N <= 8192; the output order is its
-store index, so the natural store equals the digit store followed by the
-transpose bit for bit. On a CPU tensor the wrappers run `fft_rows_plain`, the
-JAX kernel's own factorization in float32 matrix products with its constants
+The CUDA kernel (``csrc/fft.cu`` over ``csrc/fft_regs.cuh``) is a
+register-resident radix-16 Stockham FFT for powers of two 256 <= N <= 8192:
+16 samples per thread, two shared-memory exchanges between the three passes
+at N = 4096. The output order is its store index, so the natural store
+equals the digit store followed by the transpose bit for bit, and
+`natural_order=True` launches the natural store with no transpose. The
+kernel's schedule is mirrored here (`regs_passes`, `regs_pad`,
+`regs_store_index`, `regs_twiddle_exponent`): the host builds the kernel's
+twiddle table from it (`stockham_twiddles`) and the CPU tests run it in
+numpy. On a CPU tensor the wrappers run `fft_rows_plain`, the JAX kernel's
+own factorization in float32 matrix products with its constants
 (`fft_consts`); on a CUDA tensor they launch the kernel or raise.
 
 `ifft_pallas` is the inverse by conj -> forward -> conj and 1/N, around a
@@ -21,6 +27,7 @@ natural-order kernel.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable
 
@@ -33,7 +40,9 @@ from srcdsp_tpu_torch.kernels.mixfir import cuda_or_cpu
 from srcdsp_tpu_torch.ops.fir import pin_f32
 
 __all__ = ["FftKernel", "make_fft_kernel", "ifft_pallas", "fft_consts", "fft_rows_plain",
-           "fft_twiddles", "unscramble", "check_cuda_fft_size"]
+           "fft_twiddles", "fft_occupancy", "stockham_twiddles", "unscramble",
+           "check_cuda_fft_size", "regs_pad", "regs_passes", "regs_shape", "regs_store_index",
+           "regs_twiddle_exponent"]
 
 LANE = 128
 MIN_LOG2, MAX_LOG2 = 8, 13      # the CUDA kernels' sizes: 256 ... 8192 points
@@ -73,6 +82,61 @@ def fft_twiddles(n: int) -> np.ndarray:
     return np.stack([w.real, w.imag]).astype(np.float32)
 
 
+# The schedule of csrc/fft_regs.cuh, mirrored item by item (file:line of each).
+REGS_VALS = 16  # fft_regs.cuh:37 kFftRegsVals: complex samples a thread keeps in registers
+
+
+def regs_pad(i):
+    """fft_regs.cuh:40 fft_regs_pad: shared-memory index of element i, one
+    float of padding after every 32 (ints or integer arrays)."""
+    return i + (i >> 5)
+
+
+def regs_passes(log2n: int) -> list[tuple[int, int]]:
+    """(R, NS) of each pass: fft_regs.cuh:43 fft_pass_radix (16, then the
+    leftover 2, 4 or 8 last) and :50 fft_pass_span (the product of the
+    radices before it)."""
+    radices = [16] * (log2n // 4) + ([1 << (log2n % 4)] if log2n % 4 else [])
+    spans = np.cumprod([1] + radices[:-1])
+    return [(r, int(ns)) for r, ns in zip(radices, spans)]
+
+
+def regs_shape(log2n: int) -> tuple[int, int, int]:
+    """fft_regs.cuh:62 FftRegsShape: (kT threads per frame, kFrames frames
+    per block, kPlane floats of one padded plane; the frame's planes lie at
+    2 * kPlane * (its index in the block))."""
+    t = (1 << log2n) // REGS_VALS
+    return t, max(1, 256 // t), regs_pad((1 << log2n) - 1) + 1
+
+
+def regs_store_index(j, r: int, ns: int, m: int):
+    """fft_regs.cuh:231-234 fft_exchange: the element that output m of
+    butterfly j of a pass (R, NS) goes to; butterfly j = t + T*g of thread t
+    holds registers s = g + (16/R)*m, and the next pass reads element
+    t + T*s into register s (fft_regs.cuh:242)."""
+    return (j // ns) * ns * r + j % ns + m * ns
+
+
+def regs_twiddle_exponent(j, r: int, ns: int, m: int, n: int):
+    """fft_regs.cuh:208-211 fft_regs_pass: input m of butterfly j is
+    multiplied by W_N^e, e this."""
+    return m * (j % ns) * (n // (ns * r))
+
+
+def stockham_twiddles(n: int) -> np.ndarray:
+    """The CUDA kernel's twiddle table [2, kTwiddles] (fft_regs.cuh:55
+    fft_twiddle_offset): for each pass after the first, entry (m - 1) * NS
+    + k holds W_N^e, e = regs_twiddle_exponent(k, R, NS, m, N), the value of
+    `fft_twiddles` (made in float64, rounded to float32 once; e >= N/2 is
+    -W_N^{e - N/2}), so a warp reads consecutive entries."""
+    log2n = n.bit_length() - 1
+    tw = fft_twiddles(n)
+    full = np.concatenate([tw, -tw], axis=1)
+    idx = [regs_twiddle_exponent(np.arange(ns)[None, :], r, ns, np.arange(1, r)[:, None], n)
+           .ravel() for r, ns in regs_passes(log2n)[1:]]
+    return np.ascontiguousarray(full[:, np.concatenate(idx)])
+
+
 def check_cuda_fft_size(fft_size: int) -> int:
     """log2(fft_size) for a size the CUDA kernels take (a power of two from
     256 to 8192); anything else raises."""
@@ -107,6 +171,14 @@ def unscramble(y: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
     """Digit order [B*n1, n2] -> natural [B, N]: [B, k1, k2] -> [B, k2, k1]."""
     b = y.shape[0] // n1
     return y.reshape(b, n1, n2).transpose(-1, -2).reshape(b, n1 * n2)
+
+
+def fft_occupancy(fft_size: int) -> int:
+    """Resident blocks per SM of the CUDA kernel at `fft_size` (on the card)."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load().srcdsp_fft_occupancy(check_cuda_fft_size(fft_size),
+                                                   ctypes.byref(blocks)), "fft_occupancy")
+    return blocks.value
 
 
 def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor, log2n: int, n2: int,
@@ -157,9 +229,10 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     n2 a power of two). `precision` is accepted and changes nothing: the
     port computes in float32 at both settings, which meets the reference's
     DEFAULT accuracy too. `interpret` has no counterpart. natural_order:
-    True (digit-order kernel + a transpose in torch), False (digit order) or
-    "kernel" (natural order stored by the kernel). Launches count under
-    ``fft``, ``fft_digit`` and ``fft_nat`` respectively.
+    True (natural order: on the card the kernel's natural store, no
+    transpose), False (digit order) or "kernel" (the same natural store, the
+    JAX kernel's ``fn_nat``). Launches count under ``fft``, ``fft_digit``
+    and ``fft_nat`` respectively.
     """
     n1 = fft_size // n2
     if n1 * n2 != fft_size:
@@ -174,7 +247,7 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     else:
         log2n = 0
     consts = tuple(torch.as_tensor(a, device=dev) for a in fft_consts(fft_size, n2, b_frames))
-    tw = torch.as_tensor(fft_twiddles(fft_size), device=dev)
+    tw = torch.as_tensor(stockham_twiddles(fft_size), device=dev) if log2n else None
     rows_counter = {True: "fft", False: "fft_digit", "kernel": "fft_digit"}[natural_order]
 
     def check(x: torch.Tensor, shape: tuple) -> None:
@@ -197,14 +270,13 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
             return _fft_cuda(xr, xi, tw, log2n, n2, False, rows_counter)
         return fft_rows_plain(xr, xi, consts, n1, n2)
 
-    def fn_nat(consts, xr2: torch.Tensor, xi2: torch.Tensor
+    def fn_nat(consts, xr: torch.Tensor, xi: torch.Tensor, counter: str
                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Natural order stored by the kernel: [B*n1, n2] planes in -> [B, N]."""
-        bt = xr2.shape[0] // n1
-        if cuda_or_cpu(xr2):
-            yr, yi = _fft_cuda(xr2, xi2, tw, log2n, n2, True, "fft_nat")
-            return yr.reshape(bt, fft_size), yi.reshape(bt, fft_size)
-        yr, yi = fft_rows_plain(xr2, xi2, consts, n1, n2)
+        """Natural order stored by the kernel: checked [B, N] planes in and
+        out (the kernel takes them as they are, no reshape)."""
+        if cuda_or_cpu(xr):
+            return _fft_cuda(xr, xi, tw, log2n, n2, True, counter)
+        yr, yi = fft_rows_plain(xr.reshape(-1, n2), xi.reshape(-1, n2), consts, n1, n2)
         return unscramble(yr, n1, n2), unscramble(yi, n1, n2)
 
     def fn_p(consts, xr: torch.Tensor, xi: torch.Tensor
@@ -214,12 +286,9 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
             raise ValueError(f"x [{bt}, {nn}] needs N={fft_size}, B % {b_frames} == 0")
         check(xr, (bt, nn))
         check(xi, (bt, nn))
-        if natural_order == "kernel":
-            return fn_nat(consts, xr.reshape(bt * n1, n2), xi.reshape(bt * n1, n2))
-        yr, yi = fn_rows_p(consts, xr.reshape(bt * n1, n2), xi.reshape(bt * n1, n2))
         if natural_order:
-            return unscramble(yr, n1, n2), unscramble(yi, n1, n2)
-        return yr, yi
+            return fn_nat(consts, xr, xi, "fft" if natural_order is True else "fft_nat")
+        return fn_rows_p(consts, xr.reshape(bt * n1, n2), xi.reshape(bt * n1, n2))
 
     return FftKernel(fn=lambda xr, xi: fn_p(consts, xr, xi),
                      fn_rows=lambda xr, xi: fn_rows_p(consts, xr, xi),

@@ -254,7 +254,7 @@ def _snr(ref, got) -> float:
     return float(10 * torch.log10(ref.abs().pow(2).mean() / (got - ref).abs().pow(2).mean()))
 
 
-@pytest.mark.parametrize("n", [256, 512, 4096, 8192])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("order", [True, False, "kernel"])
 def test_fft_kernel_matches_plain(dev, n, order):
     """K10 in each output order against its plain version (rel L2 < 1e-5) and
@@ -283,6 +283,50 @@ def test_fft_kernel_matches_plain(dev, n, order):
     knat = kfft.make_fft_kernel(n, b_frames=4, natural_order="kernel", device=dev).fn(xr, xi)
     for d, kn in zip(dig, knat):
         assert torch.equal(kfft.unscramble(d, k.n1, k.n2), kn)
+
+
+def test_fft_natural_order_is_one_launch_and_no_transpose(dev, monkeypatch):
+    """natural_order=True launches the kernel's natural store once and never
+    reaches the digit-order unscramble (a torch transpose)."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    k = kfft.make_fft_kernel(4096, b_frames=16, natural_order=True, device=dev)
+    x = np.random.default_rng(7).standard_normal((2, 32, 4096)).astype(np.float32)
+    xr, xi = (torch.as_tensor(a, device=dev) for a in x)
+    ref = kfft.make_fft_kernel(4096, b_frames=16, natural_order="kernel", device=dev).fn(xr, xi)
+
+    def no_transpose(*args):
+        raise AssertionError("natural_order=True ran the unscramble transpose")
+
+    monkeypatch.setattr(kfft, "unscramble", no_transpose)
+    before = dict(_build.LAUNCHES)
+    yr, yi = k.fn(xr, xi)
+    torch.cuda.synchronize()
+    after = dict(_build.LAUNCHES)
+    assert after.pop("fft") == before.pop("fft") + 1 and after == before
+    assert yr.is_contiguous() and tuple(yr.shape) == (32, 4096)
+    assert torch.equal(yr, ref[0]) and torch.equal(yi, ref[1])
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_fft_kernel_short_last_block(dev, n):
+    """B not a multiple of the frames a block takes (16 at 256, 2 at 2048):
+    the frames of the short last block are right."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    k = kfft.make_fft_kernel(n, b_frames=1, natural_order="kernel", device=dev)
+    x = np.random.default_rng(n + 5).standard_normal((2, 4, n)).astype(np.float32)
+    full = [torch.as_tensor(a, device=dev) for a in x]
+    yr, yi = k.fn(full[0][:3], full[1][:3])
+    ref = torch.fft.fft(torch.complex(full[0][:3].double(), full[1][:3].double()), dim=-1)
+    assert _snr(ref, torch.complex(yr, yi).to(torch.complex128)) > 110
+
+
+def test_fft_occupancy_at_least_four_blocks_at_4096(dev):
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    assert kfft.fft_occupancy(4096) >= 4
+    assert all(kfft.fft_occupancy(1 << m) >= 2 for m in range(8, 14))
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
@@ -617,7 +661,7 @@ def _halo_case(dev, p=4, rows=2, per=4096):
 @pytest.mark.parametrize("rows,halo", [(2, 128), (32, 1024)])
 def test_halo_dma_equals_the_copy_path(dev, rows, halo):
     """K19 on 4 shards of one card, as whole shards and as column slices of
-    one wider array (row stride passed to the kernel)."""
+    one wider array (row stride passed to the kernel): one launch per card."""
     from srcdsp_tpu_torch.dist import halo as dh
     from srcdsp_tpu_torch.dist import mesh as dm
     from srcdsp_tpu_torch.kernels import halo_dma as k19
@@ -626,7 +670,7 @@ def test_halo_dma_equals_the_copy_path(dev, rows, halo):
         before = _build.LAUNCHES["halo_dma"]
         got = k19.halo_from_left_pallas(shards, halo)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES["halo_dma"] == before + 4
+        assert _build.LAUNCHES["halo_dma"] == before + 1
         ref = dh.halo_from_left(shards, halo)
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
         assert not bool(got[0].any())

@@ -13,7 +13,14 @@ Contracts:
   numpy (complex128): > 110 dB, the reference's bar;
 - the digit layout: X[k1 + n1*k2] at frame row k1, lane k2 (n1 = N / n2);
   natural == digit + unscramble bit for bit;
-- the conj inverse round trip: > 110 dB.
+- the conj inverse round trip: > 110 dB;
+- the CUDA kernel's schedule (``csrc/fft_regs.cuh``, mirrored in
+  ``kernels/fft_pallas``: pass radices, Stockham index maps, twiddle
+  exponents and table, the padded exchange address) run thread by thread in
+  float64 numpy: rel L2 < 1e-6 against ``np.fft.fft`` for every N the card
+  takes (the float32 twiddle table leaves ~1e-8); every element written once
+  per exchange; no warp's exchange write or read, nor the digit-order
+  staging at n2 128, touching a shared-memory bank more than twice.
 """
 
 import jax.numpy as jnp
@@ -160,3 +167,137 @@ def test_twiddle_table():
     ref = np.exp(-2j * np.pi * np.arange(2048) / 4096)
     np.testing.assert_array_equal(tw[0], ref.real.astype(np.float32))
     np.testing.assert_array_equal(tw[1], ref.imag.astype(np.float32))
+
+
+# --- the CUDA kernel's schedule (csrc/fft_regs.cuh), in numpy ---------------
+
+def _dft(r: int) -> np.ndarray:
+    k = np.arange(r)
+    return np.exp(-2j * np.pi * np.outer(k, k) / r)
+
+
+def _regs_dft(x: np.ndarray) -> np.ndarray:
+    """fft_regs_dft on x [R, ...]: R <= 4 directly; R = 16 and 8 split n = 4 n1
+    + n2, m = m1 + (R/4) m2 (the R/4-point DFTs over n1, W_R^{n2 m1}, the
+    4-point DFTs over n2)."""
+    r = x.shape[0]
+    if r <= 4:
+        return np.tensordot(_dft(r), x, axes=1)
+    a = r // 4
+    xs = x.reshape(a, 4, *x.shape[1:])                      # [n1, n2, ...]
+    y = np.tensordot(_dft(a), xs, axes=1)                   # [m1, n2, ...]
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(a), np.arange(4)) / r)
+    y = y * tw.reshape(a, 4, *([1] * (x.ndim - 1)))
+    y = np.moveaxis(np.tensordot(_dft(4), y, axes=([1], [1])), 0, 1)  # [m1, m2, ...]
+    return np.swapaxes(y, 0, 1).reshape(r, *x.shape[1:])   # y[m1 + a m2]
+
+
+def _regs_fft(x: np.ndarray) -> np.ndarray:
+    """One frame through the kernel's schedule: thread t's register s holds
+    element t + T*s; each pass twiddles from the kernel's table, runs its
+    butterflies and exchanges through the Stockham store map."""
+    n = x.shape[-1]
+    log2n = n.bit_length() - 1
+    t_count = kfft.regs_shape(log2n)[0]
+    t = np.arange(t_count)
+    grid = t[:, None] + t_count * np.arange(kfft.REGS_VALS)[None, :]
+    v = x[grid].astype(np.complex128)                       # [T, 16] registers
+    tw = kfft.stockham_twiddles(n).astype(np.float64)
+    tw = tw[0] + 1j * tw[1]
+    passes = kfft.regs_passes(log2n)
+    off = 0
+    for q, (r, ns) in enumerate(passes):
+        g_count = kfft.REGS_VALS // r
+        for g in range(g_count):
+            j = t + t_count * g
+            regs = g + g_count * np.arange(r)
+            if q:
+                e = off + (np.arange(1, r)[:, None] - 1) * ns + (j % ns)[None, :]
+                v[:, regs[1:]] *= tw[e].T
+            v[:, regs] = _regs_dft(v[:, regs].T).T
+        if q:
+            off += (r - 1) * ns
+        if q + 1 < len(passes):
+            y = np.full(n, np.nan + 0j)
+            for g in range(g_count):
+                for m in range(r):
+                    y[kfft.regs_store_index(t + t_count * g, r, ns, m)] = v[:, g + g_count * m]
+            assert not np.isnan(y).any()
+            v = y[grid]
+    out = np.empty(n, np.complex128)
+    out[grid] = v
+    return out
+
+
+@pytest.mark.parametrize("log2n", range(8, 14))
+def test_regs_schedule_matches_numpy_fft(log2n):
+    n = 1 << log2n
+    x = np.random.default_rng(log2n).standard_normal((2, n))
+    x = x[0] + 1j * x[1]
+    assert _rel(_regs_fft(x), np.fft.fft(x)) < 1e-6
+
+
+@pytest.mark.parametrize("log2n", range(8, 14))
+def test_regs_twiddle_table_is_fft_twiddles(log2n):
+    """Each table entry is W_N^e (e from the mirrored exponent map) as
+    fft_twiddles rounds it, negated exactly for e >= N/2."""
+    n = 1 << log2n
+    table, tw = kfft.stockham_twiddles(n), kfft.fft_twiddles(n)
+    got, at = [], 0
+    for r, ns in kfft.regs_passes(log2n)[1:]:
+        for m in range(1, r):
+            e = kfft.regs_twiddle_exponent(np.arange(ns), r, ns, m, n)
+            ref = np.where(e < n // 2, tw[:, e % (n // 2)], -tw[:, e % (n // 2)])
+            np.testing.assert_array_equal(table[:, at:at + ns], ref)
+            got.append(e)
+            at += ns
+    assert at == table.shape[1]
+    e = np.concatenate(got)
+    np.testing.assert_allclose(table[0] + 1j * table[1], np.exp(-2j * np.pi * e / n),
+                               atol=1e-7)
+
+
+def _worst_bank(addrs: np.ndarray) -> int:
+    """Largest number of distinct 4-byte words one bank serves for a warp's
+    32 addresses."""
+    return max(len(set(addrs[addrs % 32 == b].tolist())) for b in range(32))
+
+
+def _warps(log2n: int):
+    """(t, frame-plane base) of the 32 lanes of each warp of a block."""
+    t_count, frames, plane = kfft.regs_shape(log2n)
+    for w in range(t_count * frames // 32):
+        lane = 32 * w + np.arange(32)
+        yield lane % t_count, 2 * plane * (lane // t_count)
+
+
+@pytest.mark.parametrize("log2n", range(8, 14))
+def test_regs_exchange_at_most_two_way_bank_conflicts(log2n):
+    t_count = kfft.regs_shape(log2n)[0]
+    worst = 0
+    for r, ns in kfft.regs_passes(log2n)[:-1]:
+        g_count = kfft.REGS_VALS // r
+        for t, base in _warps(log2n):
+            for g in range(g_count):
+                for m in range(r):
+                    a = kfft.regs_store_index(t + t_count * g, r, ns, m)
+                    worst = max(worst, _worst_bank(base + kfft.regs_pad(a)))
+            for s in range(kfft.REGS_VALS):
+                worst = max(worst, _worst_bank(base + kfft.regs_pad(t + t_count * s)))
+    assert worst <= 2
+
+
+@pytest.mark.parametrize("log2n", range(8, 14))
+def test_regs_digit_staging_at_most_two_way_bank_conflicts(log2n, n2=128):
+    """The digit store's staging (fft.cu): natural write, then the read of
+    X[k1 + n1 k2] for offset k1 n2 + k2, at the default n2."""
+    t_count = kfft.regs_shape(log2n)[0]
+    log2n2 = n2.bit_length() - 1
+    worst = 0
+    for t, base in _warps(log2n):
+        for s in range(kfft.REGS_VALS):
+            p = t + t_count * s
+            k = ((p & (n2 - 1)) << (log2n - log2n2)) + (p >> log2n2)
+            worst = max(worst, _worst_bank(base + kfft.regs_pad(p)),
+                        _worst_bank(base + kfft.regs_pad(k)))
+    assert worst <= 2

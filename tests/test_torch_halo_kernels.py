@@ -9,7 +9,10 @@ The port runs on ``make_mesh(time=P, devices=["cpu"] * P)``.
 Contracts: K19 exact (a copy). K20 within K1's port-vs-JAX tolerance (rel L2
 < 1e-5, float32 sums in another order), ``torch.equal`` to the port's K1
 over the unsharded stream and to ``dist.fused.mix_fir_time_sharded``; the
-carried tail exact. The card's forms are in tests/test_torch_cuda.py.
+carried tail exact. K19's launch plan (`halo_plan`: one group, so one
+launch, per device; each entry's left neighbour, column offset and row
+stride; the per-launch cap) is checked on torch.device objects, no card
+needed. The card's forms are in tests/test_torch_cuda.py.
 """
 
 import jax
@@ -88,6 +91,50 @@ def test_k19_refuses_bad_shards():
         k19.halo_from_left_pallas((good, torch.zeros(3, 16)), 4)
     with pytest.raises(ValueError, match="all CUDA or all CPU"):
         k19.halo_from_left_pallas((good, good.to("meta")), 4)
+
+
+# --- K19's launch plan: one group (one launch) per device --------------------
+
+CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_k19_plan_one_card_is_one_group():
+    plan = k19.halo_plan((CUDA0,) * 4, ((2, 4096),) * 4, (4096,) * 4, 128)
+    assert len(plan) == 1
+    g = plan[0]
+    assert (g.device, g.shards, g.lefts, g.producers) == (CUDA0, (0, 1, 2, 3), (None, 0, 1, 2),
+                                                         ())
+    assert g.offsets == (0,) + ((4096 - 128) * 4,) * 3
+    assert g.strides == (0, 4096, 4096, 4096)
+
+
+def test_k19_plan_alternating_cards_reads_the_left_neighbours():
+    devs = (CUDA0, CUDA1) * 3
+    plan = k19.halo_plan(devs, ((2, 512),) * 6, (512,) * 6, 64)
+    assert [g.device for g in plan] == [CUDA0, CUDA1]
+    g0, g1 = plan
+    assert (g0.shards, g0.lefts, g0.producers) == ((0, 2, 4), (None, 1, 3), (CUDA1,))
+    assert (g1.shards, g1.lefts, g1.producers) == ((1, 3, 5), (0, 2, 4), (CUDA0,))
+    for g in plan:
+        for p, q in zip(g.shards, g.lefts):
+            assert devs[p] == g.device and q == (p - 1 if p else None)
+
+
+def test_k19_plan_keeps_the_row_stride_of_a_column_slice():
+    """Four column slices [32, 1000] of one [32, 4000] array: each left reads
+    from column 1000 - halo of its slice with row stride 4000."""
+    plan = k19.halo_plan((CUDA0,) * 4, ((32, 1000),) * 4, (4000,) * 4, 100)
+    (g,) = plan
+    assert g.strides == (0, 4000, 4000, 4000)
+    assert g.offsets == (0, 900 * 4, 900 * 4, 900 * 4)
+
+
+def test_k19_plan_refuses_more_entries_than_one_launch_takes():
+    n = k19.HALO_MAX_ENTRIES
+    assert len(k19.halo_plan((CUDA0,) * n, ((2, 8),) * n, (8,) * n, 4)[0].shards) == n
+    with pytest.raises(ValueError, match=f"at most {n}"):
+        k19.halo_plan((CUDA0,) * (n + 1), ((2, 8),) * (n + 1), (8,) * (n + 1), 4)
+    assert len(k19.halo_plan((CUDA0, CUDA1) * n, ((2, 8),) * 2 * n, (8,) * 2 * n, 4)) == 2
 
 
 # --- K20 ----------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of srcdsp_tpu_torch (nor chip_smoke.py)
-imports jax or the JAX package, and every CUDA source the build names exists.
+"""The port stands alone: no module of srcdsp_tpu_torch (nor chip_smoke.py,
+nor the port's scripts in bench_torch/) imports jax or the JAX package, and
+every CUDA source the build names exists.
 
 A static AST scan, not a runtime check: an interpreter may import jax at start.
 """
@@ -12,7 +13,8 @@ import pytest
 from srcdsp_tpu_torch.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "srcdsp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "srcdsp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "bench_torch").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "srcdsp_tpu")
 
 
