@@ -8,6 +8,8 @@ Phases, in order; any failure raises and the run exits non-zero:
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from srcdsp_tpu_torch/csrc with nvcc (sm_90a, one
    nvcc per source, in parallel) and the ingest framer with make and g++;
+   print the registers, spill bytes and resident blocks per SM of K1 (each
+   decim's instantiation), K20 and K11 (each N);
 3. each kernel against its plain PyTorch version on the same device tensors,
    at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
    of 32 x 2^22; config 2: one channel of 33,521,664 samples, and one chunk
@@ -79,7 +81,8 @@ Phases, in order; any failure raises and the run exits non-zero:
    out_tile 512, b_rows 32) K17 (history as its own operand) equal to K4 bit
    for bit, in one launch and in 4 chunks with carried history, and K18 (mix
    once by a factored phasor) within rel L2 2e-6 of K1, the four timed in
-   turns; two DDCs (make_ddc(0.21, 0.004, 70 dB): D 187; make_ddc(0.21,
+   turns (K1 / K18 printed, the two unchanged front ends K4 and K18 being the
+   same-run yardsticks of K1); two DDCs (make_ddc(0.21, 0.004, 70 dB): D 187; make_ddc(0.21,
    0.0155): D 48, four half-bands and a residual 3) over 32 channels made on
    the card, 4 blocks of D*2^14 samples each: in-band tone within 5 %,
    residual below -55 dB, 4 blocks against one within 3e-6, channel 0
@@ -350,7 +353,8 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
           + ", ".join(f"{k} {v:.4f} ms ({C1_SAMPLES / v / 1e3:.1f} Ms/s)" for k, v in med.items())
           + f"; K17 - K4 median {np.median(d17):+.4f} ms (range {d17.min():+.4f} .. "
           f"{d17.max():+.4f}), K18 - K1 median {np.median(d18):+.4f} ms (range "
-          f"{d18.min():+.4f} .. {d18.max():+.4f}); K17 == K4 and 4 chunks == one launch "
+          f"{d18.min():+.4f} .. {d18.max():+.4f}), K1 / K18 {med['K1'] / med['K18']:.3f}; K17 "
+          "== K4 and 4 chunks == one launch "
           f"(torch.equal), K18 against K1 rel L2 {rel18:.3e} (floor 2e-6)", flush=True)
 
     # B. the down-converter: 32 channels, 4 blocks of D*2^14 samples each
@@ -759,6 +763,17 @@ def main() -> int:
     for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
+    for decim in (1, 2, 4, 3):
+        regs, spill, blocks = kmf.kernel_info(decim, 64, hist=128)
+        print(f"[2] K1 decim {decim}{' (generic)' if decim == 3 else ''}, 64 taps: {regs} "
+              f"registers, {spill} bytes of spills, {blocks} blocks per SM")
+    regs, spill, blocks = kmf.kernel_info(2, 64, hist=128, halo=True)
+    print(f"[2] K20 decim 2, 64 taps: {regs} registers, {spill} bytes of spills, {blocks} "
+          f"blocks per SM")
+    for log2n in range(8, 14):
+        regs, spill, blocks = kfc.kernel_info(1 << log2n)
+        print(f"[2] K11 N {1 << log2n}: {regs} registers, {spill} bytes of spills, {blocks} "
+              f"blocks per SM")
     t0 = time.perf_counter()
     framer_path = framer.build()
     print(f"[2] built {framer_path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s",

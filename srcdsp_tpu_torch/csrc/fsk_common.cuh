@@ -91,26 +91,50 @@ struct Split {
   }
 };
 
+// Shared-memory places of window sample i: DenseIndex puts it at i;
+// PaddedIndex adds one float after every 2^log2s samples (K1's layout, where
+// the lanes of a warp read 2^log2s samples apart).
+struct DenseIndex {
+  __device__ __forceinline__ int operator()(int i) const { return i; }
+};
+struct PaddedIndex {
+  int log2s;
+  __device__ __forceinline__ int operator()(int i) const { return i + (i >> log2s); }
+};
+
 // Stage samples [base, base + len) of channel c into shared memory (zero
-// where the source has none). With MIX, each sample is multiplied once by the
-// NCO phasor of its u32 word w0 + g * dw.
-template <bool MIX, class Src>
+// where the source has none), sample i at at(i). With MIX, each sample is
+// multiplied once by the NCO phasor of its u32 word w0 + g * dw. A thread
+// reads BATCH samples (blockDim.x apart) before it mixes and stores any, so
+// that BATCH loads are in flight at once.
+template <bool MIX, class Src, class Index = DenseIndex, int BATCH = 1>
 __device__ __forceinline__ void stage_window(const Src& src, int c, int r, long long base,
                                              int len, uint32_t w0, uint32_t dw,
-                                             float* sr, float* si) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const long long g = base + i;
-    float a = 0.f, b = 0.f;
-    if (src.load(c, r, g, &a, &b) && MIX) {
-      float cs, sn;
-      phasor(w0 + (uint32_t)g * dw, &cs, &sn);
-      const float mr = a * cs - b * sn;
-      const float mi = a * sn + b * cs;
-      a = mr;
-      b = mi;
+                                             float* sr, float* si, Index at = Index{}) {
+  for (int i0 = threadIdx.x; i0 < len; i0 += BATCH * blockDim.x) {
+    float a[BATCH], b[BATCH];
+    bool got[BATCH];
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int i = i0 + q * (int)blockDim.x;
+      a[q] = b[q] = 0.f;
+      got[q] = i < len && src.load(c, r, base + i, &a[q], &b[q]);
     }
-    sr[i] = a;
-    si[i] = b;
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int i = i0 + q * (int)blockDim.x;
+      if (i >= len) break;
+      if (got[q] && MIX) {
+        float cs, sn;
+        phasor(w0 + (uint32_t)(base + i) * dw, &cs, &sn);
+        const float mr = a[q] * cs - b[q] * sn;
+        const float mi = a[q] * sn + b[q] * cs;
+        a[q] = mr;
+        b[q] = mi;
+      }
+      sr[at(i)] = a[q];
+      si[at(i)] = b[q];
+    }
   }
 }
 
@@ -134,7 +158,8 @@ __device__ __forceinline__ void ctaps_dot(const float* sr, const float* si,
 }
 
 // Real-tap FIR output from a staged (mixed) window: sum_a h[a] * s[e - a],
-// one FMA chain per plane, as K1 and K18 share it.
+// one FMA chain per plane (K18's; K1 runs the same chain per output,
+// register-blocked, in mixfir.cu).
 __device__ __forceinline__ void real_dot(const float* sr, const float* si, const float* h,
                                          int e, int T, float* yr, float* yi) {
   float ar = 0.f, ai = 0.f;

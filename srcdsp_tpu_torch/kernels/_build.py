@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu", "fft.cu", "fftconv.cu",
            "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu", "halo.cu")
-HEADERS = ("fsk_common.cuh", "fft_common.cuh", "fft_regs.cuh")
+HEADERS = ("fsk_common.cuh", "fft_regs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srcdsp_tpu_torch"
@@ -49,7 +49,8 @@ _P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_
                       ctypes.c_float)
 # C entry points (csrc/*.cu) and their argument types
 _SIGNATURES = {
-    "srcdsp_mixfir": [_P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "srcdsp_mixfir": [_P, _P, _I, _P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_P],
+    "srcdsp_mixfir_info": [_I] * 4 + [ctypes.POINTER(_I)] * 3,
     "srcdsp_fsk_fused": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "srcdsp_fsk_ctaps": [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "srcdsp_fsk_preframed": [_P] * 7 + [_I] * 10 + [_P],
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "srcdsp_fft": [_P] * 5 + [_I] * 4 + [_P],
     "srcdsp_fft_occupancy": [_I, ctypes.POINTER(_I)],
     "srcdsp_fftconv": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_P],
+    "srcdsp_fftconv_info": [_I] + [ctypes.POINTER(_I)] * 3,
     "srcdsp_bank": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [_F, _I, _I, _P],
     "srcdsp_ldpc_edges": [_P] * 4 + [_I] * 7 + [_F, _P],
     "srcdsp_ldpc_qc": [_P] * 5 + [_I] * 7 + [_F, _P],

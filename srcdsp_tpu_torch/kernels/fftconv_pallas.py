@@ -15,10 +15,13 @@ hop 3073 there and `ops.fftconv_planes` 2048). Frame f covers samples
 [f*hop, f*hop + fft_size) of the history-prepended stream and gives outputs
 [f*hop, (f+1)*hop).
 
-The CUDA kernel (``csrc/fftconv.cu``) runs one block per (frame, channel):
-forward FFT in shared memory, times H[c], inverse FFT, last hop samples out.
-H is the FFT of the taps zero-padded to fft_size, made in float64 and
-rounded to float32 ([Ct, 2, N], natural order; Ct = 1 for shared taps or C).
+The CUDA kernel (``csrc/fftconv.cu``) runs each frame through K10's
+register-resident Stockham schedule (``csrc/fft_regs.cuh``, twiddles from
+`stockham_twiddles`) twice: forward, times H[c] in registers (register s of
+thread t holds X[t + T*s], so H stays in natural order), the conjugate
+inverse, and the registers past the overlap stored. H is the FFT of the taps
+zero-padded to fft_size, made in float64 and rounded to float32 ([Ct, 2, N],
+natural order; Ct = 1 for shared taps or C).
 On a CPU tensor the wrappers run `fftconv_plain` (the same frames through
 the float32 matrix FFT of ``ops.fft_planes``, times H, the conjugate
 inverse, the overlap prefix dropped); on a CUDA tensor they launch the
@@ -27,6 +30,7 @@ kernel or raise.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable
 
@@ -35,12 +39,12 @@ import torch
 
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
-from srcdsp_tpu_torch.kernels.fft_pallas import check_cuda_fft_size, fft_twiddles
+from srcdsp_tpu_torch.kernels.fft_pallas import check_cuda_fft_size, stockham_twiddles
 from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, cuda_or_cpu
 from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
 
 __all__ = ["FftConvKernel", "FftConvStream", "fftconv_geometry", "fftconv_pallas",
-           "fftconv_plain", "freq_response_planes", "make_fftconv_kernel"]
+           "fftconv_plain", "freq_response_planes", "kernel_info", "make_fftconv_kernel"]
 
 
 def fftconv_geometry(num_taps: int, fft_size: int, n2: int = LANE) -> tuple[int, int, int]:
@@ -105,6 +109,15 @@ def _fftconv_cuda(x: torch.Tensor, h2: torch.Tensor, tw: torch.Tensor, log2n: in
     return yr, yi
 
 
+def kernel_info(fft_size: int) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of the CUDA
+    kernel at `fft_size` (on the card)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.load().srcdsp_fftconv_info(check_cuda_fft_size(fft_size),
+                                                   *map(ctypes.byref, out)), "fftconv_info")
+    return tuple(v.value for v in out)
+
+
 @dataclasses.dataclass(frozen=True)
 class FftConvKernel:
     """Fused overlap-save filter + its layout contract."""
@@ -155,7 +168,7 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
     dev = resolve(device)
     log2n = check_cuda_fft_size(fft_size) if dev.type == "cuda" else 0
     h2 = torch.as_tensor(freq_response_planes(taps, fft_size), device=dev)
-    tw = torch.as_tensor(fft_twiddles(fft_size), device=dev)
+    tw = torch.as_tensor(stockham_twiddles(fft_size), device=dev)
     fft = make_fft_planes(fft_size, device=dev)
     counter = "fftconv_per_channel" if per_channel else "fftconv"
 

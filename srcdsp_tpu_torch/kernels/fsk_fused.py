@@ -25,11 +25,17 @@ import torch
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import (
-    LANE, _round_up, _words_i32, check_planes, cuda_or_cpu, mix_fir_plain)
-from srcdsp_tpu_torch.ops.nco import TWO_PI
+    LANE, _round_up, check_planes, cuda_or_cpu, mix_fir_plain)
+from srcdsp_tpu_torch.ops.nco import TWO_PI, word_tensor
 from srcdsp_tpu_torch.types import F32
 
 PAD = 128  # extra output columns (2 used for partial sums)
+
+
+def _words_i32(words, c: int, device) -> torch.Tensor:
+    """u32 words as an int32 tensor [C] with the same bits, for the kernel."""
+    w = word_tensor(words).reshape(-1).expand(c)
+    return (w - ((w >> 31) << 32)).to(torch.int32).to(device).contiguous()
 
 
 def discriminate_call(yr: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:

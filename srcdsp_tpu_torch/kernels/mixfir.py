@@ -11,15 +11,21 @@ HK (``hist``) is taps-1 rounded up to 128; callers prepend HK history samples
 (zeros at stream start), exactly as for the JAX kernel, so both packages take
 the same arrays. Output planes are [C, NT, OT].
 
-The CUDA kernel is ``csrc/mixfir.cu``. On a CPU tensor the wrappers run
-`mix_fir_plain`, the plain PyTorch version beside it; on a CUDA tensor they
-launch the kernel or raise.
+The CUDA kernel is ``csrc/mixfir.cu``: a block owns a run of consecutive
+outputs of one channel, stages their window mixed, and each thread computes R
+consecutive outputs from a register ring per residue of the tap index mod
+decim. Its ownership and shared-memory index map are mirrored here (`fir_*`,
+each citing its line) and checked in numpy by ``tests/test_torch_mixfir.py``.
+The words travel to the kernel by value (`host_words`), no copy to the
+device. On a CPU tensor the wrappers run `mix_fir_plain`, the plain PyTorch
+version beside it; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -155,10 +161,16 @@ def mix_fir_plain(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: in
     return y[:, 0].reshape(c, -1, out_tile), y[:, 1].reshape(c, -1, out_tile)
 
 
-def _words_i32(words, c: int, device) -> torch.Tensor:
-    """u32 words as an int32 tensor [C] with the same bits, for the kernel."""
-    w = word_tensor(words).reshape(-1).expand(c)
-    return (w - ((w >> 31) << 32)).to(torch.int32).to(device).contiguous()
+def host_words(words, c: int) -> np.ndarray:
+    """u32 words (an int, a sequence, a numpy array or a tensor; one word or
+    C) as a host uint32 array [C], for the kernels that take their words by
+    value. Words on a card cost a copy to the host and a wait for the card."""
+    if isinstance(words, (int, np.integer)):
+        return np.full(c, int(words) & MASK32, np.uint32)
+    w = words.detach().cpu().numpy() if isinstance(words, torch.Tensor) else np.asarray(words)
+    if w.dtype != np.uint32:
+        w = (w.astype(np.int64) & MASK32).astype(np.uint32)
+    return np.ascontiguousarray(np.broadcast_to(w.reshape(-1), (c,)))
 
 
 def _mix_fir_cuda(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: int,
@@ -167,17 +179,108 @@ def _mix_fir_cuda(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: in
     lib = _build.load()
     c, _, length = x.shape
     nt = (length - hist) // (out_tile * decim)
-    w0 = _words_i32(words0, c, x.device)
-    dw = _words_i32(dwords, c, x.device)
+    w0, dw = host_words(words0, c), host_words(dwords, c)
     yr = torch.empty((c, nt, out_tile), dtype=torch.float32, device=x.device)
     yi = torch.empty_like(yr)
-    rc = lib.srcdsp_mixfir(x.data_ptr(), w0.data_ptr(), dw.data_ptr(), taps.data_ptr(),
-                           0 if taps.ndim == 1 else taps.shape[-1], yr.data_ptr(),
-                           yi.data_ptr(), c, length, nt, out_tile, decim, taps.shape[-1],
-                           hist, _build.stream_handle(x))
+    rc = lib.srcdsp_mixfir(x.data_ptr(), taps.data_ptr(), 0 if taps.ndim == 1 else taps.shape[-1],
+                           yr.data_ptr(), yi.data_ptr(), w0.ctypes.data, dw.ctypes.data, c,
+                           length, nt, out_tile, decim, taps.shape[-1], hist,
+                           _build.stream_handle(x))
     _build.check(rc, counter)
     _build.LAUNCHES[counter] += 1
     return yr, yi
+
+
+# The CUDA body's ownership and shared-memory index map (csrc/mixfir.cu),
+# mirrored item by item (file:line of each).
+class FirShape(NamedTuple):
+    """mixfir.cu:80-87 FirShape."""
+
+    r: int          # outputs a thread owns
+    threads: int    # threads of a block
+    outputs: int    # outputs a block owns
+    chunk: int      # taps per chunk (zeros past T up to a whole chunk)
+    log2s: int      # one float of padding after every 2^log2s window samples
+
+
+def fir_shape(decim: int) -> FirShape:
+    """mixfir.cu:80-87: decimations 1, 2 and 4 have their own instantiation;
+    any other runs the generic one, R = 1."""
+    r = {1: 8, 2: 8, 4: 4}.get(decim, 1)
+    threads = 256 if decim == 4 else 128
+    static = decim in (1, 2, 4)
+    return FirShape(r, threads, threads * r, r * decim if static else 1,
+                    (r * decim).bit_length() - 1 if static else 5)
+
+
+def fir_pad(i, log2s: int):
+    """mixfir.cu:89 fir_pad (PaddedIndex in fsk_common.cuh): shared-memory
+    index of window sample i, one float of padding after every 2^log2s."""
+    return i + (i >> log2s)
+
+
+def fir_geometry(decim: int, num_taps: int, hist: int) -> tuple[int, int, int, int]:
+    """mixfir.cu:109-113 fir_geometry: (tp taps padded with zeros to whole
+    chunks, lead window samples before the block's hist-th, span window
+    samples, plane floats of one padded plane); hist + lead is the least
+    multiple of the padding stride that is at least hist and tp - 1."""
+    sh = fir_shape(decim)
+    tp = -(-num_taps // sh.chunk) * sh.chunk
+    stride = 1 << sh.log2s
+    lead = -(-max(tp - 1, hist) // stride) * stride - hist
+    span = sh.outputs * decim + hist + lead
+    return tp, lead, span, fir_pad(span - 1, sh.log2s) + 1
+
+
+def fir_window_start(block: int, decim: int, lead: int) -> int:
+    """mixfir.cu:180-184: stream sample of window index 0 of `block` (the
+    window is samples [start, start + span) of the history-prepended stream)."""
+    return block * fir_shape(decim).outputs * decim - lead
+
+
+def fir_base(tid, decim: int, hist: int, lead: int):
+    """mixfir.cu:190: window index that output 0 of thread `tid` reads at tap 0;
+    output k reads base + k*decim - a at tap a."""
+    return tid * fir_shape(decim).r * decim + hist + lead
+
+
+def fir_ring_index(base, p: int, rho: int, decim: int):
+    """mixfir.cu:137-138 and :151-152: window index of ring position p of residue
+    rho (p = 1 .. R-1 before the first chunk; p = -b entering at group b, the
+    taps b*decim + rho)."""
+    return base + p * decim - rho
+
+
+def fir_ring_address(base, a0: int, q: int, decim: int):
+    """mixfir.cu:142 and :154: the padded address the kernel loads tap
+    a0 + q's entering sample from: fir_pad(base - a0 - S) + (S - q) + (q == 0),
+    S = R*decim (one fir_pad per chunk; base and a0 are multiples of S)."""
+    sh = fir_shape(decim)
+    s = sh.r * decim
+    return fir_pad(base - a0 - s, sh.log2s) + (s - q) + (q == 0)
+
+
+def fir_slot(p: int, r: int) -> int:
+    """mixfir.cu:153 and :159: the ring register of position p, p mod R (the
+    chunk loop starts every R groups, so the slot is static in the unrolled body)."""
+    return p % r
+
+
+def fir_output(block: int, tid, k: int, decim: int):
+    """mixfir.cu:180 and :202: output (per channel, row-major over [NT, OT]) of
+    output k of thread `tid` in `block`; one past NT*OT is not stored."""
+    sh = fir_shape(decim)
+    return block * sh.outputs + tid * sh.r + k
+
+
+def kernel_info(decim: int, num_taps: int, hist: int, halo: bool = False
+                ) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of the K1 (or
+    K20) instantiation that runs `decim` (on the card)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.load().srcdsp_mixfir_info(int(halo), decim, num_taps, hist,
+                                                  *map(ctypes.byref, out)), "mixfir_info")
+    return tuple(v.value for v in out)
 
 
 @dataclasses.dataclass(frozen=True)

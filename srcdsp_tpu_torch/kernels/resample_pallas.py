@@ -36,8 +36,8 @@ import torch
 
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
-from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, check_planes, cuda_or_cpu, mix_planes
-from srcdsp_tpu_torch.ops.nco import word_tensor
+from srcdsp_tpu_torch.kernels.mixfir import (LANE, _round_up, check_planes, cuda_or_cpu,
+                                              host_words, mix_planes)
 from srcdsp_tpu_torch.ops.resample import polyphase_resample
 
 __all__ = ["ResampleKernel", "toeplitz_resample", "banded_resample_taps",
@@ -118,19 +118,13 @@ def mix_resample_plain(words0, dwords, x: torch.Tensor, taps, up: int, down: int
     return y[:, 0].reshape(c, -1, out_tile), y[:, 1].reshape(c, -1, out_tile)
 
 
-def _host_words(words, c: int) -> np.ndarray:
-    """u32 words as a host uint32 array [C] for the kernel's by-value words."""
-    w = word_tensor(words).reshape(-1).expand(c).cpu().numpy()
-    return np.ascontiguousarray(w.astype(np.uint32))
-
-
 def _mix_resample_cuda(words0, dwords, x: torch.Tensor, taps_ph: torch.Tensor, up: int,
                        down: int, out_tile: int, hist: int, counter: str
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
     c, _, length = x.shape
     nt = (length - hist) * up // (down * out_tile)
-    w0, dw = _host_words(words0, c), _host_words(dwords, c)
+    w0, dw = host_words(words0, c), host_words(dwords, c)
     yr = torch.empty((c, nt, out_tile), dtype=torch.float32, device=x.device)
     yi = torch.empty_like(yr)
     rc = lib.srcdsp_mix_resample(x.data_ptr(), taps_ph.data_ptr(), yr.data_ptr(),

@@ -44,23 +44,55 @@ def _fsk_planes(dev, nsym=2048):
     return planes, words
 
 
+@pytest.mark.parametrize("ot", [128, 512])
+@pytest.mark.parametrize("t", [32, 64, 128])
+@pytest.mark.parametrize("decim", [1, 2, 4])
 @pytest.mark.parametrize("per_channel", [False, True])
-def test_mixfir_kernel_matches_plain(dev, per_channel):
+def test_mixfir_kernel_matches_plain(dev, per_channel, decim, t, ot):
+    """K1 mc (each decim's own instantiation) against its plain version: rel
+    L2 < 1e-5; the words by value, one launch."""
     planes, words = _fsk_planes(dev)
-    taps = lowpass(64, 0.03)
+    taps = lowpass(t, 0.4 / decim)
     if per_channel:
-        taps = np.stack([lowpass(64, 0.03 + 0.005 * c) for c in range(C)])
-    k = kmf.make_mix_fir_kernel_mc(taps, DECIM, C, out_tile=OT, b_rows=8, device=dev)
+        taps = np.stack([lowpass(t, 0.3 / decim + 0.005 * c) for c in range(C)])
+    k = kmf.make_mix_fir_kernel_mc(taps, decim, C, out_tile=ot, b_rows=8, device=dev)
     words0 = [(-k.hist * int(w)) % (1 << 32) for w in words]
     before = _build.LAUNCHES["mixfir_mc"]
     yr, yi = k.fn(words0, words, planes)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["mixfir_mc"] == before + 1
     pr, pi = kmf.mix_fir_plain(words0, words, planes, torch.as_tensor(taps, device=dev),
-                               DECIM, OT, k.hist)
+                               decim, ot, k.hist)
     got = torch.complex(yr, yi)
     ref = torch.complex(pr, pi)
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) < 1e-5
+
+
+@pytest.mark.parametrize("decim,ot", [(3, 128), (8, 128), (2, 90)])
+def test_mixfir_kernel_generic_and_partial_blocks(dev, decim, ot):
+    """Another decim runs the generic instantiation (R = 1); an output count
+    that leaves the last block part full stores only its outputs; 40
+    channels take two launch groups of by-value words."""
+    c = 40
+    taps = lowpass(48, 0.4 / decim)
+    k = kmf.make_mix_fir_kernel_mc(taps, decim, c, out_tile=ot, b_rows=3, device=dev)
+    x = torch.as_tensor(np.random.default_rng(decim).standard_normal(
+        (c, 2, k.hist + 5 * k.block_in())).astype(np.float32), device=dev)
+    words = np.asarray([freq_to_word(-0.1 - 0.003 * i) for i in range(c)], np.uint32)
+    words0 = [(-k.hist * int(w)) % (1 << 32) for w in words]
+    yr, yi = k.fn(words0, words, x)
+    pr, pi = kmf.mix_fir_plain(words0, words, x, torch.as_tensor(taps, device=dev), decim, ot,
+                               k.hist)
+    assert _rel((yr, yi), (pr, pi)) < 1e-5
+    regs, spill, blocks = kmf.kernel_info(decim, 48, k.hist)
+    assert spill == 0 and blocks >= 1 and regs > 0
+
+
+@pytest.mark.parametrize("decim", [1, 2, 4])
+def test_mixfir_kernel_no_spills_four_blocks_per_sm(dev, decim):
+    for halo in (False, True):
+        regs, spill, blocks = kmf.kernel_info(decim, 64, 128, halo=halo)
+        assert spill == 0 and regs <= 64 and blocks >= 4, (halo, regs, spill, blocks)
 
 
 def test_mixfir_kernel_matches_plain_modem_front_end(dev):
@@ -329,17 +361,22 @@ def test_fft_occupancy_at_least_four_blocks_at_4096(dev):
     assert all(kfft.fft_occupancy(1 << m) >= 2 for m in range(8, 14))
 
 
+@pytest.mark.parametrize("fft,n2,num_taps", [(256, 16, 17), (512, 32, 33), (1024, 64, 65),
+                                           (2048, 128, 200), (4096, 128, 1024),
+                                           (8192, 128, 1024)])
 @pytest.mark.parametrize("per_channel", [False, True])
-def test_fftconv_kernel_matches_plain_and_streams(dev, per_channel):
-    """K11 at 1024 taps, fft 4096 against its plain version (SNR > 100 dB),
-    chunked launches and FftConvStream equal to one launch bit for bit."""
+def test_fftconv_kernel_matches_plain_and_streams(dev, per_channel, fft, n2, num_taps):
+    """K11 at every N the card takes (1024 taps at fft 4096) against its plain
+    version (SNR > 100 dB), chunked launches and FftConvStream equal to one
+    launch bit for bit; 2 blocks of 256 threads resident per SM below 8192."""
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
 
     c = 3
-    taps = (np.stack([lowpass(1024, 0.05 + 0.02 * i) for i in range(c)]) if per_channel
-            else lowpass(1024, 0.1))
-    k = kfc.make_fftconv_kernel(taps, 4096, num_channels=c, b_frames=4, karatsuba=True,
+    taps = (np.stack([lowpass(num_taps, 0.05 + 0.02 * i) for i in range(c)]) if per_channel
+            else lowpass(num_taps, 0.1))
+    k = kfc.make_fftconv_kernel(taps, fft, num_channels=c, n2=n2, b_frames=4, karatsuba=True,
                                 device=dev)
+    assert kfc.kernel_info(fft)[2] >= (1 if fft == 8192 else 2)
     n = 4 * k.block_in()
     raw = torch.as_tensor(np.random.default_rng(1).standard_normal((c, 2, n)).astype(np.float32),
                           device=dev)
@@ -349,9 +386,9 @@ def test_fftconv_kernel_matches_plain_and_streams(dev, per_channel):
     yr, yi = kfc.fftconv_pallas(k, x)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[counter] == before + 1
-    h2 = torch.as_tensor(kfc.freq_response_planes(taps, 4096), device=dev)
+    h2 = torch.as_tensor(kfc.freq_response_planes(taps, fft), device=dev)
     from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
-    pr, pi = kfc.fftconv_plain(x, h2, make_fft_planes(4096, device=dev), 4096, k.hop)
+    pr, pi = kfc.fftconv_plain(x, h2, make_fft_planes(fft, device=dev), fft, k.hop)
     assert _snr(torch.complex(pr, pi), torch.complex(yr, yi)) > 100
     st = kfc.FftConvStream(k)
     parts = [st.process(raw[..., i * k.block_in():(i + 1) * k.block_in()].contiguous())

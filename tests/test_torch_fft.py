@@ -301,3 +301,60 @@ def test_regs_digit_staging_at_most_two_way_bank_conflicts(log2n, n2=128):
             worst = max(worst, _worst_bank(base + kfft.regs_pad(p)),
                         _worst_bank(base + kfft.regs_pad(k)))
     assert worst <= 2
+
+
+# --- K11's frame (csrc/fftconv.cu) on the same schedule, in numpy ------------
+
+def _regs_fftconv(x: np.ndarray, h2: np.ndarray, n: int, hop: int) -> np.ndarray:
+    """fftconv.cu's frames through the mirrored schedule: frame f is the n
+    samples at f*hop of x [overlap + F*hop] (thread t's register s holds
+    sample t + T*s); forward; register s times H[t + T*s] (natural order, as
+    the forward leaves X[t + T*s] there) and conjugated; the same forward
+    again; conjugated and scaled by 1/n; the registers with t + T*s >= overlap
+    stored at f*hop + (t + T*s) - overlap."""
+    log2n = n.bit_length() - 1
+    t_count = kfft.regs_shape(log2n)[0]
+    grid = np.arange(t_count)[:, None] + t_count * np.arange(kfft.REGS_VALS)[None, :]
+    h = (h2[0] + 1j * h2[1]).astype(np.complex128)
+    overlap = n - hop
+    frames = (x.shape[-1] - overlap) // hop
+    y = np.full(frames * hop, np.nan + 0j)
+    for f in range(frames):
+        z = np.empty(n, np.complex128)
+        z[grid] = np.conj(_regs_fft(x[f * hop:f * hop + n])[grid] * h[grid])
+        v = np.conj(_regs_fft(z)[grid]) / n
+        keep = grid >= overlap
+        y[f * hop + grid[keep] - overlap] = v[keep]
+    assert not np.isnan(y).any()
+    return y
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("n,n2,num_taps", [(256, 16, 17), (512, 32, 33), (1024, 64, 65),
+                                           (2048, 128, 200), (4096, 128, 1024),
+                                           (8192, 128, 1024)])
+def test_fftconv_frame_schedule_matches_plain_and_jax(n, n2, num_taps, per_channel):
+    """K11's frame on the register schedule against the port's plain K11 and
+    the JAX kernel in interpret mode (> 100 dB, the K11 tests' bar), at the
+    hops of fftconv_geometry, for every N the card takes."""
+    from srcdsp_tpu.kernels.fftconv_pallas import fftconv_pallas as jfftconv_pallas
+    from srcdsp_tpu.kernels.fftconv_pallas import make_fftconv_kernel as jmake_fftconv
+    from srcdsp_tpu.ops.window import lowpass as jlowpass
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+
+    c = 2
+    taps = (np.stack([jlowpass(num_taps, 0.05 * (i + 1)) for i in range(c)]) if per_channel
+            else jlowpass(num_taps, 0.1))
+    tk = kfc.make_fftconv_kernel(taps, n, num_channels=c, n2=n2, b_frames=2, device="cpu")
+    jk = jmake_fftconv(taps, n, num_channels=c, n2=n2, b_frames=2, interpret=True)
+    assert (tk.hop, tk.overlap) == (jk.hop, jk.overlap)
+    rng = np.random.default_rng(n + per_channel)
+    x = rng.standard_normal((c, 2, tk.overlap + 2 * tk.block_in())).astype(np.float32)
+    x[:, :, :tk.overlap] = 0.0
+    tr, ti = kfc.fftconv_pallas(tk, torch.from_numpy(x))
+    jr, ji = jfftconv_pallas(jk, jnp.asarray(x))
+    h2 = kfc.freq_response_planes(taps, n)
+    for ch in range(c):
+        got = _regs_fftconv(x[ch, 0] + 1j * x[ch, 1], h2[ch if per_channel else 0], n, tk.hop)
+        assert _snr_db(tr[ch].numpy() + 1j * ti[ch].numpy(), got) > 100
+        assert _snr_db(np.asarray(jr[ch]) + 1j * np.asarray(ji[ch]), got) > 100

@@ -3,6 +3,13 @@
 On a CPU tensor the port's wrapper runs the plain PyTorch version; it is held
 against the Pallas kernel in interpret mode (out_tile=128, b_rows=2) on the
 same numpy planes: rel L2 < 1e-5 (float32 sums in another order).
+
+The CUDA body's ownership and shared-memory index map (``csrc/mixfir.cu``,
+mirrored by ``kernels/mixfir.fir_*``) run here thread by thread: every output
+reads exactly u[J*decim + hist - a] at tap a through the register ring,
+inside the staged window; no warp's window load touches a bank twice at
+decim 1, 2 and 4 (at most twice for the generic instantiation); the blocks
+tile the [C, NT, OT] output with no gap or overlap; the words go by value.
 """
 
 import jax.numpy as jnp
@@ -106,3 +113,100 @@ def test_wrapper_rejects_bad_inputs():
         k.fn([0, 0], [1, 1], torch.zeros((2, 2, 2 * good.shape[-1]))[..., ::2])
     with pytest.raises(ValueError, match="kernel built for cpu"):
         k.fn([0, 0], [1, 1], good.to("meta"))
+
+
+# --- the CUDA body's index map (csrc/mixfir.cu), in numpy -----------------------
+
+def _ring(decim, t, hist):
+    """Run fir_outputs' loads (mixfir.cu:132-164; the generic loop :192-197)
+    for every thread of a block: returns reads [threads, R, tp], the window
+    index each FMA of output k at tap a reads, and the list of load
+    instructions, each the window indices of all threads."""
+    sh = tk.fir_shape(decim)
+    r, chunk = sh.r, sh.chunk
+    tp, lead, _, _ = tk.fir_geometry(decim, t, hist)
+    base = tk.fir_base(np.arange(sh.threads), decim, hist, lead)
+    reads = np.full((sh.threads, r, tp), -1)
+    loads = []
+    if decim not in (1, 2, 4):
+        for a in range(t):
+            loads.append(base - a)
+            reads[:, 0, a] = base - a
+        return reads, loads
+    ring = {}
+    for rho in range(decim):
+        for p in range(1, r):
+            loads.append(tk.fir_ring_index(base, p, rho, decim))
+            ring[rho, tk.fir_slot(p, r)] = loads[-1]
+    for a0 in range(0, tp, chunk):
+        for u in range(r):
+            for rho in range(decim):
+                a = a0 + u * decim + rho
+                b = a // decim
+                loads.append(tk.fir_ring_index(base, -b, rho, decim))
+                np.testing.assert_array_equal(
+                    tk.fir_ring_address(base, a0, u * decim + rho, decim),
+                    tk.fir_pad(loads[-1], sh.log2s))
+                ring[rho, tk.fir_slot(-b, r)] = loads[-1]
+                for k in range(r):
+                    reads[:, k, a] = ring[rho, tk.fir_slot(k - b, r)]
+    return reads, loads
+
+
+def _worst_bank(addrs: np.ndarray) -> int:
+    return max(len(set(addrs[addrs % 32 == b].tolist())) for b in range(32))
+
+
+@pytest.mark.parametrize("t", [32, 33, 64, 128, 129])
+@pytest.mark.parametrize("decim", [1, 2, 4, 3])
+def test_cuda_body_reads_its_outputs_window_conflict_free(decim, t):
+    hist = _round_up(t - 1)
+    sh = tk.fir_shape(decim)
+    r, log2s = sh.r, sh.log2s
+    tp, lead, span, plane = tk.fir_geometry(decim, t, hist)
+    assert tp >= t and tp - 1 <= hist + lead and lead >= 0
+    if decim in (1, 2, 4):
+        assert (hist + lead) % (r * decim) == 0
+    reads, loads = _ring(decim, t, hist)
+    tid = np.arange(sh.threads)
+    for block in (0, 5):
+        for k in range(r):
+            j = tk.fir_output(block, tid, k, decim)
+            for a in range(tp):
+                want = j * decim + hist - a - tk.fir_window_start(block, decim, lead)
+                np.testing.assert_array_equal(reads[:, k, a], want)
+    assert reads.min() >= 0 and reads.max() < span and tk.fir_pad(span - 1, log2s) < plane
+    worst = max(_worst_bank(tk.fir_pad(idx[w:w + 32], log2s))
+                for idx in loads for w in range(0, sh.threads, 32))
+    assert worst == 1 if decim in (1, 2, 4) else worst <= 2
+    # each output is one chain over a = 0 .. tp - 1; loads per output per plane
+    per_output = len(loads) / r
+    assert per_output <= (tp + decim * r) / r
+
+
+def _round_up(x, m=128):
+    return -(-x // m) * m
+
+
+@pytest.mark.parametrize("decim,nt,ot", [(2, 64, 512), (4, 8, 512), (1, 16, 128), (2, 5, 128),
+                                         (3, 7, 128), (4, 3, 128)])
+def test_cuda_body_blocks_tile_the_output(decim, nt, ot):
+    """Blocks of fir_shape's outputs cover every output of [NT, OT] exactly
+    once; what lies past NT*OT in the last block is not stored."""
+    sh = tk.fir_shape(decim)
+    total = nt * ot
+    blocks = -(-total // sh.outputs)
+    tid = np.arange(sh.threads)
+    seen = np.concatenate([tk.fir_output(b, tid, k, decim) for b in range(blocks)
+                           for k in range(sh.r)])
+    stored = np.sort(seen[seen < total])
+    np.testing.assert_array_equal(stored, np.arange(total))
+
+
+def test_host_words_by_value():
+    w = np.asarray([freq_to_word(-0.11 - 0.01 * i) for i in range(3)], np.uint32)
+    np.testing.assert_array_equal(tk.host_words(w, 3), w)
+    np.testing.assert_array_equal(tk.host_words(torch.as_tensor(w.astype(np.int64)), 3), w)
+    np.testing.assert_array_equal(tk.host_words(-1, 2), [0xFFFFFFFF] * 2)
+    np.testing.assert_array_equal(tk.host_words(int(w[0]), 3), [w[0]] * 3)
+    assert tk.host_words(w, 3).dtype == np.uint32 and tk.host_words(w, 3).flags.c_contiguous
