@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the run exits non-zero:
 2. build the CUDA kernels from srcdsp_tpu_torch/csrc with nvcc (sm_90a, one
    nvcc per source, in parallel) and the ingest framer with make and g++;
    print the registers, spill bytes and resident blocks per SM of K1 (each
-   decim's instantiation), K20 and K11 (each N);
+   decim's instantiation), K20, the complex-taps (K4, K5, K17) and FSK (K2,
+   K3, K7) rings at decim 2 and 4, and K11 (each N); ptxas reports no spill
+   in any complex-taps or FSK instantiation, and each keeps 4 blocks an SM;
 3. each kernel against its plain PyTorch version on the same device tensors,
    at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
    of 32 x 2^22; config 2: one channel of 33,521,664 samples, and one chunk
@@ -770,6 +772,27 @@ def main() -> int:
     regs, spill, blocks = kmf.kernel_info(2, 64, hist=128, halo=True)
     print(f"[2] K20 decim 2, 64 taps: {regs} registers, {spill} bytes of spills, {blocks} "
           f"blocks per SM")
+    # the complex-taps (K4, K5, K17) and FSK (K2, K3, K7) rings; FSK's local
+    # bytes are the 32-byte stack frame of cosf/sinf/atan2f's slow path
+    for decim in (2, 4):
+        for source, b16 in (("planes", False), ("planes", True), ("frames", False),
+                            ("frames", True), ("split", False)):
+            regs, local, blocks = kcm.kernel_info(source, decim, 64, 128, b16)
+            print(f"[2] ctaps {source}{' bf16' if b16 else ''} decim {decim}, 64 taps: {regs} "
+                  f"registers, {local} bytes of local memory, {blocks} blocks per SM")
+            require(blocks >= 4, f"ctaps {source} decim {decim}: {blocks} blocks per SM")
+        for kernel, b16 in (("fused", False), ("ctaps", False), ("ctaps", True),
+                            ("preframed", False), ("preframed", True)):
+            regs, local, blocks = kff.kernel_info(kernel, decim, 64, 128, OUT_TILE, SPS, b16)
+            print(f"[2] fsk {kernel}{' bf16' if b16 else ''} decim {decim}, 64 taps: {regs} "
+                  f"registers, {local} bytes of local memory, {blocks} blocks per SM")
+            require(blocks >= 4, f"fsk {kernel} decim {decim}: {blocks} blocks per SM")
+    rings = {k: v for k, v in _build.ptxas_report().items()
+             if "ctaps_kernel" in k or "fsk_kernel" in k}
+    spilled = [k for k, (_, st, ld) in rings.items() if st or ld]
+    print(f"[2] ptxas: {len(rings) - len(spilled)} of {len(rings)} complex-taps and FSK "
+          f"instantiations without spills")
+    require(not spilled, f"ptxas spills in {spilled}")
     for log2n in range(8, 14):
         regs, spill, blocks = kfc.kernel_info(1 << log2n)
         print(f"[2] K11 N {1 << log2n}: {regs} registers, {spill} bytes of spills, {blocks} "

@@ -5,13 +5,13 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace srcdsp {
 
-constexpr int kThreads = 256;  // a power of two: block_sum halves it
-constexpr int kPad = 128;      // columns of the O&M partial-sum output st
+constexpr int kThreads = 256;  // threads a block of the frame, rows and edge-LDPC kernels
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 // e^{j 2 pi w / 2^32} for a u32 phase word. The word is read as a signed turn
@@ -25,46 +25,118 @@ __device__ __forceinline__ void phasor(uint32_t w, float* c, float* s) {
 // Input samples are float32 or bfloat16 (bf16 ingest); all arithmetic is f32.
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// Two consecutive bf16 samples as one 4-byte load (p 4-byte aligned).
+__device__ __forceinline__ void pair_f32(const __nv_bfloat16* p, float* v) {
+  const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(p);
+  v[0] = __low2float(w);
+  v[1] = __high2float(w);
+}
 
-// Window sources. load(c, r, g, &a, &b) reads sample g of channel c's stream
-// (the history-prepended input) for the block of output row r, and returns
-// false, leaving a and b alone, where the stream has no sample g. A kernel
-// body templated on the source computes the same bits from either.
+// Window sources. view(c, base) is channel c's stream (the
+// history-prepended input) from sample base on. at(i) is the place of its
+// sample i, step(p, n) moves a place n samples on, and load(p, &a, &b) reads
+// the sample at p and returns false, leaving a and b alone, where the stream
+// has no such sample. A view does once, per thread, the 64-bit work of a
+// window and a place carries what a sample's address needs, so the samples a
+// thread stages cost a few 32-bit operations each. A kernel body templated on
+// the source computes the same bits from any of them. kBytes: bytes a sample
+// a plane. For 2-byte samples load2(p, a, b) reads samples p and p + 1 (p
+// even) with one 4-byte load a plane, where Paired says it may.
 
 // Raw planes x [C, 2, L].
 template <typename T>
 struct Planes {
+  static constexpr int kBytes = sizeof(T);
+  static constexpr bool kPaired = false;
   const T* x;
   long long L;
-  __device__ __forceinline__ bool load(int c, int r, long long g, float* a,
-                                       float* b) const {
-    if (g < 0 || g >= L) return false;
-    const T* xr = x + (long long)c * 2 * L;
-    *a = to_f32(xr[g]);
-    *b = to_f32(xr[L + g]);
-    return true;
+  struct View {
+    const T* xc;   // the channel's first plane
+    long long base, L;
+    int lo, hi;    // the samples it has: base + [lo, hi)
+    __device__ __forceinline__ int at(int i) const { return i; }
+    __device__ __forceinline__ void step(int& i, int n) const { i += n; }
+    __device__ __forceinline__ bool load(int i, float* a, float* b) const {
+      if (i < lo || i >= hi) return false;
+      *a = to_f32(xc[base + i]);
+      *b = to_f32(xc[L + base + i]);
+      return true;
+    }
+    __device__ __forceinline__ bool load2(int i, float* a, float* b) const {
+      if (i < lo || i >= hi) return false;  // lo, hi even when paired
+      pair_f32(xc + base + i, a);
+      pair_f32(xc + L + base + i, b);
+      return true;
+    }
+  };
+  __device__ __forceinline__ View view(int c, long long base) const {
+    const long long lo = -base, hi = L - base;
+    return {x + (long long)c * 2 * L, base, L, (int)(lo > 0 ? lo : 0),
+            (int)(hi < 0 ? 0 : hi > INT32_MAX ? INT32_MAX : hi)};
   }
 };
 
 // Producer frames xr_f, xi_f [C, NT, span]: frame row r holds stream samples
-// [r*stride, r*stride + span). A sample left of row r's frame (the FSK
-// kernels' output J-1 reads up to decim samples there) comes from row r-1,
-// which holds [(r-1)*stride, r*stride + hist), so no geometry of taps and
-// decimation needs it to lie in row r's own frame. Left of row 0 the stream
-// has no samples.
+// [r*stride, r*stride + span), so rows overlap by span - stride. Sample g is
+// read from row min(g / stride, NT - 1), the row that deframe
+// (kernels/mixfir_preframed.py) takes it from, whatever row a block's outputs
+// lie in: a window that spans several rows reads each sample from its own
+// frame. The stream ends at (NT - 1)*stride + span and has no samples left
+// of 0. A view starts at row0 = floor(base / stride); a place is a row past
+// row0 and a column, found by one division at the start of a batch and then
+// moved on by adds.
 template <typename T>
 struct Frames {
+  static constexpr int kBytes = sizeof(T);
+  static constexpr bool kPaired = false;
   const T* xr;
   const T* xi;
   int NT, stride, span;
-  __device__ __forceinline__ bool load(int c, int r, long long g, float* a,
-                                       float* b) const {
-    const long long row = g >= (long long)r * stride ? r : r - 1;
-    if (row < 0) return false;
-    const long long k = ((long long)c * NT + row) * span + (g - row * stride);
-    *a = to_f32(xr[k]);
-    *b = to_f32(xi[k]);
-    return true;
+  struct Pos {
+    int dr, col;  // row row0 + dr, column col < stride of the unclamped rows
+  };
+  struct View {
+    const T* pr;  // channel c's row row0 in xr_f, in xi_f
+    const T* pi;
+    int off0, first, last, stride, span;  // rows row0 + [first, last] exist
+    __device__ __forceinline__ Pos at(int i) const {
+      const int off = off0 + i;
+      const int dr = off / stride;
+      return {dr, off - dr * stride};
+    }
+    __device__ __forceinline__ void step(Pos& p, int n) const {
+      for (p.col += n; p.col >= stride; p.col -= stride) ++p.dr;
+    }
+    __device__ __forceinline__ bool element(Pos p, long long* k) const {
+      if (p.dr > last) {  // past the last row's start: its tail
+        p.col += (p.dr - last) * stride;
+        p.dr = last;
+      }
+      if (p.dr < first || p.col >= span) return false;
+      *k = (long long)p.dr * span + p.col;
+      return true;
+    }
+    __device__ __forceinline__ bool load(Pos p, float* a, float* b) const {
+      long long k;
+      if (!element(p, &k)) return false;
+      *a = to_f32(pr[k]);
+      *b = to_f32(pi[k]);
+      return true;
+    }
+    __device__ __forceinline__ bool load2(Pos p, float* a, float* b) const {
+      long long k;  // even, and k + 1 in the same row: stride and span are even
+      if (!element(p, &k)) return false;
+      pair_f32(pr + k, a);
+      pair_f32(pi + k, b);
+      return true;
+    }
+  };
+  __device__ __forceinline__ View view(int c, long long base) const {
+    long long row0 = base / stride;
+    if (row0 * stride > base) --row0;  // floor
+    const long long k0 = ((long long)c * NT + row0) * span;
+    return {xr + k0, xi + k0, (int)(base - row0 * stride), (int)-row0, (int)(NT - 1 - row0),
+            stride, span};
   }
 };
 
@@ -75,21 +147,53 @@ struct Frames {
 // concat.
 template <typename T>
 struct Split {
+  static constexpr int kBytes = sizeof(T);
+  static constexpr bool kPaired = false;
   const T* xh;
   const T* xb;
   long long H, N, hs, bs;
-  __device__ __forceinline__ bool load(int, int, long long g, float* a, float* b) const {
-    if (g < 0 || g >= H + N) return false;
-    if (g < H) {
-      *a = to_f32(xh[g]);
-      *b = to_f32(xh[hs + g]);
-    } else {
-      *a = to_f32(xb[g - H]);
-      *b = to_f32(xb[bs + g - H]);
+  struct View {
+    const T* xh;
+    const T* xb;
+    long long kh, kb, hs, bs;  // element of window sample 0 in x_hist, in x_body
+    int lo, mid, hi;           // samples [lo, mid) lie in x_hist, [mid, hi) in x_body
+    __device__ __forceinline__ int at(int i) const { return i; }
+    __device__ __forceinline__ void step(int& i, int n) const { i += n; }
+    __device__ __forceinline__ bool load(int i, float* a, float* b) const {
+      if (i < lo || i >= hi) return false;
+      const bool h = i < mid;
+      const T* p = h ? xh : xb;
+      const long long k = (h ? kh : kb) + i;
+      *a = to_f32(p[k]);
+      *b = to_f32(p[(h ? hs : bs) + k]);
+      return true;
     }
-    return true;
+  };
+  __device__ __forceinline__ View view(int, long long base) const {
+    auto clip = [](long long v) { return (int)(v < 0 ? 0 : v > INT32_MAX ? INT32_MAX : v); };
+    return {xh, xb, base, base - H, hs, bs, clip(-base), clip(H - base), clip(H + N - base)};
   }
 };
+
+// A 2-byte source whose windows the host has checked for pairs: planes or
+// rows 4-byte aligned, with an even length, stride and span, and every
+// window starting on an even sample. stage_window reads it two samples a
+// load.
+template <class Src>
+struct Paired : Src {
+  static constexpr bool kPaired = true;
+};
+
+// Whether a bf16 source may go Paired: its pointers 4-byte aligned and the
+// sizes given even.
+inline bool pairs_fit(std::initializer_list<const void*> ptrs,
+                      std::initializer_list<long long> sizes) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 3) return false;
+  for (long long n : sizes)
+    if (n & 1) return false;
+  return true;
+}
 
 // Shared-memory places of window sample i: DenseIndex puts it at i;
 // PaddedIndex adds one float after every 2^log2s samples (K1's layout, where
@@ -106,60 +210,74 @@ struct PaddedIndex {
 // where the source has none), sample i at at(i). With MIX, each sample is
 // multiplied once by the NCO phasor of its u32 word w0 + g * dw. A thread
 // reads BATCH samples (blockDim.x apart) before it mixes and stores any, so
-// that BATCH loads are in flight at once.
+// that BATCH loads a plane are in flight at once. Unmixed 2-byte samples
+// with BATCH > 1 go as pairs from a Paired source: BATCH pairs a thread
+// (2*blockDim.x samples apart), one 4-byte load each, the same bytes as
+// 2*BATCH samples; else 2*BATCH samples a thread.
 template <bool MIX, class Src, class Index = DenseIndex, int BATCH = 1>
-__device__ __forceinline__ void stage_window(const Src& src, int c, int r, long long base,
-                                             int len, uint32_t w0, uint32_t dw,
+__device__ __forceinline__ void stage_window(const Src& src, int c, long long base, int len,
+                                             uint32_t w0, uint32_t dw,
                                              float* sr, float* si, Index at = Index{}) {
-  for (int i0 = threadIdx.x; i0 < len; i0 += BATCH * blockDim.x) {
-    float a[BATCH], b[BATCH];
-    bool got[BATCH];
+  constexpr bool kWide = !MIX && BATCH > 1 && Src::kBytes == 2;
+  constexpr int B = kWide ? 2 * BATCH : BATCH;
+  const auto view = src.view(c, base);
+  if constexpr (kWide && Src::kPaired) {
+    for (int i0 = 2 * threadIdx.x; i0 < len; i0 += 2 * BATCH * blockDim.x) {
+      float a[BATCH][2], b[BATCH][2];
+      bool got[BATCH];
+      auto p = view.at(i0);
 #pragma unroll
-    for (int q = 0; q < BATCH; ++q) {
-      const int i = i0 + q * (int)blockDim.x;
-      a[q] = b[q] = 0.f;
-      got[q] = i < len && src.load(c, r, base + i, &a[q], &b[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < BATCH; ++q) {
-      const int i = i0 + q * (int)blockDim.x;
-      if (i >= len) break;
-      if (got[q] && MIX) {
-        float cs, sn;
-        phasor(w0 + (uint32_t)(base + i) * dw, &cs, &sn);
-        const float mr = a[q] * cs - b[q] * sn;
-        const float mi = a[q] * sn + b[q] * cs;
-        a[q] = mr;
-        b[q] = mi;
+      for (int q = 0; q < BATCH; ++q) {
+        const int i = i0 + 2 * q * (int)blockDim.x;
+        got[q] = i < len && view.load2(p, a[q], b[q]);
+        view.step(p, 2 * blockDim.x);
       }
-      sr[at(i)] = a[q];
-      si[at(i)] = b[q];
+#pragma unroll
+      for (int q = 0; q < BATCH; ++q) {
+        const int i = i0 + 2 * q * (int)blockDim.x;
+        if (i >= len) break;
+        sr[at(i)] = got[q] ? a[q][0] : 0.f;
+        si[at(i)] = got[q] ? b[q][0] : 0.f;
+        if (i + 1 < len) {
+          sr[at(i + 1)] = got[q] ? a[q][1] : 0.f;
+          si[at(i + 1)] = got[q] ? b[q][1] : 0.f;
+        }
+      }
+    }
+  } else {
+    for (int i0 = threadIdx.x; i0 < len; i0 += B * blockDim.x) {
+      float a[B], b[B];
+      bool got[B];
+      auto p = view.at(i0);
+#pragma unroll
+      for (int q = 0; q < B; ++q) {
+        const int i = i0 + q * (int)blockDim.x;
+        a[q] = b[q] = 0.f;
+        got[q] = i < len && view.load(p, &a[q], &b[q]);
+        view.step(p, blockDim.x);
+      }
+#pragma unroll
+      for (int q = 0; q < B; ++q) {
+        const int i = i0 + q * (int)blockDim.x;
+        if (i >= len) break;
+        if (got[q] && MIX) {
+          float cs, sn;
+          phasor(w0 + (uint32_t)(base + i) * dw, &cs, &sn);
+          const float mr = a[q] * cs - b[q] * sn;
+          const float mi = a[q] * sn + b[q] * cs;
+          a[q] = mr;
+          b[q] = mi;
+        }
+        sr[at(i)] = a[q];
+        si[at(i)] = b[q];
+      }
     }
   }
-}
-
-// Complex FIR output from a staged window: sum_a g[a] * s[e - a], with the
-// explicit fmaf order every complex-taps kernel shares, so that the kernels
-// over raw planes and over frames round alike.
-__device__ __forceinline__ void ctaps_dot(const float* sr, const float* si,
-                                          const float* hr, const float* hi, int e,
-                                          int T, float* yr, float* yi) {
-  float ar = 0.f, ai = 0.f;
-  for (int a = 0; a < T; ++a) {
-    const float vr = sr[e - a];
-    const float vi = si[e - a];
-    const float gr = hr[a];
-    const float gi = hi[a];
-    ar = fmaf(gr, vr, fmaf(-gi, vi, ar));
-    ai = fmaf(gr, vi, fmaf(gi, vr, ai));
-  }
-  *yr = ar;
-  *yi = ai;
 }
 
 // Real-tap FIR output from a staged (mixed) window: sum_a h[a] * s[e - a],
-// one FMA chain per plane (K18's; K1 runs the same chain per output,
-// register-blocked, in mixfir.cu).
+// one FMA chain per plane (K18's; the ring of fir_ring.cuh runs the same
+// chain per output, register-blocked).
 __device__ __forceinline__ void real_dot(const float* sr, const float* si, const float* h,
                                          int e, int T, float* yr, float* yi) {
   float ar = 0.f, ai = 0.f;
@@ -170,20 +288,6 @@ __device__ __forceinline__ void real_dot(const float* sr, const float* si, const
   }
   *yr = ar;
   *yi = ai;
-}
-
-// Deterministic block-wide sum (fixed tree order, no atomics). `red` holds
-// blockDim.x floats; every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float total = red[0];
-  __syncthreads();
-  return total;
 }
 
 // Allow more than 48 KB of dynamic shared memory when a launch needs it.

@@ -59,8 +59,8 @@ __global__ void __launch_bounds__(kResampleThreads)
   float* sh = si + span;
 
   for (int k = threadIdx.x; k < up * Q; k += blockDim.x) sh[k] = taps_ph[k];
-  stage_window<true>(src, c, r, (long long)r * row_stride, span, words.w0[c], words.dw[c],
-                     sr, si);
+  stage_window<true>(src, c, (long long)r * row_stride, span, words.w0[c], words.dw[c], sr,
+                     si);
   __syncthreads();
 
   const long long out = ((long long)c * NT + r) * OT;

@@ -22,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu", "fft.cu", "fftconv.cu",
            "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu", "halo.cu")
-HEADERS = ("fsk_common.cuh", "fft_regs.cuh")
+HEADERS = ("fsk_common.cuh", "fir_ring.cuh", "fft_regs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srcdsp_tpu_torch"
@@ -51,6 +52,8 @@ _P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_
 _SIGNATURES = {
     "srcdsp_mixfir": [_P, _P, _I, _P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_P],
     "srcdsp_mixfir_info": [_I] * 4 + [ctypes.POINTER(_I)] * 3,
+    "srcdsp_ctaps_info": [_I] * 5 + [ctypes.POINTER(_I)] * 3,
+    "srcdsp_fsk_info": [_I] * 7 + [ctypes.POINTER(_I)] * 3,
     "srcdsp_fsk_fused": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "srcdsp_fsk_ctaps": [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "srcdsp_fsk_preframed": [_P] * 7 + [_I] * 10 + [_P],
@@ -133,6 +136,28 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(so, lib)  # atomic: a concurrent build finds a whole library
     return lib
+
+
+def ptxas_report(log: str | None = None) -> dict[str, tuple[int, int, int]]:
+    """{mangled kernel name: (registers, spill-store bytes, spill-load bytes)}
+    as ptxas reported them in nvcc.log (the built library's unless `log`
+    text is given)."""
+    text = log if log is not None else (library_path().parent / "nvcc.log").read_text()
+    out, name, spill = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
 
 
 @functools.cache

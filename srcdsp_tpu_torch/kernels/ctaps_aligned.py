@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from srcdsp_tpu_torch.device import resolve
@@ -57,6 +58,16 @@ def k4_word(word0, dword: int, hist: int) -> int:
     """K4's start word for the concatenated stream whose body sample 0 has
     phase word `word0`: ``word0 - hist*dword`` mod 2^32."""
     return (word_u32(word0) - hist * dword) & MASK32
+
+
+def split_pick(g, hist: int, n: int):
+    """fsk_common.cuh:149-176 Split: (operand, index) of stream sample g (an
+    int or an int64 array): (0, g) in x_hist for g < hist, (1, g - hist) in
+    the body after it, (-1, -1) outside [0, hist + n)."""
+    g = np.asarray(g, np.int64)
+    ok = (g >= 0) & (g < hist + n)
+    which = np.where(ok, (g >= hist).astype(np.int64), -1)
+    return which, np.where(ok, np.where(g < hist, g, g - hist), -1)
 
 
 def ctaps_aligned_plain(word0, dword: int, x_hist: torch.Tensor, x_body: torch.Tensor,

@@ -16,8 +16,11 @@ No phase words exist at run time, so chunked streaming needs only the input
 overlap and the per-call seam (output 0 of each call has d = 0, no delta).
 Outputs and layouts are K2's (``kernels/fsk_fused.py``).
 
-The CUDA kernel is ``csrc/fsk.cu`` (``srcdsp_fsk_ctaps``); `fsk_ctaps_plain`
-is the plain PyTorch version the wrapper runs for CPU tensors.
+The CUDA kernel is ``csrc/fsk.cu`` (``srcdsp_fsk_ctaps``), the complex-taps
+ring of ``csrc/fir_ring.cuh`` with K2's epilogue; its ownership and index map
+are mirrored by ``kernels/fsk_fused.fsk_*`` (``ctaps=True``).
+`fsk_ctaps_plain` is the plain PyTorch version the wrapper runs for CPU
+tensors.
 
 bf16 ingest (``in_dtype=torch.bfloat16``): x ships as bf16, each sample is
 converted to f32 once and everything after is f32. The taps stay f32, where

@@ -14,10 +14,20 @@ each row's lanes to offset-class-major order, lane o*(OT/sps)+s = sample
 s*sps+o, so the symbol pick reads contiguous lanes.
 
 The CUDA kernel is ``csrc/fsk.cu`` (``srcdsp_fsk_fused``); `fsk_fused_plain`
-is the plain PyTorch version the wrapper runs for CPU tensors.
+is the plain PyTorch version the wrapper runs for CPU tensors. The body runs
+the register ring of ``csrc/fir_ring.cuh`` (K1's, real taps here; K3 and K7
+run it with complex taps): a block owns whole rows of one channel, each
+thread R consecutive outputs, and the discriminator takes y[J-1] from the
+previous register, the previous thread's last output, or, for a tile's first
+output, the same chain computed once more. The ownership, the predecessor,
+the store index and the order of the O&M sums are mirrored here (`fsk_*`,
+each citing its line) and checked in numpy by
+``tests/test_torch_fsk_kernels.py``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,7 +35,8 @@ import torch
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import (
-    LANE, _round_up, check_planes, cuda_or_cpu, mix_fir_plain)
+    LANE, FirShape, _round_up, check_planes, cuda_or_cpu, fir_geometry, fir_shape, mix_fir_plain,
+    ring_shape)
 from srcdsp_tpu_torch.ops.nco import TWO_PI, word_tensor
 from srcdsp_tpu_torch.types import F32
 
@@ -67,6 +78,101 @@ def to_class_major(d: torch.Tensor, sps: int) -> torch.Tensor:
     """[C, NT, OT] rows -> lanes permuted to (i % sps)*(OT/sps) + i//sps."""
     c, nt, ot = d.shape
     return d.reshape(c, nt, ot // sps, sps).transpose(-1, -2).reshape(c, nt, ot)
+
+
+# The FSK body's ownership, predecessor, stores and O&M sums (csrc/fsk.cu on
+# csrc/fir_ring.cuh), mirrored item by item; the ring's index map is
+# kernels/mixfir's fir_* with shape=fsk_shape(decim, ctaps).
+def fsk_shape(decim: int, ctaps: bool) -> FirShape:
+    """fsk.cu:66-69 FskShape: the complex ring at R = 4 in blocks of 256 threads
+    (K3, K7); K2 runs K1's ring and shape."""
+    return ring_shape(decim, 4, 256) if ctaps else fir_shape(decim)
+
+
+def fsk_rows(decim: int, out_tile: int, ctaps: bool) -> int:
+    """fsk.cu:78-81: whole rows of OT a block owns, max(1, outputs // OT)."""
+    outputs = fsk_shape(decim, ctaps).outputs
+    return outputs // out_tile if out_tile < outputs else 1
+
+
+def fsk_geometry(decim: int, num_taps: int, hist: int, ctaps: bool
+                 ) -> tuple[int, int, int, int]:
+    """fsk.cu:231: the ring's geometry with room for output J-1 of the first
+    (pre = decim): (tp, lead, span, plane)."""
+    return fir_geometry(decim, num_taps, hist, fsk_shape(decim, ctaps), pre=decim)
+
+
+def fsk_blocks(nt: int, decim: int, out_tile: int, ctaps: bool) -> int:
+    """fsk.cu:235-236: blocks of a launch along the rows (one grid row a channel)."""
+    return -(-nt // fsk_rows(decim, out_tile, ctaps))
+
+
+def fsk_tiles(block: int, nt: int, decim: int, out_tile: int, ctaps: bool) -> list[int]:
+    """fsk.cu:129-132: the block-local first output t0 of each tile; the
+    block owns rows [r0, r0 + rows) and bo = rows*OT outputs."""
+    rows_b = fsk_rows(decim, out_tile, ctaps)
+    rows = min(rows_b, nt - block * rows_b)
+    return list(range(0, rows * out_tile, fsk_shape(decim, ctaps).outputs))
+
+
+def fsk_output(block: int, t0: int, tid, k: int, nt: int, decim: int, out_tile: int,
+               ctaps: bool):
+    """fsk.cu:133, :160 and :180: (channel-local J of output k of thread `tid`
+    in the tile at t0, whether it is stored: block-local index < bo)."""
+    sh = fsk_shape(decim, ctaps)
+    rows_b = fsk_rows(decim, out_tile, ctaps)
+    r0 = block * rows_b
+    local = t0 + np.asarray(tid) * sh.r + k
+    return r0 * out_tile + local, local < min(rows_b, nt - r0) * out_tile
+
+
+def fsk_window_start(block: int, t0: int, decim: int, num_taps: int, hist: int,
+                     out_tile: int, ctaps: bool) -> int:
+    """fsk.cu:140: stream sample of window index 0 of the tile at t0."""
+    lead = fsk_geometry(decim, num_taps, hist, ctaps)[1]
+    return (block * fsk_rows(decim, out_tile, ctaps) * out_tile + t0) * decim - lead
+
+
+def fsk_predecessor(tid, lead: int, hist: int, decim: int, ctaps: bool):
+    """fsk.cu:144-153 and :163: where output 0 of thread `tid` finds y[J-1]:
+    ("slot", tid - 1), the previous thread's last output, or for thread 0
+    ("chain", e), the chain over taps 0..T-1 at window index e - a."""
+    tid = np.asarray(tid)
+    return np.where(tid > 0, tid - 1, hist + lead - decim), tid > 0
+
+
+def fsk_store_index(local, out_tile: int, sps: int, class_major: bool):
+    """fsk.cu:161-162, :180 and :183-191: (block-local row, lane) of d for
+    block-local output `local`; lane = (col % sps)*(OT/sps) + col//sps in
+    class-major order, col otherwise."""
+    local = np.asarray(local)
+    row, col = local // out_tile, local % out_tile
+    lane = (col % sps) * (out_tile // sps) + col // sps if class_major else col
+    return row, lane
+
+
+def fsk_row_terms(t0: int, tn: int, out_tile: int, warps: int) -> list[tuple]:
+    """fsk.cu:195-212: (row, warp, lo, end) for each row that the tile
+    [t0, t0 + tn) touches: warp `warp` sums its terms lo..end-1 (tile-local),
+    lane l taking l, l + 32, ..., then a butterfly; tiles add in order."""
+    return [(rr, (rr - t0 // out_tile) % warps, max(rr * out_tile - t0, 0),
+             min((rr + 1) * out_tile - t0, tn))
+            for rr in range(t0 // out_tile, (t0 + tn - 1) // out_tile + 1)]
+
+
+def kernel_info(kernel: str, decim: int, num_taps: int, hist: int, out_tile: int, sps: int,
+                bf16: bool = False) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of the K2
+    ("fused"), K3 ("ctaps") or K7 ("preframed") instantiation that runs
+    `decim` (on the card). Local bytes include the 32-byte stack frame of
+    cosf/sinf/atan2f's slow path, not spills (ptxas reports those:
+    _build.ptxas_report)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    which = {"fused": 0, "ctaps": 1, "preframed": 2}[kernel]
+    _build.check(_build.load().srcdsp_fsk_info(which, int(bf16), decim, num_taps, hist,
+                                               out_tile, sps, *map(ctypes.byref, out)),
+                 "fsk_info")
+    return tuple(v.value for v in out)
 
 
 def fsk_fused_plain(words0, dwords, x: torch.Tensor, taps: torch.Tensor, decim: int,

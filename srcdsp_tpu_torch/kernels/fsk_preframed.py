@@ -4,11 +4,13 @@
 (``kernels/mixfir_preframed``), so the kernel does no window work.
 
 Outputs are bit-identical to K3 on the same stream: the CUDA kernels share one
-body (``csrc/fsk.cu``) and differ only in the window source, and the plain
-version rebuilds the stream from the frames and runs K3's plain version. The
-TPU kernel carries each row's last filtered sample to the next grid step;
-the CUDA kernel recomputes it from the previous frame row instead, which
-holds its samples whatever the taps and decimation. bf16 ingest is as in K3:
+body (``csrc/fsk.cu``, its ownership mirrored by ``kernels/fsk_fused.fsk_*``)
+and differ only in the window source, which reads each sample from the frame
+row `deframe` takes it from (``kernels/mixfir_preframed.frames_pick``); the
+plain version rebuilds the stream from the frames and runs K3's plain
+version. The TPU kernel carries each row's last filtered sample to the next
+grid step; the CUDA kernel computes the y[J-1] of a tile's first output once
+more, from the same window, in the same order. bf16 ingest is as in K3:
 f32 taps, decisions equal and soft values within 5e-2 of the f32 path, where
 the JAX variant also rounds its taps to bf16.
 """

@@ -13,7 +13,12 @@ to float32 rounding, not to the bit.
 
 The TPU kernel's banded-Toeplitz packing and 3-matmul Gauss form are matrix-
 unit lowerings; the CUDA kernel (``csrc/ctaps.cu``) computes the sum
-directly. On a CPU tensor the wrapper runs `mix_fir_ctaps_plain`.
+directly, on the register ring of ``csrc/fir_ring.cuh`` with complex taps: a
+block owns 1024 consecutive outputs of [NT, OT] (several rows), each thread 4
+of them. Its ownership and index map are mirrored here (`ctaps_shape`,
+`ctaps_geometry`, `ctaps_word`, with the ring's `fir_*` of ``kernels/mixfir``)
+and checked in numpy by ``tests/test_torch_ctaps.py``. On a CPU tensor the
+wrapper runs `mix_fir_ctaps_plain`.
 
 bf16 ingest (``in_dtype=torch.bfloat16``): x ships as bf16 and is converted to
 f32 once; taps, sums and outputs stay f32. The JAX variant also rounds its
@@ -24,6 +29,7 @@ f32 output, not to its bits.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable
 
@@ -33,11 +39,44 @@ from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fsk_ctaps import ctaps_fir_rows, ctaps_host
 from srcdsp_tpu_torch.kernels.mixfir import (
-    LANE, _round_up, check_in_dtype, check_planes, cuda_or_cpu, signed_phase_angle)
+    LANE, _round_up, check_in_dtype, check_planes, ctaps_shape, cuda_or_cpu, fir_geometry,
+    signed_phase_angle)
 from srcdsp_tpu_torch.ops.nco import MASK32, word_tensor
 
 __all__ = ["CtapsKernel", "make_mix_fir_ctaps_kernel", "mix_fir_ctaps",
-           "mix_fir_ctaps_plain"]
+           "mix_fir_ctaps_plain", "ctaps_shape", "ctaps_geometry", "ctaps_word", "kernel_info"]
+
+# The complex ring's ownership and phasor words (csrc/ctaps.cu on
+# csrc/fir_ring.cuh), mirrored item by item; the ring's index map is
+# kernels/mixfir's fir_* with shape=ctaps_shape(decim).
+SOURCES = {"planes": 0, "frames": 1, "split": 2}
+
+
+def ctaps_geometry(decim: int, num_taps: int, hist: int) -> tuple[int, int, int, int]:
+    """ctaps.cu:60 ring_geometry with CtapsShape: (tp, lead, span, plane)."""
+    return fir_geometry(decim, num_taps, hist, ctaps_shape(decim))
+
+
+def ctaps_blocks(total: int, decim: int) -> int:
+    """ctaps.cu:97: blocks of a launch over `total` = NT*OT outputs."""
+    return -(-total // ctaps_shape(decim).outputs)
+
+
+def ctaps_word(word0: int, dword: int, j, decim: int, hist: int):
+    """ctaps.cu:79: the u32 phase word of output j's phasor,
+    w0 + (j*decim + hist)*dword mod 2^32 (j an int or an int64 array)."""
+    return (word0 + (((j * decim + hist) & MASK32) * dword)) & MASK32
+
+
+def kernel_info(source: str, decim: int, num_taps: int, hist: int, bf16: bool = False
+                ) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of the K4
+    ("planes"), K5 ("frames") or K17 ("split") instantiation that runs
+    `decim` (on the card)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.load().srcdsp_ctaps_info(SOURCES[source], int(bf16), decim, num_taps,
+                                                 hist, *map(ctypes.byref, out)), "ctaps_info")
+    return tuple(v.value for v in out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,10 @@
 A producer (the ingest framer ``io/framer.py``, `frame_planes` on the host, or
 K6 on the card) ships [NT, span] frames: row J is the stream's samples
 [J*stride, J*stride + span) with stride = out_tile*decim and span = stride +
-hist, so rows overlap by hist. K5 then reads each output row's window from
-one frame row and does no window work of its own.
+hist, so rows overlap by hist. K5 reads each stream sample from the frame
+row that `deframe` takes it from, row min(g // stride, NT - 1), so a block
+whose outputs span several rows reads each row's samples from that row
+(`frames_pick`, and `frames_staged` for how the staging loops place them).
 
 Outputs are bit-identical to K4 (``kernels/mixfir_ctaps``) on the same
 stream: the CUDA kernels share one body (``csrc/ctaps.cu``) and differ only in
@@ -16,6 +18,7 @@ against the f32 output, where the JAX variant also rounds its taps to bf16.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from srcdsp_tpu_torch.device import resolve
@@ -25,7 +28,7 @@ from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, check_in_dtype, cud
 from srcdsp_tpu_torch.kernels.mixfir_ctaps import mix_fir_ctaps_plain, word_u32
 
 __all__ = ["frame_planes", "deframe", "make_ctaps_preframed_kernel", "make_frame_kernel",
-           "ctaps_preframed_plain"]
+           "ctaps_preframed_plain", "frames_pick", "frames_staged"]
 
 
 def _frame_geometry(stride: int, span: int) -> int:
@@ -58,6 +61,49 @@ def deframe(frames: torch.Tensor, stride: int) -> torch.Tensor:
     lead = frames.shape[:-2]
     head = frames[..., :stride].reshape(*lead, -1)
     return torch.cat([head, frames[..., -1, stride:]], dim=-1)
+
+
+def frames_pick(g, nt: int, stride: int, span: int):
+    """The row rule of the Frames source (fsk_common.cuh:79-88): the frame
+    (row, col) that stream sample g (an int or an int64 array) is read from,
+    row min(g // stride, nt - 1) as `deframe` takes it; (-1, -1) where the
+    stream has no sample g (g < 0 or past (nt - 1)*stride + span)."""
+    g = np.asarray(g, np.int64)
+    ok = (g >= 0) & (g < (nt - 1) * stride + span)
+    row = np.minimum(np.where(ok, g, 0) // stride, nt - 1)
+    col = g - row * stride
+    return np.where(ok, row, -1), np.where(ok, col, -1)
+
+
+def frames_staged(base: int, length: int, threads: int, batch: int, nt: int, stride: int,
+                  span: int, pairs: bool = False):
+    """How stage_window reads window samples base .. base + length - 1 from
+    Frames (fsk_common.cuh:102-139 Frames::View at, step, element, view, and
+    stage_window's loops): each thread places its first sample of a batch by
+    one division, then steps `threads` samples at a time (2*`threads` from
+    one pair to the next with `pairs`, each pair samples i, i + 1). Returns
+    (row, col) per window index, (-1, -1) where nothing is read."""
+    row0 = base // stride
+    off0, first, last = base - row0 * stride, -row0, nt - 1 - row0
+    rows, cols = np.full(length, -1), np.full(length, -1)
+    width, step = (2, 2 * threads) if pairs else (1, threads)
+    for t in range(threads):
+        for i0 in range(width * t, length, batch * step):
+            dr, col = divmod(off0 + i0, stride)
+            for q in range(batch):
+                i = i0 + q * step
+                if i < length:
+                    r, cc = dr, col
+                    if r > last:
+                        r, cc = last, cc + (r - last) * stride
+                    if r >= first and cc < span:
+                        for w in range(width):
+                            if i + w < length:
+                                rows[i + w], cols[i + w] = row0 + r, cc + w
+                col += step
+                while col >= stride:
+                    col, dr = col - stride, dr + 1
+    return rows, cols
 
 
 def ctaps_preframed_plain(word0, dword: int, xr_f: torch.Tensor, xi_f: torch.Tensor,

@@ -11,6 +11,15 @@ the same numpy planes. Contracts, each stated beside its helper:
   its bf16 variant (the port keeps f32 taps, the JAX variant rounds them);
 - bit-exact: chunked launches against one launch, K5 against K4 on the same
   stream, frames against the JAX frames.
+
+The CUDA body's ownership and index map (``csrc/ctaps.cu`` on the complex
+ring of ``csrc/fir_ring.cuh``, mirrored by ``kernels/mixfir`` and
+``kernels/mixfir_ctaps``) run here thread by thread: every output reads
+x[J*decim + hist - a] at tap a inside the staged window, no warp's window
+load touches a bank twice at decim 1, 2 and 4, the blocks tile [NT, OT] with
+a partial last block, each phasor has the plain version's word, and the
+Frames and Split sources read each sample where the plain versions do,
+over frames whose overlaps disagree.
 """
 
 import jax
@@ -25,6 +34,7 @@ from srcdsp_tpu.ops.nco import freq_to_word
 from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch import configs as tconfigs
 from srcdsp_tpu_torch.kernels import _build
+from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.kernels import mixfir_ctaps as tct
 from srcdsp_tpu_torch.kernels import mixfir_preframed as tpf
 
@@ -257,3 +267,118 @@ def test_config1_preframed_bf16io_matches_jax_kernel():
     jr, ji = fn(w0, jnp.asarray(xr_f.float().numpy()).astype(jnp.bfloat16),
                 jnp.asarray(xi_f.float().numpy()).astype(jnp.bfloat16))
     assert _snr_db(_cplx(jr, ji), _cplx(yr, yi)) > 30.0
+
+
+# --- the CUDA body's index map (csrc/ctaps.cu on csrc/fir_ring.cuh), in numpy ---
+
+DECIMS = [1, 2, 4, 3]
+
+
+def _round_up(x, m=128):
+    return -(-x // m) * m
+
+
+@pytest.mark.parametrize("t", [64, 33])
+@pytest.mark.parametrize("decim", DECIMS)
+def test_cuda_body_reads_its_outputs_window_conflict_free(decim, t):
+    """Every output J of every thread reads x[J*decim + hist - a] at tap a
+    through the complex ring, inside the staged window (the zero taps of the
+    last chunk too); no warp's window load touches a bank twice at decim 1, 2
+    and 4 (at most twice for the generic instantiation)."""
+    hist = _round_up(t - 1)
+    sh = tmf.ctaps_shape(decim)
+    tp, lead, span, plane = tct.ctaps_geometry(decim, t, hist)
+    assert tp >= t and lead >= 0 and tp - 1 <= hist + lead
+    reads, loads = tmf.ring_schedule(decim, t, hist, sh)
+    taps = tp if decim in (1, 2, 4) else t
+    assert reads[:, :, :taps].min() >= 0 and reads.max() < span
+    assert tmf.fir_pad(span - 1, sh.log2s) < plane
+    tid = np.arange(sh.threads)
+    for block in (0, 3):
+        start = tmf.fir_window_start(block, decim, lead, sh)
+        j = np.stack([tmf.fir_output(block, tid, k, decim, sh) for k in range(sh.r)], 1)
+        want = j[:, :, None] * decim + hist - np.arange(taps)
+        np.testing.assert_array_equal(reads[:, :, :taps] + start, want)
+    worst = max(tmf.worst_bank(tmf.fir_pad(idx[w:w + 32], sh.log2s))
+                for idx in loads for w in range(0, sh.threads, 32))
+    assert worst == 1 if decim in (1, 2, 4) else worst <= 2
+
+
+@pytest.mark.parametrize("decim,nt,ot", [(2, 64, 512), (4, 8, 512), (1, 5, 128), (2, 3, 384),
+                                         (3, 7, 128), (4, 3, 90)])
+def test_cuda_body_blocks_tile_the_output(decim, nt, ot):
+    """ctaps_blocks blocks of 1024 outputs cover every output of [NT, OT]
+    exactly once; what lies past NT*OT in the last block is not stored."""
+    sh = tmf.ctaps_shape(decim)
+    total = nt * ot
+    blocks = tct.ctaps_blocks(total, decim)
+    tid = np.arange(sh.threads)
+    seen = np.concatenate([tmf.fir_output(b, tid, k, decim, sh) for b in range(blocks)
+                           for k in range(sh.r)])
+    assert seen.max() >= total or total % sh.outputs == 0
+    np.testing.assert_array_equal(np.sort(seen[seen < total]), np.arange(total))
+
+
+def test_cuda_body_phasor_word_is_the_plain_versions():
+    """ctaps_word (the u32 word of output j's phasor) equals the plain
+    version's (word0 + (j*decim + hist)*dword) mod 2^32, past the wrap too."""
+    word0, dword = (-128 * int(freq_to_word(0.11))) % (1 << 32), int(freq_to_word(0.11))
+    j = np.concatenate([np.arange(4096), (1 << 25) - 1 - np.arange(64)]).astype(np.int64)
+    want = np.asarray([(word0 + (int(v) * 2 + 128) * dword) % (1 << 32) for v in j])
+    np.testing.assert_array_equal(tct.ctaps_word(word0, dword, j, 2, 128), want)
+
+
+@pytest.mark.parametrize("decim,ot", [(2, 128), (4, 64), (1, 256), (3, 96)])
+def test_frames_pick_each_sample_from_its_own_row(decim, ot):
+    """K5's source over frames whose overlaps disagree (independent random
+    rows, not cut from one stream): for every block's window, which spans
+    several rows, each sample comes from the row deframe takes it from, so
+    the kernel and its plain version read the same numbers; no sample is
+    read left of 0 or past the stream's end; and the staging loops' places
+    (a division at the start of a batch, then steps of a block's threads,
+    samples one by one or in pairs) land on the same rows and columns."""
+    t = 33
+    hist = _round_up(t - 1)
+    stride, nt = ot * decim, 11
+    span = stride + hist
+    frames = np.random.default_rng(decim).standard_normal((nt, span)).astype(np.float32)
+    stream = tpf.deframe(torch.from_numpy(frames), stride).numpy()
+    assert stream.shape == ((nt - 1) * stride + span,)
+    _, lead, wspan, _ = tct.ctaps_geometry(decim, t, hist)
+    blocks = tct.ctaps_blocks(nt * ot, decim)
+    rows_seen = set()
+    for b in range(blocks):
+        g = tmf.fir_window_start(b, decim, lead, tmf.ctaps_shape(decim)) + np.arange(wspan)
+        row, col = tpf.frames_pick(g, nt, stride, span)
+        ok = row >= 0
+        np.testing.assert_array_equal(ok, (g >= 0) & (g < stream.shape[0]))
+        assert col[ok].min() >= 0 and col[ok].max() < span
+        np.testing.assert_array_equal(frames[row[ok], col[ok]], stream[g[ok]])
+        rows_seen.add(len(set(row[ok].tolist())))
+        sh = tmf.ctaps_shape(decim)
+        for batch, pairs in ((8, False), (16, False), (8, True), (4, True)):
+            srow, scol = tpf.frames_staged(int(g[0]), wspan, sh.threads, batch, nt, stride, span,
+                                           pairs)
+            np.testing.assert_array_equal(srow, row)
+            np.testing.assert_array_equal(scol, col)
+    assert max(rows_seen) > 2
+
+
+def test_split_pick_reads_history_then_body():
+    """K17's source: window samples of every block come from x_hist below
+    hist and from the body after it, as the concatenation holds them."""
+    from srcdsp_tpu_torch.kernels import ctaps_aligned as tca
+    decim, t, ot, nt = 2, 64, 512, 3
+    hist = _round_up(t - 1)
+    n = nt * ot * decim
+    xh, xb = np.arange(hist) + 0.5, np.arange(n) + 1e6
+    cat = np.concatenate([xh, xb])
+    _, lead, wspan, _ = tct.ctaps_geometry(decim, t, hist)
+    for b in range(tct.ctaps_blocks(nt * ot, decim)):
+        g = tmf.fir_window_start(b, decim, lead, tmf.ctaps_shape(decim)) + np.arange(wspan)
+        which, idx = tca.split_pick(g, hist, n)
+        ok = which >= 0
+        np.testing.assert_array_equal(ok, (g >= 0) & (g < hist + n))
+        got = np.where(which[ok] == 0, xh[np.where(which[ok] == 0, idx[ok], 0)],
+                       xb[np.where(which[ok] == 1, idx[ok], 0)])
+        np.testing.assert_array_equal(got, cat[g[ok]])

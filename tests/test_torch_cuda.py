@@ -4,6 +4,8 @@ Marked `cuda`; each test skips when torch.cuda.is_available() is false. Run on
 a machine with the card: python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -109,33 +111,61 @@ def test_mixfir_kernel_matches_plain_modem_front_end(dev):
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) < 1e-5
 
 
-@pytest.mark.parametrize("class_major", [False, True])
-@pytest.mark.parametrize("ctaps", [False, True])
-def test_fsk_kernels_match_plain(dev, ctaps, class_major):
-    planes, words = _fsk_planes(dev)
-    taps = lowpass(64, 0.03)
+def _fsk_case(dev, ctaps, class_major, decim, t, ot, b_rows, planes, words):
+    """One FSK launch (K3 when ctaps, else K2) and its plain version."""
+    taps = lowpass(t, 0.03 * 4 / decim)
     if ctaps:
-        fn, hist = kct.make_fsk_ctaps_kernel(taps, words, DECIM, SPS, out_tile=OT,
-                                             b_rows=8, class_major=class_major, device=dev)
+        fn, hist = kct.make_fsk_ctaps_kernel(taps, words, decim, SPS, out_tile=ot,
+                                             b_rows=b_rows, class_major=class_major, device=dev)
         d, st = fn(planes)
         gr, gi, deltas = (torch.as_tensor(a, device=dev)
-                          for a in kct.ctaps_host(taps, words, DECIM))
-        pd, pst = kct.fsk_ctaps_plain(planes, gr, gi, deltas, DECIM, OT, hist, SPS,
+                          for a in kct.ctaps_host(taps, words, decim))
+        pd, pst = kct.fsk_ctaps_plain(planes, gr, gi, deltas, decim, ot, hist, SPS,
                                       class_major)
     else:
-        fn, hist = kff.make_fsk_mc_kernel(taps, DECIM, C, SPS, out_tile=OT, b_rows=8,
+        fn, hist = kff.make_fsk_mc_kernel(taps, decim, C, SPS, out_tile=ot, b_rows=b_rows,
                                           class_major=class_major, device=dev)
         words0 = [(-hist * int(w)) % (1 << 32) for w in words]
         d, st = fn(words0, words, planes)
         pd, pst = kff.fsk_fused_plain(words0, words, planes,
-                                      torch.as_tensor(taps, device=dev), DECIM, OT, hist,
+                                      torch.as_tensor(taps, device=dev), decim, ot, hist,
                                       SPS, class_major)
     torch.cuda.synchronize()
+    return d, st, pd, pst
+
+
+def _fsk_agree(d, st, pd, pst, ot, class_major):
     assert float((d - pd).abs().max()) < 1e-4
     torch.testing.assert_close(st, pst, rtol=1e-4, atol=1e-3)
-    _, (bits, _) = kff.demod_tail(d, st, SPS, OT, class_major=class_major)
-    _, (pbits, _) = kff.demod_tail(pd, pst, SPS, OT, class_major=class_major)
+    _, (bits, _) = kff.demod_tail(d, st, SPS, ot, class_major=class_major)
+    _, (pbits, _) = kff.demod_tail(pd, pst, SPS, ot, class_major=class_major)
     assert torch.equal(bits, pbits)
+
+
+@pytest.mark.parametrize("t", [33, 64])
+@pytest.mark.parametrize("decim", [2, 4])
+@pytest.mark.parametrize("class_major", [False, True])
+@pytest.mark.parametrize("ctaps", [False, True])
+def test_fsk_kernels_match_plain(dev, ctaps, class_major, decim, t):
+    """K2 and K3 (each decim's ring) against their plain versions: d within
+    1e-4, st within rtol 1e-4 / atol 1e-3, decisions equal."""
+    planes, words = _fsk_planes(dev)
+    d, st, pd, pst = _fsk_case(dev, ctaps, class_major, decim, t, OT, 8, planes, words)
+    _fsk_agree(d, st, pd, pst, OT, class_major)
+
+
+@pytest.mark.parametrize("ot,b_rows,blocks", [(384, 3, 13), (2048, 1, 4)])
+@pytest.mark.parametrize("ctaps", [False, True])
+def test_fsk_kernels_partial_and_tiled_blocks(dev, ctaps, ot, b_rows, blocks):
+    """A last block with fewer rows than the others (OT 384: two rows a
+    block, an odd row count) and rows longer than a block's tile (OT 2048:
+    tiles of one row in turn), against the plain versions."""
+    planes, words = _fsk_planes(dev)
+    n = blocks * b_rows * ot * DECIM
+    planes = planes[..., :128 + n].contiguous()
+    d, st, pd, pst = _fsk_case(dev, ctaps, True, DECIM, 64, ot, b_rows, planes, words)
+    assert d.shape[1] % 2 == 1 or ot == 2048
+    _fsk_agree(d, st, pd, pst, ot, True)
 
 
 def test_cuda_tensor_with_cpu_kernel_raises(dev):
@@ -150,22 +180,27 @@ def _rel(k, p):
     return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
 
 
+@pytest.mark.parametrize("decim,t,ot", [(2, 64, OT), (2, 33, OT), (4, 64, OT), (4, 33, OT),
+                                         (2, 64, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-def test_ctaps_kernels_match_plain_and_each_other(dev, dtype):
+def test_ctaps_kernels_match_plain_and_each_other(dev, dtype, decim, t, ot):
     """K4 and K5 against their plain versions (rel L2 < 1e-5 on the same
-    input), K5 == K4 bit for bit, and K6 frames == frame_planes."""
-    taps, word = lowpass(64, 0.2), int(freq_to_word(0.11))
-    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=8, in_dtype=dtype,
-                                       device=dev)
+    input), K5 == K4 bit for bit, and K6 frames == frame_planes; OT 384 with
+    b_rows 3 leaves the last block of 1024 outputs part full."""
+    taps, word = lowpass(t, 0.4 / decim), int(freq_to_word(0.11))
+    b_rows = 8 if ot == OT else 3
+    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, decim, out_tile=ot, b_rows=b_rows,
+                                       in_dtype=dtype, device=dev)
     fn5, hist, stride, span = kpf.make_ctaps_preframed_kernel(
-        taps, word, 2, out_tile=OT, b_rows=8, in_dtype=dtype, device=dev)
+        taps, word, decim, out_tile=ot, b_rows=b_rows, in_dtype=dtype, device=dev)
     n = 4 * k4.block_in()
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, hist + n)),
                         dtype=torch.float32, device=dev).to(dtype)
     w0 = (-hist * word) % (1 << 32)
     before = dict(_build.LAUNCHES)
     y4 = k4.fn(w0, x)
-    xr_f, xi_f = kpf.make_frame_kernel(stride, span, b_rows=8, in_dtype=dtype, device=dev)(x)
+    xr_f, xi_f = kpf.make_frame_kernel(stride, span, b_rows=b_rows, in_dtype=dtype,
+                                       device=dev)(x)
     y5 = fn5(w0, xr_f, xi_f)
     torch.cuda.synchronize()
     sfx = "_bf16" if dtype == BF16 else ""
@@ -173,9 +208,62 @@ def test_ctaps_kernels_match_plain_and_each_other(dev, dtype):
         assert _build.LAUNCHES[name] == before[name] + 1
     ref = kpf.frame_planes(x, stride, span)
     assert torch.equal(xr_f, ref[0]) and torch.equal(xi_f, ref[1])
-    gr, gi = (torch.as_tensor(a[0], device=dev) for a in kct.ctaps_host(taps, [word], 2)[:2])
-    assert _rel(y4, kmc.mix_fir_ctaps_plain(w0, word, x, gr, gi, 2, OT, hist)) < 1e-5
+    gr, gi = (torch.as_tensor(a[0], device=dev)
+              for a in kct.ctaps_host(taps, [word], decim)[:2])
+    assert _rel(y4, kmc.mix_fir_ctaps_plain(w0, word, x, gr, gi, decim, ot, hist)) < 1e-5
     assert torch.equal(y5[0], y4[0]) and torch.equal(y5[1], y4[1])
+
+
+@pytest.mark.parametrize("decim", [2, 4])
+def test_preframed_kernels_read_each_sample_from_its_own_row(dev, decim):
+    """K5 and K7 over frames whose overlaps disagree (independent random
+    rows, not cut from one stream): a block spans several rows and reads each
+    sample from the row deframe takes it from, so K5 == K4 and K7 == K3 on
+    the deframed stream, bit for bit."""
+    rng = np.random.default_rng(decim)
+    taps, word = lowpass(64, 0.4 / decim), int(freq_to_word(0.11))
+    fn5, hist, stride, span = kpf.make_ctaps_preframed_kernel(
+        taps, word, decim, out_tile=OT, b_rows=8, device=dev)
+    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, decim, out_tile=OT, b_rows=8, device=dev)
+    fr = torch.as_tensor(rng.standard_normal((2, 16, span)).astype(np.float32), device=dev)
+    w0 = (-hist * word) % (1 << 32)
+    y5 = fn5(w0, fr[0], fr[1])
+    y4 = k4.fn(w0, torch.stack([kpf.deframe(fr[0], stride), kpf.deframe(fr[1], stride)]))
+    assert torch.equal(y5[0], y4[0]) and torch.equal(y5[1], y4[1])
+    _, words = _fsk_planes(dev)
+    fn7, _, stride7, span7 = kfp.make_fsk_preframed_kernel(
+        taps, words, decim, SPS, out_tile=OT, b_rows=8, class_major=True, device=dev)
+    fn3, _ = kct.make_fsk_ctaps_kernel(taps, words, decim, SPS, out_tile=OT, b_rows=8,
+                                       class_major=True, device=dev)
+    fr7 = torch.as_tensor(rng.standard_normal((C, 2, 16, span7)).astype(np.float32), device=dev)
+    xr_f, xi_f = fr7[:, 0].contiguous(), fr7[:, 1].contiguous()
+    d7, st7 = fn7(xr_f, xi_f)
+    d3, st3 = fn3(torch.stack([kpf.deframe(xr_f, stride7), kpf.deframe(xi_f, stride7)], 1))
+    assert torch.equal(d7, d3) and torch.equal(st7, st3)
+
+
+def _spills(pattern: str) -> dict:
+    """ptxas's (registers, spill stores, spill loads) of the built kernels
+    whose mangled name matches `pattern`."""
+    return {k: v for k, v in _build.ptxas_report().items() if re.search(pattern, k)}
+
+
+@pytest.mark.parametrize("decim", [1, 2, 4, 3])
+def test_ctaps_and_fsk_kernels_no_spills_four_blocks_per_sm(dev, decim):
+    """ptxas reports no spill in any complex-taps or FSK instantiation, and
+    each one that runs `decim` keeps at least 4 blocks an SM at T 64."""
+    _build.load()
+    found = _spills(r"(ctaps|fsk)_kernel")
+    assert len(found) == 20 + 20 + 8 + 8  # and the bf16 sources read in pairs
+    assert not {k: v for k, v in found.items() if v[1] or v[2]}
+    for source, bf16 in (("planes", False), ("planes", True), ("frames", False),
+                         ("frames", True), ("split", False)):
+        regs, _, blocks = kmc.kernel_info(source, decim, 64, 128, bf16)
+        assert regs <= 64 and blocks >= 4, (source, bf16, regs, blocks)
+    for kernel, bf16 in (("fused", False), ("ctaps", False), ("ctaps", True),
+                         ("preframed", False), ("preframed", True)):
+        regs, _, blocks = kff.kernel_info(kernel, decim, 64, 128, OT, SPS, bf16)
+        assert blocks >= 4, (kernel, bf16, regs, blocks)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
@@ -614,13 +702,14 @@ def test_coded_kernels_refuse_bad_input_before_launch(dev):
     assert _build.LAUNCHES == before
 
 
-def test_ctaps_aligned_equals_k4_and_streams(dev):
+@pytest.mark.parametrize("decim,t", [(2, 64), (4, 33)])
+def test_ctaps_aligned_equals_k4_and_streams(dev, decim, t):
     """K17 == K4 bit for bit on the same stream (history as its own operand,
     slices of one array), and 4 chunks with carried history == one launch."""
     from srcdsp_tpu_torch.kernels import ctaps_aligned as kca
-    taps, word = lowpass(64, 0.2), int(freq_to_word(0.11))
-    ka = kca.make_ctaps_aligned_kernel(taps, word, 2, out_tile=OT, b_rows=8, device=dev)
-    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, 2, out_tile=OT, b_rows=8, device=dev)
+    taps, word = lowpass(t, 0.4 / decim), int(freq_to_word(0.11))
+    ka = kca.make_ctaps_aligned_kernel(taps, word, decim, out_tile=OT, b_rows=8, device=dev)
+    k4 = kmc.make_mix_fir_ctaps_kernel(taps, word, decim, out_tile=OT, b_rows=8, device=dev)
     h, n = ka.hist, 8 * ka.block_in()
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, h + n)).astype(np.float32),
                         device=dev)
@@ -630,9 +719,10 @@ def test_ctaps_aligned_equals_k4_and_streams(dev):
     assert _build.LAUNCHES["ctaps_aligned"] == before + 1
     rr, ri = kmc.mix_fir_ctaps(k4, (-h * word) % (1 << 32), x)
     assert torch.equal(yr, rr) and torch.equal(yi, ri)
-    gr, gi = (torch.as_tensor(g[0], device=dev) for g in kct.ctaps_host(taps, [word], 2)[:2])
-    pr, pi = kca.ctaps_aligned_plain(0, word, x[:, :h], x[:, h:].reshape(2, -1, OT * 2), gr, gi,
-                                     2, OT, h)
+    gr, gi = (torch.as_tensor(g[0], device=dev)
+              for g in kct.ctaps_host(taps, [word], decim)[:2])
+    pr, pi = kca.ctaps_aligned_plain(0, word, x[:, :h], x[:, h:].reshape(2, -1, OT * decim), gr,
+                                     gi, decim, OT, h)
     assert _rel((yr.reshape(pr.shape), yi.reshape(pi.shape)), (pr, pi)) < 1e-5
     q, parts = n // 4, []
     for i in range(4):

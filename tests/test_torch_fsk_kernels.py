@@ -5,6 +5,14 @@ against the Pallas kernels in interpret mode (out_tile=128, b_rows=2) on the
 same planes, for both lane orders. Tolerances: soft symbols atol 1e-4
 cycles/sample (atan2f vs the TPU kernel's polynomial, |err| < 3e-7 rad, plus
 float32 sums in another order), bits equal, O&M sums rtol 1e-4 / atol 1e-3.
+
+The CUDA body's ownership and index map (``csrc/fsk.cu`` on the ring of
+``csrc/fir_ring.cuh``, mirrored by ``kernels/fsk_fused.fsk_*``) run here
+thread by thread: every output reads x[J*decim + hist - a] and finds y[J-1]
+(the previous register, the previous thread's last output, or the chain of
+the tile's first), no warp's ring load touches a bank twice, blocks of whole
+rows tile [NT, OT] and sum each row's O&M terms once, the store index is the
+plain layout, and K7's windows read each sample from its own frame row.
 """
 
 import jax
@@ -125,3 +133,116 @@ def test_seam_and_chunk_join_match_jax():
     assert torch.equal(d1[:, :nt], da)
     assert torch.equal(d1[:, nt + 1:], db[:, 1:])
     assert torch.equal(d1[:, nt, 1:], db[:, 0, 1:])
+
+
+# --- the CUDA body's index map (csrc/fsk.cu on csrc/fir_ring.cuh), in numpy ---
+
+def _round_up(x, m=128):
+    return -(-x // m) * m
+
+
+@pytest.mark.parametrize("ctaps", [False, True])
+@pytest.mark.parametrize("t", [64, 33])
+@pytest.mark.parametrize("decim", [1, 2, 4, 3])
+def test_cuda_body_reads_outputs_and_predecessors(decim, t, ctaps):
+    """Every output J of every thread reads x[J*decim + hist - a] at tap a
+    inside the staged window, and its y[J-1] is the right one: output J-1
+    of the same thread, the previous thread's last output, or for the tile's
+    first output the chain at window index e, which reads x[(J-1)*decim +
+    hist - a] inside the window; no warp's ring load touches a bank twice at
+    decim 1, 2 and 4."""
+    hist = _round_up(t - 1)
+    sh = tff.fsk_shape(decim, ctaps)
+    tp, lead, span, plane = tff.fsk_geometry(decim, t, hist, ctaps)
+    assert lead >= 0 and tp - 1 <= hist + lead and t - 1 + decim <= hist + lead
+    reads, loads = tmf.ring_schedule(decim, t, hist, sh, pre=decim)
+    taps = tp if decim in (1, 2, 4) else t
+    assert reads[:, :, :taps].min() >= 0 and reads.max() < span
+    tid = np.arange(sh.threads)
+    nt, ot = 5, 128
+    for block in range(tff.fsk_blocks(nt, decim, ot, ctaps)):
+        for t0 in tff.fsk_tiles(block, nt, decim, ot, ctaps):
+            start = tff.fsk_window_start(block, t0, decim, t, hist, ot, ctaps)
+            j = np.stack([tff.fsk_output(block, t0, tid, k, nt, decim, ot, ctaps)[0]
+                          for k in range(sh.r)], 1)
+            want = j[:, :, None] * decim + hist - np.arange(taps)
+            np.testing.assert_array_equal(reads[:, :, :taps] + start, want)
+            src, from_slot = tff.fsk_predecessor(tid, lead, hist, decim, ctaps)
+            np.testing.assert_array_equal(j[src[from_slot], sh.r - 1], j[from_slot, 0] - 1)
+            e = int(src[~from_slot][0])
+            assert e - (t - 1) >= 0
+            np.testing.assert_array_equal(start + e - np.arange(t),
+                                          (j[0, 0] - 1) * decim + hist - np.arange(t))
+    worst = max(tmf.worst_bank(tmf.fir_pad(idx[w:w + 32], sh.log2s))
+                for idx in loads for w in range(0, sh.threads, 32))
+    assert worst == 1 if decim in (1, 2, 4) else worst <= 2
+
+
+@pytest.mark.parametrize("ctaps", [False, True])
+@pytest.mark.parametrize("decim,nt,ot", [(4, 8, 512), (4, 5, 384), (2, 7, 128), (1, 3, 2048),
+                                         (4, 3, 2048), (3, 4, 96)])
+def test_cuda_body_blocks_tile_the_output_in_rows(decim, nt, ot, ctaps):
+    """Blocks of whole rows cover every output of [NT, OT] exactly once (a
+    last block with fewer rows, rows longer than a tile in turns); each
+    row's O&M terms are summed once, by one warp, across the tiles in order."""
+    sh = tff.fsk_shape(decim, ctaps)
+    tid = np.arange(sh.threads)
+    seen, summed = [], []
+    rows_b = tff.fsk_rows(decim, ot, ctaps)
+    for block in range(tff.fsk_blocks(nt, decim, ot, ctaps)):
+        tiles = tff.fsk_tiles(block, nt, decim, ot, ctaps)
+        bo = tiles and min(rows_b, nt - block * rows_b) * ot
+        for t0 in tiles:
+            for k in range(sh.r):
+                j, stored = tff.fsk_output(block, t0, tid, k, nt, decim, ot, ctaps)
+                seen.append(j[stored])
+            tn = min(bo - t0, sh.outputs)
+            for rr, warp, lo, end in tff.fsk_row_terms(t0, tn, ot, sh.threads // 32):
+                assert 0 <= warp < sh.threads // 32 and 0 <= lo < end <= tn
+                summed.append(block * rows_b * ot + t0 + np.arange(lo, end))
+                assert (summed[-1] // ot == block * rows_b + rr).all()
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen)), np.arange(nt * ot))
+    np.testing.assert_array_equal(np.sort(np.concatenate(summed)), np.arange(nt * ot))
+
+
+@pytest.mark.parametrize("class_major", [False, True])
+def test_cuda_body_store_index_is_the_plain_layout(class_major):
+    """The kernel's d store index (row, lane) puts output col of a row where
+    to_class_major (or the row-major layout) puts it."""
+    ot, sps, rows = 128, 8, 3
+    local = np.arange(rows * ot)
+    row, lane = tff.fsk_store_index(local, ot, sps, class_major)
+    got = np.zeros((1, rows, ot))
+    got[0, row, lane] = local
+    want = local.reshape(1, rows, ot).astype(np.float64)
+    if class_major:
+        want = tff.to_class_major(torch.as_tensor(want), sps).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("decim", [1, 2, 4, 3])
+def test_frames_pick_serves_the_fsk_windows(decim):
+    """K7's windows (tiles of whole rows, starting decim samples early for
+    the predecessor) read every sample from the row deframe takes it from,
+    over frames whose overlaps disagree, by the staging loops' places."""
+    from srcdsp_tpu_torch.kernels import mixfir_preframed as tpf
+    t, ot, nt = 64, 128, 9
+    hist = _round_up(t - 1)
+    stride, span = ot * decim, ot * decim + hist
+    frames = np.random.default_rng(decim).standard_normal((nt, span)).astype(np.float32)
+    stream = tpf.deframe(torch.from_numpy(frames), stride).numpy()
+    sh = tff.fsk_shape(decim, True)
+    _, _, wspan, _ = tff.fsk_geometry(decim, t, hist, True)
+    for block in range(tff.fsk_blocks(nt, decim, ot, True)):
+        for t0 in tff.fsk_tiles(block, nt, decim, ot, True):
+            base = tff.fsk_window_start(block, t0, decim, t, hist, ot, True)
+            g = base + np.arange(wspan)
+            row, col = tpf.frames_pick(g, nt, stride, span)
+            ok = row >= 0
+            np.testing.assert_array_equal(ok, (g >= 0) & (g < stream.shape[0]))
+            np.testing.assert_array_equal(frames[row[ok], col[ok]], stream[g[ok]])
+            for batch, pairs in ((8, False), (4, True)):
+                srow, scol = tpf.frames_staged(base, wspan, sh.threads, batch, nt, stride,
+                                               span, pairs)
+                np.testing.assert_array_equal(srow, row)
+                np.testing.assert_array_equal(scol, col)
