@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the run exits non-zero:
    nvcc per source, in parallel) and the ingest framer with make and g++;
    print the registers, spill bytes and resident blocks per SM of K1 (each
    decim's instantiation), K20, the complex-taps (K4, K5, K17) and FSK (K2,
-   K3, K7) rings at decim 2 and 4, and K11 (each N); ptxas reports no spill
-   in any complex-taps or FSK instantiation, and each keeps 4 blocks an SM;
+   K3, K7) rings at decim 2 and 4, K11 (each N), the resampler (K8, K9 at
+   config 2's 3/4) and the bank (K12, K13 at M 64, 128, 256 and 96, with
+   their tile); ptxas reports no spill in any complex-taps, FSK, resample or
+   bank instantiation, and each ring keeps 4 blocks an SM (the resampler 2);
 3. each kernel against its plain PyTorch version on the same device tensors,
    at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
    of 32 x 2^22; config 2: one channel of 33,521,664 samples, and one chunk
@@ -119,7 +121,9 @@ cuDNN conv1d (TF32 off) as their library yardsticks, and K12 and K13 at the
 config-5 shape ([2, 64, 128 + 2^19] phase-major, b_k 512; K13's Y == K12's,
 class-major == standard permuted, by torch.equal), with one cuBLAS
 torch.matmul of E_comb^T by a prestaged SS^T (TF32 off, staging left out)
-as K12's yardstick and that matmul plus the plain stats epilogue as K13's.
+as K12's yardstick and that matmul plus the plain stats epilogue as K13's,
+and K12 and K13 at M = 128 (the FFT) and M = 96 (the direct DFT), 2^15
+frames, against their plain versions (rel L2 1e-5, K13's Y == K12's).
 
 Phase 3 also holds K14 (edge-form LDPC, [504, 1024], 10 iterations), K15 (QC
 layered LDPC, [1536, 4096], 6 iterations) and K16 (max-log BCJR, the turbo's
@@ -797,6 +801,24 @@ def main() -> int:
         regs, spill, blocks = kfc.kernel_info(1 << log2n)
         print(f"[2] K11 N {1 << log2n}: {regs} registers, {spill} bytes of spills, {blocks} "
               f"blocks per SM")
+    # the resampler (K8, K9) and the bank (K12, K13): no spill in any
+    # instantiation; config 2's and config 5's geometry
+    for frames, b16 in ((False, False), (True, False), (True, True)):
+        regs, local, blocks = krs.kernel_info(3, 4, 429, 256, frames, b16)
+        print(f"[2] resample {'frames' if frames else 'planes'}{' bf16' if b16 else ''} 3/4, "
+              f"429 taps: {regs} registers, {local} bytes of local memory, {blocks} blocks per SM")
+        require(blocks >= 2, f"resample 3/4: {blocks} blocks per SM")
+    for m in (C5_CHANNELS, 128, 256, 96):
+        for stats in (False, True):
+            tile, regs, local, blocks = kbank.kernel_info(m, 8, C5_BK, C5_SPS, stats)
+            print(f"[2] bank{'_psk' if stats else ''} M {m}: {tile} frames a tile, {regs} "
+                  f"registers, {local} bytes of local memory, {blocks} blocks per SM")
+    bodies = {k: v for k, v in _build.ptxas_report().items()
+              if "resample_kernel" in k or "bank_kernel" in k}
+    spilled = [k for k, (_, st, ld) in bodies.items() if st or ld]
+    print(f"[2] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} resample and bank "
+          f"instantiations without spills")
+    require(len(bodies) == 18 and not spilled, f"ptxas spills in {spilled}")
     t0 = time.perf_counter()
     framer_path = framer.build()
     print(f"[2] built {framer_path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s",
@@ -1272,6 +1294,30 @@ def main() -> int:
                True, k_fn, p_fn, flops, tensor_bytes(xp5, out), lib_fn)
         del ref
     del ss5, y12, y13, st13, y13c, st13c
+
+    # K12 and K13 above 64 channels: M = 128 (FFT radix 8, 8, 2) and M = 96
+    # (not a power of two: the direct DFT), 2^15 frames, against their plain
+    # versions (rel L2 1e-5 on Y and the stats), K13's Y == K12's
+    for m in (128, 96):
+        proto_m = design_prototype(m, 8)
+        k12m, hcm = kbank.make_bank_kernel(proto_m, m, b_k=C5_BK, device=dev)
+        k13m, _ = kbank.make_bank_psk_kernel(proto_m, m, sps=C5_SPS, order=C5_ORDER, b_k=C5_BK,
+                                            device=dev)
+        xm = torch.randn((2, m, hcm + (1 << 15)), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(m))
+        ym, (y13m, stm) = k12m(xm), k13m(xm)
+        em = torch.as_tensor(combined_matrix(*make_channelizer_mats(proto_m, m)).T.copy(),
+                             device=dev)
+        pm = kbank.bank_plain(xm, em, m, len(proto_m) // m + 1, hcm)
+        pst = kbank.bank_stats_plain(pm, m, C5_BK, C5_SPS, C5_ORDER)
+        rel_y = float(torch.linalg.norm(ym - pm) / torch.linalg.norm(pm))
+        rel_s = float(torch.linalg.norm(stm - pst) / torch.linalg.norm(pst))
+        print(f"    bank M {m}: Y rel L2 {rel_y:.3e}, bank_psk stats rel L2 {rel_s:.3e} against "
+              f"the plain versions (floor 1e-5); K13's Y == K12's: {torch.equal(y13m, ym)}",
+              flush=True)
+        require(rel_y < 1e-5 and rel_s < 1e-5, f"bank M {m}: rel L2 {rel_y} / {rel_s}")
+        require(torch.equal(y13m, ym), f"bank_psk M {m}: K13's Y != K12's (torch.equal)")
+        del xm, ym, y13m, stm, em, pm, pst
 
     # K14, K15 and K16 at the coded tier's shapes: K14 on build_ldpc("edges")'s
     # LLRs [504, 1024] (10 iterations), K15 on build_ldpc("qc")'s [1536, 4096]

@@ -122,31 +122,33 @@ __device__ __forceinline__ float lane_of(const float4& v, int q) {
 }
 
 // The ring (D >= 1). Output k of the thread accumulates tap a over the
-// sample at window index base + k*D - a (base: output 0 at tap 0, a
-// multiple of the stride S = R*D); hr (and hi for complex taps) hold tp taps.
-template <class S, bool CPLX>
+// sample at window index base + k*D - a (base: output 0 at tap 0, O past a
+// multiple of the stride S = R*D, 0 <= O < D; K1's bodies run O = 0, the
+// resampler's classes each their own); hr (and hi for complex taps) hold tp
+// taps.
+template <class S, bool CPLX, int O = 0>
 __device__ __forceinline__ void ring_outputs(const float* __restrict__ hr,
                                              const float* __restrict__ hi,
                                              const float* __restrict__ sr,
                                              const float* __restrict__ si, int base, int tp,
                                              float (&ar)[S::kR], float (&ai)[S::kR]) {
   constexpr int D = S::kD, R = S::kR, L2S = S::kLog2Stride, STRIDE = R * D;
-  static_assert(D >= 1, "the ring needs a static decimation");
+  static_assert(D >= 1 && O >= 0 && O < D, "the ring needs a static decimation");
   // ring[rho][(p mod R)] holds the sample at position p of residue rho, index
   // base + p*D - rho; group b (taps b*D .. b*D + D - 1) needs p = -b .. R-1-b.
-  // With y a multiple of S and 0 <= m <= S, fir_pad(y + m) = fir_pad(y) + m
-  // + (m == S): one padded address per chunk, the rest are immediates.
+  // With y a multiple of S and 0 <= m < 2S, fir_pad(y + m) = fir_pad(y) + m
+  // + (m >= S): one padded address per chunk, the rest are immediates.
   float wr[D][R], wi[D][R];
-  const int pb = fir_pad(base, L2S);
+  const int pb = fir_pad(base - O, L2S);
 #pragma unroll
   for (int rho = 0; rho < D; ++rho)
 #pragma unroll
-    for (int p = 1; p < R; ++p) {  // index base + (p*D - rho), 0 < p*D - rho < S
-      wr[rho][p] = sr[pb + p * D - rho];
-      wi[rho][p] = si[pb + p * D - rho];
+    for (int p = 1; p < R; ++p) {  // index (base - O) + (O + p*D - rho), 0 < O + p*D - rho < S
+      wr[rho][p] = sr[pb + O + p * D - rho];
+      wi[rho][p] = si[pb + O + p * D - rho];
     }
   for (int a0 = 0; a0 < tp; a0 += STRIDE) {  // a chunk: groups a0/D .. a0/D + R-1, a0/D % R == 0
-    const int py = fir_pad(base - a0 - STRIDE, L2S);
+    const int py = fir_pad(base - O - a0 - STRIDE, L2S);
     float4 h4, g4;
 #pragma unroll
     for (int u = 0; u < R; ++u) {
@@ -159,9 +161,9 @@ __device__ __forceinline__ void ring_outputs(const float* __restrict__ hr,
         }
         const float h = lane_of(h4, q % 4);
         // position -b enters the slot that position R-b left; its index is
-        // base - a0 - q = (base - a0 - S) + (S - q)
+        // base - a0 - q = (base - O - a0 - S) + (S + O - q)
         const int enter = (R - u) % R;
-        const int i = py + (STRIDE - q) + (q == 0);
+        const int i = py + (STRIDE + O - q) + (q <= O);
         wr[rho][enter] = sr[i];
         wi[rho][enter] = si[i];
 #pragma unroll
@@ -181,8 +183,9 @@ __device__ __forceinline__ void ring_outputs(const float* __restrict__ hr,
   }
 }
 
-// The R outputs of one thread, from zero: the ring, or at D = 0 the chain.
-template <class S, bool CPLX>
+// The R outputs of one thread, from zero: the ring (base O past a multiple
+// of S), or at D = 0 the chain.
+template <class S, bool CPLX, int O = 0>
 __device__ __forceinline__ void ring_block(const float* __restrict__ hr,
                                            const float* __restrict__ hi,
                                            const float* __restrict__ sr,
@@ -193,7 +196,7 @@ __device__ __forceinline__ void ring_block(const float* __restrict__ hr,
   } else {
 #pragma unroll
     for (int k = 0; k < S::kR; ++k) ar[k] = ai[k] = 0.f;
-    ring_outputs<S, CPLX>(hr, hi, sr, si, base, tp, ar, ai);
+    ring_outputs<S, CPLX, O>(hr, hi, sr, si, base, tp, ar, ai);
   }
 }
 

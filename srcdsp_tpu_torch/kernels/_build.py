@@ -64,11 +64,13 @@ _SIGNATURES = {
     "srcdsp_frame": [_P] * 3 + [_I] * 6 + [_P],
     "srcdsp_mix_resample": [_P] * 6 + [_I] * 8 + [_P],
     "srcdsp_resample_preframed": [_P] * 5 + [_U, _U] + [_I] * 8 + [_P],
+    "srcdsp_resample_info": [_I] * 6 + [ctypes.POINTER(_I)] * 3,
     "srcdsp_fft": [_P] * 5 + [_I] * 4 + [_P],
     "srcdsp_fft_occupancy": [_I, ctypes.POINTER(_I)],
     "srcdsp_fftconv": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_P],
     "srcdsp_fftconv_info": [_I] + [ctypes.POINTER(_I)] * 3,
     "srcdsp_bank": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [_F, _I, _I, _P],
+    "srcdsp_bank_info": [_I] * 5 + [ctypes.POINTER(_I)] * 4,
     "srcdsp_ldpc_edges": [_P] * 4 + [_I] * 7 + [_F, _P],
     "srcdsp_ldpc_qc": [_P] * 5 + [_I] * 7 + [_F, _P],
     "srcdsp_bcjr": [_P] * 4 + [_I] * 3 + [_P] * 3,

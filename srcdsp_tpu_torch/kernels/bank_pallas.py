@@ -17,9 +17,12 @@ Layout contract, the reference's:
 - class_major=True stores lane k of each b_k block at
   (k % sps) * (b_k/sps) + k // sps.
 
-The CUDA kernels are ``csrc/bank.cu`` (fold + direct DFT, not the TPU's
-dense matmul). On a CPU tensor the wrappers run the plain versions beside
-them: SS^T staged as the reference's ``_stage_ss`` does, times E_comb^T by
+The CUDA kernels are ``csrc/bank.cu`` (the fold, then an M-point Stockham
+FFT for a power of two M or a direct DFT for any other, not the TPU's dense
+matmul; any M whose one-frame tile fits a block's shared memory);
+`fft_plan`, `fft_pass_map`, `fft_twiddles`, `fft_frames`, `bank_rows` and
+`bank_tile` mirror its FFT schedule, twiddle table, buffer rows and tile. On a CPU tensor the
+wrappers run the plain versions beside them: SS^T staged as the reference's ``_stage_ss`` does, times E_comb^T by
 ``torch.matmul`` (TF32 off), the stats epilogue in torch, the class-major
 order as an index permutation (the reference permutes with a one-pass
 matmul, exact only where that pass is). On a CUDA tensor they launch the
@@ -27,6 +30,8 @@ kernel or raise. Launches count under ``bank`` and ``bank_psk``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -40,10 +45,10 @@ from srcdsp_tpu_torch.ops.fir import pin_f32
 from srcdsp_tpu_torch.ops.nco import TWO_PI
 
 __all__ = ["STATS_LANES", "bank_os2_pallas", "bank_plain", "bank_stats_plain",
-           "class_major_index", "make_bank_kernel", "make_bank_psk_kernel", "phase_major"]
+           "class_major_index", "make_bank_kernel", "make_bank_psk_kernel", "phase_major",
+           "kernel_info"]
 
 STATS_LANES = 128  # stats output lane padding (2 + 2*sps columns used)
-MAX_CUDA_CHANNELS = 64
 
 
 def phase_major(x: torch.Tensor, m: int, hist: int) -> torch.Tensor:
@@ -91,6 +96,110 @@ def bank_stats_plain(y: torch.Tensor, m: int, b_k: int, sps: int, order: int) ->
     return st
 
 
+# The CUDA body's FFT schedule, twiddle table and tile (csrc/bank.cu),
+# mirrored item by item.
+MAX_TILE = 64            # bank.cu kMaxTile
+BANK_BUDGET = 96 * 1024  # bank.cu kBankBudget
+MAX_SMEM = 227 * 1024    # bank.cu kMaxSmem
+
+
+def fft_twiddles(m: int) -> np.ndarray:
+    """The table [2, M] the kernels take, tw[q] = e^{+2 pi i q / M}: made in
+    float64 and rounded to float32 once."""
+    w = np.exp(2j * np.pi * np.arange(m) / m)
+    return np.stack([w.real, w.imag]).astype(np.float32)
+
+
+def fft_plan(m: int, radix: int = 8) -> list[int] | None:
+    """bank.cu bank_geometry (npass, radix): the radices of the Stockham
+    passes for a power of two M, `radix` (kRadix) while it divides what is
+    left, then 4 or 2; None for any other M (a direct DFT)."""
+    if m & (m - 1):
+        return None
+    plan = []
+    while m > 1:
+        plan.append(radix if m % radix == 0 else 4 if m >= 4 else 2)
+        m //= plan[-1]
+    return plan
+
+
+def fft_pass_map(m: int, ns: int, r: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """bank.cu fft_pass: for the M/R units j of a frame after passes of ns
+    points in all, (src [M/R, R], dst [M/R, R], tw [M/R, R]): unit j reads
+    X[src[j, q]], multiplies by twiddle table entry tw[j, q], runs the
+    R-point DFT and writes output q to Y[dst[j, q]]."""
+    j = np.arange(m // r)[:, None]
+    q = np.arange(r)[None, :]
+    k = j & (ns - 1)
+    return j + q * (m // r), (j - k) * r + k + q * ns, q * k * (m // (ns * r))
+
+
+def fft_frames(v: np.ndarray, tw: np.ndarray | None = None, radix: int = 8) -> np.ndarray:
+    """The kernel's DFT of frames v [..., M] (complex) through the mirrored
+    schedule, in float64 with the float32 table (`fft_twiddles`, or `tw`):
+    Y[m] = sum_p v[p] e^{+2 pi i m p / M}, the pass maps of `fft_pass_map`
+    for a power of two M, the direct sum (index m*p mod M) for any other."""
+    m = v.shape[-1]
+    tw = fft_twiddles(m) if tw is None else tw
+    w = tw[0].astype(np.float64) + 1j * tw[1].astype(np.float64)
+    plan = fft_plan(m, radix)
+    x = np.asarray(v, np.complex128)
+    if plan is None:
+        return x @ w[(np.arange(m)[:, None] * np.arange(m)[None, :]) % m]
+    ns = 1
+    for r in plan:
+        src, dst, ti = fft_pass_map(m, ns, r)
+        a = x[..., src] * w[ti]                                      # [..., M/R, R]
+        b = a @ np.exp(2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+        y = np.empty_like(x)
+        y[..., dst] = b
+        x, ns = y, ns * r
+    return x
+
+
+def bank_rows(f, tile: int, b_k: int, sps: int, class_major: bool):
+    """bank.cu RowMap: the buffer row of tile frame f (an int or an array).
+    In class-major runs (b_k % tile == 0, tile % sps == 0) frame f = jj*sps
+    + o sits in row o*(tile/sps) + jj, its class-major position; else row f."""
+    if not (class_major and b_k % tile == 0 and tile % sps == 0):
+        return f
+    return (f % sps) * (tile // sps) + f // sps
+
+
+def bank_tile(m: int, p: int, b_k: int, sps: int, stats: bool) -> tuple[int, int]:
+    """bank.cu bank_geometry and bank_tile: (frames a tile F, shared-memory
+    bytes of a block); F = 0 where no tile fits a block."""
+    def floats(f: int) -> int:
+        r4 = lambda v: (v + 3) & ~3  # noqa: E731
+        vs = m + 1
+        head = r4(p * m) + r4(2 * m) + (r4(2 * sps) + r4(3 * m * sps) if stats else 0)
+        return head + r4(2 * f * vs) + r4(max(2 * m * (f + p), 2 * f * vs))
+
+    f = MAX_TILE
+    while f > 1 and f // 2 >= b_k:
+        f //= 2
+    fit = (0, 0)
+    while f >= 1:
+        nbytes = 4 * floats(f)
+        if nbytes <= BANK_BUDGET:
+            return f, nbytes
+        if nbytes <= MAX_SMEM and fit[0] == 0:
+            fit = (f, nbytes)
+        f //= 2
+    return fit
+
+
+def kernel_info(m: int, p: int, b_k: int, sps: int = 1, stats: bool = False
+                ) -> tuple[int, int, int, int]:
+    """(frames a tile, registers, local-memory bytes, resident blocks per
+    SM) of K12 (or, with stats, K13) at M channels and P taps a phase (on
+    the card)."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.load().srcdsp_bank_info(m, p, b_k, sps, int(stats),
+                                                *map(ctypes.byref, out)), "bank_info")
+    return tuple(v.value for v in out)
+
+
 def _bank_cuda(x: torch.Tensor, h: torch.Tensor, tw: torch.Tensor, m: int, p: int,
                hist_cols: int, b_k: int, stats: bool, sps: int, order: int,
                class_major: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -124,13 +233,10 @@ class _Bank:
         if pipelined and not pipe_ok:
             raise ValueError(f"pipelined form needs hist_cols ({self.hist_cols}) | b_k ({b_k})")
         self.dev = resolve(device)
-        if self.dev.type == "cuda" and m > MAX_CUDA_CHANNELS:
-            raise ValueError(f"the CUDA bank takes at most {MAX_CUDA_CHANNELS} channels, got {m}")
         self.e_comb_t = torch.as_tensor(combined_matrix(er_np, ei_np).T.copy(), device=self.dev)
         h = np.asarray(taps, np.float32)
         self.h = torch.as_tensor(np.pad(h, (0, (-h.shape[0]) % m)), device=self.dev)
-        w = np.exp(2j * np.pi * np.arange(m) / m)
-        self.tw = torch.as_tensor(np.stack([w.real, w.imag]).astype(np.float32), device=self.dev)
+        self.tw = torch.as_tensor(fft_twiddles(m), device=self.dev)
 
     def frames(self, x: torch.Tensor) -> int:
         if x.ndim != 3 or x.shape[0] != 2 or x.shape[1] != self.m:
@@ -155,7 +261,7 @@ def make_bank_kernel(taps, num_channels: int, b_k: int = 256, precision=None,
     `pipelined=True` raises unless hist_cols | b_k, as in the reference, and
     changes nothing else. `precision` is accepted for signature parity and
     ignored: both tiers compute in float32 for every value (the reference's
-    DEFAULT is a bf16 pass on a TPU). On the card M is at most 64.
+    DEFAULT is a bf16 pass on a TPU).
     """
     bk = _Bank(taps, num_channels, b_k, pipelined, device)
 

@@ -263,23 +263,25 @@ def fir_base(tid, decim: int, hist: int, lead: int, shape: FirShape | None = Non
 
 
 def fir_ring_index(base, p: int, rho: int, decim: int):
-    """fir_ring.cuh:143-147 and :163-166: window index of ring position p of
+    """fir_ring.cuh:144-148 and :163-168: window index of ring position p of
     residue rho (p = 1 .. R-1 before the first chunk; p = -b entering at
     group b, the taps b*decim + rho)."""
     return base + p * decim - rho
 
 
-def fir_ring_address(base, a0: int, q: int, decim: int, shape: FirShape | None = None):
-    """fir_ring.cuh:149 and :164: the padded address the ring loads tap
-    a0 + q's entering sample from: fir_pad(base - a0 - S) + (S - q) + (q == 0),
-    S = R*decim (one fir_pad per chunk; base and a0 are multiples of S)."""
+def fir_ring_address(base, a0: int, q: int, decim: int, shape: FirShape | None = None,
+                     offset: int = 0):
+    """fir_ring.cuh:151 and :166: the padded address the ring loads tap
+    a0 + q's entering sample from: fir_pad(base - O - a0 - S) + (S + O - q)
+    + (q <= O), S = R*decim, O = `offset` (one fir_pad per chunk; base - O
+    and a0 are multiples of S)."""
     sh = shape or fir_shape(decim)
     s = sh.r * decim
-    return fir_pad(base - a0 - s, sh.log2s) + (s - q) + (q == 0)
+    return fir_pad(base - offset - a0 - s, sh.log2s) + (s + offset - q) + (q <= offset)
 
 
 def fir_slot(p: int, r: int) -> int:
-    """fir_ring.cuh:163 and :169: the ring register of position p, p mod R (the
+    """fir_ring.cuh:165 and :171: the ring register of position p, p mod R (the
     chunk loop starts every R groups, so the slot is static in the unrolled body)."""
     return p % r
 
@@ -293,17 +295,23 @@ def fir_output(block: int, tid, k: int, decim: int, shape: FirShape | None = Non
 
 
 def ring_schedule(decim: int, num_taps: int, hist: int, shape: FirShape | None = None,
-                  pre: int = 0) -> tuple[np.ndarray, list]:
+                  pre: int = 0, base=None, tp: int | None = None, offset: int = 0
+                  ) -> tuple[np.ndarray, list]:
     """The ring's loads for every thread of a block, in the order the body
-    issues them (fir_ring.cuh:139-178; the D = 0 chain :97-118): returns
+    issues them (fir_ring.cuh:141-183; the D = 0 chain :97-118): returns
     reads [threads, R, tp], the window index each FMA of output k at tap a
     reads (-1 where the generic body has no such FMA), and the list of load
-    instructions, each the window indices of all threads."""
+    instructions, each the window indices of all threads. `base` (the
+    threads' window indices of output 0 at tap 0, `offset` past multiples of
+    R*decim) and `tp` (taps run, whole chunks) replace K1's where another
+    body runs the ring (the resampler's classes, kernels/resample_pallas.py)."""
     sh = shape or fir_shape(decim)
     r = sh.r
-    tp, lead, _, _ = fir_geometry(decim, num_taps, hist, sh, pre)
-    base = fir_base(np.arange(sh.threads), decim, hist, lead, sh)
-    reads = np.full((sh.threads, r, tp), -1)
+    if base is None:
+        tp, lead, _, _ = fir_geometry(decim, num_taps, hist, sh, pre)
+        base = fir_base(np.arange(sh.threads), decim, hist, lead, sh)
+    base = np.asarray(base)
+    reads = np.full((base.shape[0], r, tp), -1)
     loads = []
     if decim not in (1, 2, 4):
         for a in range(num_taps):
@@ -321,7 +329,8 @@ def ring_schedule(decim: int, num_taps: int, hist: int, shape: FirShape | None =
                 a = a0 + u * decim + rho
                 b = a // decim
                 loads.append(fir_ring_index(base, -b, rho, decim))
-                if not np.array_equal(fir_ring_address(base, a0, u * decim + rho, decim, sh),
+                if not np.array_equal(fir_ring_address(base, a0, u * decim + rho, decim, sh,
+                                                       offset),
                                       fir_pad(loads[-1], sh.log2s)):
                     raise AssertionError(f"ring address of tap {a} off its index")
                 ring[rho, fir_slot(-b, r)] = loads[-1]

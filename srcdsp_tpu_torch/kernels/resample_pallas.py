@@ -11,7 +11,10 @@ The TPU kernel lays h out as a stride-L banded Toeplitz matrix
 CUDA kernel (``csrc/resample.cu``) computes the same sum in polyphase form:
 output J reads the ceil(T/L) taps of one phase, phi = (J*M) mod L, against
 the samples g = floor((J*M + HX*L)/L) - q, q ascending. No zero-stuffed
-sample or zero band row is computed.
+sample or zero band row is computed. The outputs of one class J mod L share
+a phase and form a decimate-by-M FIR, which the kernel runs on the register
+ring of ``csrc/fir_ring.cuh``; `ring_geometry` and the ``ring_*``/``class_*``
+functions mirror its geometry, ownership, index map and output tile.
 
 Layout (the JAX kernel's): x [C, 2, HX+NIN] f32 in, yr, yi [C, NT, OT] out,
 HX = ceil((T-1)/L) rounded up to 128, NIN a multiple of
@@ -28,22 +31,24 @@ raise.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
-from srcdsp_tpu_torch.kernels.mixfir import (LANE, _round_up, check_planes, cuda_or_cpu,
-                                              host_words, mix_planes)
+from srcdsp_tpu_torch.kernels.mixfir import (LANE, FirShape, _round_up, check_planes,
+                                              cuda_or_cpu, fir_pad, fir_shape, host_words,
+                                              mix_planes)
 from srcdsp_tpu_torch.ops.resample import polyphase_resample
 
 __all__ = ["ResampleKernel", "toeplitz_resample", "banded_resample_taps",
            "combine_fir_resample_taps", "make_mix_resample_kernel",
            "make_mix_resample_kernel_mc", "mix_resample", "mix_resample_mc",
-           "mix_resample_plain", "resample_geometry", "phase_taps"]
+           "mix_resample_plain", "resample_geometry", "phase_taps", "kernel_info"]
 
 
 def toeplitz_resample(taps: np.ndarray, up: int, down: int, out_tile: int,
@@ -104,6 +109,126 @@ def phase_taps(taps: np.ndarray, up: int) -> np.ndarray:
     padded = np.zeros(up * q, np.float32)
     padded[:h.shape[0]] = h
     return np.ascontiguousarray(padded.reshape(q, up).T)
+
+
+# The CUDA body's geometry, ownership, index map and output tile
+# (csrc/resample.cu), mirrored item by item (file:line of each). The ring
+# itself is kernels/mixfir.py's (ring_schedule with the class bases).
+SMEM_BUDGET = 96 * 1024  # resample.cu kSmemBudget
+
+
+class RingGeometry(NamedTuple):
+    """resample.cu ResampleGeometry."""
+
+    q: int          # taps a phase, ceil(T / L)
+    tpc: int        # taps a class runs and floats of its row: Q in whole chunks
+    lead: int       # window samples before the block's hist-th
+    warps: int      # W: warps a class task spans (a power of two)
+    nr: int         # outputs of one class a block owns: W*32*R
+    outputs: int    # outputs a block owns: nr*L
+    span: int       # window samples
+    plane: int      # floats of one padded window plane
+    out_plane: int  # floats of one plane of the output tile
+    step: int       # classes a warp moves on by: warps a block / W
+
+
+def ring_shape(down: int) -> FirShape:
+    """resample.cu ResampleShape<D> = K1's FirShape<D> with D = down
+    (by_decim: 1, 2 and 4 have their own instantiation, any other the
+    generic one, R = 1)."""
+    return fir_shape(down)
+
+
+def class_offset(j, up: int, down: int):
+    """o_j = floor(j*M / L): class j's outputs read o_j samples past class
+    0's; the ring's static offset O (resample.cu class_ring)."""
+    return j * down // up
+
+
+def class_phase(j, up: int, down: int):
+    """phi_j = (j*M) mod L, the row of phase_taps class j runs."""
+    return j * down % up
+
+
+def ring_smem(g: RingGeometry, up: int) -> int:
+    """resample.cu resample_smem: bytes of shared memory a block uses."""
+    return 4 * (up * g.tpc + 2 * g.plane + 2 * g.out_plane)
+
+
+def ring_geometry(up: int, down: int, num_taps: int, hist: int) -> RingGeometry:
+    """resample.cu resample_geometry."""
+    sh = ring_shape(down)
+    q = -(-num_taps // up)
+    tpc = _round_up(q, sh.chunk if down in (1, 2, 4) else 4)
+    lead = _round_up(max(tpc - 1, hist), 1 << sh.log2s) - hist
+    warps = sh.threads // 32
+    while True:
+        nr = warps * 32 * sh.r
+        span = nr * down + hist + lead
+        g = RingGeometry(q, tpc, lead, warps, nr, nr * up, span,
+                         fir_pad(span - 1, sh.log2s) + 1, nr * up + nr // sh.r,
+                         sh.threads // 32 // warps)
+        if warps == 1 or ring_smem(g, up) <= SMEM_BUDGET:
+            return g
+        warps //= 2
+
+
+def class_tap_rows(taps, up: int, down: int, g: RingGeometry) -> np.ndarray:
+    """resample.cu: the [L, tpc] tap rows a block stages; row j holds
+    phase_taps row phi_j (Q taps), then zeros."""
+    rows = np.zeros((up, g.tpc), np.float32)
+    rows[:, :g.q] = phase_taps(taps, up)[class_phase(np.arange(up), up, down)]
+    return rows
+
+
+def ring_window_start(block: int, down: int, g: RingGeometry) -> int:
+    """resample.cu: stream sample of window index 0 of `block`."""
+    return block * g.nr * down - g.lead
+
+
+def ring_tasks(up: int, down: int, g: RingGeometry) -> list:
+    """resample.cu: (warp, class j, sub-block) in the order each warp takes
+    its tasks, j = w/W + n*step, sub = w mod W (task j*W + sub = w + n*warps
+    a block); lane l of the task owns r = (sub*32 + l)*R + k, k < R."""
+    warps = ring_shape(down).threads // 32
+    return [(w, j, w % g.warps) for w in range(warps)
+            for j in range(w // g.warps, up, g.step)]
+
+
+def ring_base(j: int, r0, up: int, down: int, hist: int, g: RingGeometry):
+    """resample.cu: the window index output r0 of class j reads at tap 0 of
+    its row, o_j past a multiple of R*M (the static instantiations' stride)."""
+    return r0 * down + hist + g.lead + class_offset(j, up, down)
+
+
+def ring_output(block: int, r, j, up: int, g: RingGeometry):
+    """Output (flat over [NT, OT]) of output r of class j in `block`; one at
+    or past NT*OT is not stored."""
+    return block * g.outputs + r * up + j
+
+
+def ring_tile_index(r, j, up: int, down: int):
+    """resample.cu: the output tile's float of output r*L + j, r*L + j + r/R
+    (one float of padding per R*L outputs; rs*(R*L + 1) + j at r = rs*R)."""
+    return r * up + j + r // ring_shape(down).r
+
+
+def ring_tile_read(i, up: int, down: int):
+    """resample.cu: the tile float the store of the block's output i reads,
+    i + i/(R*L)."""
+    return i + i // (ring_shape(down).r * up)
+
+
+def kernel_info(up: int, down: int, num_taps: int, hist: int, frames: bool = False,
+                bf16: bool = False) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of the K8 (or,
+    with frames, K9; bf16 read in pairs) instantiation that runs up/down (on
+    the card)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.load().srcdsp_resample_info(int(frames), int(bf16), up, down,
+                                                    -(-num_taps // up), hist,
+                                                    *map(ctypes.byref, out)), "resample_info")
+    return tuple(v.value for v in out)
 
 
 def mix_resample_plain(words0, dwords, x: torch.Tensor, taps, up: int, down: int,

@@ -360,6 +360,55 @@ def test_resample_preframed_matches_plain_and_k8(dev, dtype):
         assert float(10 * torch.log10(ref.abs().pow(2).mean() / err.abs().pow(2).mean())) > 40
 
 
+RESAMPLE_PAIRS = [(3, 4), (1, 2), (2, 3), (5, 4), (2, 1), (4, 3)]
+
+
+def test_resample_kernels_no_spills_resident(dev):
+    """ptxas reports no spill in any K8/K9 instantiation (4 decims x 4
+    sources), each within 64 registers (local memory only the stack frame
+    of the staging call, at most 64 bytes), and every up/down pair's (and
+    the config-2 geometry's) block keeps at least 2 resident an SM."""
+    _build.load()
+    found = _spills(r"resample_kernel")
+    assert len(found) == 16
+    assert not {k: v for k, v in found.items() if v[1] or v[2] or v[0] > 64}, found
+    for up, down, t in [(3, 4, 429)] + [(u, d, 48) for u, d in RESAMPLE_PAIRS]:
+        hist = krs.resample_geometry(t, up, down, 128 * up)[0]
+        for frames, bf16 in ((False, False), (True, False), (True, True)):
+            regs, local, blocks = krs.kernel_info(up, down, t, hist, frames, bf16)
+            assert regs <= 64 and local <= 64 and blocks >= 2, (up, down, frames, bf16, regs,
+                                                                local, blocks)
+
+
+@pytest.mark.parametrize("up,down", RESAMPLE_PAIRS)
+def test_resample_k9_equals_k8_partial_last_block(dev, up, down):
+    """K8 and K9 over 37 rows (several per block, the last block partial
+    where the block's outputs do not divide NT*OT), against their plain
+    versions (rel L2 < 1e-5), K9 == K8 bit for bit on the same stream."""
+    t = 429 if (up, down) == (3, 4) else 48
+    taps = (krs.combine_fir_resample_taps(lowpass(128, 0.2), lowpass(48, 0.3), 3)
+            if t == 429 else lowpass(t, 0.3 / max(up, down)))
+    hist = krs.resample_geometry(t, up, down, 128 * up)[0]
+    ot = next(o for o in range(up, 1 << 14, up)  # K9 frames: hist | stride = ot*down/up
+              if o * down % up == 0 and o * down // up % hist == 0)
+    nt = 37
+    word = int(freq_to_word(0.07))
+    w0 = (-hist * word) % (1 << 32)
+    k8 = krs.make_mix_resample_kernel(taps, up, down, out_tile=ot, b_rows=1, device=dev)
+    fn9, h9, stride, span = krp.make_resample_preframed_kernel(taps, word, up, down, out_tile=ot,
+                                                               b_rows=1, device=dev)
+    assert h9 == hist == k8.hist and stride == ot * down // up
+    x = _c2_planes(dev, 1, hist, nt * stride, seed=up * 10 + down)[0]
+    y8 = k8.fn(w0, word, x)
+    fr = kpf.frame_planes(x, stride, span)
+    y9 = fn9(w0, fr[0], fr[1])
+    torch.cuda.synchronize()
+    assert torch.equal(y9[0], y8[0]) and torch.equal(y9[1], y8[1])
+    pr, pi = krs.mix_resample_plain(w0, word, x[None], torch.as_tensor(taps, device=dev), up,
+                                    down, ot, hist)
+    assert _rel(y8, (pr[0], pi[0])) < 1e-5
+
+
 def test_cuda_wrong_dtype_raises_before_launch(dev):
     k = kmc.make_mix_fir_ctaps_kernel(lowpass(64, 0.2), 1 << 28, 2, out_tile=OT, b_rows=8,
                                       device=dev)
@@ -500,7 +549,8 @@ def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
         kfft.make_fft_kernel(16384, device=dev)
 
 
-@pytest.mark.parametrize("m,b_k,sps", [(64, 512, 4), (8, 128, 4), (16, 96, 3), (5, 16, 4)])
+@pytest.mark.parametrize("m,b_k,sps", [(64, 512, 4), (8, 128, 4), (16, 96, 3), (5, 16, 4),
+                                        (128, 512, 4), (256, 512, 4), (96, 128, 4)])
 def test_bank_kernels_match_plain(dev, m, b_k, sps):
     """K12 and K13 against their plain versions (rel L2 < 1e-5 on Y, stats
     rel L2 < 1e-5), K13's Y == K12's by torch.equal, class-major == the
@@ -565,8 +615,34 @@ def test_cuda_tensor_with_cpu_bank_kernel_raises(dev):
     fn, hc = kb.make_bank_psk_kernel(design_prototype(8, 4), 8, sps=4, b_k=128, device="cpu")
     with pytest.raises(ValueError, match="kernel built for cpu"):
         fn(torch.zeros((2, 8, hc + 128), device=dev))
-    with pytest.raises(ValueError, match="at most 64"):
-        kb.make_bank_kernel(design_prototype(128, 4), 128, device=dev)
+    # 128 channels run on the card (the bank once took at most 64), against
+    # the plain version
+    h = design_prototype(128, 4)
+    k12, hc = kb.make_bank_kernel(h, 128, b_k=256, device=dev)
+    x = torch.as_tensor(np.random.default_rng(128).standard_normal((2, 128, hc + 512)),
+                        dtype=torch.float32, device=dev)
+    y = k12(x).cpu()
+    py = kb.make_bank_kernel(h, 128, b_k=256, device="cpu")[0](x.cpu())
+    assert float(torch.linalg.norm(y - py) / torch.linalg.norm(py)) < 1e-5
+
+
+def test_bank_kernels_no_spills_resident(dev):
+    """ptxas reports no spill in K12 or K13 (K13's local memory is the stack
+    frame of cosf/sinf's slow path, taken for no angle of the sps-entry
+    table); config 5's tile (64 frames) keeps at least 2 blocks an SM, and
+    M = 128, 256 and 96 fit a tile."""
+    from srcdsp_tpu_torch.kernels import bank_pallas as kb
+
+    _build.load()
+    found = _spills(r"bank_kernel")
+    assert len(found) == 2 and not {k: v for k, v in found.items() if v[1] or v[2]}, found
+    for stats in (False, True):
+        f, regs, local, blocks = kb.kernel_info(64, 8, 512, 4, stats)
+        assert f == 64 and blocks >= 2 and (stats or local == 0), (stats, f, regs, local,
+                                                                   blocks)
+        for m in (128, 256, 96):
+            f, _, _, blocks = kb.kernel_info(m, 8, 512, 4, stats)
+            assert f == kb.bank_tile(m, 8, 512, 4, stats)[0] and blocks >= 1
 
 
 # --- the coded tier: K14, K15, K16 -------------------------------------------

@@ -12,6 +12,12 @@ Contracts:
 - bit-exact: each channel of the multichannel form against the
   single-channel form, and chunked calls (history carried, word0 advanced by
   N*dword) against one call.
+
+The CUDA body's schedule (``csrc/resample.cu``, mirrored by ``ring_*`` and
+``class_*``) runs here thread by thread through the register ring of
+``kernels/mixfir.ring_schedule``: every output reads m[top - q] with
+h[phi + q*L], inside the staged window, no warp's window load or tile store
+touches a bank twice, and blocks and tile cover the output exactly.
 """
 
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ from srcdsp_tpu.kernels import resample_pallas as jrp
 from srcdsp_tpu.ops.nco import freq_to_word
 from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch.kernels import _build
+from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.kernels import resample_pallas as trp
 from srcdsp_tpu_torch.ops.resample import resample_full
 
@@ -209,3 +216,101 @@ def test_wrappers_check_layout_and_count_no_cpu_launch():
         kc.fn([0], [1], ok[None])
     with pytest.raises(ValueError, match="multiple of up"):
         trp.make_mix_resample_kernel(lowpass(48, 0.1), 3, 4, out_tile=100, device="cpu")
+
+
+# --- the CUDA body's schedule (csrc/resample.cu, mirrored by ring_*), in numpy ---
+
+RING_CASES = [(3, 4, 429), (3, 4, 48), (1, 2, 48), (2, 3, 48), (5, 4, 48), (2, 1, 37),
+              (4, 3, 37)]
+
+
+def _ring_case(up, down, t):
+    taps = np.random.default_rng(t + up).standard_normal(t).astype(np.float32)
+    hist = trp.resample_geometry(t, up, down, 128 * up)[0]
+    return taps, hist, trp.ring_geometry(up, down, t, hist)
+
+
+@pytest.mark.parametrize("up,down,t", RING_CASES)
+def test_cuda_body_reads_every_output_conflict_free(up, down, t):
+    """Through the register ring with each class's base and static offset
+    o_j, output J reads m[top - q] with h[phi + q*L] (top = hist +
+    floor(J*M/L), phi = J*M mod L) for q < Q, and only zero taps elsewhere;
+    every read lies in the staged window; no warp's window load touches a
+    bank twice (at most twice for the generic instantiation), nor does its
+    store into the output tile."""
+    taps, hist, g = _ring_case(up, down, t)
+    sh = trp.ring_shape(down)
+    static = down in (1, 2, 4)
+    assert g.q == -(-t // up) and hist >= g.q - 1 and g.lead >= 0
+    assert trp.ring_smem(g, up) <= trp.SMEM_BUDGET or g.warps == 1
+    rows = trp.class_tap_rows(taps, up, down, g)
+    assert np.count_nonzero(rows) == np.count_nonzero(taps) and not rows[:, g.q:].any()
+    lane = np.arange(32)
+    for block in (0, 3):
+        start = trp.ring_window_start(block, down, g)
+        for _, j, sub in trp.ring_tasks(up, down, g):
+            o = trp.class_offset(j, up, down)
+            assert 0 <= o < down
+            r0 = (sub * 32 + lane) * sh.r
+            base = trp.ring_base(j, r0, up, down, hist, g)
+            if static:
+                assert np.all((base - o) % (sh.r * down) == 0) and g.tpc % sh.chunk == 0
+            reads, loads = tmf.ring_schedule(down, g.q, hist, sh, base=base, tp=g.tpc,
+                                             offset=o if static else 0)
+            run = reads if static else reads[:, :, :g.q]  # the generic chain runs Q taps
+            assert run.min() >= 0 and run.max() < g.span
+            assert tmf.fir_pad(g.span - 1, sh.log2s) < g.plane
+            for k in range(sh.r):
+                big_j = trp.ring_output(block, r0 + k, j, up, g)
+                top = hist + big_j * down // up
+                phi = big_j * down % up
+                assert np.all(phi == trp.class_phase(j, up, down))
+                for q in range(g.q):
+                    np.testing.assert_array_equal(start + reads[:, k, q], top - q)
+                    want = taps[phi[0] + q * up] if phi[0] + q * up < t else 0.0
+                    assert rows[j, q] == want
+                if static:
+                    assert tmf.worst_bank(trp.ring_tile_index(r0 + k, j, up, down)) == 1
+            worst = max(tmf.worst_bank(tmf.fir_pad(idx, sh.log2s)) for idx in loads)
+            assert worst == 1 if static else worst <= 2, (j, worst)
+
+
+@pytest.mark.parametrize("up,down,nt,ot", [(3, 4, 24, 384), (3, 4, 7, 384), (1, 2, 5, 128),
+                                           (2, 3, 9, 96), (5, 4, 3, 640), (2, 1, 4, 128),
+                                           (4, 3, 2, 192)])
+def test_cuda_body_blocks_and_tile_cover_the_output(up, down, nt, ot):
+    """The class tasks of a block cover its outputs exactly once, the tile's
+    store map reads each from where its class wrote it, and blocks of
+    `outputs` tile [NT, OT] exactly, partial last block included."""
+    t = 48
+    hist = trp.resample_geometry(t, up, down, ot)[0]
+    g = trp.ring_geometry(up, down, t, hist)
+    sh = trp.ring_shape(down)
+    lane = np.arange(32)
+    local, tile = [], []
+    for _, j, sub in trp.ring_tasks(up, down, g):
+        for k in range(sh.r):
+            r = (sub * 32 + lane) * sh.r + k
+            local.append(r * up + j)
+            tile.append(trp.ring_tile_index(r, j, up, down))
+    local, tile = np.concatenate(local), np.concatenate(tile)
+    np.testing.assert_array_equal(np.sort(local), np.arange(g.outputs))
+    np.testing.assert_array_equal(trp.ring_tile_read(local, up, down), tile)
+    assert tile.max() < g.out_plane and len(set(tile.tolist())) == g.outputs
+    total = nt * ot
+    blocks = -(-total // g.outputs)
+    seen = np.concatenate([trp.ring_output(b, np.arange(g.outputs), 0, 1, g)
+                           for b in range(blocks)])
+    np.testing.assert_array_equal(seen[seen < total], np.arange(total))
+    assert (blocks - 1) * g.outputs < total
+
+
+def test_cuda_body_geometry_at_config_2():
+    """Config 2 (429 combined taps, 3/4): R = 4 in blocks of 256, 8 warps a
+    class, 3072 outputs a block; every class runs 144 taps (Q = 143 in
+    chunks of 16) at static offsets 0, 1 and 2."""
+    g = trp.ring_geometry(3, 4, 429, 256)
+    assert (g.q, g.tpc, g.warps, g.nr, g.outputs, g.lead) == (143, 144, 8, 1024, 3072, 0)
+    assert [trp.class_offset(j, 3, 4) for j in range(3)] == [0, 1, 2]
+    assert [trp.class_phase(j, 3, 4) for j in range(3)] == [0, 1, 2]
+    assert trp.ring_smem(g, 3) <= trp.SMEM_BUDGET
