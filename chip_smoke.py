@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    decim's instantiation), K20, the complex-taps (K4, K5, K17) and FSK (K2,
    K3, K7) rings at decim 2 and 4, K11 (each N), the resampler (K8, K9 at
    config 2's 3/4) and the bank (K12, K13 at M 64, 128, 256 and 96, with
-   their tile); ptxas reports no spill in any complex-taps, FSK, resample or
-   bank instantiation, and each ring keeps 4 blocks an SM (the resampler 2);
+   their tile) and K18 (each decim's instantiation); ptxas reports no spill
+   in any complex-taps, FSK, resample, bank, K16 or K18 instantiation, and
+   each ring keeps 4 blocks an SM (the resampler 2);
 3. each kernel against its plain PyTorch version on the same device tensors,
    at the main path's shapes (config 1: 2^26 samples; config 4: one chunk
    of 32 x 2^22; config 2: one channel of 33,521,664 samples, and one chunk
@@ -84,9 +85,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    shape (2^26 samples, lowpass(64, 0.2), decim 2, word freq_to_word(0.11),
    out_tile 512, b_rows 32) K17 (history as its own operand) equal to K4 bit
    for bit, in one launch and in 4 chunks with carried history, and K18 (mix
-   once by a factored phasor) within rel L2 2e-6 of K1, the four timed in
-   turns (K1 / K18 printed, the two unchanged front ends K4 and K18 being the
-   same-run yardsticks of K1); two DDCs (make_ddc(0.21, 0.004, 70 dB): D 187; make_ddc(0.21,
+   once by a factored phasor, on K1's ring since PR 13) within rel L2 2e-6
+   of K1, the four timed in turns (K1 / K18 printed; K4 the same-run
+   yardstick of K1); two DDCs (make_ddc(0.21, 0.004, 70 dB): D 187; make_ddc(0.21,
    0.0155): D 48, four half-bands and a residual 3) over 32 channels made on
    the card, 4 blocks of D*2^14 samples each: in-band tone within 5 %,
    residual below -55 dB, 4 blocks against one within 3e-6, channel 0
@@ -819,6 +820,19 @@ def main() -> int:
     print(f"[2] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} resample and bank "
           f"instantiations without spills")
     require(len(bodies) == 18 and not spilled, f"ptxas spills in {spilled}")
+    # K16 (one codeword a thread, two warps meeting in the middle; ls and lp
+    # staged or not) and K18 (K1's ring over the row view): no spill in any
+    # instantiation
+    for decim in (1, 2, 4, 3):
+        regs, local, blocks = krw.kernel_info(decim, 64, 128)
+        print(f"[2] K18 decim {decim}{' (generic)' if decim == 3 else ''}, 64 taps: {regs} "
+              f"registers, {local} bytes of local memory, {blocks} blocks per SM")
+    bodies = {k: v for k, v in _build.ptxas_report().items()
+              if "bcjr_kernel" in k or "rows_kernel" in k}
+    spilled = [k for k, (_, st, ld) in bodies.items() if st or ld]
+    print(f"[2] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} K16 and K18 "
+          f"instantiations without spills")
+    require(len(bodies) == 6 and not spilled, f"ptxas spills in {spilled}")
     t0 = time.perf_counter()
     framer_path = framer.build()
     print(f"[2] built {framer_path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s",

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "srcdsp_ctaps_preframed": [_P] * 6 + [_U, _U] + [_I] * 7 + [_P],
     "srcdsp_ctaps_aligned": [_P] * 6 + [_U, _U, _LL, _LL] + [_I] * 6 + [_P],
     "srcdsp_mixfir_rows": [_P] * 4 + [_U, _U, _LL] + [_I] * 5 + [_P],
+    "srcdsp_mixfir_rows_info": [_I] * 3 + [ctypes.POINTER(_I)] * 3,
     "srcdsp_frame": [_P] * 3 + [_I] * 6 + [_P],
     "srcdsp_mix_resample": [_P] * 6 + [_I] * 8 + [_P],
     "srcdsp_resample_preframed": [_P] * 5 + [_U, _U] + [_I] * 8 + [_P],
@@ -73,7 +74,7 @@ _SIGNATURES = {
     "srcdsp_bank_info": [_I] * 5 + [ctypes.POINTER(_I)] * 4,
     "srcdsp_ldpc_edges": [_P] * 4 + [_I] * 7 + [_F, _P],
     "srcdsp_ldpc_qc": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "srcdsp_bcjr": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    "srcdsp_bcjr": [_P] * 4 + [_I] * 3 + [_U, _U, _P],
     "srcdsp_halo": [_P, _I, _I, _I, _I, _P],
     "srcdsp_halo_fused": [_P] * 5 + [_U, _U, _LL, _LL] + [_I] * 7 + [_P],
     "srcdsp_enable_peer": [_I, _I],

@@ -732,6 +732,60 @@ def test_bcjr_kernel_equals_plain(dev, t_len, terminated, b):
     assert torch.equal(post, bcjr_decode_batch(code, ls, lp, terminated=terminated)[0])
 
 
+@pytest.mark.parametrize("b", [10, 128, 256, 384])
+@pytest.mark.parametrize("t_len", [61, 67, 515])
+@pytest.mark.parametrize("terminated", [True, False])
+@pytest.mark.parametrize("fb,g", [(0o13, 0o15), (0o15, 0o17), (0o17, 0o13)])
+def test_bcjr_kernel_codes_equal_plain(dev, fb, g, terminated, t_len, b):
+    """K16 (one codeword a thread, forward and backward warps meeting in the
+    middle) == bcjr_decode_batch bit for bit for three codes, an odd and an
+    even t, and B off and on whole blocks of 32 codewords."""
+    from srcdsp_tpu_torch.kernels import bcjr_pallas as kb
+    from srcdsp_tpu_torch.turbo import bcjr_decode_batch, make_rsc
+
+    rng = np.random.default_rng(t_len * b + fb)
+    ls, lp = (torch.as_tensor((4.0 * rng.standard_normal((t_len, b))).astype(np.float32),
+                              device=dev) for _ in range(2))
+    code = make_rsc(4, fb, g)
+    fn = kb.make_bcjr_kernel(code, t_len, terminated, b_tile=min(b, 128), device=dev)
+    before = _build.LAUNCHES["bcjr"]
+    post = fn(ls, lp)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bcjr"] == before + 1
+    assert torch.equal(post, bcjr_decode_batch(code, ls, lp, terminated=terminated)[0])
+
+
+@pytest.mark.parametrize("b", [40, 64])
+@pytest.mark.parametrize("t_len", [800, 801])
+def test_bcjr_kernel_staged_and_device_memory_inputs(dev, t_len, b):
+    """t 800 stages ls and lp in shared memory (200 KB; 16-byte copies at B
+    64, one float a copy at B 40, whose last block is part full), t 801
+    reads them from device memory: both == bcjr_decode_batch bit for bit."""
+    from srcdsp_tpu_torch.kernels import bcjr_pallas as kb
+    from srcdsp_tpu_torch.turbo import bcjr_decode_batch, make_rsc
+
+    rng = np.random.default_rng(t_len + b)
+    ls, lp = (torch.as_tensor((4.0 * rng.standard_normal((t_len, b))).astype(np.float32),
+                              device=dev) for _ in range(2))
+    code = make_rsc(4, 0o15, 0o17)
+    post = kb.make_bcjr_kernel(code, t_len, True, b_tile=8, device=dev)(ls, lp)
+    assert torch.equal(post, bcjr_decode_batch(code, ls, lp, terminated=True)[0])
+
+
+def test_bcjr_and_rows_kernels_no_spills(dev):
+    """ptxas reports no spill in K16 (ls and lp staged in shared memory, or
+    not) or in any K18 instantiation (decim 1, 2, 4 and the generic one),
+    and the K18 ones keep 4 blocks an SM at 64 taps."""
+    from srcdsp_tpu_torch.kernels import mixfir_rows as krw
+    _build.load()
+    found = _spills(r"bcjr_kernel|rows_kernel")
+    assert len(found) == 2 + 4, found  # K16 staged and not
+    assert not {k: v for k, v in found.items() if v[1] or v[2]}
+    for decim in (1, 2, 4, 3):
+        regs, local, blocks = krw.kernel_info(decim, 64, 128)
+        assert local == 0 and regs <= 64 and blocks >= 4, (decim, regs, local, blocks)
+
+
 def test_turbo_pallas_equals_batch_on_card(dev):
     from srcdsp_tpu_torch import configs
 
@@ -817,6 +871,30 @@ def test_mixfir_rows_matches_plain_and_k1(dev, t, decim, ot):
     k1 = kmf.make_mix_fir_kernel(taps, decim, out_tile=ot, b_rows=8, device=dev)
     n = 4 * kr.block_in()
     x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, kr.hist + n))
+                        .astype(np.float32), device=dev)
+    w0 = (-kr.hist * word) % (1 << 32)
+    before = _build.LAUNCHES["mixfir_rows"]
+    got = krw.mix_fir_rows(kr, w0, word, x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mixfir_rows"] == before + 1
+    x3, _ = krw.rows_view(kr, x)
+    plain = krw.mix_fir_rows_plain(w0, word, x3, torch.as_tensor(taps, device=dev), decim, ot,
+                                   kr.hist, n)
+    assert _rel(got, tuple(p.reshape(1, -1) for p in plain)) < 2e-6
+    assert _rel(got, kmf.mix_fir_decim(k1, w0, word, x)) < 2e-6
+
+
+@pytest.mark.parametrize("t,decim,ot", [(64, 2, 512), (33, 4, 256)])
+def test_mixfir_rows_part_full_last_block(dev, t, decim, ot):
+    """K18 over 3 rows of b_rows 3: its last block of kOutputs (1024)
+    outputs is part full; within rel L2 2e-6 of plain and of K1."""
+    from srcdsp_tpu_torch.kernels import mixfir_rows as krw
+    taps, word = lowpass(t, 0.4 / decim), int(freq_to_word(-0.173))
+    kr = krw.make_mix_fir_rows_kernel(taps, decim, out_tile=ot, b_rows=3, device=dev)
+    k1 = kmf.make_mix_fir_kernel(taps, decim, out_tile=ot, b_rows=3, device=dev)
+    n = 3 * kr.block_in()
+    assert (n // decim) % 1024
+    x = torch.as_tensor(np.random.default_rng(t).standard_normal((2, kr.hist + n))
                         .astype(np.float32), device=dev)
     w0 = (-kr.hist * word) % (1 << 32)
     before = _build.LAUNCHES["mixfir_rows"]

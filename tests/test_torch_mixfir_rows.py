@@ -97,3 +97,40 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     yr, _ = trows.mix_fir_rows(k, w0, word, torch.from_numpy(x))
     assert yr.device.type == "cpu"
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("t,decim,freq,ot", [(64, 2, 0.11, 512), (33, 4, -0.2173, 256),
+                                             (129, 1, 0.3001, 512), (48, 3, 0.0417, 128)])
+def test_kernel_staging_mirror_matches_plain(t, decim, freq, ot):
+    """Every block of K18's CUDA body (csrc/rows.cu, mirrored by rows_window)
+    stages each window sample with the plain version's row and lane words
+    and, on the plain version's phasors, its mixed sample bit for bit; zeros
+    where Planes has no sample (left of 0, past the padded view); every
+    output J reads u[J*decim + hist - a] inside the window; the blocks tile
+    the outputs, the last one part full at decim 1, 2 and 4."""
+    taps, word, k, x, w0 = _case(t, decim, freq, seed=t, ot=ot, br=3, blocks=1)
+    x3, n = trows.rows_view(k, torch.from_numpy(x))
+    rows = x3.shape[1]
+    tables = tuple(v.numpy() for v in trows.rows_phasors(w0, word, rows))
+    u = trows.rows_mix_plain(w0, word, x3).numpy()
+    outputs = n // decim
+    per_block = tmf.fir_shape(decim).outputs
+    blocks = -(-outputs // per_block)
+    assert outputs % per_block or decim == 3  # part full (decim 3: 128 outputs a block)
+    seen = []
+    for blk in range(blocks):
+        w = trows.rows_window(k, blk, w0, word, x3.numpy(), tables)
+        g, ld = w["g"], w["loaded"]
+        assert 0 <= w["row"].min() and w["row"].max() < w["nrows"]
+        row, lane = np.divmod(g, 128)
+        np.testing.assert_array_equal(ld, (g >= 0) & (g < rows * 128))
+        np.testing.assert_array_equal(w["row_words"][ld],
+                                      (w0 + row[ld] * ((128 * word) & 0xFFFFFFFF)) & 0xFFFFFFFF)
+        np.testing.assert_array_equal(w["lane_words"], (lane * word) & 0xFFFFFFFF)
+        np.testing.assert_array_equal(w["staged"][:, ld], u[:, g[ld]])
+        assert not w["staged"][:, ~ld].any()
+        j, e = trows.rows_outputs(k, blk)
+        np.testing.assert_array_equal(g[0] + e, j * decim + k.hist)
+        assert (e - (t - 1)).min() >= 0 and e.max() < len(g)
+        seen.append(j[j < outputs])
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen).ravel()), np.arange(outputs))
