@@ -184,12 +184,13 @@ def launcher(name: str, lib: ctypes.CDLL, ls, lp, terminated: bool):
     return launch
 
 
-def loop_opcodes(obj: Path) -> list[tuple[int, dict]]:
-    """The SASS loops of an object file (cuobjdump -sass, beside nvcc): for
-    each backward branch, the body's instruction count and opcode counts."""
+def loop_opcodes(obj: Path, fn: str | None = None) -> list[tuple[int, dict]]:
+    """The SASS loops of an object file (cuobjdump -sass, beside nvcc), of
+    its kernel `fn` (a mangled name) only where given: for each backward
+    branch, the body's instruction count and opcode counts."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True,
-                          text=True).stdout
+    text = subprocess.run([str(cuobjdump), "-sass", *(["-fun", fn] if fn else []), str(obj)],
+                          capture_output=True, text=True).stdout
     ins = [(int(m.group(1), 16), m.group(2)) for m in
            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
     out = []

@@ -72,8 +72,8 @@ _SIGNATURES = {
     "srcdsp_fftconv_info": [_I] + [ctypes.POINTER(_I)] * 3,
     "srcdsp_bank": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [_F, _I, _I, _P],
     "srcdsp_bank_info": [_I] * 5 + [ctypes.POINTER(_I)] * 4,
-    "srcdsp_ldpc_edges": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "srcdsp_ldpc_qc": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "srcdsp_ldpc_edges": [_P] * 3 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
+    "srcdsp_ldpc_qc": [_P] * 6 + [_I] * 10 + [_F, _I, _LL, _P],
     "srcdsp_bcjr": [_P] * 4 + [_I] * 3 + [_U, _U, _P],
     "srcdsp_halo": [_P, _I, _I, _I, _I, _P],
     "srcdsp_halo_fused": [_P] * 5 + [_U, _U, _LL, _LL] + [_I] * 7 + [_P],

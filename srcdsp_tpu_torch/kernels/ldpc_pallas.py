@@ -2,21 +2,27 @@
 ``srcdsp_tpu/kernels/ldpc_pallas.py``).
 
 - **K14, edge-form flooding** (`make_ldpc_kernel`, `make_ldpc_decoder`,
-  `ldpc_decode_pallas`): for a generic H. Messages live per edge slot, in the
-  plan's padded [dc, M_pad] row slots and [dv, N_pad] column slots, and move
-  between the two through the plan's `row_src` / `col_src` index tables (the
-  TPU kernel's 0/1 permutation matmul, as a gather). Every message is
-  quantized to the bf16 grid (round to nearest even), so the decode is bit
-  for bit the plain `ldpc_decode_edges_ref` on every device.
+  `ldpc_decode_pallas`): for a generic H. The plain version keeps messages
+  per edge slot, in the plan's padded [dc, M_pad] row slots and [dv, N_pad]
+  column slots, and moves them between the two through the plan's `row_src` /
+  `col_src` index tables (the TPU kernel's 0/1 permutation matmul, as a
+  gather). The CUDA kernel keeps only the column slots: a check row reads its
+  columns' posteriors and its own old messages there (`edges_decode_colslot`
+  mirrors that schedule). Every message is quantized to the bf16 grid (round
+  to nearest even), so the decode is bit for bit the plain
+  `ldpc_decode_edges_ref` on every device.
 - **K15, quasi-cyclic layered** (`make_qc_kernel`, `make_qc_decoder`,
   `make_qc_decoder_t`, `qc_decode_layered_pallas`): check row r of a layer
   reads block-column j at row (r + s) mod z and its posterior delta goes back
   there; layers run serially with immediate posterior updates, all in
-  float32 with no quantization. Kernel and plain `qc_decode_layered_ref` are
-  bit for bit equal (every product and difference is rounded separately, as
-  the eager reference does); against the jitted JAX kernel, whose compiler
-  fuses ``alpha*es*em - old`` into one rounding, decisions are equal and
-  posteriors about an ulp apart, the reference's own cross-backend contract.
+  float32 with no quantization. The CUDA kernel stores no message: it
+  rebuilds a row's old messages from a compressed check state
+  (`qc_decode_compressed` mirrors that schedule). Kernel and plain
+  `qc_decode_layered_ref` are bit for bit equal (every product and
+  difference is rounded separately, as the eager reference does); against
+  the jitted JAX kernel, whose compiler fuses ``alpha*es*em - old`` into one
+  rounding, decisions are equal and posteriors about an ulp apart, the
+  reference's own cross-backend contract.
 
 Layouts are the JAX package's: the kernels take llr [N, B] column-major
 (codewords along columns); the serving decoders take [B, N] (`make_*_decoder`)
@@ -40,9 +46,17 @@ from srcdsp_tpu_torch.ops.fir import pin_f32
 from srcdsp_tpu_torch.types import F32
 
 BIG = float(_BIG)   # the finite mask magnitude, 1e30 rounded to float32
-# shared memory a K15 block may take, so that two blocks share an SM
+SMEM_MAX = 227 * 1024       # shared memory a block may take
+MAX_THREADS = 1024
+SMS = 132                   # an H100's SMs, where no card is asked
+# K14: codewords a block (at most) and a thread
+EDGES_CW, EDGES_CPT = 8, 4
+# K15: (codewords a block, a thread) in order of preference (bench_torch/
+# ab_ldpc.py), and the shared memory a block may take so that two blocks
+# share an SM
+QC_GEOMETRIES = ((8, 4), (4, 2), (2, 2))
 QC_SMEM_TARGET = 110 * 1024
-SMEM_MAX = 227 * 1024
+QC_CHUNK = 16               # edges of a row whose sign bits share a K15 state word
 
 
 def _round_up(x: int, m: int) -> int:
@@ -171,12 +185,94 @@ def ldpc_decode_edges_ref(plan: EdgePlan, llr: torch.Tensor, iters: int = 10,
     return posterior(c)[:p.n]
 
 
+def _row_edges(plan: EdgePlan) -> np.ndarray:
+    """[dc, M_pad, 2] int32: slot d of check row r as (column, column slot
+    j*N_pad + column), (-1, -1) where the row has no d-th edge."""
+    p = plan
+    slot = p.row_src.reshape(p.dc, p.m_pad)
+    return np.stack([np.where(slot >= 0, slot % p.n_pad, -1), slot], -1).astype(np.int32)
+
+
+def edges_decode_colslot(plan: EdgePlan, llr: torch.Tensor, iters: int = 10,
+                         alpha: float = 0.8125) -> torch.Tensor:
+    """K14's schedule in torch (``csrc/ldpc.cu:184-287`` ldpc_edges_kernel:
+    the variable phase at :202, the check phase at :217): only the
+    column-slot messages Rc [dv, N_pad, B] exist. A check row forms v_d =
+    q(post[col_d] - Rc[slot_d]) (its own old message in that slot: the
+    reference's v2c there), takes the strict-< min1/min2/arg and parity over
+    its dc slots in order (an empty slot magnitude BIG), and writes c =
+    em >= BIG ? 0 : +-q(alpha*em) back to its slots (the reference's
+    q((alpha*es)*em): alpha*es is exact and both roundings are symmetric);
+    the variable phase sums lf + Rc[0] + ... + Rc[dv-1]. Bit for bit
+    `ldpc_decode_edges_ref`."""
+    p = plan
+    dev = llr.device
+    b = llr.shape[-1]
+    lf = torch.zeros((p.n_pad, b), dtype=F32, device=dev)
+    lf[:p.n] = _q(llr.to(F32))
+    re = torch.as_tensor(_row_edges(p), dtype=torch.int64, device=dev)
+    valid = (re[..., 0] >= 0)[..., None]                           # [dc, M_pad, 1]
+    col, slot = re[..., 0].clamp(min=0), re[..., 1].clamp(min=0)
+    rc = torch.zeros((p.dv * p.n_pad, b), dtype=F32, device=dev)
+
+    def posterior():
+        post = lf
+        for j in range(p.dv):
+            post = post + rc[j * p.n_pad:(j + 1) * p.n_pad]
+        return post
+
+    for _ in range(iters):
+        post = posterior()
+        v = [_q(post[col[d]] - rc[slot[d]]) for d in range(p.dc)]
+        min1 = torch.full((p.m_pad, b), float("inf"), dtype=F32, device=dev)
+        min2 = min1.clone()
+        arg = torch.full((p.m_pad, b), -1, dtype=torch.int64, device=dev)
+        par = torch.zeros((p.m_pad, b), dtype=torch.bool, device=dev)
+        for d in range(p.dc):
+            mag = torch.where(valid[d], torch.abs(v[d]), BIG)
+            lt1, lt2 = mag < min1, mag < min2
+            min2 = torch.where(lt1, min1, torch.where(lt2, mag, min2))
+            min1 = torch.where(lt1, mag, min1)
+            arg = torch.where(lt1, d, arg)
+            par = par ^ (valid[d] & (v[d] < 0))
+        for d in range(p.dc):
+            em = torch.where(arg == d, min2, min1)
+            mag = _q(np.float32(alpha) * em)                       # +-q(alpha*em)
+            c = torch.where(em >= BIG, 0.0, torch.where(par != (v[d] < 0), -mag, mag))
+            rows = valid[d, :, 0]
+            rc[slot[d][rows]] = c[rows]
+    return posterior()[:p.n]
+
+
+class EdgesGeometry(NamedTuple):
+    """A K14 launch: codewords a block (cw) and a thread (cpt), threads a
+    block, shared bytes a block (lf, posteriors and Rc, [*][cw] each)."""
+
+    cw: int
+    cpt: int
+    threads: int
+    smem: int
+
+
+def edges_geometry(plan: EdgePlan) -> EdgesGeometry:
+    """The most codewords a block, up to EDGES_CW, whose shared memory fits."""
+    per_cw = (2 + plan.dv) * plan.n_pad * 4
+    cw = EDGES_CW
+    while cw > 1 and cw * per_cw > SMEM_MAX:
+        cw //= 2
+    if cw * per_cw > SMEM_MAX:
+        raise ValueError(f"one codeword needs {per_cw} B of shared memory (> {SMEM_MAX})")
+    cpt = min(EDGES_CPT, cw)
+    threads = min(MAX_THREADS, _round_up(max(plan.m, 1) * (cw // cpt), 32))
+    return EdgesGeometry(cw=cw, cpt=cpt, threads=threads, smem=cw * per_cw)
+
+
 def _edges_fn(plan: EdgePlan, iters: int, alpha: float, device: torch.device):
     """(llr [N, B] float32 contiguous on `device`) -> posterior [N, B]: K14 on
     a CUDA tensor, the plain version on a CPU tensor."""
     p = plan
-    rs = torch.as_tensor(p.row_src, device=device)
-    cs = torch.as_tensor(p.col_src, device=device)
+    geo = edges_geometry(p)
+    row_edges = torch.as_tensor(_row_edges(p), device=device)
 
     def fn(llr: torch.Tensor) -> torch.Tensor:
         if not check_f32_operand(llr, device, "llr"):
@@ -185,8 +281,8 @@ def _edges_fn(plan: EdgePlan, iters: int, alpha: float, device: torch.device):
         b = llr.shape[1]
         post = torch.empty((p.n, b), dtype=F32, device=device)
         rc = _build.load().srcdsp_ldpc_edges(
-            llr.data_ptr(), rs.data_ptr(), cs.data_ptr(), post.data_ptr(), p.n, p.n_pad,
-            p.m_pad, p.dv, p.dc, b, iters, alpha, _build.stream_handle(llr))
+            llr.data_ptr(), row_edges.data_ptr(), post.data_ptr(), p.n, p.n_pad, p.m, p.m_pad,
+            p.dv, p.dc, b, iters, alpha, geo.cw, geo.cpt, geo.threads, _build.stream_handle(llr))
         _build.check(rc, "ldpc_edges")
         _build.LAUNCHES["ldpc_edges"] += 1
         return post
@@ -293,16 +389,112 @@ def qc_decode_layered_ref(plan: QcPlan, llr: torch.Tensor, iters: int = 6,
     return post
 
 
-def qc_codewords_per_block(plan: QcPlan) -> int:
-    """Codewords one K15 block decodes: the most of 8, 4, 2, 1 whose
-    posteriors and messages fit QC_SMEM_TARGET bytes of shared memory."""
-    per_cw = (plan.nb + plan.n_blocks) * plan.z * 4
-    if per_cw > SMEM_MAX:
-        raise ValueError(f"one codeword needs {per_cw} B of shared memory (> {SMEM_MAX})")
-    for cw in (8, 4, 2):
-        if cw * per_cw <= QC_SMEM_TARGET and cw * plan.z <= 1024:
-            return cw
-    return 1
+def _rebuild(word: torch.Tensor, dd: int, is_arg: torch.Tensor, a1: torch.Tensor,
+             a2: torch.Tensor) -> torch.Tensor:
+    """An old K15 message from the check state: +-(is_arg ? a2 : a1), the
+    sign bit dd of the chunk's state word."""
+    mag = torch.where(is_arg, a2, a1)
+    return torch.where((word >> dd) & 1 == 1, -mag, mag)
+
+
+def qc_decode_compressed(plan: QcPlan, llr: torch.Tensor, iters: int = 6,
+                         alpha: float = 0.8125) -> torch.Tensor:
+    """K15's schedule in torch (``csrc/ldpc.cu:320-445`` ldpc_qc_kernel:
+    pass 1 at :369, pass 2 at :407, the old messages rebuilt as at :291): no
+    message is stored. Per (layer, row, codeword) the check state is a1 = alpha*min1,
+    a2 = alpha*min2 and words of 16 edges' sign bits (word 0 also holds the
+    first minimum's index in its high half); old_d = +-(d == arg ? a2 : a1).
+    Pass 1 takes v = p - old, the strict-< min1/min2/arg in slab order and the
+    parity; pass 2 writes p + (new - old) with new = +-(d == arg ? a2' : a1').
+    Bit for bit `qc_decode_layered_ref`."""
+    z = plan.z
+    b = llr.shape[-1]
+    dev = llr.device
+    post = llr.to(F32).clone()
+    n_layers = len(plan.layers)
+    words = -(-max(len(c) for c, _ in plan.layers) // QC_CHUNK)
+    a1 = torch.zeros((n_layers, z, b), dtype=F32, device=dev)
+    a2 = torch.zeros_like(a1)
+    w = torch.zeros((n_layers, words, z, b), dtype=torch.int64, device=dev)
+    rows = torch.arange(z, device=dev)
+    for _ in range(iters):
+        for l, (cols, shifts) in enumerate(plan.layers):
+            idx = [c * z + (rows + s) % z for c, s in zip(cols, shifts)]
+            oarg = (w[l, 0] >> 16) & 0xFFFF
+            olds = [_rebuild(w[l, d // QC_CHUNK], d % QC_CHUNK, oarg == d, a1[l], a2[l])
+                    for d in range(len(cols))]
+            min1 = torch.full((z, b), float("inf"), dtype=F32, device=dev)
+            min2 = min1.clone()
+            arg = torch.full((z, b), -1, dtype=torch.int64, device=dev)
+            par = torch.zeros((z, b), dtype=torch.bool, device=dev)
+            for d, old in enumerate(olds):
+                v = post[idx[d]] - old
+                mag = torch.abs(v)
+                lt1, lt2 = mag < min1, mag < min2
+                min2 = torch.where(lt1, min1, torch.where(lt2, mag, min2))
+                min1 = torch.where(lt1, mag, min1)
+                arg = torch.where(lt1, d, arg)
+                par = par ^ (v < 0)
+            na1, na2 = np.float32(alpha) * min1, np.float32(alpha) * min2
+            nw = torch.zeros((words, z, b), dtype=torch.int64, device=dev)
+            nw[0] = (arg & 0xFFFF) << 16
+            for d, old in enumerate(olds):
+                p = post[idx[d]]
+                sgn = (p - old < 0) != par
+                a = torch.where(arg == d, na2, na1)
+                post[idx[d]] = p + (torch.where(sgn, -a, a) - old)
+                nw[d // QC_CHUNK] |= sgn.to(torch.int64) << (d % QC_CHUNK)
+            a1[l], a2[l], w[l] = na1, na2, nw
+    return post
+
+
+# where K15 keeps its check state (csrc/ldpc.cu State)
+QC_STATES = ("shared", "device")
+
+
+class QcGeometry(NamedTuple):
+    """A K15 launch: codewords a block (cw, a power of 2) and a thread
+    (cpt), threads a block, shared bytes a block, state words a (layer, row,
+    codeword) beside a1 and a2, and where the check state lives: in shared
+    memory, or in device memory (a region a block) where it fits no shared
+    memory."""
+
+    cw: int
+    cpt: int
+    threads: int
+    smem: int
+    words: int
+    state: str
+
+
+def qc_geometry(plan: QcPlan, b: int | None = None, sms: int = SMS) -> QcGeometry:
+    """The first of QC_GEOMETRIES (codewords a block, a thread) whose shared
+    memory fits QC_SMEM_TARGET bytes and, for a batch of `b`, still gives
+    every one of `sms` SMs a block (else the last that fits); past the
+    target 2 and 2, then 1 and 1, within the card's limit; else 1 and 1 with
+    the state in device memory. A plan whose posteriors alone exceed the
+    limit raises."""
+    z, n_layers = plan.z, len(plan.layers)
+    words = -(-max(len(c) for c, _ in plan.layers) // QC_CHUNK)
+    ps = plan.nb * z * 4
+    state = n_layers * z * (2 + words) * 4
+    tables = plan.n_blocks * 8 + (n_layers + 1) * 4
+
+    def geo(cw, cpt, where="shared"):
+        return QcGeometry(cw=cw, cpt=cpt,
+                          threads=min(MAX_THREADS, _round_up(z * (cw // cpt), 32)),
+                          smem=cw * (ps + (state if where == "shared" else 0)) + tables,
+                          words=words, state=where)
+
+    fit = [geo(cw, cpt) for cw, cpt in QC_GEOMETRIES]
+    fit = [g for g in fit if g.smem <= QC_SMEM_TARGET]
+    if fit:
+        full = [g for g in fit if b is None or -(-b // g.cw) >= sms]
+        return full[0] if full else fit[-1]
+    for g in (geo(2, 2), geo(1, 1), geo(1, 1, "device")):
+        if g.smem <= SMEM_MAX:
+            return g
+    raise ValueError(f"one codeword needs {ps + tables} B of shared memory (> {SMEM_MAX})")
 
 
 def _qc_fn(plan: QcPlan, iters: int, alpha: float, device: torch.device):
@@ -313,18 +505,28 @@ def _qc_fn(plan: QcPlan, iters: int, alpha: float, device: torch.device):
     cols = np.asarray([j for c, _ in plan.layers for j in c], np.int32)
     shifts = np.asarray([s for _, sh in plan.layers for s in sh], np.int32)
     tables = [torch.as_tensor(a, device=device) for a in (starts, cols, shifts)]
-    cw = qc_codewords_per_block(plan)
+    qc_geometry(plan)  # raises here for a plan no geometry holds
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else SMS)
+    geos: dict[int, QcGeometry] = {}
 
     def fn(llr: torch.Tensor) -> torch.Tensor:
         if not check_f32_operand(llr, device, "llr"):
             return qc_decode_layered_ref(plan, llr, iters, alpha)
         llr = llr.contiguous()
         b = llr.shape[1]
+        geo = geos.get(b)
+        if geo is None:
+            geo = geos[b] = qc_geometry(plan, b, sms)
         post = torch.empty((n, b), dtype=F32, device=device)
+        gstate = (torch.empty((-(-b // geo.cw) * len(plan.layers) * plan.z * geo.cw
+                               * (2 + geo.words),), dtype=F32, device=device)
+                  if geo.state == "device" else None)
         rc = _build.load().srcdsp_ldpc_qc(
             llr.data_ptr(), *(t.data_ptr() for t in tables), post.data_ptr(),
-            len(plan.layers), plan.z, plan.nb, plan.n_blocks, b, iters, cw, alpha,
-            _build.stream_handle(llr))
+            gstate.data_ptr() if gstate is not None else None, len(plan.layers), plan.z,
+            plan.nb, plan.n_blocks, geo.words, b, iters, geo.cw.bit_length() - 1, geo.cpt,
+            QC_STATES.index(geo.state), alpha, geo.threads, geo.smem, _build.stream_handle(llr))
         _build.check(rc, "ldpc_qc")
         _build.LAUNCHES["ldpc_qc"] += 1
         return post

@@ -712,6 +712,104 @@ def test_ldpc_qc_kernel_equals_plain(dev, z):
     assert torch.equal(bits_t.T, bits[:128]) and torch.equal(ok_t, ok[:128])
 
 
+@pytest.mark.parametrize("b", [128, 199, 4096])
+def test_ldpc_qc_kernel_phase3_code_equals_plain(dev, b):
+    """K15 at the phase-3 code (4x12 dual diagonal, z 128, 41 circulants:
+    2 codewords a block and a thread at B 128 and 199, 8 and 4 at 4096),
+    == plain bit for bit."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+    from srcdsp_tpu_torch.qcldpc import make_dual_diagonal_base
+
+    z = 128
+    plan = kl.plan_qc(make_dual_diagonal_base(4, 12, z, seed=0), z)
+    rng = np.random.default_rng(b)
+    llr = torch.as_tensor((4.0 * rng.standard_normal((12 * z, b))).astype(np.float32), device=dev)
+    post = kl.make_qc_kernel(plan, iters=6, b_tile=1, device=dev)(llr)
+    assert torch.equal(post, kl.qc_decode_layered_ref(plan, llr, iters=6))
+
+
+@pytest.mark.parametrize("mb,nb,z,deg", [(12, 24, 64, None), (4, 12, 896, None),
+                                         (2, 4, 4096, None), (2, 4, 6144, 2), (2, 40, 64, None)])
+def test_ldpc_qc_kernel_geometries_equal_plain(dev, mb, nb, z, deg):
+    """K15 at every geometry qc_geometry gives: 12 layers of degree up to
+    24 (two state words); 2 codewords a block; one, rows looped; one with the
+    check state in device memory; a layer of degree 40 (three state words).
+    Exact +-0 and tied LLRs among them; == plain."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+
+    rng = np.random.default_rng(z)
+    if mb == 12:  # random shifts, a third of the circulants zero
+        base = np.where(rng.random((mb, nb)) < 0.3, -1, rng.integers(0, z, (mb, nb)))
+        base[:, :2] = rng.integers(0, z, (mb, 2))
+    elif deg is None:
+        base = np.zeros((mb, nb), np.int64)
+    else:
+        base = -np.ones((mb, nb), np.int64)
+        for i in range(mb):
+            base[i, i * deg:(i + 1) * deg] = i + 1
+    plan = kl.plan_qc(base, z)
+    x = (3.0 * rng.standard_normal((nb * z, 5))).astype(np.float32)
+    x[:9, 0], x[9:17, 1], x[17:40, 2] = 0.0, -0.0, 1.5
+    llr = torch.as_tensor(x, device=dev)
+    before = _build.LAUNCHES["ldpc_qc"]
+    post = kl.make_qc_kernel(plan, iters=3, b_tile=1, device=dev)(llr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldpc_qc"] == before + 1
+    assert torch.equal(post, kl.qc_decode_layered_ref(plan, llr, iters=3))
+
+
+@pytest.mark.parametrize("b", [1, 3, 1024])
+def test_ldpc_edges_kernel_phase3_code_equals_plain(dev, b):
+    """K14 at the phase-3 code ((3,6), n 504: 8 codewords a block, 4 a
+    thread), B of one, three and 1024, == plain bit for bit."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+    from srcdsp_tpu_torch.ldpc import make_regular_ldpc
+
+    plan = kl.plan_edges(make_regular_ldpc(504, 3, 6, seed=0))
+    rng = np.random.default_rng(b)
+    llr = torch.as_tensor((4.0 * rng.standard_normal((504, b))).astype(np.float32), device=dev)
+    post = kl.make_ldpc_kernel(plan, iters=10, b_tile=1, device=dev)(llr)
+    assert torch.equal(post, kl.ldpc_decode_edges_ref(plan, llr, iters=10))
+
+
+@pytest.mark.parametrize("shape", ["degree1", "degree40", "banded7998"])
+def test_ldpc_edges_kernel_degree1_and_one_codeword_equal_plain(dev, shape):
+    """K14 on an H with a degree-1 row (its message stays 0), on one with a
+    row of degree 40 (its signs past 32 formed again), each with exact +-0
+    and tied LLRs, and on a banded (3,6) H at n 7998 (one codeword a block,
+    rows looped over 1024 threads): == plain bit for bit."""
+    from srcdsp_tpu_torch.kernels import ldpc_pallas as kl
+    from srcdsp_tpu_torch.ldpc import make_regular_ldpc
+
+    if shape == "degree1":
+        h = make_regular_ldpc(120, 3, 6, seed=1)
+        h[2, np.flatnonzero(h[2])[1:]] = 0
+    elif shape == "degree40":
+        h = make_regular_ldpc(120, 3, 6, seed=1)
+        h[4, 40:80] = 1
+    else:
+        h = np.zeros((3999, 7998), np.int8)
+        for r in range(3999):
+            h[r, (2 * r + np.arange(6)) % 7998] = 1
+    rng = np.random.default_rng(2)
+    x = (4.0 * rng.standard_normal((h.shape[1], 3))).astype(np.float32)
+    x[:9, 0], x[9:17, 1], x[17:40, 2] = 0.0, -0.0, 2.0
+    plan = kl.plan_edges(h)
+    llr = torch.as_tensor(x, device=dev)
+    post = kl.make_ldpc_kernel(plan, iters=5, b_tile=1, device=dev)(llr)
+    assert torch.equal(post, kl.ldpc_decode_edges_ref(plan, llr, iters=5))
+
+
+def test_ldpc_kernels_no_spills(dev):
+    """ptxas reports no spill in any K14 (codewords a block and a thread 8/4,
+    4/4, 2/2, 1/1) or K15 (1, 2 or 4 codewords a thread with the state in
+    shared memory, 1 with it in device memory) instantiation."""
+    _build.load()
+    found = _spills(r"ldpc_(edges|qc)_kernel")
+    assert len(found) == 4 + 4, found
+    assert not {k: v for k, v in found.items() if v[1] or v[2]}
+
+
 @pytest.mark.parametrize("t_len,terminated,b", [(67, True, 128), (61, False, 128),
                                                 (515, True, 10)])
 def test_bcjr_kernel_equals_plain(dev, t_len, terminated, b):

@@ -14,6 +14,15 @@ they are jitted, to keep XLA:CPU compile times small):
   into one rounding, decisions equal and posteriors within 8 ulp of the
   largest posterior (rtol 1e-6 of max |post|; measured about 2.5e-7);
 - `make_qc_decoder` and `make_qc_decoder_t` decisions and ok equal;
+- the CUDA kernels' schedules, mirrored in torch, bit for bit against the
+  plain versions and the JAX references: K14's column-slot form
+  (`edges_decode_colslot`: row-owned messages, no V) and K15's compressed
+  check state (`qc_decode_compressed`: a1, a2, arg and sign bits), on the
+  codes above, an H with a degree-1 row, a layer of degree 20 (two state
+  words), and LLRs with exact +-0 and tied magnitudes;
+- the launch geometries (`edges_geometry`, `qc_geometry`) and that every QC
+  plan the earlier geometry (every message in shared memory) took still has
+  one;
 - the factories' ValueErrors (shape, b_tile, dtype, device).
 """
 
@@ -161,11 +170,136 @@ def test_qc_decoders_equal(qc):
 
 
 def test_qc_codewords_per_block():
+    """K15's launch geometry: at the phase-3 code 8 codewords a block, 4 a
+    thread, 256 threads and 98,652 B of shared memory (posteriors 6 kB and
+    check state 6 kB a codeword, then the slab and layer tables), so two
+    blocks share an SM; fewer codewords, 2 a thread, where a batch would
+    leave SMs idle."""
     z = 128
     plan = tk.plan_qc(tq.make_dual_diagonal_base(4, 12, z, seed=0), z)
     assert plan.n_blocks == 41
-    assert tk.qc_codewords_per_block(plan) == 4        # 108.5 kB of shared memory
-    assert tk.qc_codewords_per_block(tk.plan_qc(np.zeros((3, 8), np.int64), 16)) == 8
+    assert tk.qc_geometry(plan) == tk.QcGeometry(cw=8, cpt=4, threads=256, smem=98652, words=1,
+                                                 state="shared")
+    small = tk.qc_geometry(tk.plan_qc(np.zeros((3, 8), np.int64), 16))
+    assert (small.cw, small.cpt, small.threads, small.words) == (8, 4, 32, 1)
+    # a small batch takes fewer codewords a block, so that more SMs work
+    assert [tk.qc_geometry(plan, b)[:2] for b in (4096, 1049, 1048, 199, 5)] == [
+        (8, 4), (8, 4), (4, 2), (2, 2), (2, 2)]
+
+
+def _old_qc_smem(plan) -> int:
+    """Shared bytes a codeword under the earlier K15 geometry (posteriors and
+    every message): the plans it took are those within SMEM_MAX."""
+    return (plan.nb + plan.n_blocks) * plan.z * 4
+
+
+@pytest.mark.parametrize("mb,nb,z,deg,want", [
+    (4, 12, 896, None, (2, 2, 896, "shared")),      # two codewords: past the target
+    (12, 24, 64, None, (4, 2, 128, "shared")),      # 12 layers of degree 24
+    (2, 4, 4096, None, (1, 1, 1024, "shared")),     # one codeword, rows looped
+    (2, 4, 6144, 2, (1, 1, 1024, "device")),        # degree 2: the state fits no more
+    (2, 40, 64, None, (8, 4, 128, "shared")),       # a layer of degree 40: three words
+])
+def test_qc_geometry_fallbacks(mb, nb, z, deg, want):
+    """Past the target K15 takes fewer codewords a block, then one, then
+    keeps the check state in device memory. Each of these plans was within
+    the earlier geometry's limit, so none is refused."""
+    base = np.zeros((mb, nb), np.int64)
+    if deg is not None:
+        base[:] = -1
+        for i in range(mb):
+            base[i, i * deg:(i + 1) * deg] = 0
+    plan = tk.plan_qc(base, z)
+    assert _old_qc_smem(plan) <= tk.SMEM_MAX
+    geo = tk.qc_geometry(plan)
+    assert (geo.cw, geo.cpt, geo.threads, geo.state) == want
+    assert geo.smem <= tk.SMEM_MAX
+    assert geo.words == -(-max(len(c) for c, _ in plan.layers) // tk.QC_CHUNK)
+
+
+def test_qc_geometry_refuses_only_what_fits_nowhere():
+    plan = tk.plan_qc(np.zeros((2, 8), np.int64), 8192)      # posteriors alone 256 kB
+    assert _old_qc_smem(plan) > tk.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.qc_geometry(plan)
+
+
+@pytest.mark.parametrize("n,want", [(504, (8, 4, 512, 81920)), (120, (8, 4, 128, 20480)),
+                                    (7998, (1, 1, 1024, 160000))])
+def test_edges_geometry(n, want):
+    """K14's launch geometry: 8 codewords a block and 4 a thread (10 kB of
+    shared memory a codeword at n = 504), fewer where they do not fit (a
+    banded (3,6) H at n = 7998)."""
+    if n == 7998:
+        h = np.zeros((n // 2, n), np.int8)
+        for r in range(n // 2):
+            h[r, (2 * r + np.arange(6)) % n] = 1
+    else:
+        h = jl.make_regular_ldpc(n, 3, 6, seed=0)
+    geo = tk.edges_geometry(tk.plan_edges(h))
+    assert (geo.cw, geo.cpt, geo.threads, geo.smem) == want
+
+
+def _zeros_and_ties(llr: np.ndarray) -> np.ndarray:
+    """LLRs with exact +0 and -0 and runs of tied magnitudes of both signs."""
+    out = llr.copy()
+    out[3, :5] = 0.0
+    out[4, 5:9] = -0.0
+    out[7:12] = 2.0
+    out[12:15] = -2.0
+    out[20, ::2] = -0.0
+    return out
+
+
+def test_edges_colslot_mirror_equals_plain_and_jax(edges):
+    """K14's schedule (column slots only, a row's own old message read in
+    its slot) == plain K14 == the JAX reference, bit for bit."""
+    h, *_, lf = edges
+    tp = tk.plan_edges(h)
+    ref = np.asarray(jk.ldpc_decode_edges_ref(jk.plan_edges(h), jnp.asarray(lf), iters=ITERS))
+    got = tk.edges_decode_colslot(tp, torch.as_tensor(lf), ITERS).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, tk.ldpc_decode_edges_ref(tp, torch.as_tensor(lf),
+                                                                 ITERS).numpy())
+
+
+def test_edges_colslot_mirror_degree1_row_zeros_ties():
+    """A degree-1 check row (its message stays 0), exact +-0 LLRs and tied
+    magnitudes: the mirror == plain == JAX, bit for bit."""
+    h = jl.make_regular_ldpc(120, 3, 6, seed=1)
+    h[2, np.flatnonzero(h[2])[1:]] = 0
+    rng = np.random.default_rng(11)
+    lf = _zeros_and_ties((4.0 * rng.standard_normal((120, 24))).astype(np.float32))
+    tp = tk.plan_edges(h)
+    ref = np.asarray(jk.ldpc_decode_edges_ref(jk.plan_edges(h), jnp.asarray(lf), iters=4))
+    got = tk.edges_decode_colslot(tp, torch.as_tensor(lf), 4).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, tk.ldpc_decode_edges_ref(tp, torch.as_tensor(lf),
+                                                                 4).numpy())
+
+
+@pytest.mark.parametrize("case", ["qc", "zeros_ties", "degree20"])
+def test_qc_compressed_mirror_equals_plain_and_jax(qc, case):
+    """K15's schedule (no message stored: a1, a2, arg and sign bits rebuild
+    the old ones) == plain K15 == the eager JAX reference, bit for bit: the
+    z = 16 code with zero blocks, the same with exact +-0 LLRs and tied
+    magnitudes, and a layer of degree 20 (two state words) at z = 8."""
+    base, z, *_, lf = qc
+    lf = lf[:, :24]
+    if case == "zeros_ties":
+        lf = _zeros_and_ties(lf)
+    elif case == "degree20":
+        base, z = np.zeros((2, 20), np.int64), 8
+        base[0, 1::3] = -1
+        base[1] = np.arange(20) % z
+        lf = (3.0 * np.random.default_rng(3).standard_normal((20 * z, 8))).astype(np.float32)
+    iters = 3 if case == "degree20" else 4
+    tp = tk.plan_qc(base, z)
+    ref = np.asarray(jk.qc_decode_layered_ref(jk.plan_qc(base, z), jnp.asarray(lf), iters=iters))
+    got = tk.qc_decode_compressed(tp, torch.as_tensor(lf), iters).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, tk.qc_decode_layered_ref(tp, torch.as_tensor(lf),
+                                                                 iters).numpy())
 
 
 def test_value_errors(qc):
