@@ -110,7 +110,22 @@ Phases, in order; any failure raises and the run exits non-zero:
    of __graft_entry__.py in 2 buffers (the FIR stream equal to fir_full and
    the channelizer stream to channelize_full, PSK indices equal, soft
    within 2e-5); codeword-sharded K14, block-sharded K16 and channel-sharded
-   FSK through map_shards against the unsharded calls.
+   FSK through map_shards against the unsharded calls;
+15. the classical FEC tier, plain torch (no kernel of ours, so after the
+   launch counts are read), every result on the card equal by torch.equal to
+   the port's own CPU run on the same numpy-made inputs, each timed (CUDA
+   events) with its coded Mb/s and the torch operations one call dispatches:
+   the CCSDS link of tests/e2e/test_concat_coding.py at 512 messages (CRC-32
+   on the card equal to binascii.crc32, RS(255,223), symbol interleaving at
+   depth 4, 128 terminated K=7 [171, 133] frames of 8,160 bits, BPSK at
+   Eb/N0 2.5 dB from numpy seed 1, Viterbi, RS decode, CRC: inner symbol
+   errors left, every message back); RS alone (512 x 16 byte errors),
+   Viterbi alone (B 512, T 512, noise 0.6), BCH(31,21) (4096 x 2 errors),
+   Golay (65,536 words with 0-3 errors corrected, 4,096 with 4 all flagged),
+   polar N 256, K 128 at 3 dB (SC at B 32,768; SC-list L 8 at B 1,024, the
+   one-hot entry point with and without fast equal to it), the 802.11 scrambler over 32 x
+   2^20 bits (two uneven chunks == one call) and an HDLC round trip of 2^20
+   bits with its two flags found.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -138,7 +153,7 @@ library yardstick, and K20 on
 the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
-kernel must have run on the main path. The last three lines are one JSON
+kernel must have run on the main path. Phase 15 launches none of them. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -190,6 +205,14 @@ C13_SETTLE, C13_IIR_SAMPLES, C13_ORACLE_SAMPLES = 256, 1 << 22, 1 << 16
 # taps and buffers, the sharded FSK body's channels and symbols
 C14_SHARDS, C14_FFT_SHARDS, C14_BUFFERS = 4, 5, 2
 C14_PRE_TAPS, C14_FSK_CHANNELS, C14_FSK_SYMBOLS = 16, 8, 4096
+# phase 15, the classical FEC tier: tests/e2e/test_concat_coding.py's chain
+# at serving batch, then bench/fec_onchip.py's and bench/polar_onchip.py's shapes
+C15_MESSAGES, C15_DEPTH = 512, 4
+C15_RS_BATCH, C15_VIT_BATCH, C15_VIT_T, C15_VIT_NOISE = 512, 512, 512, 0.6
+C15_BCH_BATCH, C15_GOLAY_WORDS, C15_GOLAY_FOUR = 4096, 65536, 4096
+C15_POLAR_N, C15_POLAR_K, C15_POLAR_SNR = 256, 128, 3.0
+C15_SC_BATCH, C15_SCL_BATCH, C15_SCL_L = 32768, 1024, 8
+C15_SCR_STREAMS, C15_SCR_BITS, C15_HDLC_BITS = 32, 1 << 20, 1 << 20
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -703,6 +726,268 @@ def phase14(torch, dev, x1, taps1_np, word1) -> None:
     require(fsk_bits and fsk_rel <= 1e-6, f"sharded FSK: bits {fsk_bits}, rel L2 {fsk_rel}")
 
 
+def op_count(torch, fn) -> int:
+    """Torch operations one call of fn dispatches, views left out. Almost
+    each launches one kernel on the card (an allocation such as `empty`
+    launches none), so this is about the launch count of a plain-torch path."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def error_mask(rng: np.random.Generator, shape: tuple, counts) -> np.ndarray:
+    """Boolean [B, n]: counts[b] distinct random positions set in row b."""
+    ranks = np.argsort(np.argsort(rng.random(shape), axis=1), axis=1)
+    return ranks < np.broadcast_to(np.asarray(counts), (shape[0],))[:, None]
+
+
+def phase15(torch, dev) -> None:
+    """The classical FEC tier (plain torch, no kernel of ours): the CCSDS
+    concatenated link, RS, Viterbi, BCH, Golay, polar SC and SCL, the
+    scrambler and HDLC framing, each GPU result equal (torch.equal) to the
+    port's own CPU run on the same numpy-made inputs, each timed (CUDA-event
+    median) with its coded Mb/s and its torch operations a call."""
+    import binascii
+
+    from srcdsp_tpu_torch import bch, fec, gf2, golay, hdlc, interleave, polar, rs
+
+    cpu = torch.device("cpu")
+    card = card_line()
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+    def report(tag, ms, coded_bits, ops, extra=""):
+        print(f"[15] {tag}: {ms:.3f} ms per call, {coded_bits / ms / 1e3:.1f} Mb/s coded, "
+              f"{ops} torch ops a call{extra} ({card})", flush=True)
+
+    # --- 1. CCSDS concatenated link: CRC-32, RS(255,223), I = 4, K=7 r1/2, BPSK
+    nmsg, depth = C15_MESSAGES, C15_DEPTH
+    ngroups = nmsg // depth
+    spec = gf2.make_crc(0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, reflect=True)
+    cc = fec.make_conv_code(7, (0o171, 0o133))
+    rs_code = {d: rs.make_rs_code(255, 223, device=d) for d in (dev, cpu)}
+    msg_np = np.random.default_rng(0).integers(0, 256, (nmsg, 223), dtype=np.uint8)
+    msb = torch.arange(7, -1, -1)
+
+    def crc_of(m):
+        s = gf2.crc_update(spec, gf2.crc_init(spec, device=m.device),
+                           gf2.byte_tensor_bits(m, lsb_first=True))
+        return gf2.crc_value(spec, s)
+
+    def transmit(m):
+        cw = rs.rs_encode(rs_code[m.device], m)
+        groups = interleave.block_interleave(cw.reshape(ngroups, depth * 255), depth, 255)
+        info = gf2.byte_tensor_bits(groups)                  # MSB first, [G, 8160]
+        return cw, info, fec.conv_encode(cc, info)           # [G, 2 (8160 + 6)]
+
+    def to_words(hat):
+        rx = (hat.reshape(ngroups, depth * 255, 8) << msb.to(hat.device)).sum(-1)
+        return interleave.block_deinterleave(rx.to(torch.uint8), depth, 255).reshape(nmsg, 255)
+
+    sigma = float(np.sqrt(1.0 / (2 * 0.5 * 10 ** (2.5 / 10))))   # Eb/N0 2.5 dB at rate 1/2
+    runs = []
+    for d in (dev, cpu):
+        m = torch.as_tensor(msg_np, device=d)
+        crc_tx = crc_of(m)
+        cw, info, coded = transmit(m)
+        noise = (sigma * np.random.default_rng(1).standard_normal(tuple(coded.shape))).astype(
+            np.float32)
+        soft = fec.bpsk_soft(coded) + torch.as_tensor(noise, device=d)
+        hat = fec.viterbi_decode(cc, soft)
+        recv = to_words(hat)
+        out, ok = rs.rs_decode(rs_code[d], recv)
+        runs.append((crc_tx, cw, coded, soft, hat, recv, out, ok, crc_of(out), info))
+    crc_tx, cw, coded, soft, hat, recv, out, ok, crc_rx, info = runs[0]
+    want = [binascii.crc32(m.tobytes()) for m in msg_np]
+    sym_errs = int((recv != cw).sum())
+    bit_errs = int((hat != info).sum())
+    link_same = same(runs[0][:9], runs[1][:9])
+    ms_vit = median_ms(torch, lambda: fec.viterbi_decode(cc, soft), reps=3)
+    ms_rs = median_ms(torch, lambda: rs.rs_decode(rs_code[dev], recv))
+    print(f"[15] CCSDS link ({nmsg} x RS(255,223), I = {depth}, {ngroups} K=7 frames of "
+          f"{info.shape[-1]} info bits, {coded.shape[-1] // 2} trellis steps, Eb/N0 2.5 dB): "
+          f"inner bit errors {bit_errs}, symbol errors {sym_errs}; every word ok "
+          f"{bool(ok.all())}, equal to its message {bool(torch.equal(out.cpu(), torch.as_tensor(msg_np)))}; "
+          f"CRC-32 == binascii.crc32 {crc_tx.cpu().tolist() == want}, after decoding "
+          f"{crc_rx.cpu().tolist() == want}; GPU == CPU (torch.equal) {link_same}", flush=True)
+    require(crc_tx.cpu().tolist() == want, "CCSDS link: CRC-32 on the card != binascii.crc32")
+    require(sym_errs > 0, "CCSDS link: the inner decoder left no symbol error")
+    require(bool(ok.all()) and torch.equal(out.cpu(), torch.as_tensor(msg_np)),
+            "CCSDS link: a word not recovered")
+    require(crc_rx.cpu().tolist() == want, "CCSDS link: CRC-32 after decoding differs")
+    require(link_same, "CCSDS link: GPU != CPU")
+    report("CCSDS viterbi_decode", ms_vit, coded.numel(), op_count(torch, lambda: fec.viterbi_decode(cc, soft)))
+    report("CCSDS rs_decode", ms_rs, recv.numel() * 8, op_count(torch, lambda: rs.rs_decode(rs_code[dev], recv)))
+    del runs, crc_tx, cw, coded, soft, hat, recv, out, ok, crc_rx, info
+
+    # --- 2. RS alone: 512 words, 16 byte errors each (bench/fec_onchip.py rs)
+    rng = np.random.default_rng(0)
+    msg_np = rng.integers(0, 256, (C15_RS_BATCH, 223), dtype=np.uint8)
+    cw_np = rs.rs_encode(rs_code[cpu], torch.as_tensor(msg_np)).numpy()
+    mask = error_mask(rng, cw_np.shape, 16)
+    recv_np = cw_np ^ np.where(mask, rng.integers(1, 256, cw_np.shape), 0).astype(np.uint8)
+    recv = torch.as_tensor(recv_np, device=dev)
+    got = rs.rs_decode(rs_code[dev], recv)
+    ref = rs.rs_decode(rs_code[cpu], torch.as_tensor(recv_np))
+    ms = median_ms(torch, lambda: rs.rs_decode(rs_code[dev], recv))
+    fixed = bool(got[1].all()) and torch.equal(got[0].cpu(), torch.as_tensor(msg_np))
+    report(f"RS(255,223) alone, {C15_RS_BATCH} words x 16 byte errors", ms, recv.numel() * 8,
+           op_count(torch, lambda: rs.rs_decode(rs_code[dev], recv)),
+           f"; all corrected and ok {fixed}; GPU == CPU {same(got, ref)}")
+    require(fixed and same(got, ref), "RS alone: not all corrected, or GPU != CPU")
+
+    # --- 3. Viterbi alone: B 512, T 512, noise 0.6 (bench/fec_onchip.py viterbi)
+    u = np.random.default_rng(0).integers(0, 2, (C15_VIT_BATCH, C15_VIT_T))
+    coded_np = fec.conv_encode(cc, torch.as_tensor(u)).numpy()
+    noise = (C15_VIT_NOISE * np.random.default_rng(1).standard_normal(coded_np.shape)).astype(
+        np.float32)
+    soft_np = (1.0 - 2.0 * coded_np).astype(np.float32) + noise
+    soft = torch.as_tensor(soft_np, device=dev)
+    got = fec.viterbi_decode(cc, soft)
+    ref = fec.viterbi_decode(cc, torch.as_tensor(soft_np))
+    ms = median_ms(torch, lambda: fec.viterbi_decode(cc, soft))
+    ber = float((got.cpu().numpy() != u).mean())
+    report(f"Viterbi alone, K=7, B {C15_VIT_BATCH}, T {C15_VIT_T}, noise {C15_VIT_NOISE}", ms,
+           soft.numel(), op_count(torch, lambda: fec.viterbi_decode(cc, soft)),
+           f"; BER {ber}; GPU == CPU {same([got], [ref])}")
+    require(same([got], [ref]), "Viterbi alone: GPU != CPU")
+
+    # --- 4. BCH(31,21), POCSAG: 4096 words, 2 bit errors each
+    bch_code = {d: bch.make_bch_code(5, 2, device=d) for d in (dev, cpu)}
+    rng = np.random.default_rng(0)
+    msg_np = rng.integers(0, 2, (C15_BCH_BATCH, 21))
+    cw_np = bch.bch_encode(bch_code[cpu], torch.as_tensor(msg_np)).numpy()
+    recv_np = cw_np ^ error_mask(rng, cw_np.shape, 2)
+    recv = torch.as_tensor(recv_np, device=dev)
+    got = bch.bch_decode(bch_code[dev], recv)
+    ref = bch.bch_decode(bch_code[cpu], torch.as_tensor(recv_np))
+    ms = median_ms(torch, lambda: bch.bch_decode(bch_code[dev], recv))
+    fixed = bool(got[1].all()) and torch.equal(got[0].cpu(), torch.as_tensor(msg_np, dtype=torch.int32))
+    report(f"BCH(31,21) t 2, {C15_BCH_BATCH} words x 2 bit errors", ms, recv.numel(),
+           op_count(torch, lambda: bch.bch_decode(bch_code[dev], recv)),
+           f"; all corrected and ok {fixed}; GPU == CPU {same(got, ref)}")
+    require(fixed and same(got, ref), "BCH: not all corrected, or GPU != CPU")
+
+    # --- 5. Golay(24,12): 65,536 words with 0-3 errors, 4,096 with 4
+    gc = golay.make_golay()
+    rng = np.random.default_rng(0)
+    data_np = rng.integers(0, 2, (C15_GOLAY_WORDS + C15_GOLAY_FOUR, 12))
+    cw_np = golay.golay_encode(gc, torch.as_tensor(data_np)).numpy()
+    counts = np.concatenate([np.arange(C15_GOLAY_WORDS) % 4, np.full(C15_GOLAY_FOUR, 4)])
+    recv_np = cw_np ^ error_mask(rng, cw_np.shape, counts)
+    recv = torch.as_tensor(recv_np, device=dev)
+    got = golay.golay_decode(gc, recv)
+    ref = golay.golay_decode(gc, torch.as_tensor(recv_np))
+    ms = median_ms(torch, lambda: golay.golay_decode(gc, recv))
+    nc = C15_GOLAY_WORDS
+    fixed = (bool(got[2][:nc].all()) and torch.equal(got[0][:nc].cpu(), torch.as_tensor(
+        data_np[:nc], dtype=torch.int32)) and torch.equal(got[1][:nc].cpu(), torch.as_tensor(
+            counts[:nc], dtype=torch.int32)))
+    flagged = not bool(got[2][nc:].any())
+    report(f"Golay(24,12), {nc} words x 0-3 errors + {C15_GOLAY_FOUR} x 4", ms, recv.numel(),
+           op_count(torch, lambda: golay.golay_decode(gc, recv)),
+           f"; 0-3 corrected {fixed}, every 4-error word flagged {flagged}; GPU == CPU "
+           f"{same(got, ref)}")
+    require(fixed and flagged and same(got, ref), "Golay: a word miscorrected, or GPU != CPU")
+
+    # --- 6. polar N 256, K 128, 3 dB (bench/polar_onchip.py): SC at B 32,768, SCL-8 at B 1,024
+    pc = polar.make_polar(C15_POLAR_N, C15_POLAR_K)
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 2, (C15_SC_BATCH, pc.k))
+    cw_np = polar.polar_encode(pc, torch.as_tensor(u)).numpy()
+    sig = float(10.0 ** (-C15_POLAR_SNR / 20.0))
+    llr_np = (2.0 / sig ** 2 * ((1.0 - 2.0 * cw_np) + sig * rng.standard_normal(cw_np.shape))
+              ).astype(np.float32)
+    llr = torch.as_tensor(llr_np, device=dev)
+    got = polar.polar_decode(pc, llr)
+    ref = polar.polar_decode(pc, torch.as_tensor(llr_np))
+    ms = median_ms(torch, lambda: polar.polar_decode(pc, llr))
+    ber = float((got[0].cpu().numpy() != u).mean())
+    report(f"polar SC, N {pc.n}, K {pc.k}, {C15_POLAR_SNR} dB, B {C15_SC_BATCH}", ms, llr.numel(),
+           op_count(torch, lambda: polar.polar_decode(pc, llr)),
+           f"; BER {ber}; GPU == CPU {same(got, ref)}")
+    require(same(got, ref), "polar SC: GPU != CPU")
+    nb, lsz = C15_SCL_BATCH, C15_SCL_L
+    llr_s = llr[:nb].contiguous()
+
+    def scl():
+        return polar.polar_decode_list(pc, llr_s, lsz)
+
+    outs = [scl(), polar.polar_decode_list_onehot(pc, llr_s, lsz),
+            polar.polar_decode_list_onehot(pc, llr_s, lsz, fast=True)]
+    ref = polar.polar_decode_list(pc, torch.as_tensor(llr_np[:nb]), lsz)
+    agree = all(same(outs[0], [o.cpu() for o in v]) for v in outs)
+    ber = float((outs[0][0][:, 0].cpu().numpy() != u[:nb]).mean())
+    print(f"[15] polar SCL L {lsz}, B {nb}: gather == one-hot == fast (torch.equal) {agree}; "
+          f"GPU == CPU {same(outs[0], ref)}; BER {ber}", flush=True)
+    require(agree and same(outs[0], ref), "polar SCL: forms disagree or GPU != CPU")
+    report(f"polar SCL-{lsz}, B {nb}", median_ms(torch, scl, reps=3), llr_s.numel(),
+           op_count(torch, scl))
+    del outs, ref, llr, llr_s, got
+
+    # --- 7. framing: the 802.11 scrambler over 32 streams of 2^20 bits in one
+    # call and in two uneven chunks; an HDLC round trip of 2^20 bits
+    scr = gf2.make_scrambler((4, 7), 7)
+    bits_np = np.random.default_rng(0).integers(0, 2, (C15_SCR_STREAMS, C15_SCR_BITS))
+    split = C15_SCR_BITS // 3 + 1
+
+    def scramble_on(d, chunks):
+        s = gf2.gf2_init(scr, 0x5D, device=d)
+        x = torch.as_tensor(bits_np, device=d)
+        ys = []
+        for a, b in zip((0,) + chunks, chunks + (C15_SCR_BITS,)):
+            s, y = gf2.scramble(scr, s, x[:, a:b])
+            ys.append(y)
+        return s, torch.cat(ys, dim=-1)
+
+    one = scramble_on(dev, ())
+    two = scramble_on(dev, (split,))
+    ref = scramble_on(cpu, ())
+    chunks_same = all(torch.equal(a, b) for a, b in zip(one, two))
+    ms = median_ms(torch, lambda: scramble_on(dev, ()), reps=3)
+    report(f"802.11 scrambler, {C15_SCR_STREAMS} x {C15_SCR_BITS} bits", ms, bits_np.size,
+           op_count(torch, lambda: scramble_on(dev, ())),
+           f"; two chunks (split {split}) == one call {chunks_same}; GPU == CPU {same(one, ref)}")
+    require(chunks_same and same(one, ref), "scrambler: chunks != one call, or GPU != CPU")
+
+    pay_np = np.random.default_rng(1).integers(0, 2, C15_HDLC_BITS).astype(np.int32)
+    pay = torch.as_tensor(pay_np, device=dev)
+    st = hdlc.stuff_bits(pay)
+    st_ref = hdlc.stuff_bits(torch.as_tensor(pay_np))
+    stuffed = hdlc.compact_bits(st[0], st[1])
+    frame = torch.as_tensor(np.concatenate([hdlc.FLAG, stuffed, hdlc.FLAG]), device=dev)
+    flags = hdlc.find_flags(frame)
+    where = torch.nonzero(flags).flatten().cpu().tolist()
+    body = frame[8:-8]
+    de = hdlc.destuff_bits(body)
+    de_ref = hdlc.destuff_bits(body.cpu())
+    back = hdlc.compact_bits(de[0], de[1])
+    round_trip = bool(np.array_equal(back, pay_np))
+    hdlc_same = (same(st, st_ref) and same(de, de_ref)
+                 and torch.equal(flags.cpu(), hdlc.find_flags(frame.cpu())))
+    ms_st = median_ms(torch, lambda: hdlc.stuff_bits(pay))
+    ms_de = median_ms(torch, lambda: hdlc.destuff_bits(body))
+    ms_fl = median_ms(torch, lambda: hdlc.find_flags(frame))
+    print(f"[15] HDLC, {pay.numel()} payload bits -> {stuffed.size} stuffed: round trip {round_trip}, "
+          f"flags at {where} (frame of {frame.numel()}); GPU == CPU {hdlc_same}", flush=True)
+    report("HDLC stuff_bits", ms_st, pay.numel(), op_count(torch, lambda: hdlc.stuff_bits(pay)))
+    report("HDLC destuff_bits", ms_de, body.numel(), op_count(torch, lambda: hdlc.destuff_bits(body)))
+    report("HDLC find_flags", ms_fl, frame.numel(), op_count(torch, lambda: hdlc.find_flags(frame)))
+    require(round_trip and where == [0, frame.numel() - 8] and hdlc_same,
+            "HDLC: round trip, flags or GPU == CPU failed")
+
+
 def main() -> int:
     import torch
 
@@ -939,7 +1224,7 @@ def main() -> int:
     del kout, pout, k1, p1
 
     def same(a, b):
-        return all(torch.equal(u, v) for u, v in zip(a, b))
+        return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
     # K4, K5 and K6 at config-1 shape, f32 and bf16 ingest
     g1r, g1i = (torch.as_tensor(a[0], device=dev)
@@ -1930,6 +2215,11 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")
+
+    # --- 15. the classical FEC tier (plain torch: no kernel, no launch counted) ---
+    t15 = time.perf_counter()
+    phase15(torch, dev)
+    print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -1,8 +1,10 @@
 """Carry parameters and streaming state between the JAX package and this one.
 
 For this DSP system the "weights" are the taps, the tuning words, the code
-descriptions (LDPC, QC and turbo), the filter designs (IIR, decimation plan,
-DDC, AGC, AFC) and the carried streaming state. The JAX
+descriptions (LDPC, QC, turbo, convolutional, RS, BCH, polar, Golay, the
+GF(2) machines and CRCs), the filter designs (IIR, decimation plan, DDC,
+AGC, AFC) and the carried streaming state (the GF(2) / CRC register and the
+convolutional interleaver's delay lines included). The JAX
 objects are read through their attributes and ``np.asarray`` (no JAX import
 here), so a stream started by the JAX package continues here with no seam;
 `fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
@@ -14,11 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srcdsp_tpu_torch import bch as tbch
+from srcdsp_tpu_torch import rs as trs
 from srcdsp_tpu_torch.chains.channelizer import ChannelizerState
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
 from srcdsp_tpu_torch.chains.psk import PskParams, PskState
 from srcdsp_tpu_torch.chains.sync import TimingState
 from srcdsp_tpu_torch.device import resolve
+from srcdsp_tpu_torch.fec import ConvCode
+from srcdsp_tpu_torch.gf2 import CrcSpec, Gf2Machine
+from srcdsp_tpu_torch.golay import Golay
+from srcdsp_tpu_torch.interleave import ConvInterleaverState
 from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
 from srcdsp_tpu_torch.kernels.ldpc_pallas import EdgePlan, QcPlan
 from srcdsp_tpu_torch.ldpc import LdpcCode
@@ -34,6 +42,7 @@ from srcdsp_tpu_torch.ops.halfband import HalfbandState
 from srcdsp_tpu_torch.ops.iir import IirParams, IirState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState
+from srcdsp_tpu_torch.polar import PolarCode
 from srcdsp_tpu_torch.turbo import RscCode, TurboCode
 
 
@@ -277,3 +286,78 @@ def afc_state_from(s, device=None) -> AfcState:
                     nco=NcoState(phase=word_tensor(np.asarray(s.nco.phase, np.uint32), device)),
                     up=FirState(tail=_t(s.up.tail, device)),
                     lo=FirState(tail=_t(s.lo.tail, device)))
+
+
+# ---------- the classical FEC tier ----------
+
+def conv_code_from(c) -> ConvCode:
+    """ConvCode (host tables) from any object with the JAX ConvCode fields."""
+    return ConvCode(k=int(c.k), n=int(c.n), gens=tuple(int(g) for g in c.gens),
+                    taps=np.array(c.taps, np.float32), exp_pm1=np.array(c.exp_pm1, np.float32),
+                    prev=np.array(c.prev, np.int32), prev_edge=np.array(c.prev_edge, np.int32))
+
+
+def _code_from(c, cls, float_keys, device, host_keys=()):
+    """`cls` from the same-named fields of `c`: ints kept, arrays moved."""
+    fields = {f: getattr(c, f) for f in cls._fields}
+    return trs.code_tensors({f: v if isinstance(v, int) else np.asarray(v) for f, v in fields.items()},
+                            cls, float_keys, device, host_keys)
+
+
+def rs_code_from(c, device=None) -> trs.RsCode:
+    """RsCode (tables on `device`) from any object with the JAX RsCode fields."""
+    return _code_from(c, trs.RsCode, ("enc_bits", "syn_bits"), device)
+
+
+def bch_code_from(c, device=None) -> tbch.BchCode:
+    """BchCode (tables on `device`, the generator on the host) from any object
+    with the JAX BchCode fields."""
+    return _code_from(c, tbch.BchCode, ("enc_bits", "syn_bits"), device, host_keys=("gen",))
+
+
+def polar_code_from(c) -> PolarCode:
+    """PolarCode (host arrays) from any object with the JAX PolarCode fields."""
+    return PolarCode(n=int(c.n), k=int(c.k), frozen=np.array(c.frozen, bool),
+                     data_pos=np.array(c.data_pos, np.int64))
+
+
+def golay_from(c) -> Golay:
+    """Golay (host tables) from any object with the JAX Golay fields."""
+    return Golay(g=np.array(c.g), h=np.array(c.h), table=np.array(c.table, np.int8),
+                 correctable=np.array(c.correctable, bool))
+
+
+def gf2_machine_from(m) -> Gf2Machine:
+    """Gf2Machine from any object with A, B, C, D and a block length (the JAX
+    Gf2Machine's a, b, c, d, block)."""
+    return Gf2Machine(np.array(m.a), np.array(m.b), np.array(m.c), int(m.d), int(m.block))
+
+
+def crc_spec_from(spec) -> CrcSpec:
+    """CrcSpec from any object with the JAX CrcSpec fields."""
+    return CrcSpec(machine=gf2_machine_from(spec.machine), width=int(spec.width),
+                   init=int(spec.init), xorout=int(spec.xorout), reflect=bool(spec.reflect))
+
+
+def gf2_state_from(s, device=None) -> torch.Tensor:
+    """A GF(2) machine's register [..., p] (a CRC's too) from the JAX one,
+    float32."""
+    return _t(s, resolve(device), np.float32)
+
+
+def gf2_state_to_numpy(s: torch.Tensor) -> np.ndarray:
+    """The register as a float32 numpy array (the JAX state's layout)."""
+    return s.detach().cpu().numpy().astype(np.float32)
+
+
+
+def conv_interleaver_state_from(s, device=None) -> ConvInterleaverState:
+    """ConvInterleaverState (delay lines on `device`, dtypes kept) from any
+    object with a ``lines`` tuple (the JAX interleaver or deinterleaver state)."""
+    device = resolve(device)
+    return ConvInterleaverState(lines=tuple(_t(line, device) for line in s.lines))
+
+
+def conv_interleaver_state_to_numpy(s: ConvInterleaverState) -> tuple:
+    """The delay lines as a tuple of numpy arrays."""
+    return tuple(line.detach().cpu().numpy() for line in s.lines)

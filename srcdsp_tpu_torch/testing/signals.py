@@ -16,6 +16,12 @@ def tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np
     return (amplitude * np.exp(2j * np.pi * ((freq * k + phase0) % 1.0))).astype(np.complex64)
 
 
+def complex_awgn(rng: np.random.Generator, shape: tuple, power: float = 1.0) -> np.ndarray:
+    """Circular complex white Gaussian noise with total power `power`, complex64."""
+    s = np.sqrt(power / 2.0)
+    return (s * rng.standard_normal(shape) + 1j * s * rng.standard_normal(shape)).astype(np.complex64)
+
+
 def random_bits(rng: np.random.Generator, shape: tuple) -> np.ndarray:
     """Fair random bits {0, 1} as int32."""
     return rng.integers(0, 2, size=shape, dtype=np.int32)

@@ -21,6 +21,10 @@ I16 = torch.int16
 #: Default full-scale for int16 IQ captures: int16 full scale maps to 1.0.
 DEFAULT_SCALE = 32767.0
 
+#: Finite float32-max sentinel for masked reductions and path metrics
+#: (the JAX package's ``F32_BIG``).
+F32_BIG = np.float32(3.4e38)
+
 INT16_MIN = -32768
 INT16_MAX = 32767
 

@@ -1128,3 +1128,94 @@ def test_halo_kernels_across_two_cards(dev):
     torch.cuda.set_device(cards[0])
     kfs[1].fn(0, word, shards[0][:, -kfs[1].hist:], shards[1])
     assert torch.cuda.current_device() == cards[0].index
+
+
+# ---------- the classical FEC tier: plain torch on the card == the CPU run ----------
+
+def _fec_cases():
+    from srcdsp_tpu_torch import bch, fec, gf2, golay, hdlc, interleave, polar, rs
+
+    rng = np.random.default_rng(15)
+    cc = fec.make_conv_code(7, (0o171, 0o133))
+    u = rng.integers(0, 2, (8, 200))
+    coded = fec.conv_encode(cc, torch.as_tensor(u)).numpy()
+    soft = ((1.0 - 2.0 * coded) + 0.8 * rng.standard_normal(coded.shape)).astype(np.float32)
+    rs_msg = rng.integers(0, 256, (8, 223), dtype=np.uint8)
+    rs_cw = rs.rs_encode(rs.make_rs_code(device="cpu"), torch.as_tensor(rs_msg)).numpy()
+    rs_rx = rs_cw.copy()
+    for row, ne in zip(rs_rx, (0, 1, 8, 15, 16, 17, 20, 30)):
+        row[rng.choice(255, ne, replace=False)] ^= rng.integers(1, 256, ne).astype(np.uint8)
+    bch_rx = rng.integers(0, 2, (64, 31))
+    pc = polar.make_polar(64, 32)
+    llr = (4.0 * rng.standard_normal((16, 64))).astype(np.float32)
+    hd = (rng.random(3000) < 0.8).astype(np.int32)
+    crc = gf2.make_crc(0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, reflect=True)
+    scr = gf2.make_scrambler((4, 7), 7)
+    bits = rng.integers(0, 2, (4, 1500))
+    t = torch.as_tensor
+    return {
+        "conv_encode": lambda d: [fec.conv_encode(cc, t(u, device=d))],
+        "viterbi_soft": lambda d: [fec.viterbi_decode(cc, t(soft, device=d))],
+        "viterbi_ties_open": lambda d: [fec.viterbi_decode(cc, t(np.round(soft), device=d),
+                                                           terminated=False)],
+        "viterbi_hard": lambda d: [fec.viterbi_decode_hard(cc, t(soft < 0, device=d))],
+        "rs_decode": lambda d: list(rs.rs_decode(rs.make_rs_code(device=d), t(rs_rx, device=d))),
+        "bch_decode": lambda d: list(bch.bch_decode(bch.make_bch_code(5, 2, device=d),
+                                                    t(bch_rx, device=d))),
+        "golay_decode": lambda d: list(golay.golay_decode(golay.make_golay(),
+                                                          t(bch_rx[:, :24], device=d))),
+        "polar_sc": lambda d: list(polar.polar_decode(pc, t(llr, device=d))),
+        "polar_scl": lambda d: list(polar.polar_decode_list(pc, t(llr, device=d), 8)),
+        "polar_scl_onehot_fast": lambda d: list(polar.polar_decode_list_onehot(
+            pc, t(llr, device=d), 8, fast=True)),
+        "crc32": lambda d: [gf2.crc_value(crc, gf2.crc_update(crc, gf2.crc_init(crc, device=d),
+                                                             t(bits, device=d)))],
+        "scramble": lambda d: list(gf2.scramble(scr, gf2.gf2_init(scr, 0x5D, device=d),
+                                                t(bits, device=d))),
+        "hdlc": lambda d: (list(hdlc.stuff_bits(t(hd, device=d), 3))
+                           + list(hdlc.destuff_bits(t(hd, device=d), 2))
+                           + [hdlc.find_flags(t(hd, device=d))]),
+        "interleave": lambda d: [interleave.block_interleave(t(rs_cw[:4].reshape(1, -1), device=d),
+                                                             4, 255)],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_fec_cases()))
+def test_fec_tier_on_card_equals_cpu(dev, name):
+    """Each decoder and coder of the FEC tier at a small shape: the card's
+    result torch.equal to the CPU run on the same inputs."""
+    run = _fec_cases()[name]
+    got, want = run(dev), run(torch.device("cpu"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+
+
+def test_fec_branch_metrics_and_onehot_with_tf32_allowed(dev):
+    """With TF32 allowed globally, the Viterbi branch metrics (products by
+    +-1, summed in order: no matmul) and decisions equal the CPU's, and the
+    one-hot SCL entry point equals the gather form and the CPU's SCL."""
+    from srcdsp_tpu_torch import fec, polar
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        cc = fec.make_conv_code(7, (0o171, 0o133))
+        r = torch.as_tensor(np.random.default_rng(3).standard_normal((4, 300, 2)).astype(np.float32))
+        assert torch.equal(fec.branch_metrics(cc, r.to(dev)).cpu(), fec.branch_metrics(cc, r))
+        soft = r.reshape(4, 600)
+        assert torch.equal(fec.viterbi_decode(cc, soft.to(dev)).cpu(), fec.viterbi_decode(cc, soft))
+        pc = polar.make_polar(128, 64)
+        llr = torch.as_tensor((3.0 * np.random.default_rng(4).standard_normal((32, 128))).astype(
+            np.float32), device=dev)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        onehot = polar.polar_decode_list_onehot(pc, llr, 8, fast=True)
+        gather = polar.polar_decode_list(pc, llr, 8)
+        on_cpu = polar.polar_decode_list(pc, llr.cpu(), 8)
+        assert len(onehot) == len(gather) == len(on_cpu) == 3
+        for a, b, c in zip(onehot, gather, on_cpu):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

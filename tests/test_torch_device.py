@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from srcdsp_tpu_torch import configs, convert
-from srcdsp_tpu_torch import ldpc, qcldpc, turbo
+from srcdsp_tpu_torch import bch, gf2, interleave, ldpc, qcldpc, rs, turbo
 from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.dist import channelize as dchan
@@ -250,6 +250,17 @@ ENTRY_POINTS = {
         _JaxLike(tail=np.zeros(16, np.complex64)), **d),
     "fftconv_state_from": lambda **d: convert.fftconv_state_from(
         _JaxLike(tail=np.zeros(961, np.complex64)), **d),
+    "gf2_init": lambda **d: gf2.gf2_init(gf2.make_scrambler((4, 7), 7), 0x5D, **d),
+    "crc_init": lambda **d: gf2.crc_init(gf2.make_crc(0x1021, 16, 0xFFFF), **d),
+    "conv_interleave_init": lambda **d: interleave.conv_interleave_init(4, 3, (2,), **d),
+    "conv_deinterleave_init": lambda **d: interleave.conv_deinterleave_init(4, 3, (2,), **d),
+    "make_rs_code": lambda **d: rs.make_rs_code(15, 11, **d),
+    "make_bch_code": lambda **d: bch.make_bch_code(4, 1, **d),
+    "rs_code_from": lambda **d: convert.rs_code_from(rs.make_rs_code(15, 11, device="cpu"), **d),
+    "bch_code_from": lambda **d: convert.bch_code_from(bch.make_bch_code(4, 1, device="cpu"), **d),
+    "gf2_state_from": lambda **d: convert.gf2_state_from(np.ones(7, np.float32), **d),
+    "conv_interleaver_state_from": lambda **d: convert.conv_interleaver_state_from(
+        _JaxLike(lines=(np.zeros(0, np.float32), np.zeros(3, np.float32))), **d),
 }
 
 

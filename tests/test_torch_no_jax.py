@@ -57,3 +57,10 @@ def test_scan_covers_the_distribution_tier_and_halo_cu_is_built():
     assert "halo.cu" in _build.SOURCES
     assert {"srcdsp_halo", "srcdsp_halo_fused", "srcdsp_enable_peer"} <= set(_build._SIGNATURES)
     assert {"halo_dma", "halo_fused"} <= set(_build.LAUNCHES)
+
+
+def test_scan_covers_the_fec_tier():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("gf2", "interleave", "hdlc", "golay", "fec", "rs", "bch", "polar", "metrics",
+                "testing/channel"):
+        assert f"srcdsp_tpu_torch/{mod}.py" in names
