@@ -125,7 +125,26 @@ Phases, in order; any failure raises and the run exits non-zero:
    polar N 256, K 128 at 3 dB (SC at B 32,768; SC-list L 8 at B 1,024, the
    one-hot entry point with and without fast equal to it), the 802.11 scrambler over 32 x
    2^20 bits (two uneven chunks == one call) and an HDLC round trip of 2^20
-   bits with its two flags found.
+   bits with its two flags found;
+16. the synchronization and block-equalizer tier, plain torch except the
+   coded OFDM modem's K15, at the JAX probes' widths (bench/tracking_onchip.py,
+   ofdm_onchip.py, scfde_onchip.py, ofdm_modem_onchip.py), every step's
+   decisions equal to the port's own CPU run of the same call on the same
+   numpy-made inputs and to the transmitted data: the feedforward PSK
+   tracker over 8 x 8*2^16 samples (QPSK, sps 4, block 128) on a warped
+   clock (SER 0) and, ragged, on a 3000 ppm clock (valid masks equal, the
+   emitted count above nominal, SER 0); the closed-loop PSK (block 8192) and
+   FSK (block 2^14) plane trackers over 8 channels, 2 blocks each (the probe
+   ran 8: a depth cut for time; mismatch against the CPU run <= 1e-3, errors
+   0 after 64 symbols); the OFDM planes receiver (8 x 16,384 16-QAM symbols,
+   soft within rel L2 1e-5 of the CPU run) and the SC-FDE planes receiver
+   (8 x 4,096 QPSK blocks of 256), SER 0; the coded OFDM modem (8 x 512
+   codewords of the z = 128 code, 16-QAM, 15 dB, 4 pilot symbols, 6
+   iterations) with every syndrome clean, decoded == transmitted and K15's
+   launch count rising across the call; OOK over 32 x 2^20 samples (sps 8,
+   rise 3), BER 0. Each step prints its ms a call (CUDA-event median of 5;
+   the closed loops by the host clock, marked), aggregate Ms/s, torch ops a
+   call and us an op, and the phase its total seconds.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -153,7 +172,8 @@ library yardstick, and K20 on
 the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
-kernel must have run on the main path. Phase 15 launches none of them. The last three lines are one JSON
+kernel must have run on the main path. Phase 15 launches none of them;
+phase 16 reads K15's count before and after its modem on its own. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -213,6 +233,17 @@ C15_BCH_BATCH, C15_GOLAY_WORDS, C15_GOLAY_FOUR = 4096, 65536, 4096
 C15_POLAR_N, C15_POLAR_K, C15_POLAR_SNR = 256, 128, 3.0
 C15_SC_BATCH, C15_SCL_BATCH, C15_SCL_L = 32768, 1024, 8
 C15_SCR_STREAMS, C15_SCR_BITS, C15_HDLC_BITS = 32, 1 << 20, 1 << 20
+# phase 16, the sync and block-equalizer tier, at the JAX probes' widths
+# (bench/tracking_onchip.py, ofdm_onchip.py, scfde_onchip.py,
+# ofdm_modem_onchip.py); the closed loops run 2 blocks (the probe ran 8: a
+# depth cut for time), the OOK step a capture of 32 keyfob-class channels
+C16_CHANNELS, C16_FF_SAMPLES, C16_FF_BLOCK, C16_RHO = 8, 8 << 16, 128, 3e-3
+C16_TRACK_BLOCKS, C16_PSK_BLOCK, C16_FSK_BLOCK, C16_SETTLE = 2, 1 << 13, 1 << 14, 64
+C16_OFDM_SYMBOLS, C16_SCFDE_BLOCKS = 16384, 4096
+# the modem at 15 dB with 4 averaged pilot symbols: with one, the JAX
+# package's link misses at 15 dB (ok 0.894, BASELINE.md) and needs 18
+C16_MODEM_WORDS, C16_MODEM_Z, C16_MODEM_SNR, C16_MODEM_PILOTS = 512, 128, 15.0, 4
+C16_OOK_CHANNELS, C16_OOK_SAMPLES, C16_OOK_SPS = 32, 1 << 20, 8
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -986,6 +1017,307 @@ def phase15(torch, dev) -> None:
     report("HDLC find_flags", ms_fl, frame.numel(), op_count(torch, lambda: hdlc.find_flags(frame)))
     require(round_trip and where == [0, frame.numel() - 8] and hdlc_same,
             "HDLC: round trip, flags or GPU == CPU failed")
+
+
+def warp_clock(x: np.ndarray, amp: float, period: float) -> np.ndarray:
+    """Resample each row at t(n) = n + amp*sin(2*pi*n/period): a bounded,
+    sinusoidally wandering symbol clock (linear interpolation, float64)."""
+    n = np.arange(x.shape[-1] - int(np.ceil(amp)) - 1, dtype=np.float64)
+    t = n + amp * np.sin(2 * np.pi * n / period)
+    i0 = np.floor(t).astype(np.int64)
+    f = t - i0
+    return ((1 - f) * x[..., i0] + f * x[..., i0 + 1]).astype(np.complex64)
+
+
+def sustained_clock(x: np.ndarray, rho: float) -> np.ndarray:
+    """Resample each row at t(n) = n*(1 + rho): a clock rho fast, whose
+    offset accumulates whole symbols."""
+    nmax = int((x.shape[-1] - 2) / (1 + rho))
+    t = np.arange(nmax, dtype=np.float64) * (1 + rho)
+    i0 = np.floor(t).astype(np.int64)
+    f = t - i0
+    return ((1 - f) * x[..., i0] + f * x[..., i0 + 1]).astype(np.complex64)
+
+
+def best_errors(tx: np.ndarray, rx: np.ndarray, order: int, settle: int, lags: int = 24) -> int:
+    """Fewest errors of rx against tx over lags -lags..lags and, for an
+    M-PSK order > 2, the M constellation rotations (the carrier loop's
+    ambiguity), after `settle` symbols; order 2 compares bits as they are."""
+    best = None
+    for lag in range(-lags, lags + 1):
+        ts, rs = settle + max(lag, 0), settle + max(-lag, 0)
+        n = min(tx.shape[-1] - ts, rx.shape[-1] - rs) - 16
+        a, b = tx[ts:ts + n], rx[rs:rs + n]
+        for rot in range(order if order > 2 else 1):
+            err = int(np.count_nonzero((b + rot) % order != a))
+            best = err if best is None else min(best, err)
+    return best
+
+
+def phase16(torch, dev, launches) -> None:
+    """The synchronization and block-equalizer tier (plain torch; the coded
+    OFDM modem decodes through K15): each step at the JAX probes' full
+    width, its decisions held against the port's own CPU run of the same
+    call on the same numpy-made inputs and against the transmitted data,
+    timed (CUDA events; the closed loops by the host clock), with the torch
+    operations one call dispatches. K15's launches are read before and
+    after the modem."""
+    from srcdsp_tpu_torch.chains import feedforward, ofdm, ofdm_planes, ook, scfde, scfde_planes
+    from srcdsp_tpu_torch.chains import tracking_planes as tp
+    from srcdsp_tpu_torch.chains.fsk import make_fsk_params
+    from srcdsp_tpu_torch.chains.modem import map_codewords_to_symbols
+    from srcdsp_tpu_torch.chains.ofdm_modem import make_ofdm_coded_modem
+    from srcdsp_tpu_torch.chains.psk import make_psk_params
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+    from srcdsp_tpu_torch.chains.tracking import compact_ragged
+    from srcdsp_tpu_torch.kernels.ldpc_pallas import plan_qc
+    from srcdsp_tpu_torch.ops.fir import fir_full
+    from srcdsp_tpu_torch.ops.resample import resample_full
+    from srcdsp_tpu_torch.qcldpc import (make_dual_diagonal_base, make_qc_ldpc,
+                                         qc_encode_dual_diagonal)
+    from srcdsp_tpu_torch.testing.signals import fsk_baseband, ook_baseband
+
+    cpu = torch.device("cpu")
+    card = card_line()
+    c = C16_CHANNELS
+
+    def report(tag, ms, samples, ops, clock="CUDA-event median of 5", extra=""):
+        print(f"[16] {tag}: {ms:.3f} ms per call ({clock}), {samples / ms / 1e3:.1f} Ms/s "
+              f"aggregate, {ops} torch ops a call, {ms * 1e3 / ops:.1f} us an op{extra} "
+              f"({card})", flush=True)
+
+    def rel_l2(a, b) -> float:
+        return float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b))
+
+    def shaped_qpsk(rng, nsym, sps):
+        """[C, nsym*sps] QPSK at (m + 0.5)/4 turns, RRC-shaped on the card."""
+        data = rng.integers(0, 4, (c, nsym))
+        sym = np.exp(2j * np.pi * (data + 0.5) / 4).astype(np.complex64)
+        taps = make_psk_params(0.0, 1, sps, 4, device=dev).taps
+        return data, resample_full(taps, torch.as_tensor(sym, device=dev), up=sps,
+                                   down=1).cpu().numpy(), taps
+
+    # --- 1. feedforward PSK, bounded: 8 x 8*2^16, QPSK, sps 4, block 128 ----
+    rng = np.random.default_rng(0)
+    n = C16_FF_SAMPLES
+    data, shaped, taps = shaped_qpsk(rng, n // 4 + 64, 4)
+    x = warp_clock(shaped, 1.5, 2048.0)
+    x = (x * np.exp(2j * np.pi * 1e-4 * np.arange(x.shape[-1]))[None]).astype(np.complex64)
+    y = fir_full(taps, torch.as_tensor(x, device=dev))
+    k = (y.shape[-1] // C16_FF_BLOCK) * C16_FF_BLOCK
+    yr, yi = y.real[:, :k].contiguous(), y.imag[:, :k].contiguous()
+
+    def ff(a, b):
+        return feedforward.ff_psk_demod_planes(a, b, 4, 4, block=C16_FF_BLOCK)
+
+    idx = ff(yr, yi)[0]
+    idx_c = ff(yr.cpu(), yi.cpu())[0]
+    same = bool(torch.equal(idx.cpu(), idx_c))
+    errs = [best_errors(data[ch], idx[ch].cpu().numpy(), 4, C16_SETTLE) for ch in range(c)]
+    report(f"feedforward PSK bounded ({c} x {k}, QPSK sps 4, block {C16_FF_BLOCK}, warp 1.5 / "
+           f"2048, CFO 1e-4)", median_ms(torch, lambda: ff(yr, yi)), c * k,
+           op_count(torch, lambda: ff(yr, yi)), extra=f"; == CPU run {same}; symbol errors "
+           f"after {C16_SETTLE} {errs}")
+    require(same and max(errs) == 0, f"feedforward PSK: == CPU {same}, errors {errs}")
+
+    # --- 2. feedforward PSK, ragged: the same at a 3000 ppm fast clock -------
+    rng = np.random.default_rng(0)
+    data, shaped, taps = shaped_qpsk(rng, int(n * (1 + C16_RHO)) // 4 + 64, 4)
+    y = fir_full(taps, torch.as_tensor(sustained_clock(shaped, C16_RHO), device=dev))
+    k = (y.shape[-1] // C16_FF_BLOCK) * C16_FF_BLOCK
+    yr, yi = y.real[:, :k].contiguous(), y.imag[:, :k].contiguous()
+
+    def ffr(a, b):
+        out = feedforward.ff_psk_demod_ragged(a, b, 4, 4, block=C16_FF_BLOCK)
+        return out[0], out[2]
+
+    idx, valid = ffr(yr, yi)
+    idx_c, valid_c = ffr(yr.cpu(), yi.cpu())
+    same = bool(torch.equal(idx.cpu(), idx_c) and torch.equal(valid.cpu(), valid_c))
+    got = compact_ragged(idx, valid)
+    counts = [g.size for g in got]
+    errs = [best_errors(data[ch], got[ch], 4, C16_SETTLE) for ch in range(c)]
+    report(f"feedforward PSK ragged ({c} x {k}, {C16_RHO * 1e6:.0f} ppm)",
+           median_ms(torch, lambda: ffr(yr, yi)), c * k, op_count(torch, lambda: ffr(yr, yi)),
+           extra=f"; idx and valid == CPU run {same}; emitted {min(counts)}..{max(counts)} "
+           f"symbols against {k // 4} nominal; symbol errors {errs}")
+    require(same, "feedforward PSK ragged: decisions or valid mask != CPU run")
+    require(min(counts) > k // 4 + 10, f"ragged count {counts} does not follow the clock")
+    require(max(errs) == 0, f"feedforward PSK ragged: symbol errors {errs}")
+    del y, yr, yi, shaped, x
+
+    # --- 3./4. closed-loop PSK and FSK tracking planes, 2 blocks each --------
+    def track(name, params_of, init, apply, planes, block, order, tx):
+        outs = []
+        for d in (dev, cpu):
+            params = params_of(d)
+            st = init(params, c)
+            blocks = []
+            t0 = time.perf_counter()
+            for b in range(C16_TRACK_BLOCKS):
+                st, o = apply(params, st, planes[:, :, b * block:(b + 1) * block].to(d))
+                blocks.append(o[0])
+            out = torch.cat(blocks, dim=-1).cpu()     # waits for the card
+            if not outs:
+                secs = time.perf_counter() - t0
+                st_card, p_card = st, params
+            outs.append(out)
+        mismatch = float((outs[0] != outs[1]).to(torch.float32).mean())
+        got = outs[0].numpy()
+        if order == 2:
+            got = got.astype(np.int64)
+        errs = [best_errors(tx[ch], got[ch], order, C16_SETTLE, lags=160) for ch in range(c)]
+        ms = secs * 1e3 / C16_TRACK_BLOCKS
+        x0 = planes[:, :, :block].to(dev)
+        ops = op_count(torch, lambda: apply(p_card, st_card, x0))
+        report(f"{name} ({c} x block {block}, {C16_TRACK_BLOCKS} blocks; the probe ran 8: "
+               f"a depth cut for time)", ms, c * block, ops, clock="host clock, one run",
+               extra=f"; mismatch against the CPU run {mismatch:.2e}; errors after "
+               f"{C16_SETTLE} {errs}; {ops / (got.shape[-1] // C16_TRACK_BLOCKS):.1f} ops a "
+               f"symbol")
+        require(mismatch <= 1e-3, f"{name}: mismatch against the CPU run {mismatch}")
+        require(max(errs) == 0, f"{name}: errors after settle {errs}")
+
+    rng = np.random.default_rng(0)
+    nblk = C16_TRACK_BLOCKS * C16_PSK_BLOCK
+    data, shaped, _ = shaped_qpsk(rng, nblk // 4 + 64, 4)
+    x = warp_clock(shaped, 1.5, 2048.0)[:, :nblk]
+    planes = torch.as_tensor(np.stack([x.real, x.imag], axis=1).astype(np.float32))
+    track("closed-loop PSK tracking planes (QPSK sps 4, warp 1.5 / 2048)",
+          lambda d: make_psk_params(0.0, 1, 4, 4, device=d), tp.psk_track_planes_init,
+          tp.psk_track_planes_apply, planes, C16_PSK_BLOCK, 4, data)
+
+    nblk = C16_TRACK_BLOCKS * C16_FSK_BLOCK
+    bits = np.random.default_rng(2).integers(0, 2, (c, nblk // 16 + 64))
+    x = warp_clock(fsk_baseband(bits, 16, 0.02), 1.5, 4096.0)[:, :nblk]
+    planes = torch.as_tensor(np.stack([x.real, x.imag], axis=1).astype(np.float32))
+    track("closed-loop FSK tracking planes (decim 2, sps 8, dev 0.02, warp 1.5 / 4096)",
+          lambda d: make_fsk_params(0.0, 64, 0.45 / 2, 2, 8, 0.04, device=d),
+          tp.fsk_track_planes_init, tp.fsk_track_planes_apply, planes, C16_FSK_BLOCK, 2, bits)
+    del planes, x, shaped
+
+    # --- 5. OFDM planes receiver: 8 x 16,384 symbols, 16-QAM ---------------
+    spec = ofdm.make_ofdm_spec(64, 16, 52, 16)
+    rng = np.random.default_rng(0)
+    pts = qam_constellation(16)
+    pilot = pts[rng.integers(0, 16, 52)]
+    data_idx = rng.integers(0, 16, (c, C16_OFDM_SYMBOLS, 52))
+    grid = np.concatenate([np.broadcast_to(pilot, (c, 1, 52)), pts[data_idx]], axis=1)
+    tx = ofdm.ofdm_modulate(spec, torch.as_tensor(grid.reshape(-1, 52), device=dev))
+    tx = tx.cpu().numpy().reshape(c, -1)
+    y = tx.astype(np.complex128)
+    y[:, 1:] += 0.2 * np.exp(0.5j) * tx[:, :-1]
+    y = y + 0.01 * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    args = [torch.as_tensor(np.ascontiguousarray(a, np.float32))
+            for a in (y.real, y.imag, pilot.real, pilot.imag)]
+    rx = {d: ofdm_planes.make_ofdm_rx_planes(spec, device=d) for d in (dev, cpu)}
+    on_card = [a.to(dev) for a in args]
+    idx, (zr, zi) = rx[dev](*on_card)
+    idx_c, (zr_c, zi_c) = rx[cpu](*args)
+    same = bool(torch.equal(idx.cpu(), idx_c))
+    ser = float((idx.cpu().numpy() != data_idx).mean())
+    soft = max(rel_l2(zr, zr_c), rel_l2(zi, zi_c))
+    report(f"OFDM planes receiver ({c} x {C16_OFDM_SYMBOLS} symbols, nfft 64, cp 16, 52 "
+           f"active, 16-QAM, 2-tap channel, noise 0.01)", median_ms(torch, lambda: rx[dev](*on_card)),
+           c * y.shape[-1], op_count(torch, lambda: rx[dev](*on_card)),
+           extra=f"; idx == CPU run {same}; SER {ser}; soft rel L2 {soft:.2e}")
+    require(same and ser == 0.0 and soft <= 1e-5, f"OFDM planes: == CPU {same}, SER {ser}, "
+            f"soft {soft}")
+    del y, tx, grid, args, on_card, zr, zi, zr_c, zi_c
+
+    # --- 6. SC-FDE planes receiver: 8 x 4,096 blocks, n 256, QPSK ----------
+    rng = np.random.default_rng(0)
+    sp = {d: scfde.make_scfde_spec(256, 32, device=d) for d in (dev, cpu)}
+    pts = qam_constellation(4)
+    data_idx = rng.integers(0, 4, (c, C16_SCFDE_BLOCKS, 256))
+    tx = torch.stack([scfde.scfde_tx(sp[dev], torch.as_tensor(pts[data_idx[ch]], device=dev))
+                      for ch in range(c)]).cpu().numpy()
+    y = tx.astype(np.complex128)
+    y[:, 2:] += 0.3 * np.exp(1.1j) * tx[:, :-2]
+    y = y + 0.02 * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    args = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in (y.real, y.imag)]
+    rx = {d: scfde_planes.make_scfde_rx_planes(sp[d], order=4, snr=200.0, device=d)
+          for d in (dev, cpu)}
+    on_card = [a.to(dev) for a in args]
+    idx, (zr, zi) = rx[dev](*on_card)
+    idx_c, (zr_c, zi_c) = rx[cpu](*args)
+    same = bool(torch.equal(idx.cpu(), idx_c))
+    ser = float((idx.cpu().numpy() != data_idx).mean())
+    soft = max(rel_l2(zr, zr_c), rel_l2(zi, zi_c))
+    report(f"SC-FDE planes receiver ({c} x {C16_SCFDE_BLOCKS} blocks, n 256, cp 32, QPSK, "
+           f"3-tap channel, noise 0.02, snr 200)", median_ms(torch, lambda: rx[dev](*on_card)),
+           c * y.shape[-1], op_count(torch, lambda: rx[dev](*on_card)),
+           extra=f"; idx == CPU run {same}; SER {ser}; soft rel L2 {soft:.2e}")
+    require(same and ser == 0.0, f"SC-FDE planes: == CPU {same}, SER {ser}")
+    del y, tx, args, on_card, zr, zi, zr_c, zi_c
+
+    # --- 7. coded OFDM modem through K15: 8 x 512 codewords, z 128 ---------
+    z, nw = C16_MODEM_Z, C16_MODEM_WORDS
+    base = make_dual_diagonal_base(4, 12, z, seed=0)
+    plan = plan_qc(base, z)
+    n_cw, k_cw = 12 * z, 8 * z
+    spc = n_cw // 4
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(rng.integers(0, 2, (c * nw, k_cw)), device=dev)
+    cw = qc_encode_dual_diagonal(base, z, u)
+    sidx = map_codewords_to_symbols(cw, 16).cpu().numpy().reshape(c, nw * spc)
+    pts = qam_constellation(16)
+    s_data = -(-(nw * spc) // 52)
+    fill = rng.integers(0, 16, (c, s_data * 52 - nw * spc))
+    pilot = pts[rng.integers(0, 16, 52)]
+    grid = np.concatenate([np.broadcast_to(pilot, (c, C16_MODEM_PILOTS, 52)),
+                           pts[np.concatenate([sidx, fill], axis=1)].reshape(c, s_data, 52)],
+                          axis=1)
+    tx = ofdm.ofdm_modulate(spec, torch.as_tensor(grid.reshape(-1, 52), device=dev))
+    tx = tx.cpu().numpy().reshape(c, -1)
+    y = tx.astype(np.complex128)
+    y[:, 1:] += 0.2 * np.exp(0.5j) * tx[:, :-1]
+    sigma = 10.0 ** (-C16_MODEM_SNR / 20.0) / np.sqrt(2.0)
+    y = y + sigma * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    args = [torch.as_tensor(np.ascontiguousarray(a, np.float32))
+            for a in (y.real, y.imag, pilot.real, pilot.imag)]
+    pipe = {d: make_ofdm_coded_modem(spec, make_qc_ldpc(base, z, device=d), plan,
+                                     num_channels=c, nw=nw, iters=6,
+                                     n_pilot=C16_MODEM_PILOTS, device=d)
+            for d in (dev, cpu)}
+    on_card = [a.to(dev) for a in args]
+    k15_before = launches["ldpc_qc"]
+    bits_t, ok = pipe[dev](*on_card)
+    k15_launches = launches["ldpc_qc"] - k15_before
+    bits_c, ok_c = pipe[cpu](*args)
+    same = bool(torch.equal(bits_t.cpu(), bits_c) and torch.equal(ok.cpu(), ok_c))
+    decoded = bool(torch.equal(bits_t.T, cw.to(torch.int32)))
+    ms = median_ms(torch, lambda: pipe[dev](*on_card))
+    report(f"coded OFDM modem (OFDM planes -> demap -> K15, {c} x {nw} codewords, z {z}, n "
+           f"{n_cw}, 6 iterations, 16-QAM, {C16_MODEM_SNR:.0f} dB, {C16_MODEM_PILOTS} pilot "
+           f"symbols)", ms, c * y.shape[-1],
+           op_count(torch, lambda: pipe[dev](*on_card)),
+           extra=f"; {c * nw * n_cw / ms / 1e3:.1f} Mb/s coded; ok all {bool(ok.all())}, "
+           f"decoded == transmitted ({c * nw} codewords) {decoded}, == CPU run (plain K15) "
+           f"{same}; K15 launches in the first call {k15_launches}")
+    require(k15_launches >= 1, "coded OFDM modem: K15 never launched")
+    require(bool(ok.all()) and decoded, "coded OFDM modem: a codeword not recovered")
+    require(same, "coded OFDM modem: card != CPU run")
+    del y, tx, grid, args, on_card, bits_t, bits_c
+
+    # --- 8. OOK: 32 x 2^20 samples, sps 8, rise 3 ---------------------------
+    rng = np.random.default_rng(0)
+    nbit = C16_OOK_SAMPLES // C16_OOK_SPS
+    bits = rng.integers(0, 2, (C16_OOK_CHANNELS, nbit))
+    x = torch.as_tensor(ook_baseband(bits, C16_OOK_SPS, rise=3))
+    par = ook.make_ook_params(C16_OOK_SPS)
+    xd = x.to(dev)
+    got, strobes = ook.ook_demod_full(par, xd)
+    got_c, strobes_c = ook.ook_demod_full(par, x)
+    same = bool(torch.equal(got.cpu(), got_c))
+    errs = [best_errors(bits[ch], got[ch].cpu().numpy(), 2, C16_SETTLE, lags=4)
+            for ch in range(C16_OOK_CHANNELS)]
+    report(f"OOK ({C16_OOK_CHANNELS} x {C16_OOK_SAMPLES}, sps {C16_OOK_SPS}, rise 3)",
+           median_ms(torch, lambda: ook.ook_demod_full(par, xd)), x.numel(),
+           op_count(torch, lambda: ook.ook_demod_full(par, xd)),
+           extra=f"; bits == CPU run {same}; strobes rel L2 {rel_l2(strobes, strobes_c):.2e}; "
+           f"bit errors after {C16_SETTLE} {max(errs)} (worst channel)")
+    require(same and max(errs) == 0, f"OOK: == CPU {same}, errors {errs}")
 
 
 def main() -> int:
@@ -2220,6 +2552,11 @@ def main() -> int:
     t15 = time.perf_counter()
     phase15(torch, dev)
     print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # --- 16. the sync and block-equalizer tier (plain torch; K15 for the modem) ---
+    t16 = time.perf_counter()
+    phase16(torch, dev, _build.LAUNCHES)
+    print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -3,8 +3,9 @@
 For this DSP system the "weights" are the taps, the tuning words, the code
 descriptions (LDPC, QC, turbo, convolutional, RS, BCH, polar, Golay, the
 GF(2) machines and CRCs), the filter designs (IIR, decimation plan, DDC,
-AGC, AFC) and the carried streaming state (the GF(2) / CRC register and the
-convolutional interleaver's delay lines included). The JAX
+AGC, AFC), the OFDM and SC-FDE specs, and the carried streaming state (the
+GF(2) / CRC register, the convolutional interleaver's delay lines, the
+tracking loops', the trackers' and the OOK chain's included). The JAX
 objects are read through their attributes and ``np.asarray`` (no JAX import
 here), so a stream started by the JAX package continues here with no seam;
 `fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
@@ -19,9 +20,15 @@ import torch
 from srcdsp_tpu_torch import bch as tbch
 from srcdsp_tpu_torch import rs as trs
 from srcdsp_tpu_torch.chains.channelizer import ChannelizerState
+from srcdsp_tpu_torch.chains import tracking as ttr
+from srcdsp_tpu_torch.chains import tracking_planes as ttp
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
+from srcdsp_tpu_torch.chains.ofdm import OfdmSpec
+from srcdsp_tpu_torch.chains.ook import OokState
 from srcdsp_tpu_torch.chains.psk import PskParams, PskState
+from srcdsp_tpu_torch.chains.scfde import ScfdeSpec
 from srcdsp_tpu_torch.chains.sync import TimingState
+from srcdsp_tpu_torch.chains.sync_loop import CostasState, GardnerFreeState, GardnerState
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.fec import ConvCode
 from srcdsp_tpu_torch.gf2 import CrcSpec, Gf2Machine
@@ -361,3 +368,144 @@ def conv_interleaver_state_from(s, device=None) -> ConvInterleaverState:
 def conv_interleaver_state_to_numpy(s: ConvInterleaverState) -> tuple:
     """The delay lines as a tuple of numpy arrays."""
     return tuple(line.detach().cpu().numpy() for line in s.lines)
+
+
+# ---------- the synchronization and block-equalizer tier ----------
+
+def _f32(a, device) -> torch.Tensor:
+    return _t(a, device, np.float32)
+
+
+def _c64(a, device) -> torch.Tensor:
+    return _t(a, device, np.complex64)
+
+
+def _word(a, device) -> torch.Tensor:
+    return word_tensor(np.asarray(a, np.uint32), device)
+
+
+def gardner_state_from(s, device=None) -> GardnerState:
+    """GardnerState from any object with ``tau`` and ``freq`` (float32)."""
+    device = resolve(device)
+    return GardnerState(tau=_f32(s.tau, device), freq=_f32(s.freq, device))
+
+
+def gardner_free_state_from(s, device=None) -> GardnerFreeState:
+    """GardnerFreeState from any object with ``pos``, ``freq`` and the
+    complex ``prev``."""
+    device = resolve(device)
+    return GardnerFreeState(pos=_f32(s.pos, device), freq=_f32(s.freq, device),
+                            prev=_c64(s.prev, device))
+
+
+def costas_state_from(s, device=None) -> CostasState:
+    """CostasState from any object with ``phase`` and ``freq`` (float32)."""
+    device = resolve(device)
+    return CostasState(phase=_f32(s.phase, device), freq=_f32(s.freq, device))
+
+
+def _gardner_free_planes_from(s, device) -> ttp.GardnerFreePlanesState:
+    return ttp.GardnerFreePlanesState(pos=_f32(s.pos, device), freq=_f32(s.freq, device),
+                                      prev_r=_f32(s.prev_r, device),
+                                      prev_i=_f32(s.prev_i, device))
+
+
+def psk_track_state_from(s, device=None) -> ttr.PskTrackState:
+    """PskTrackState from the JAX one (s.nco.phase u32, s.fir.tail, s.tail,
+    s.gardner, s.costas)."""
+    device = resolve(device)
+    return ttr.PskTrackState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                             fir=FirState(tail=_c64(s.fir.tail, device)),
+                             tail=_c64(s.tail, device),
+                             gardner=gardner_state_from(s.gardner, device),
+                             costas=costas_state_from(s.costas, device))
+
+
+def fsk_track_state_from(s, device=None) -> ttr.FskTrackState:
+    """FskTrackState from the JAX one (s.disc_last and s.tail complex)."""
+    device = resolve(device)
+    return ttr.FskTrackState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                             fir=FirState(tail=_c64(s.fir.tail, device)),
+                             disc_last=_c64(s.disc_last, device), tail=_c64(s.tail, device),
+                             gardner=gardner_state_from(s.gardner, device))
+
+
+def psk_track_ragged_state_from(s, device=None) -> ttr.PskTrackRaggedState:
+    """PskTrackRaggedState from the JAX one (a free-running Gardner state)."""
+    device = resolve(device)
+    return ttr.PskTrackRaggedState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                                   fir=FirState(tail=_c64(s.fir.tail, device)),
+                                   tail=_c64(s.tail, device),
+                                   gardner=gardner_free_state_from(s.gardner, device),
+                                   costas=costas_state_from(s.costas, device))
+
+
+def fsk_track_ragged_state_from(s, device=None) -> ttr.FskTrackRaggedState:
+    """FskTrackRaggedState from the JAX one."""
+    device = resolve(device)
+    return ttr.FskTrackRaggedState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                                   fir=FirState(tail=_c64(s.fir.tail, device)),
+                                   disc_last=_c64(s.disc_last, device),
+                                   tail=_c64(s.tail, device),
+                                   gardner=gardner_free_state_from(s.gardner, device))
+
+
+def psk_track_planes_state_from(s, device=None) -> ttp.PskTrackPlanesState:
+    """PskTrackPlanesState from the JAX one (s.word [C, 1] u32, s.hist,
+    s.tail_r, s.tail_i, s.gardner, s.costas)."""
+    device = resolve(device)
+    return ttp.PskTrackPlanesState(word=_word(s.word, device), hist=_f32(s.hist, device),
+                                   tail_r=_f32(s.tail_r, device), tail_i=_f32(s.tail_i, device),
+                                   gardner=gardner_state_from(s.gardner, device),
+                                   costas=costas_state_from(s.costas, device))
+
+
+def fsk_track_planes_state_from(s, device=None) -> ttp.FskTrackPlanesState:
+    """FskTrackPlanesState from the JAX one."""
+    device = resolve(device)
+    return ttp.FskTrackPlanesState(word=_word(s.word, device), hist=_f32(s.hist, device),
+                                   disc_r=_f32(s.disc_r, device), disc_i=_f32(s.disc_i, device),
+                                   tail=_f32(s.tail, device),
+                                   gardner=gardner_state_from(s.gardner, device))
+
+
+def psk_track_ragged_planes_state_from(s, device=None) -> ttp.PskTrackRaggedPlanesState:
+    """PskTrackRaggedPlanesState from the JAX one."""
+    device = resolve(device)
+    return ttp.PskTrackRaggedPlanesState(
+        word=_word(s.word, device), hist=_f32(s.hist, device), tail_r=_f32(s.tail_r, device),
+        tail_i=_f32(s.tail_i, device), gardner=_gardner_free_planes_from(s.gardner, device),
+        costas=costas_state_from(s.costas, device))
+
+
+def fsk_track_ragged_planes_state_from(s, device=None) -> ttp.FskTrackRaggedPlanesState:
+    """FskTrackRaggedPlanesState from the JAX one."""
+    device = resolve(device)
+    return ttp.FskTrackRaggedPlanesState(
+        word=_word(s.word, device), hist=_f32(s.hist, device), disc_r=_f32(s.disc_r, device),
+        disc_i=_f32(s.disc_i, device), tail=_f32(s.tail, device),
+        gardner=_gardner_free_planes_from(s.gardner, device))
+
+
+def ook_state_from(s, device=None) -> OokState:
+    """OokState from the JAX one (s.mf_tail, s.timing.acc complex,
+    s.timing.last float32, s.phase and the cluster sums)."""
+    device = resolve(device)
+    return OokState(mf_tail=_f32(s.mf_tail, device),
+                    timing=TimingState(acc=_c64(s.timing.acc, device),
+                                       last=_f32(s.timing.last, device)),
+                    phase=_f32(s.phase, device), lo_sum=_f32(s.lo_sum, device),
+                    lo_n=_f32(s.lo_n, device), hi_sum=_f32(s.hi_sum, device),
+                    hi_n=_f32(s.hi_n, device))
+
+
+def ofdm_spec_from(spec) -> OfdmSpec:
+    """OfdmSpec (host fields) from any object with the JAX OfdmSpec fields."""
+    return OfdmSpec(nfft=int(spec.nfft), cp=int(spec.cp),
+                    active=np.array(spec.active, np.int64), order=int(spec.order))
+
+
+def scfde_spec_from(spec, device=None) -> ScfdeSpec:
+    """ScfdeSpec (pilot on `device`) from any object with the JAX ScfdeSpec
+    fields."""
+    return ScfdeSpec(n=int(spec.n), cp=int(spec.cp), pilot=_c64(spec.pilot, resolve(device)))

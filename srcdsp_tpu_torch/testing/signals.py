@@ -86,3 +86,40 @@ def psk_wideband(rng: np.random.Generator, num_channels: int, nsym: int, order: 
     proto = design_prototype(m, taps_per_phase=taps_per_phase)
     _, x = synthesize_apply(proto, synthesizer_init(proto, m, device=device), bb, m)
     return data, proto, x
+
+
+def zadoff_chu(root: int, length: int) -> np.ndarray:
+    """Zadoff-Chu CAZAC sequence (LTE/NR sync-style preambles).
+
+    x[n] = exp(-j*pi*root*n*(n + N%2) / N). With gcd(root, N) == 1 the
+    sequence has constant modulus and zero cyclic autocorrelation at every
+    nonzero lag: the SC-FDE pilot (``chains.scfde``).
+    """
+    if np.gcd(root, length) != 1:
+        raise ValueError(f"gcd(root={root}, N={length}) must be 1")
+    n = np.arange(length, dtype=np.float64)
+    ph = root * n * (n + (length % 2)) / length
+    return np.exp(-1j * np.pi * ph).astype(np.complex64)
+
+
+def ook_baseband(bits, sps: int, depth: float = 1.0, rise: int = 0) -> np.ndarray:
+    """OOK/ASK baseband: bits [..., Nbit] {0,1} -> [..., Nbit*sps] complex64
+    with on-level 1 and off-level (1-depth) (depth 1 is pure on-off keying).
+    rise > 1 smooths the edges with a length-rise boxcar (edge-filtered
+    transmitters)."""
+    bits = np.asarray(bits)
+    amp = (1.0 - depth) + depth * bits.astype(np.float64)
+    env = np.repeat(amp, sps, axis=-1)
+    if rise > 1:
+        k = np.ones(rise) / rise
+        pad = np.concatenate([env[..., :1]] * (rise - 1) + [env], axis=-1)
+        env = np.apply_along_axis(lambda v: np.convolve(v, k, mode="valid"), -1, pad)
+    return env.astype(np.complex64)
+
+
+def manchester_encode(bits) -> np.ndarray:
+    """IEEE-convention Manchester line code: 1 -> (1,0), 0 -> (0,1).
+    bits [..., Nbit] -> chips [..., 2*Nbit] {0,1} int64."""
+    bits = np.asarray(bits).astype(np.int64)
+    chips = np.stack([bits, 1 - bits], axis=-1)
+    return chips.reshape(*bits.shape[:-1], 2 * bits.shape[-1])

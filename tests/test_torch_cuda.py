@@ -1219,3 +1219,118 @@ def test_fec_branch_metrics_and_onehot_with_tf32_allowed(dev):
             assert torch.equal(a, b) and torch.equal(a.cpu(), c)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _ofdm_link(c=2, nw=64, z=16, order=16, snr_db=15.0, n_pilot=4, seed=0):
+    """Coded-OFDM planes (bench/ofdm_modem_onchip.py's transmit side, port
+    only): c channels x nw codewords of the 4 x 12 dual-diagonal code after
+    n_pilot pilot symbols."""
+    from srcdsp_tpu_torch.chains import modem as tm
+    from srcdsp_tpu_torch.chains import ofdm as to
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+    from srcdsp_tpu_torch.kernels.ldpc_pallas import plan_qc
+    from srcdsp_tpu_torch.qcldpc import (make_dual_diagonal_base, make_qc_ldpc,
+                                         qc_encode_dual_diagonal)
+
+    base = make_dual_diagonal_base(4, 12, z, seed=0)
+    n, k = 12 * z, 8 * z
+    spc = n // 4
+    spec = to.make_ofdm_spec(64, 16, 52, order)
+    rng = np.random.default_rng(seed)
+    cw = qc_encode_dual_diagonal(base, z, torch.as_tensor(rng.integers(0, 2, (c * nw, k))))
+    idx = tm.map_codewords_to_symbols(cw, order).numpy().reshape(c, nw * spc)
+    pts = qam_constellation(order)
+    s_data = -(-(nw * spc) // 52)
+    fill = rng.integers(0, order, (c, s_data * 52 - nw * spc))
+    grid = pts[np.concatenate([idx, fill], axis=1)].reshape(c, s_data, 52)
+    pilot = pts[rng.integers(0, order, 52)]
+    tx = to.ofdm_modulate(spec, torch.as_tensor(
+        np.concatenate([np.broadcast_to(pilot, (c, n_pilot, 52)), grid], axis=1).reshape(-1, 52)))
+    tx = tx.numpy().reshape(c, -1)
+    y = np.stack([np.convolve(t, [1.0, 0.2 * np.exp(0.5j)])[: t.size] for t in tx])
+    y = y + 10 ** (-snr_db / 20) / np.sqrt(2) * (rng.standard_normal(y.shape)
+                                                 + 1j * rng.standard_normal(y.shape))
+    planes = [torch.as_tensor(np.ascontiguousarray(a, np.float32))
+              for a in (y.real, y.imag, pilot.real, pilot.imag)]
+    return spec, make_qc_ldpc(base, z, device="cpu"), plan_qc(base, z), cw, planes
+
+
+def test_ofdm_modem_k15_path_equals_plain(dev):
+    """make_ofdm_coded_modem on the card launches K15 once a call (no
+    fallback) and equals its CPU run, whose decoder is K15's plain version:
+    bits and ok torch.equal, decoded == transmitted."""
+    from srcdsp_tpu_torch.chains.ofdm_modem import make_ofdm_coded_modem
+
+    spec, code, plan, cw, planes = _ofdm_link()
+    kw = dict(num_channels=2, nw=64, iters=6, b_tile=128, n_pilot=4)
+    on_card = type(code)(*(f.to(dev) if isinstance(f, torch.Tensor) else f for f in code))
+    card = make_ofdm_coded_modem(spec, on_card, plan, device=dev, **kw)
+    before = _build.LAUNCHES["ldpc_qc"]
+    bits, ok = card(*(p.to(dev) for p in planes))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldpc_qc"] == before + 1
+    bits_c, ok_c = make_ofdm_coded_modem(spec, code, plan, device="cpu", **kw)(*planes)
+    assert torch.equal(bits.cpu(), bits_c) and torch.equal(ok.cpu(), ok_c)
+    assert bool(ok_c.all()) and torch.equal(bits_c.T, cw.to(torch.int32))
+
+
+@pytest.mark.parametrize("which", ["ofdm", "scfde"])
+def test_dft_receivers_pin_f32_with_tf32_allowed(dev, which):
+    """With TF32 allowed globally, the DFT-matmul receivers still run their
+    matmuls in float32: indices equal to the CPU run, soft planes within rel
+    L2 1e-5 (TF32 would miss by about 1e-3)."""
+    from srcdsp_tpu_torch.chains import ofdm_planes, scfde, scfde_planes
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        if which == "ofdm":
+            spec, _, _, _, planes = _ofdm_link(nw=8)
+            rx = {d: ofdm_planes.make_ofdm_rx_planes(spec, n_pilot=4, device=d)
+                  for d in (dev, "cpu")}
+        else:
+            sp = scfde.make_scfde_spec(256, 32, device="cpu")
+            rng = np.random.default_rng(1)
+            sym = qam_constellation(4)[rng.integers(0, 4, (2, 64, 256))]
+            tx = np.stack([scfde.scfde_tx(sp, torch.as_tensor(s)).numpy() for s in sym])
+            y = np.stack([np.convolve(t, [1.0, 0.0, 0.45 * np.exp(1.1j)])[: t.size] for t in tx])
+            planes = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in (y.real, y.imag)]
+            rx = {d: scfde_planes.make_scfde_rx_planes(
+                scfde.make_scfde_spec(256, 32, device=d), snr=200.0, device=d) for d in (dev, "cpu")}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        idx, (zr, zi) = rx[dev](*(p.to(dev) for p in planes))
+        cidx, (czr, czi) = rx["cpu"](*planes)
+        assert torch.equal(idx.cpu(), cidx)
+        for a, b in ((zr, czr), (zi, czi)):
+            assert float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def test_sync_tier_on_card_matches_cpu(dev):
+    """The open-loop tracker, the OOK chain and a closed-loop plane tracker
+    at small shapes: decisions on the card equal the CPU run's (the closed
+    loop within a 1e-3 mismatch fraction: FMA contraction differs)."""
+    from srcdsp_tpu_torch.chains import feedforward, ook, psk, tracking_planes
+    from srcdsp_tpu_torch.ops.resample import resample_full
+    from srcdsp_tpu_torch.testing.signals import ook_baseband
+
+    rng = np.random.default_rng(2)
+    taps = psk.make_psk_params(0.0, 1, 4, 4, device="cpu").taps
+    sym = np.exp(2j * np.pi * (rng.integers(0, 4, (2, 2112)) + 0.5) / 4).astype(np.complex64)
+    x = resample_full(taps, torch.as_tensor(sym), up=4, down=1)[:, :8192]
+    yr, yi = x.real.contiguous(), x.imag.contiguous()
+    got = feedforward.ff_psk_demod_ragged(yr.to(dev), yi.to(dev), 4, 4, block=128, offset=0.5)
+    want = feedforward.ff_psk_demod_ragged(yr, yi, 4, 4, block=128, offset=0.5)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
+    xo = torch.as_tensor(ook_baseband(rng.integers(0, 2, (2, 512)), 8, rise=3))
+    par = ook.make_ook_params(8)
+    assert torch.equal(ook.ook_demod_full(par, xo.to(dev))[0].cpu(), ook.ook_demod_full(par, xo)[0])
+    pp = {d: psk.make_psk_params(0.0, 1, 4, 4, device=d) for d in (dev, "cpu")}
+    planes = torch.stack([yr, yi], dim=1)[:, :, :4096]
+    outs = {}
+    for d in (dev, "cpu"):
+        st = tracking_planes.psk_track_planes_init(pp[d], 2)
+        outs[d] = [tracking_planes.psk_track_planes_apply(pp[d], st, planes.to(d))[1][0].cpu()]
+    assert float((outs[dev][0] != outs["cpu"][0]).float().mean()) <= 1e-3

@@ -14,6 +14,8 @@ import torch
 from srcdsp_tpu_torch import configs, convert
 from srcdsp_tpu_torch import bch, gf2, interleave, ldpc, qcldpc, rs, turbo
 from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
+from srcdsp_tpu_torch.chains import ofdm, ofdm_modem, ofdm_planes, ook, scfde, scfde_planes
+from srcdsp_tpu_torch.chains import sync_loop, tracking, tracking_planes
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.dist import channelize as dchan
 from srcdsp_tpu_torch.dist import fused as dfused
@@ -57,6 +59,31 @@ def _psk_state():
                     timing=_JaxLike(acc=np.complex64(0), last=np.zeros(5, np.complex64)),
                     cr_acc=np.complex64(0))
 
+
+def _psk_p(**d):
+    return psk.make_psk_params(0.17, 2, 4, **d)
+
+
+def _fsk_p(**d):
+    return fsk.make_fsk_params(0.11, 64, 0.03, 2, 8, 0.05, **d)
+
+
+# the tracker states, built on the CPU: the converters read any object with
+# the JAX states' fields, the port's own included
+TRACK_STATES = {
+    "psk_track": tracking.psk_track_init(_psk_p(device="cpu"), (2,)),
+    "fsk_track": tracking.fsk_track_init(_fsk_p(device="cpu"), (2,)),
+    "psk_track_ragged": tracking.psk_track_ragged_init(_psk_p(device="cpu"), (2,)),
+    "fsk_track_ragged": tracking.fsk_track_ragged_init(_fsk_p(device="cpu"), (2,)),
+    "psk_track_planes": tracking_planes.psk_track_planes_init(_psk_p(device="cpu"), 2),
+    "fsk_track_planes": tracking_planes.fsk_track_planes_init(_fsk_p(device="cpu"), 2),
+    "psk_track_ragged_planes": tracking_planes.psk_track_ragged_planes_init(
+        _psk_p(device="cpu"), 2),
+    "fsk_track_ragged_planes": tracking_planes.fsk_track_ragged_planes_init(
+        _fsk_p(device="cpu"), 2),
+}
+OFDM_SPEC = ofdm.make_ofdm_spec()
+SCFDE_SPEC = scfde.make_scfde_spec(64, 16, device="cpu")
 
 PROTO = channelizer.design_prototype(8, 4)
 DDC = ddc.make_ddc(0.21, 0.0155)
@@ -261,6 +288,39 @@ ENTRY_POINTS = {
     "gf2_state_from": lambda **d: convert.gf2_state_from(np.ones(7, np.float32), **d),
     "conv_interleaver_state_from": lambda **d: convert.conv_interleaver_state_from(
         _JaxLike(lines=(np.zeros(0, np.float32), np.zeros(3, np.float32))), **d),
+    "gardner_init": lambda **d: sync_loop.gardner_init((2,), **d),
+    "gardner_free_init": lambda **d: sync_loop.gardner_free_init((2,), **d),
+    "costas_init": lambda **d: sync_loop.costas_init((2,), **d),
+    "gardner_free_init_planes": lambda **d: tracking_planes.gardner_free_init_planes((2,), **d),
+    "psk_track_init": lambda **d: tracking.psk_track_init(_psk_p(**d), (2,)),
+    "fsk_track_init": lambda **d: tracking.fsk_track_init(_fsk_p(**d), (2,)),
+    "psk_track_ragged_init": lambda **d: tracking.psk_track_ragged_init(_psk_p(**d), (2,)),
+    "fsk_track_ragged_init": lambda **d: tracking.fsk_track_ragged_init(_fsk_p(**d), (2,)),
+    "psk_track_planes_init": lambda **d: tracking_planes.psk_track_planes_init(_psk_p(**d), 2),
+    "fsk_track_planes_init": lambda **d: tracking_planes.fsk_track_planes_init(_fsk_p(**d), 2),
+    "psk_track_ragged_planes_init": lambda **d: tracking_planes.psk_track_ragged_planes_init(
+        _psk_p(**d), 2),
+    "fsk_track_ragged_planes_init": lambda **d: tracking_planes.fsk_track_ragged_planes_init(
+        _fsk_p(**d), 2),
+    "ook_init": lambda **d: ook.ook_init(ook.make_ook_params(8), (2,), **d),
+    "schmidl_cox_preamble": lambda **d: ofdm.schmidl_cox_preamble(
+        OFDM_SPEC, np.random.default_rng(0), **d),
+    "make_ofdm_rx_planes": lambda **d: ofdm_planes.make_ofdm_rx_planes(OFDM_SPEC, **d),
+    "make_scfde_spec": lambda **d: scfde.make_scfde_spec(64, 16, **d),
+    "make_scfde_rx_planes": lambda **d: scfde_planes.make_scfde_rx_planes(SCFDE_SPEC, **d),
+    "make_ofdm_coded_modem": lambda **d: ofdm_modem.make_ofdm_coded_modem(
+        OFDM_SPEC, QC_CODE, ldpc_pallas.plan_qc(QC_BASE, 16), num_channels=2, nw=64, **d),
+    "gardner_state_from": lambda **d: convert.gardner_state_from(
+        sync_loop.gardner_init((2,), device="cpu"), **d),
+    "gardner_free_state_from": lambda **d: convert.gardner_free_state_from(
+        sync_loop.gardner_free_init((2,), device="cpu"), **d),
+    "costas_state_from": lambda **d: convert.costas_state_from(
+        sync_loop.costas_init((2,), device="cpu"), **d),
+    **{f"{k}_state_from": (lambda k: lambda **d: getattr(convert, f"{k}_state_from")(
+        TRACK_STATES[k], **d))(k) for k in TRACK_STATES},
+    "ook_state_from": lambda **d: convert.ook_state_from(
+        ook.ook_init(ook.make_ook_params(8), (2,), device="cpu"), **d),
+    "scfde_spec_from": lambda **d: convert.scfde_spec_from(SCFDE_SPEC, **d),
 }
 
 
