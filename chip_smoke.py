@@ -144,7 +144,25 @@ Phases, in order; any failure raises and the run exits non-zero:
    launch count rising across the call; OOK over 32 x 2^20 samples (sps 8,
    rise 3), BER 0. Each step prints its ms a call (CUDA-event median of 5;
    the closed loops by the host clock, marked), aggregate Ms/s, torch ops a
-   call and us an op, and the phase its total seconds.
+   call and us an op, and the phase its total seconds;
+17. the CSS modem and the rest of the plane tier, plain torch (no kernel of
+   ours), each step on the card held against the port's own CPU run of the
+   same call on the same numpy-made inputs (the batched chains on their first
+   4 channels) and timed: the coded CSS link of bench/css_modem_onchip.py
+   (sf 8, cr 4, 1,024 frames of 20-byte payloads at -11 dB: the folded-DFT
+   LLR planes within rel L2 1e-5, then the batch soft decode on the card,
+   every frame back, payloads and flags equal; coded Mb/s); the demod planes
+   at bench/css_onchip.py's defaults (16,384 symbols at -5 dB, direct and
+   four-step, and four-step at sf 11), shifts equal, SER 0; the burst
+   receiver over 16 bursts with timing and CFO offsets at 0 dB, every
+   payload back, starts equal (two bursts on the reference sync's
+   ambiguities printed beside); the blind scan at nfft 4,096 over 2^22
+   samples (three signals found, detections equal) and detect_css finding
+   sf 9; frame sync, MSK, pi/4-DQPSK, FHSS dehop, FM, AM, SSB and the FM
+   stereo receiver over 32 x 2^20 samples, DSSS acquire + RAKE and FHSS
+   acquire on one channel, block LMS and CMA over 8 x 2^16, MLSE, RLS and
+   the DFE over a few thousand symbols (host clock), decisions equal and
+   soft outputs within rel L2 1e-5.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -173,7 +191,8 @@ the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
 kernel must have run on the main path. Phase 15 launches none of them;
-phase 16 reads K15's count before and after its modem on its own. The last three lines are one JSON
+phase 16 reads K15's count before and after its modem on its own; phase 17
+launches none. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -244,6 +263,21 @@ C16_OFDM_SYMBOLS, C16_SCFDE_BLOCKS = 16384, 4096
 # package's link misses at 15 dB (ok 0.894, BASELINE.md) and needs 18
 C16_MODEM_WORDS, C16_MODEM_Z, C16_MODEM_SNR, C16_MODEM_PILOTS = 512, 128, 15.0, 4
 C16_OOK_CHANNELS, C16_OOK_SAMPLES, C16_OOK_SPS = 32, 1 << 20, 8
+# phase 17, the CSS modem and the rest of the plane tier: bench/css_modem_onchip.py's
+# coded link (sf 8, cr 4, 1,024 frames of 20 bytes at -11 dB) and bench/css_onchip.py's
+# demod (16,384 symbols at -5 dB; sf 11 four-step too); 16 bursts through the stream
+# receiver; tests/unit/test_blindscan.py's three signals over 2^22 samples; the batched
+# chains at 32 x 2^20 samples (their CPU runs on the first 4 channels); the block
+# equalizers at 8 x 2^16 and the per-symbol loops at a few thousand symbols (cuts for
+# time, PERF.md)
+C17_SF, C17_CR, C17_FRAMES, C17_PLEN, C17_SNR = 8, 4, 1024, 20, -11.0
+C17_DEMOD_SYMS, C17_DEMOD_SNR, C17_SF_WIDE, C17_DETECT_SF = 16384, -5.0, 11, 9
+C17_BURSTS, C17_STREAM_SNR = 16, 0.0
+C17_SCAN_SAMPLES, C17_SCAN_NFFT = 1 << 22, 4096
+C17_CHANNELS, C17_SAMPLES, C17_CPU_CHANNELS = 32, 1 << 20, 4
+C17_EQ_CHANNELS, C17_EQ_SAMPLES = 8, 1 << 16
+C17_MLSE_SYMBOLS, C17_RLS_SYMBOLS, C17_DFE_SYMBOLS = 4096, 1024, 2048
+FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -1318,6 +1352,487 @@ def phase16(torch, dev, launches) -> None:
            extra=f"; bits == CPU run {same}; strobes rel L2 {rel_l2(strobes, strobes_c):.2e}; "
            f"bit errors after {C16_SETTLE} {max(errs)} (worst channel)")
     require(same and max(errs) == 0, f"OOK: == CPU {same}, errors {errs}")
+
+
+def tone_snr_db(a: np.ndarray, f: float, skip: int = 512) -> np.ndarray:
+    """Per row of real audio a [C, N]: the SNR in dB of a tone at f cycles a
+    sample, by a least-squares cos/sin fit after `skip` samples."""
+    a = np.asarray(a, np.float64)[..., skip:]
+    a = a - a.mean(axis=-1, keepdims=True)
+    k = np.arange(a.shape[-1])
+    basis = np.stack([np.cos(2 * np.pi * f * k), np.sin(2 * np.pi * f * k)])   # [2, N]
+    coef = a @ basis.T * (2.0 / a.shape[-1])                                    # [C, 2]
+    resid = a - coef @ basis
+    return 10 * np.log10((coef ** 2).sum(-1) / 2 / np.maximum((resid ** 2).mean(-1), 1e-30))
+
+
+def phase17(torch, dev) -> None:
+    """The CSS modem and the rest of the plane-tier chains (plain torch, no
+    kernel of ours), each step on the card held against the port's own CPU
+    run of the same call on the same numpy-made inputs (the batched channel
+    steps on their first C17_CPU_CHANNELS channels), timed (CUDA events; the
+    host-driven loops by the host clock), with the torch operations one call
+    dispatches."""
+    from srcdsp_tpu_torch.chains import (analog, blindscan, css, css_planes, dqpsk, dsss,
+                                         equalizer, fhss, framesync, mlse, msk)
+    from srcdsp_tpu_torch.ops.fft_planes import fft_planes_flops
+    from srcdsp_tpu_torch.ops.fir import fir_full
+    from srcdsp_tpu_torch.ops.window import root_raised_cosine
+    from srcdsp_tpu_torch.testing.signals import fsk_baseband, gmsk_baseband, tone
+
+    cpu = torch.device("cpu")
+    card = card_line()
+    c, n, cc = C17_CHANNELS, C17_SAMPLES, C17_CPU_CHANNELS
+
+    def report(tag, ms, samples, ops, clock="CUDA-event median of 5", extra=""):
+        print(f"[17] {tag}: {ms:.3f} ms per call ({clock}), {samples / ms / 1e3:.1f} Ms/s "
+              f"aggregate, {ops} torch ops a call, {ms * 1e3 / ops:.1f} us an op{extra} "
+              f"({card})", flush=True)
+
+    def rel_l2(a, b) -> float:
+        a, b = a.cpu(), b.cpu()
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    def host_ms(fn):
+        """One call of fn by the host clock, the card synchronized around it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def awgn(rng, shape, sigma):
+        return sigma * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+
+    # --- (a) the coded CSS link: bench/css_modem_onchip.py's shape -------------
+    rng = np.random.default_rng(0)
+    p = css.make_css_params(sf=C17_SF, cr=C17_CR)
+    nsym = css.css_frame_nsym(p, C17_PLEN)
+    pls = [bytes(rng.integers(0, 256, C17_PLEN, dtype=np.uint8)) for _ in range(C17_FRAMES)]
+    shifts = np.concatenate([css.css_encode_frame(p, q) for q in pls])
+    tx = css.css_modulate(p, shifts)
+    x = (tx + awgn(rng, tx.size, np.sqrt(10 ** (-C17_SNR / 10) / 2))).astype(np.complex64)
+    fr = x.reshape(-1, p.n)
+    planes = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in (fr.real, fr.imag)]
+    on_card = [a.to(dev) for a in planes]
+    llr_fn = {d: css_planes.make_css_llr_planes(p, device=d) for d in (dev, cpu)}
+    llr = llr_fn[dev](*on_card)
+    llr_c = llr_fn[cpu](*planes)
+    soft = rel_l2(llr, llr_c)
+    llr3 = llr.reshape(C17_FRAMES, nsym, p.sf)
+    pays, oks = css.css_decode_frames_soft_batch(p, llr3, C17_PLEN)
+    pays_c, oks_c = css.css_decode_frames_soft_batch(p, llr_c.reshape(C17_FRAMES, nsym, p.sf),
+                                                     C17_PLEN)
+    n_ok = sum(bool(o) and q == w for o, q, w in zip(oks, pays, pls))
+    same = pays == pays_c and bool(np.array_equal(oks, oks_c))
+    s_sym = fr.shape[0]
+    ms_llr = median_ms(torch, lambda: llr_fn[dev](*on_card))
+    ms_dec = median_ms(torch, lambda: css.css_decode_frames_soft_batch(p, llr3, C17_PLEN))
+    gflop = 4 * 2 * s_sym * p.n * p.n / 1e9
+    report(f"CSS LLR planes (sf {p.sf}, {s_sym} symbols = {C17_FRAMES} frames of "
+           f"{C17_PLEN} bytes, cr {C17_CR}, {C17_SNR:.0f} dB; folded DFT, {gflop:.1f} GFLOP)",
+           ms_llr, s_sym * p.n, op_count(torch, lambda: llr_fn[dev](*on_card)),
+           extra=f"; {gflop / ms_llr:.1f} TFLOP/s; LLR rel L2 against the CPU run {soft:.2e}")
+    report(f"CSS batch soft decode ({C17_FRAMES} frames, float64 ML + GF(2) CRC on the card)",
+           ms_dec, s_sym * p.n, op_count(torch, lambda: css.css_decode_frames_soft_batch(
+               p, llr3, C17_PLEN)),
+           extra=f"; frames back {n_ok}/{C17_FRAMES}; payloads and flags == CPU run {same}; "
+           f"{C17_FRAMES / ms_dec:.1f} frames a ms")
+    print(f"[17] coded CSS link: {s_sym * p.sf / (ms_llr + ms_dec) / 1e3:.1f} Mb/s coded "
+          f"({s_sym * p.sf} coded bits a call; LLR {ms_llr:.3f} + decode {ms_dec:.3f} ms), "
+          f"{C17_FRAMES * C17_PLEN * 8 / (ms_llr + ms_dec) / 1e3:.1f} Mb/s of payload "
+          f"({card})", flush=True)
+    require(n_ok == C17_FRAMES, f"coded CSS: {n_ok} of {C17_FRAMES} frames back")
+    require(soft <= 1e-5, f"coded CSS: LLR rel L2 {soft} against the CPU run")
+    require(same, "coded CSS: batch decode on the card != CPU run")
+    del x, tx, fr, planes, on_card, llr, llr_c, llr3
+
+    # --- (b) CSS demod planes: bench/css_onchip.py's defaults, and sf 11 ----
+    for sf, direct in ((C17_SF, True), (C17_SF, False), (C17_SF_WIDE, False)):
+        rng = np.random.default_rng(0)
+        pd = css.make_css_params(sf=sf)
+        ks = rng.integers(0, pd.n, C17_DEMOD_SYMS)
+        xs = css.css_modulate(pd, ks) * np.exp(0.3j)
+        xs = (xs + awgn(rng, xs.size, np.sqrt(10 ** (-C17_DEMOD_SNR / 10) / 2))
+              ).astype(np.complex64).reshape(C17_DEMOD_SYMS, pd.n)
+        planes = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in (xs.real, xs.imag)]
+        on_card = [a.to(dev) for a in planes]
+        fn = {d: css_planes.make_css_demod_planes(pd, direct=direct, device=d) for d in (dev, cpu)}
+        k = fn[dev](*on_card)[0]
+        k_c = fn[cpu](*planes)[0]
+        same = bool(torch.equal(k.cpu(), k_c))
+        ser = float((k.cpu().numpy() != ks).mean())
+        ms = median_ms(torch, lambda: fn[dev](*on_card))
+        flops = (8 * C17_DEMOD_SYMS * pd.n * pd.n if direct
+                 else fft_planes_flops(C17_DEMOD_SYMS, pd.n) + 6 * C17_DEMOD_SYMS * pd.n)
+        form = "direct fold" if direct else "four-step"
+        report(f"CSS demod planes, {form} (sf {sf}, {C17_DEMOD_SYMS} symbols, "
+               f"{C17_DEMOD_SNR:.0f} dB)", ms, C17_DEMOD_SYMS * pd.n,
+               op_count(torch, lambda: fn[dev](*on_card)),
+               extra=f"; {flops / ms / 1e9:.1f} TFLOP/s; shifts == CPU run {same}; SER {ser}")
+        require(same and ser == 0.0, f"CSS demod sf {sf} {form}: == CPU {same}, SER {ser}")
+        del xs, planes, on_card
+
+    # --- (c) the burst receiver over a stream of 16 bursts ------------------
+    # The reference's sync (ported as it is) resolves the timing and the
+    # fractional CFO with two ambiguities, ROADMAP Queue 3: a preamble within a
+    # few chips of half a symbol off the receiver's frame grid, and a CFO whose
+    # fraction is near half a bin, can come back a symbol or a bin off. The
+    # stream draws its offsets in the range the sync resolves (grid offsets
+    # more than 16 chips from N/2, CFO fractions within +-0.4 bins); two extra
+    # bursts sit on the two ambiguities. The first (N/2 off the grid, a CFO
+    # fraction of 0.3) must give the card the CPU run's result; the second
+    # (a fraction of exactly 0.5, where float rounding picks the side) is
+    # only printed.
+    rng = np.random.default_rng(1)
+    pls = [bytes(rng.integers(0, 256, C17_PLEN, dtype=np.uint8)) for _ in range(C17_BURSTS)]
+
+    def burst_stream(gaps, cfos, payloads):
+        parts, starts, pos = [], [], 0
+        for gap, cfo, q in zip(gaps, cfos, payloads):
+            b = css.css_transmit(p, q)
+            parts += [np.zeros(gap), b * np.exp(2j * np.pi * cfo / p.n * np.arange(b.size))]
+            starts.append(pos + gap + css.preamble_len(p))
+            pos += gap + b.size
+        xs = np.concatenate(parts + [np.zeros(2000)])
+        sigma = np.sqrt(10 ** (-C17_STREAM_SNR / 10) / 2)
+        return (xs + awgn(rng, xs.size, sigma)).astype(np.complex64), starts
+
+    gaps = [int(g) + (p.n // 4 if abs(int(g) % p.n - p.n // 2) <= 16 else 0)
+            for g in rng.integers(200, 4000, C17_BURSTS)]
+    cfos = rng.integers(-2, 3, C17_BURSTS) + rng.uniform(-0.4, 0.4, C17_BURSTS)
+    xs, starts = burst_stream(gaps, cfos, pls)
+    xd = torch.as_tensor(xs, device=dev)
+    got, ms = host_ms(lambda: css.css_receive_stream(p, xd, C17_PLEN))
+    got_c = css.css_receive_stream(p, xs, C17_PLEN, device=cpu)
+    back = [g[0] for g in got] == pls
+    same = got == got_c
+    report(f"CSS burst receiver ({C17_BURSTS} bursts, {xs.size} chips, CFO -2.4..2.4 bins, "
+           f"gaps 200-4000 chips, {C17_STREAM_SNR:.0f} dB)", ms, xs.size,
+           op_count(torch, lambda: css.css_receive_stream(p, xd, C17_PLEN)),
+           clock="host clock, one run",
+           extra=f"; payloads back {back}; results and starts == CPU run {same}; starts "
+           f"== transmitted {[g[2] for g in got] == starts}")
+    require(back and same, f"CSS stream: payloads back {back}, == CPU run {same}")
+    xs, _ = burst_stream([2 * p.n + p.n // 2, 700], [0.3, 1.5], pls[:2])
+    amb = css.css_receive_stream(p, torch.as_tensor(xs, device=dev), C17_PLEN)
+    amb_c = css.css_receive_stream(p, xs, C17_PLEN, device=cpu)
+    print(f"[17] CSS sync ambiguities (a burst N/2 off the grid, a CFO of 1.5 bins): "
+          f"{[(g[0] == q, g[1]) for g, q in zip(amb, pls)]} (decoded, crc ok) per burst "
+          f"found, {len(amb)} found; CPU run {[(g[0] == q, g[1]) for g, q in zip(amb_c, pls)]} "
+          f"({card})", flush=True)
+    require(len(amb) >= 1 and amb[:1] == amb_c[:1],
+            f"CSS burst N/2 off the grid: card {amb[:1]} != CPU run {amb_c[:1]}")
+    del xs, xd
+
+    # --- (d) the blind survey: 2^22 samples, three signals; detect_css --------
+    rng = np.random.default_rng(0)
+    ns = C17_SCAN_SAMPLES
+    xs = awgn(rng, ns, 0.02)
+    sym = np.exp(2j * np.pi * (rng.integers(0, 4, ns // 8) + 0.5) / 4)
+    up = np.zeros(ns, np.complex128)
+    up[::8] = sym
+    xs += np.convolve(up, root_raised_cosine(8, 8))[:ns] * tone(ns, 0.15)
+    xs += 0.7 * fsk_baseband(rng.integers(0, 2, ns // 16), 16, 0.01) * tone(ns, -0.22)
+    xs += 0.5 * tone(ns, 0.35)
+    xs = xs.astype(np.complex64)
+    xd = torch.as_tensor(xs, device=dev)
+    dets = blindscan.scan(xd, nfft=C17_SCAN_NFFT)
+    dets_c = blindscan.scan(xs, nfft=C17_SCAN_NFFT, device=cpu)
+    same = (len(dets) == len(dets_c)
+            and all(a.bandwidth == b.bandwidth and abs(a.center - b.center) <= 1e-6
+                    for a, b in zip(dets, dets_c)))
+    top3 = sorted(round(d.center, 3) for d in dets[:3])
+    found = bool(np.allclose(top3, [-0.22, 0.15, 0.35], atol=0.01))
+    report(f"blind scan (nfft {C17_SCAN_NFFT} over {ns} samples: QPSK, CPFSK, a tone)",
+           median_ms(torch, lambda: blindscan.scan(xd, nfft=C17_SCAN_NFFT)), ns,
+           op_count(torch, lambda: blindscan.scan(xd, nfft=C17_SCAN_NFFT)),
+           extra=f"; {len(dets)} detections, top three at {top3}; == CPU run {same}")
+    require(same and found, f"blind scan: == CPU {same}, centers {top3}")
+    rng = np.random.default_rng(5)
+    p9 = css.make_css_params(sf=C17_DETECT_SF)
+    xs = css.css_modulate(p9, rng.integers(0, p9.n, C17_SCAN_SAMPLES // 4 // p9.n))
+    xs = np.concatenate([np.zeros(173), xs])[: C17_SCAN_SAMPLES // 4]
+    xs = xs * np.exp(2j * np.pi * 0.013 * np.arange(xs.size))
+    xs = (xs + awgn(rng, xs.size, np.sqrt(10 ** 0.5 / 2))).astype(np.complex64)
+    xd = torch.as_tensor(xs, device=dev)
+    res = blindscan.detect_css(xd)
+    res_c = blindscan.detect_css(xs, device=cpu)
+    same = (res["detected"], res["sf"], res["direction"]) == (
+        res_c["detected"], res_c["sf"], res_c["direction"]) and all(
+        abs(res["scores"][k_] - res_c["scores"][k_]) <= 0.01 + 1e-9 for k_ in res_c["scores"])
+    report(f"detect_css ({xs.size} chips of sf {C17_DETECT_SF} at -5 dB, CFO 0.013, offset 173)",
+           median_ms(torch, lambda: blindscan.detect_css(xd)), xs.size,
+           op_count(torch, lambda: blindscan.detect_css(xd)),
+           extra=f"; detected {res['detected']}, sf {res['sf']}, {res['direction']}, score "
+           f"{res['score']}; == CPU run {same}")
+    require(res["detected"] and res["sf"] == C17_DETECT_SF and same,
+            f"detect_css: {res}, == CPU {same}")
+    del xs, xd, up
+
+    # --- (e) the rest, batched channels at 32 x 2^20 samples ------------------
+    # frame sync: a 64-symbol QPSK preamble, 8 bursts a channel at 10 dB
+    rng = np.random.default_rng(42)
+    pre = np.exp(2j * np.pi * (rng.integers(0, 4, 64) + 0.5) / 4).astype(np.complex64)
+    xs = awgn(rng, (c, n), 10 ** (-0.5) / np.sqrt(2)).astype(np.complex64)
+    slots = np.stack([np.sort(rng.choice(n // 4096 - 2, 8, replace=False)) + 1 for _ in range(c)])
+    fs_starts = slots * 4096 + rng.integers(0, 2048, (c, 8))
+    for ch in range(c):
+        for s in fs_starts[ch]:
+            xs[ch, s:s + 64] += pre
+    fsp = {d: framesync.make_frame_sync_params(pre, device=d) for d in (dev, cpu)}
+    xd = torch.as_tensor(xs, device=dev)
+
+    def fs_run(d, v):
+        return framesync.frame_sync_apply(fsp[d], framesync.frame_sync_init(fsp[d], (v.shape[0],)),
+                                          v)[1]
+
+    score, mask, first = fs_run(dev, xd)
+    score_c, mask_c, _ = fs_run(cpu, torch.as_tensor(xs[:cc]))
+    same = bool(torch.equal(mask[:cc].cpu(), mask_c))
+    peaks = [np.flatnonzero(m_) + int(first) - 63 for m_ in mask.cpu().numpy()]
+    hit = all(np.array_equal(pk, np.unique(st)) for pk, st in zip(peaks, fs_starts))
+    report(f"frame sync ({c} x {n}, 64-symbol preamble, 8 bursts a channel, 10 dB)",
+           median_ms(torch, lambda: fs_run(dev, xd)), c * n, op_count(torch, lambda: fs_run(dev, xd)),
+           extra=f"; masks == CPU run {same} (channels 0-{cc - 1}); scores rel L2 "
+           f"{rel_l2(score[:cc], score_c):.2e}; every burst start found {hit}")
+    require(same and hit and rel_l2(score[:cc], score_c) <= 1e-5,
+            f"frame sync: == CPU {same}, starts {hit}")
+    del xs, xd, score, mask, score_c
+
+    # MSK: GMSK BT 0.3 at sps 8, 12 dB Eb/N0, the Laurent matched filter
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2, (c, n // 8))
+    xs = gmsk_baseband(bits, 8, bt=0.3)
+    xs = (xs + awgn(rng, xs.shape, np.sqrt(8 / 10 ** 1.2 / 2))).astype(np.complex64)
+    c0 = msk.laurent_c0(8, bt=0.3, c_span=4)
+    xd = torch.as_tensor(xs, device=dev)
+    b_, s_ = msk.msk_coherent_demod(xd, 8, c0)
+    b_c, s_c = msk.msk_coherent_demod(torch.as_tensor(xs[:cc]), 8, c0)
+    same = bool(torch.equal(b_[:cc].cpu(), b_c))
+    ber = float((b_.cpu().numpy()[:, 8:] != bits[:, 1:b_.shape[-1] + 1][:, 8:]).mean())
+    report(f"MSK coherent demod ({c} x {n}, GMSK BT 0.3, sps 8, 12 dB)",
+           median_ms(torch, lambda: msk.msk_coherent_demod(xd, 8, c0)), c * n,
+           op_count(torch, lambda: msk.msk_coherent_demod(xd, 8, c0)),
+           extra=f"; bits == CPU run {same}; soft rel L2 {rel_l2(s_[:cc], s_c):.2e}; BER {ber}")
+    require(same and ber < 1e-5 and rel_l2(s_[:cc], s_c) <= 1e-5, f"MSK: == CPU {same}, BER {ber}")
+    del xs, xd, b_, s_
+
+    # pi/4-DQPSK: decim 4, sps 8, center 0.11, 8 blocks of 2^17, 10 dB a sample
+    rng = np.random.default_rng(2)
+    dib = rng.integers(0, 4, (c, n // 32))
+    syms = np.exp(1j * np.cumsum((2.0 * dib + 1.0) * (np.pi / 4.0), axis=-1))
+    up = torch.zeros((c, n), dtype=torch.complex64, device=dev)
+    up[:, ::32] = torch.as_tensor(syms.astype(np.complex64), device=dev)
+    bb = fir_full(torch.as_tensor(root_raised_cosine(32, 8), device=dev), up) * 32.0
+    xd = (bb * torch.as_tensor(tone(n, 0.11), device=dev)).cpu().numpy()
+    xs = (xd + awgn(rng, xd.shape, np.sqrt(np.mean(np.abs(xd) ** 2) / 10 / 2))).astype(np.complex64)
+    xd = torch.as_tensor(xs, device=dev)
+    dqp = {d: dqpsk.make_dqpsk_params(0.11, 4, 8, device=d) for d in (dev, cpu)}
+    idx, z = dqpsk.dqpsk_demod_stream(dqp[dev], xd, n // 8, (c,))
+    idx_c, z_c = dqpsk.dqpsk_demod_stream(dqp[cpu], torch.as_tensor(xs[:cc]), n // 8, (cc,))
+    same = bool(torch.equal(idx[:cc].cpu(), idx_c))
+    ser = float(ber_per_channel(dib, idx.cpu().numpy(), settle=C16_SETTLE).max())
+    report(f"pi/4-DQPSK ({c} x {n}, decim 4, sps 8, 8 blocks, 10 dB)",
+           median_ms(torch, lambda: dqpsk.dqpsk_demod_stream(dqp[dev], xd, n // 8, (c,))), c * n,
+           op_count(torch, lambda: dqpsk.dqpsk_demod_stream(dqp[dev], xd, n // 8, (c,))),
+           extra=f"; dibits == CPU run {same}; z rel L2 {rel_l2(z[:cc], z_c):.2e}; SER after "
+           f"{C16_SETTLE} symbols {ser} (worst channel)")
+    require(same and ser == 0.0 and rel_l2(z[:cc], z_c) <= 1e-5, f"DQPSK: == CPU {same}, SER {ser}")
+    del up, bb, xd, xs, idx, z
+
+    # DSSS: SF 63, a two-path channel (0.8 at 5 chips) at -8 dB chip SNR, 2^20 chips
+    rng = np.random.default_rng(0)
+    dp = {d: dsss.make_dsss_params(device=d) for d in (dev, cpu)}
+    nsym_d = n // 63
+    dbits = rng.integers(0, 2, nsym_d)
+    dbits[0] = 0
+    chips = np.repeat(1.0 - 2.0 * dbits, 63) * np.tile(dsss.pn_msequence((6, 1), 6), nsym_d)
+    delay = 29
+    direct = np.zeros(n)
+    direct[delay:delay + chips.size] = chips[: n - delay]
+    xs = direct + 0.8 * np.exp(1.1j) * np.concatenate([np.zeros(5), direct[:-5]])
+    xs = (xs * np.exp(0.4j) + awgn(rng, n, 10 ** 0.4 / np.sqrt(2))).astype(np.complex64)
+    xd = torch.as_tensor(xs, device=dev)
+
+    def rake(d, v):
+        base = dsss.dsss_acquire(dp[d], v)
+        metric = dsss.dsss_finger_search(dp[d], v)
+        top2 = torch.topk(metric, 2).indices.cpu().numpy()
+        delays = sorted((int(base) - int(t_)) % 63 for t_ in top2)
+        return base, delays, dsss.dsss_rake_demod(dp[d], v, base, delays)
+
+    base, delays, (rb, rs) = rake(dev, xd)
+    base_c, delays_c, (rb_c, rs_c) = rake(cpu, torch.as_tensor(xs))
+    same = int(base) == int(base_c) and delays == delays_c and bool(torch.equal(rb.cpu(), rb_c))
+    m_ = min(rb.shape[0], nsym_d - 1)
+    errs = int((rb.cpu().numpy()[:m_] != dbits[:m_]).sum())
+    report(f"DSSS acquire + 2-finger RAKE (SF 63, {n} chips, paths 1 and 0.8 at 5 chips, "
+           f"-8 dB)", median_ms(torch, lambda: rake(dev, xd)), n,
+           op_count(torch, lambda: rake(dev, xd)),
+           extra=f"; phase {int(base)} (sent {(63 - delay) % 63}), fingers {delays}; == CPU run "
+           f"{same}; soft rel L2 {rel_l2(rs, rs_c):.2e}; bit errors {errs} of {m_}")
+    require(same and int(base) == (63 - delay) % 63 and delays == [0, 5] and errs <= m_ // 1000,
+            f"DSSS: == CPU {same}, phase {int(base)}, fingers {delays}, errors {errs}")
+    del xs, xd
+
+    # FHSS: dehop 32 x 2^20 (hops of 256 over 6 frequencies), acquire on one channel
+    fp_ = fhss.make_fhss_params(np.asarray([-0.35, -0.2, -0.05, 0.1, 0.25, 0.4]),
+                                np.asarray([0, 3, 1, 5, 2, 4, 0, 5, 3, 2, 4, 1]), 256)
+    rng = np.random.default_rng(1)
+    bb = (awgn(rng, (c, n), 0.25) + 1.0).astype(np.complex64)
+    hop = fhss.fhss_hop(fp_, torch.as_tensor(bb, device=dev), seq_phase=7)
+    back = fhss.fhss_dehop(fp_, hop, seq_phase=7)
+    back_c = fhss.fhss_dehop(fp_, hop[:cc].cpu(), seq_phase=7)
+    off = 3 * 256 // 8
+    cap = torch.cat([torch.zeros(off, dtype=torch.complex64, device=dev), hop[0, :n // 8]])
+    cap = cap + torch.as_tensor(awgn(rng, cap.shape[0], 0.16).astype(np.complex64), device=dev)
+    acq = fhss.fhss_acquire(fp_, cap)
+    acq_c = fhss.fhss_acquire(fp_, cap.cpu())
+    err = rel_l2(back, torch.as_tensor(bb))
+    report(f"FHSS dehop ({c} x {n}, hops of 256 over 6 frequencies)",
+           median_ms(torch, lambda: fhss.fhss_dehop(fp_, hop, seq_phase=7)), c * n,
+           op_count(torch, lambda: fhss.fhss_dehop(fp_, hop, seq_phase=7)),
+           extra=f"; rel L2 against the CPU run {rel_l2(back[:cc], back_c):.2e}, against the "
+           f"sent baseband {err:.2e}")
+    _, ms = host_ms(lambda: fhss.fhss_acquire(fp_, cap))
+    report(f"FHSS acquire ({cap.shape[0]} samples, 8 coarse offsets x 12 phases)", ms,
+           cap.shape[0], op_count(torch, lambda: fhss.fhss_acquire(fp_, cap)),
+           clock="host clock, one run",
+           extra=f"; (offset, phase) {acq} (sent ({off}, 7)), == CPU run {acq == acq_c}")
+    require(acq == acq_c == (off, 7) and err <= 1e-5 and rel_l2(back[:cc], back_c) <= 1e-5,
+            f"FHSS: acquire {acq} / {acq_c}, dehop error {err}")
+    del bb, hop, back, back_c, cap
+
+    # block LMS (trained) and CMA: 8 x 2^16 QPSK symbols over [1, 0.45-0.2j, -0.25+0.1j]
+    rng = np.random.default_rng(2)
+    ce, ne = C17_EQ_CHANNELS, C17_EQ_SAMPLES
+    s_eq = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, (ce, ne)))).astype(np.complex64)
+    h1 = np.array([1.0, 0.45 - 0.2j, -0.25 + 0.1j])
+    x_eq = np.stack([np.convolve(r, h1)[:ne] for r in s_eq])
+    x_eq = (x_eq + awgn(rng, x_eq.shape, np.sqrt(np.mean(np.abs(x_eq) ** 2) * 1e-3 / 2))
+            ).astype(np.complex64)
+    xd, sd = torch.as_tensor(x_eq, device=dev), torch.as_tensor(s_eq, device=dev)
+
+    def lms(d, v, s):
+        return equalizer.lms_equalize(v, equalizer.eq_init(11, channel_shape=(v.shape[0],),
+                                                           device=d), mu=0.1, block=64, d=s)
+
+    def cma(d, v):
+        return equalizer.cma_equalize(v, equalizer.eq_init(11, channel_shape=(v.shape[0],),
+                                                           device=d), mu=0.05, block=64)
+
+    def slicer(y):
+        return equalizer.psk_slicer(y.cpu(), 4, offset=np.pi / 4)
+
+    for name, run, run_c in (
+            ("block LMS, trained", lambda: lms(dev, xd, sd),
+             lambda: lms(cpu, torch.as_tensor(x_eq[:cc]), torch.as_tensor(s_eq[:cc]))),
+            ("CMA, blind", lambda: cma(dev, xd), lambda: cma(cpu, torch.as_tensor(x_eq[:cc])))):
+        (st, y, mse), ms = host_ms(run)
+        st_c, y_c, mse_c = run_c()
+        soft = rel_l2(y[:cc], y_c)
+        dec_same = bool(torch.equal(slicer(y[:cc, ne // 2:]), slicer(y_c[:, ne // 2:])))
+        report(f"{name} ({ce} x {ne}, 11 taps, block 64: {ne // 64} sequential updates)", ms,
+               ce * ne, op_count(torch, run), clock="host clock, one run",
+               extra=f"; y rel L2 against the CPU run {soft:.2e}, taps {rel_l2(st.w[:cc], st_c.w):.2e}; "
+               f"decisions on the second half == CPU run {dec_same}; last-block MSE "
+               f"{float(mse[:, -1].max()):.4f}")
+        require(soft <= 1e-5 and dec_same, f"{name}: rel L2 {soft}, decisions equal {dec_same}")
+    del xd, sd
+
+    # the per-symbol loops: MLSE (null channel, BPSK, 12 dB), RLS (L 11), DFE (9 + 8)
+    rng = np.random.default_rng(2)
+    h = np.asarray([0.5, 0.7071, 0.5])
+    tr = mlse.make_mlse(h, order=2)
+    idx_m = rng.integers(0, 2, C17_MLSE_SYMBOLS)
+    y = np.convolve(1.0 - 2.0 * idx_m, h)[: idx_m.size].astype(np.complex128)
+    y = (y + awgn(rng, y.size, np.sqrt(np.mean(np.abs(y) ** 2) / 10 ** 1.2 / 2))).astype(np.complex64)
+    yd = torch.as_tensor(y, device=dev)
+    got, ms = host_ms(lambda: mlse.mlse_equalize(tr, yd))
+    got_c = mlse.mlse_equalize(tr, torch.as_tensor(y))
+    same = bool(torch.equal(got.cpu(), got_c))
+    ber = float((got.cpu().numpy()[4:] != idx_m[4:]).mean())
+    ops = op_count(torch, lambda: mlse.mlse_equalize(tr, yd))
+    report(f"MLSE (null channel [0.5, 0.7071, 0.5], BPSK, {C17_MLSE_SYMBOLS} symbols, 12 dB)",
+           ms, C17_MLSE_SYMBOLS, ops, clock="host clock, one run",
+           extra=f"; decisions == CPU run {same}; BER {ber}; {ops / C17_MLSE_SYMBOLS:.1f} ops a "
+           f"symbol")
+    require(same and ber < 0.02, f"MLSE: == CPU {same}, BER {ber}")
+
+    rng = np.random.default_rng(0)
+    s_r = np.exp(1j * (2 * np.pi * (rng.integers(0, 4, C17_RLS_SYMBOLS) + 0.5) / 4))
+    x_r = np.convolve(s_r, [0.25, 1.0, 0.35 - 0.2j, 0.15j])[: s_r.size]
+    x_r = (x_r + awgn(rng, x_r.size, 0.02)).astype(np.complex64)
+    s_r = s_r.astype(np.complex64)
+    rng = np.random.default_rng(7)
+    s_d = np.exp(1j * (2 * np.pi * (rng.integers(0, 4, C17_DFE_SYMBOLS) + 0.5) / 4))
+    x_d = np.convolve(s_d, [1.0, 0.0, 0.55, 0.0, 0.4, 0.0, 0.3])[: s_d.size]
+    x_d = (x_d + awgn(rng, x_d.size, 0.03)).astype(np.complex64)
+    s_d = s_d.astype(np.complex64)
+    for name, nsy, run in (
+            ("RLS, trained (L 11, lambda 0.995)", C17_RLS_SYMBOLS,
+             lambda d: equalizer.rls_equalize(torch.as_tensor(x_r, device=d),
+                                              equalizer.rls_init(11, device=d), lam=0.995,
+                                              d=torch.as_tensor(s_r, device=d))),
+            ("DFE, trained (9 + 8 taps, mu 0.02)", C17_DFE_SYMBOLS,
+             lambda d: equalizer.dfe_equalize(torch.as_tensor(x_d, device=d),
+                                              equalizer.dfe_init(9, 8, device=d), mu=0.02,
+                                              d=torch.as_tensor(s_d, device=d)))):
+        (st, y, err), ms = host_ms(lambda: run(dev))
+        st_c, y_c, err_c = run(cpu)
+        soft = rel_l2(y, y_c)
+        dec_same = bool(torch.equal(slicer(y[nsy // 4:]), slicer(y_c[nsy // 4:])))
+        ops = op_count(torch, lambda: run(dev))
+        report(f"{name}, {nsy} symbols", ms, nsy, ops, clock="host clock, one run",
+               extra=f"; y rel L2 against the CPU run {soft:.2e}; decisions after {nsy // 4} == "
+               f"CPU run {dec_same}; tail |e|^2 {float(err[-256:].mean()):.4f}; "
+               f"{ops / nsy:.1f} ops a symbol")
+        require(soft <= 1e-5 and dec_same, f"{name}: rel L2 {soft}, decisions {dec_same}")
+
+    # FM, AM, SSB and the FM stereo receiver: 32 x 2^20 IQ samples, one call each
+    k = np.arange(n)
+    f_a = 0.002 + 0.0001 * np.arange(c)[:, None]
+    audio = torch.as_tensor((0.7 * np.sin(2 * np.pi * f_a * k)).astype(np.float32), device=dev)
+    left = 0.5 * np.cos(2 * np.pi * 0.001 * k)
+    mpx = np.stack([analog.fm_stereo_mpx(left, 0.5 * np.cos(2 * np.pi * (0.0022 + 1e-5 * ch) * k),
+                                         FM_PILOT / 4) for ch in range(c)])
+    ssb_audio = 0.6 * np.sin(2 * np.pi * f_a * k)
+    cases = (
+        ("FM (decim 4, audio decim 2, de-emphasis tau 20)",
+         lambda d: analog.make_fm_params(0.03, 4, 0.08, audio_decim=2, deemph_tau=20.0, device=d),
+         analog.fm_init, analog.fm_apply,
+         analog.fm_modulate(audio, 0.02, center=0.03), f_a[:, 0] * 8),
+        ("AM (center 0.21, decim 4, audio decim 2)",
+         lambda d: analog.make_am_params(0.21, 4, audio_decim=2, device=d),
+         analog.am_init, analog.am_apply, analog.am_modulate(audio, 0.5, center=0.21),
+         f_a[:, 0] * 8),
+        ("SSB upper (center 0.22, decim 2, bandwidth 0.04)",
+         lambda d: analog.make_ssb_params(0.22, 2, 0.04, device=d),
+         analog.ssb_init, analog.ssb_apply,
+         torch.as_tensor(analog.ssb_modulate(ssb_audio, 0.22), device=dev), f_a[:, 0] * 2),
+        ("FM stereo receiver (center 0.07, decim 4, audio decim 4, 96 taps, tau 8)",
+         lambda d: analog.make_fm_stereo_rx(0.07, 4, 0.08, FM_PILOT, audio_decim=4, num_taps=96,
+                                            deemph_tau=8.0, device=d),
+         analog.fm_stereo_rx_init, analog.fm_stereo_rx_apply,
+         analog.fm_modulate(torch.as_tensor(mpx.astype(np.float32), device=dev), 0.02,
+                            center=0.07), np.full(c, 0.001 * 16)))
+    del audio, mpx
+    for name, make, init, apply, iq, f_out in cases:
+        par = {d: make(d) for d in (dev, cpu)}
+        a = apply(par[dev], init(par[dev], (c,)), iq)[1]
+        a_c = apply(par[cpu], init(par[cpu], (cc,)), iq[:cc].cpu())[1]
+        soft = rel_l2(a[:cc], a_c)
+        left_a = (a[:, 0] if a.ndim == 3 else a).cpu().numpy()
+        snr = min(tone_snr_db(left_a[ch:ch + 1], f_out[ch], skip=left_a.shape[-1] // 4)[0]
+                  for ch in range(c))
+        ms = median_ms(torch, lambda: apply(par[dev], init(par[dev], (c,)), iq))
+        report(f"{name} ({c} x {n})", ms, c * n,
+               op_count(torch, lambda: apply(par[dev], init(par[dev], (c,)), iq)),
+               extra=f"; audio rel L2 against the CPU run {soft:.2e}; worst channel's tone SNR "
+               f"{snr:.1f} dB past the first quarter")
+        require(soft <= 1e-5 and snr > 25.0, f"{name}: rel L2 {soft}, SNR {snr}")
+        del iq, a
 
 
 def main() -> int:
@@ -2557,6 +3072,11 @@ def main() -> int:
     t16 = time.perf_counter()
     phase16(torch, dev, _build.LAUNCHES)
     print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # --- 17. the CSS modem and the rest of the plane tier (plain torch) -------------
+    t17 = time.perf_counter()
+    phase17(torch, dev)
+    print(f"[17] phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

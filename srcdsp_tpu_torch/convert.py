@@ -3,9 +3,11 @@
 For this DSP system the "weights" are the taps, the tuning words, the code
 descriptions (LDPC, QC, turbo, convolutional, RS, BCH, polar, Golay, the
 GF(2) machines and CRCs), the filter designs (IIR, decimation plan, DDC,
-AGC, AFC), the OFDM and SC-FDE specs, and the carried streaming state (the
+AGC, AFC), the OFDM and SC-FDE specs, the CSS, DSSS, FHSS, MLSE, frame-sync
+and analog receivers' parameters, and the carried streaming state (the
 GF(2) / CRC register, the convolutional interleaver's delay lines, the
-tracking loops', the trackers' and the OOK chain's included). The JAX
+tracking loops', the trackers', the OOK, DQPSK, equalizer, frame-sync and
+analog chains' included). The JAX
 objects are read through their attributes and ``np.asarray`` (no JAX import
 here), so a stream started by the JAX package continues here with no seam;
 `fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
@@ -19,7 +21,15 @@ import torch
 
 from srcdsp_tpu_torch import bch as tbch
 from srcdsp_tpu_torch import rs as trs
+from srcdsp_tpu_torch.chains import analog as ana
 from srcdsp_tpu_torch.chains.channelizer import ChannelizerState
+from srcdsp_tpu_torch.chains.css import CssParams
+from srcdsp_tpu_torch.chains.dqpsk import DqpskState
+from srcdsp_tpu_torch.chains.dsss import DsssParams
+from srcdsp_tpu_torch.chains.equalizer import DfeState, EqState, RlsState
+from srcdsp_tpu_torch.chains.fhss import FhssParams
+from srcdsp_tpu_torch.chains.framesync import FrameSyncParams, FrameSyncState
+from srcdsp_tpu_torch.chains.mlse import MlseTrellis
 from srcdsp_tpu_torch.chains import tracking as ttr
 from srcdsp_tpu_torch.chains import tracking_planes as ttp
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
@@ -509,3 +519,174 @@ def scfde_spec_from(spec, device=None) -> ScfdeSpec:
     """ScfdeSpec (pilot on `device`) from any object with the JAX ScfdeSpec
     fields."""
     return ScfdeSpec(n=int(spec.n), cp=int(spec.cp), pilot=_c64(spec.pilot, resolve(device)))
+
+
+# ---------- the CSS modem and the rest of the plane-tier chains ----------
+
+def css_params_from(p) -> CssParams:
+    """CssParams (host numpy chirps) from any object with the JAX CssParams
+    fields."""
+    return CssParams(sf=int(p.sf), n=int(p.n), cr=int(p.cr), n_up=int(p.n_up),
+                     sync1=int(p.sync1), sync2=int(p.sync2),
+                     upchirp=np.array(p.upchirp, np.complex64),
+                     downchirp=np.array(p.downchirp, np.complex64))
+
+
+def dsss_params_from(p, device=None) -> DsssParams:
+    """DsssParams (chips and shift matrix on `device`) from the JAX one."""
+    device = resolve(device)
+    return DsssParams(chips=_f32(p.chips, device), shifts=_f32(p.shifts, device), sf=int(p.sf))
+
+
+def fhss_params_from(p) -> FhssParams:
+    """FhssParams (host tables) from the JAX one."""
+    return FhssParams(freqs=np.array(p.freqs, np.float64), seq=np.array(p.seq, np.int64),
+                      hop_len=int(p.hop_len))
+
+
+def mlse_trellis_from(t) -> MlseTrellis:
+    """MlseTrellis (host tables) from the JAX one."""
+    return MlseTrellis(points=np.array(t.points, np.complex64), h=np.array(t.h, np.complex64),
+                       expected=np.array(t.expected, np.complex64), order=int(t.order),
+                       mem=int(t.mem))
+
+
+def eq_state_from(s, device=None) -> EqState:
+    """EqState from any object with complex ``w`` and ``tail``."""
+    device = resolve(device)
+    return EqState(w=_c64(s.w, device), tail=_c64(s.tail, device))
+
+
+def rls_state_from(s, device=None) -> RlsState:
+    """RlsState from any object with complex ``w``, ``p`` and ``tail``."""
+    device = resolve(device)
+    return RlsState(w=_c64(s.w, device), p=_c64(s.p, device), tail=_c64(s.tail, device))
+
+
+def dfe_state_from(s, device=None) -> DfeState:
+    """DfeState from any object with complex ``ff``, ``fb``, ``tail`` and
+    ``past``."""
+    device = resolve(device)
+    return DfeState(ff=_c64(s.ff, device), fb=_c64(s.fb, device), tail=_c64(s.tail, device),
+                    past=_c64(s.past, device))
+
+
+def dqpsk_state_from(s, device=None) -> DqpskState:
+    """DqpskState from the JAX one (s.nco.phase u32, s.fir.tail, s.timing.acc
+    and s.timing.last complex, s.prev)."""
+    device = resolve(device)
+    return DqpskState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                      fir=FirState(tail=_c64(s.fir.tail, device)),
+                      timing=TimingState(acc=_c64(s.timing.acc, device),
+                                         last=_c64(s.timing.last, device)),
+                      prev=_c64(s.prev, device))
+
+
+def frame_sync_params_from(p, device=None) -> FrameSyncParams:
+    """FrameSyncParams (taps on `device`) from the JAX one."""
+    device = resolve(device)
+    return FrameSyncParams(mf_taps=_c64(p.mf_taps, device), en_taps=_f32(p.en_taps, device),
+                           pnorm=float(p.pnorm), threshold=float(p.threshold))
+
+
+def frame_sync_state_from(s, device=None) -> FrameSyncState:
+    """FrameSyncState from the JAX one (complex corr tail, float32 energy
+    tail and prev2, int32 base)."""
+    device = resolve(device)
+    return FrameSyncState(corr=FirState(tail=_c64(s.corr.tail, device)),
+                          energy=FirState(tail=_f32(s.energy.tail, device)),
+                          prev2=_f32(s.prev2, device), base=_t(s.base, device, np.int32))
+
+
+def _iir_or_none(p, device):
+    return None if p is None else iir_params_from(p, device)
+
+
+def _iir_state_or_none(s, device):
+    return None if s is None else IirState(s=_f32(s.s, device))
+
+
+def fm_params_from(p, device=None) -> ana.FmParams:
+    """FmParams from the JAX one (word, taps, de-emphasis IIR on `device`)."""
+    device = resolve(device)
+    return ana.FmParams(freq_word=_word(p.freq_word, device), chan_taps=_f32(p.chan_taps, device),
+                        audio_taps=_f32(p.audio_taps, device),
+                        deemph=_iir_or_none(p.deemph, device), decim=int(p.decim),
+                        dev=float(p.dev), audio_decim=int(p.audio_decim))
+
+
+def fm_state_from(s, device=None) -> ana.FmState:
+    """FmState from the JAX one."""
+    device = resolve(device)
+    return ana.FmState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                       chan=FirState(tail=_c64(s.chan.tail, device)),
+                       disc_last=_c64(s.disc_last, device),
+                       audio=FirState(tail=_c64(s.audio.tail, device)),
+                       deemph=_iir_state_or_none(s.deemph, device))
+
+
+def am_params_from(p, device=None) -> ana.AmParams:
+    """AmParams from the JAX one."""
+    device = resolve(device)
+    return ana.AmParams(freq_word=_word(p.freq_word, device), chan_taps=_f32(p.chan_taps, device),
+                        audio_taps=_f32(p.audio_taps, device),
+                        dcblock=iir_params_from(p.dcblock, device), decim=int(p.decim),
+                        audio_decim=int(p.audio_decim))
+
+
+def am_state_from(s, device=None) -> ana.AmState:
+    """AmState from the JAX one (the DC blocker's state float32)."""
+    device = resolve(device)
+    return ana.AmState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                       chan=FirState(tail=_c64(s.chan.tail, device)),
+                       dc=IirState(s=_f32(s.dc.s, device)),
+                       audio=FirState(tail=_c64(s.audio.tail, device)))
+
+
+def ssb_params_from(p, device=None) -> ana.SsbParams:
+    """SsbParams from the JAX one (complex taps)."""
+    device = resolve(device)
+    return ana.SsbParams(freq_word=_word(p.freq_word, device), chan_taps=_c64(p.chan_taps, device),
+                         decim=int(p.decim))
+
+
+def ssb_state_from(s, device=None) -> ana.SsbState:
+    """SsbState from the JAX one."""
+    device = resolve(device)
+    return ana.SsbState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                        chan=FirState(tail=_c64(s.chan.tail, device)))
+
+
+def stereo_params_from(p, device=None) -> ana.StereoParams:
+    """StereoParams from the JAX one."""
+    device = resolve(device)
+    return ana.StereoParams(pilot_taps=_c64(p.pilot_taps, device),
+                            delay_taps=_f32(p.delay_taps, device),
+                            audio_taps=_f32(p.audio_taps, device), audio_decim=int(p.audio_decim))
+
+
+def stereo_state_from(s, device=None) -> ana.StereoState:
+    """StereoState from the JAX one (four complex FIR tails)."""
+    device = resolve(device)
+    return ana.StereoState(*(FirState(tail=_c64(f.tail, device))
+                             for f in (s.pilot, s.delay, s.mono, s.lr)))
+
+
+def fm_stereo_rx_params_from(p, device=None) -> ana.FmStereoRxParams:
+    """FmStereoRxParams from the JAX one."""
+    device = resolve(device)
+    return ana.FmStereoRxParams(freq_word=_word(p.freq_word, device),
+                                chan_taps=_f32(p.chan_taps, device),
+                                stereo=stereo_params_from(p.stereo, device),
+                                deemph=_iir_or_none(p.deemph, device), decim=int(p.decim),
+                                dev=float(p.dev))
+
+
+def fm_stereo_rx_state_from(s, device=None) -> ana.FmStereoRxState:
+    """FmStereoRxState from the JAX one."""
+    device = resolve(device)
+    return ana.FmStereoRxState(nco=NcoState(phase=_word(s.nco.phase, device)),
+                               chan=FirState(tail=_c64(s.chan.tail, device)),
+                               disc_last=_c64(s.disc_last, device),
+                               stereo=stereo_state_from(s.stereo, device),
+                               deemph=_iir_state_or_none(s.deemph, device))

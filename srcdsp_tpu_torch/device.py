@@ -23,3 +23,12 @@ def resolve(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def as_tensor_on(x, device=None, dtype=None) -> torch.Tensor:
+    """A tensor stays on its own device (cast to `dtype` if given); anything
+    else (numpy, a list) becomes a tensor on `device`, None = the card: the
+    rule of the functions that take a capture."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve(device))

@@ -63,7 +63,8 @@ def complex_conv(xin: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     lead = xin.shape[:-1]
     nin = xin.shape[-1]
     xr = xin.real.to(F32).reshape(-1, 1, nin)
-    xi = xin.imag.to(F32).reshape(-1, 1, nin)
+    # a real input is complex with zero imaginary part, as jnp.imag makes it
+    xi = xin.imag.to(F32).reshape(-1, 1, nin) if xin.is_complex() else torch.zeros_like(xr)
     hrev = taps.flip(0)
     if taps.is_complex():
         # channel-mixing conv: (yr, yi) = [[hr, -hi], [hi, hr]] * (xr, xi)

@@ -123,3 +123,31 @@ def manchester_encode(bits) -> np.ndarray:
     bits = np.asarray(bits).astype(np.int64)
     chips = np.stack([bits, 1 - bits], axis=-1)
     return chips.reshape(*bits.shape[:-1], 2 * bits.shape[-1])
+
+
+def gmsk_baseband(bits, sps: int, bt: float | None = 0.3, span: int = 3) -> np.ndarray:
+    """GMSK/MSK baseband: Gaussian-filtered CPM with h = 1/2.
+
+    bits: [..., Nsym] of {0,1} -> [..., Nsym*sps] complex64, constant
+    envelope. Each bit steps the phase by +-pi/2 in total (+-0.25 cycles),
+    spread over `span` bit periods by the Gaussian frequency pulse with the
+    given BT product (bt=None selects the rectangular pulse = pure MSK, where
+    the step completes within its own bit).
+    """
+    from srcdsp_tpu_torch.chains.tx import gaussian_freq_pulse
+
+    bits = np.asarray(bits)
+    nrz = 2.0 * bits.astype(np.float64) - 1.0
+    if bt is None:
+        p = np.ones(sps) / sps * 0.25            # MSK: rect pulse
+    else:
+        p = gaussian_freq_pulse(sps, bt, span)   # integrates to h/2 cycles
+    up = np.zeros((*nrz.shape[:-1], nrz.shape[-1] * sps))
+    up[..., ::sps] = nrz
+    freq = np.empty_like(up)                     # cycles/sample
+    pad = np.zeros((*up.shape[:-1], p.size - 1))
+    full = np.concatenate([up, pad], axis=-1)
+    for idx0 in np.ndindex(*up.shape[:-1]):
+        freq[idx0] = np.convolve(full[idx0], p)[: up.shape[-1]]  # causal
+    phase = np.cumsum(freq, axis=-1) - freq
+    return np.exp(2j * np.pi * phase).astype(np.complex64)

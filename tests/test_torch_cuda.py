@@ -1334,3 +1334,189 @@ def test_sync_tier_on_card_matches_cpu(dev):
         st = tracking_planes.psk_track_planes_init(pp[d], 2)
         outs[d] = [tracking_planes.psk_track_planes_apply(pp[d], st, planes.to(d))[1][0].cpu()]
     assert float((outs[dev][0] != outs["cpu"][0]).float().mean()) <= 1e-3
+
+
+def _css_link(frames=16, snr=-8.0, sf=8):
+    from srcdsp_tpu_torch.chains import css
+
+    rng = np.random.default_rng(3)
+    p = css.make_css_params(sf=sf, cr=4)
+    pls = [bytes(rng.integers(0, 256, 20, dtype=np.uint8)) for _ in range(frames)]
+    x = css.css_modulate(p, np.concatenate([css.css_encode_frame(p, q) for q in pls]))
+    sigma = np.sqrt(10 ** (-snr / 10) / 2)
+    x = (x + sigma * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))
+         ).astype(np.complex64)
+    fr = x.reshape(-1, p.n)
+    planes = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in (fr.real, fr.imag)]
+    return p, pls, x, planes
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_css_link_on_card_equals_cpu(dev, tf32):
+    """The coded CSS link at 16 frames, -8 dB: the LLR planes on the card
+    within rel L2 1e-5 of the CPU run (also with TF32 allowed globally: the
+    folded DFT products stay float32), the batch decode on the card equal to
+    the CPU's (payloads and flags), every frame back; the demod planes
+    (direct and four-step) give the CPU's shifts."""
+    from srcdsp_tpu_torch.chains import css, css_planes
+
+    p, pls, _, planes = _css_link()
+    nsym = css.css_frame_nsym(p, 20)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        llr = {d: css_planes.make_css_llr_planes(p, device=d)(*(a.to(d) for a in planes))
+               for d in (dev, "cpu")}
+        assert float(torch.linalg.norm(llr[dev].cpu() - llr["cpu"])
+                     / torch.linalg.norm(llr["cpu"])) <= 1e-5
+        out = {d: css.css_decode_frames_soft_batch(p, llr[d].reshape(-1, nsym, p.sf), 20)
+               for d in (dev, "cpu")}
+        assert out[dev][0] == out["cpu"][0] == pls
+        assert out[dev][1].all() and (out[dev][1] == out["cpu"][1]).all()
+        for direct in (True, False):
+            k = {d: css_planes.make_css_demod_planes(p, direct=direct, device=d)(
+                *(a.to(d) for a in planes))[0] for d in (dev, "cpu")}
+            assert torch.equal(k[dev].cpu(), k["cpu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def test_css_receive_stream_on_card_equals_cpu(dev):
+    """Three bursts with gaps and a CFO: the receiver over a stream on the
+    card finds the CPU run's payloads, flags and starts."""
+    from srcdsp_tpu_torch.chains import css
+
+    p = css.make_css_params(sf=7, cr=3)
+    rng = np.random.default_rng(4)
+    pls = [bytes(rng.integers(0, 256, 12, dtype=np.uint8)) for _ in range(3)]
+    parts = []
+    for i, q in enumerate(pls):
+        parts += [np.zeros(90 + 53 * i, np.complex64), css.css_transmit(p, q)]
+    x = np.concatenate(parts + [np.zeros(300, np.complex64)])
+    x = (x * np.exp(2j * np.pi * 0.37 / p.n * np.arange(x.size))).astype(np.complex64)
+    got = css.css_receive_stream(p, torch.as_tensor(x, device=dev), 12)
+    assert got == css.css_receive_stream(p, x, 12, device="cpu")
+    assert [g[0] for g in got] == pls
+
+
+def _plane_tier_cases():
+    """name -> fn(device) -> (exact tensors, soft tensors, soft tolerance)."""
+    from srcdsp_tpu_torch.chains import (analog, blindscan, dqpsk, dsss, equalizer, fhss,
+                                         framesync, mlse, msk)
+    from srcdsp_tpu_torch.testing.signals import gmsk_baseband
+
+    rng = np.random.default_rng(5)
+    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 2048))).astype(np.complex64)
+    isi = (np.convolve(qpsk, [1.0, 0.4 - 0.2j, -0.2j])[:2048]
+           + 0.02 * (rng.standard_normal(2048) + 1j * rng.standard_normal(2048))
+           ).astype(np.complex64)
+    pre = np.exp(2j * np.pi * (rng.integers(0, 4, 64) + 0.5) / 4).astype(np.complex64)
+    scene = (0.3 * (rng.standard_normal((2, 8192)) + 1j * rng.standard_normal((2, 8192)))
+             ).astype(np.complex64)
+    scene[:, 700:764] += pre
+    gm = gmsk_baseband(rng.integers(0, 2, (2, 512)), 8)
+    dib = rng.integers(0, 4, (2, 256))
+    dq = (dqpsk.dqpsk_baseband(dib, 32) * np.exp(2j * np.pi * 0.11 * np.arange(8192 + 256))
+          ).astype(np.complex64)[:, :8192]
+    bpsk = 1.0 - 2.0 * rng.integers(0, 2, 64).astype(np.float32)
+    k = np.arange(8192)
+    fm_iq = analog.fm_modulate(torch.as_tensor(np.sin(2 * np.pi * 0.004 * k)
+                                               [None].repeat(2, 0).astype(np.float32)), 0.02)
+    mpx = np.stack([analog.fm_stereo_mpx(0.5 * np.cos(2 * np.pi * f * k),
+                                         0.5 * np.cos(2 * np.pi * 0.0023 * k), 0.02)
+                    for f in (0.001, 0.0013)])
+    stereo_iq = analog.fm_modulate(torch.as_tensor(mpx), 0.02)
+    t = lambda a, d: torch.as_tensor(a, device=d)                      # noqa: E731
+
+    def fs(d):
+        par = framesync.make_frame_sync_params(pre, device=d)
+        _, (s, m, _) = framesync.frame_sync_apply(par, framesync.frame_sync_init(par, (2,)),
+                                                   t(scene, d))
+        return [m], [s], 1e-5
+
+    def msk_(d):
+        b, s = msk.msk_coherent_demod(t(gm, d), 8, msk.laurent_c0(8, c_span=4))
+        return [b], [s], 1e-5
+
+    def dq_(d):
+        i, z = dqpsk.dqpsk_demod_stream(dqpsk.make_dqpsk_params(0.11, 4, 8, device=d), t(dq, d),
+                                        2048, (2,))
+        return [i], [z], 1e-5
+
+    def ds(d):
+        par = dsss.make_dsss_params(device=d)
+        x = dsss.dsss_spread(par, t(bpsk, d))
+        x = torch.roll(x, 17).to(torch.complex64)
+        ph = dsss.dsss_acquire(par, x)
+        b, s = dsss.dsss_rake_demod(par, x, ph, [0, 3])
+        return [ph, b], [s], 1e-5
+
+    def fh(d):
+        par = fhss.make_fhss_params([-0.3, -0.1, 0.2, 0.35], [0, 2, 1, 3, 2], 128)
+        y = fhss.fhss_hop(par, t(np.ones(4096, np.complex64), d), seq_phase=2)
+        got = fhss.fhss_acquire(par, y[40:])
+        return [torch.tensor(got)], [fhss.fhss_dehop(par, y, seq_phase=2)], 1e-5
+
+    def ml(d):
+        y = np.convolve(qpsk[:512], [1.0, 0.6j])[:512].astype(np.complex64)
+        return [mlse.mlse_equalize(mlse.make_mlse([1.0, 0.6j], order=4), t(y, d))], [], 0
+
+    def lms(d):
+        st, y, m = equalizer.lms_equalize(t(isi, d), equalizer.eq_init(11, device=d), mu=0.1,
+                                          d=t(qpsk, d))
+        return [], [y, m, st.w], 1e-5
+
+    def cma(d):
+        st, y, m = equalizer.cma_equalize(t(isi, d), equalizer.eq_init(11, device=d), mu=0.05)
+        return [], [y, m, st.w], 1e-5
+
+    def rls(d):
+        st, y, e = equalizer.rls_equalize(t(isi[:256], d), equalizer.rls_init(11, device=d),
+                                          lam=0.995, d=t(qpsk[:256], d))
+        return [], [y, st.w, st.p], 1e-5
+
+    def dfe(d):
+        st, y, e = equalizer.dfe_equalize(t(isi[:512], d), equalizer.dfe_init(9, 8, device=d),
+                                          mu=0.02, d=t(qpsk[:512], d))
+        return [], [y, st.ff, st.fb], 1e-5
+
+    def rx(make, init, apply, x):
+        def run(d):
+            par = make(device=d)
+            _, a = apply(par, init(par, tuple(x.shape[:-1])), x.to(d))
+            return [], [a], 1e-5
+        return run
+
+    def scan(d):
+        x = scene[0].copy()
+        x += (0.5 * np.exp(2j * np.pi * 0.3 * np.arange(8192))).astype(np.complex64)
+        return [torch.tensor([det.bandwidth for det in blindscan.scan(t(x, d), nfft=256)])], [], 0
+
+    return {
+        "framesync": fs, "msk": msk_, "dqpsk": dq_, "dsss": ds, "fhss": fh, "mlse": ml,
+        "lms": lms, "cma": cma, "rls": rls, "dfe": dfe, "blindscan": scan,
+        "fm": rx(lambda **k: analog.make_fm_params(0.0, 4, 0.08, audio_decim=2, deemph_tau=20.0,
+                                                   **k), analog.fm_init, analog.fm_apply, fm_iq),
+        "am": rx(lambda **k: analog.make_am_params(0.0, 4, audio_decim=2, **k), analog.am_init,
+                 analog.am_apply, fm_iq),
+        "ssb": rx(lambda **k: analog.make_ssb_params(0.01, 2, 0.04, **k), analog.ssb_init,
+                  analog.ssb_apply, fm_iq),
+        "fm_stereo_rx": rx(lambda **k: analog.make_fm_stereo_rx(0.0, 4, 0.08, 0.08,
+                                                                deemph_tau=8.0, **k),
+                           analog.fm_stereo_rx_init, analog.fm_stereo_rx_apply, stereo_iq),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_plane_tier_cases()))
+def test_plane_tier_on_card_equals_cpu(dev, name):
+    """Each chain of the plane tier at a small shape: its decisions (masks,
+    bits, dibits, phases, MLSE symbols, detections) on the card equal the CPU
+    run's; its soft outputs and states within rel L2 1e-5 (the RLS and DFE
+    recursions too: phase 17 measured 2e-7)."""
+    fn = _plane_tier_cases()[name]
+    ex_d, soft_d, tol = fn(dev)
+    ex_c, soft_c, _ = fn(torch.device("cpu"))
+    for a, b in zip(ex_d, ex_c):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(soft_d, soft_c):
+        assert float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) <= tol

@@ -16,6 +16,8 @@ from srcdsp_tpu_torch import bch, gf2, interleave, ldpc, qcldpc, rs, turbo
 from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
 from srcdsp_tpu_torch.chains import ofdm, ofdm_modem, ofdm_planes, ook, scfde, scfde_planes
 from srcdsp_tpu_torch.chains import sync_loop, tracking, tracking_planes
+from srcdsp_tpu_torch.chains import (analog, blindscan, css, css_planes, dqpsk, dsss,
+                                     equalizer, fhss, framesync)
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.dist import channelize as dchan
 from srcdsp_tpu_torch.dist import fused as dfused
@@ -83,6 +85,20 @@ TRACK_STATES = {
         _fsk_p(device="cpu"), 2),
 }
 OFDM_SPEC = ofdm.make_ofdm_spec()
+CSS_P = css.make_css_params(sf=6)
+CSS_X = np.ones(64 * 24, np.complex64)
+FHSS_P = fhss.make_fhss_params([-0.2, 0.1, 0.3], [0, 2, 1], 64)
+PRE = np.exp(0.5j * np.arange(16)).astype(np.complex64)
+# name -> (factory(**d) -> params, init(params, channel_shape))
+ANALOG = {
+    "fm": (lambda **d: analog.make_fm_params(0.1, 4, 0.08, deemph_tau=20.0, **d), analog.fm_init),
+    "am": (lambda **d: analog.make_am_params(0.1, 4, **d), analog.am_init),
+    "ssb": (lambda **d: analog.make_ssb_params(0.1, 2, 0.04, **d), analog.ssb_init),
+    "stereo": (lambda **d: analog.make_fm_stereo_params(0.08, 0.06, 4, **d),
+               analog.fm_stereo_init),
+    "fm_stereo_rx": (lambda **d: analog.make_fm_stereo_rx(0.07, 4, 0.08, 0.08, deemph_tau=8.0,
+                                                          **d), analog.fm_stereo_rx_init),
+}
 SCFDE_SPEC = scfde.make_scfde_spec(64, 16, device="cpu")
 
 PROTO = channelizer.design_prototype(8, 4)
@@ -321,6 +337,50 @@ ENTRY_POINTS = {
     "ook_state_from": lambda **d: convert.ook_state_from(
         ook.ook_init(ook.make_ook_params(8), (2,), device="cpu"), **d),
     "scfde_spec_from": lambda **d: convert.scfde_spec_from(SCFDE_SPEC, **d),
+    # the CSS modem and the rest of the plane-tier chains
+    "make_css_demod_planes": lambda **d: css_planes.make_css_demod_planes(CSS_P, **d),
+    "make_css_demod_planes_fourstep": lambda **d: css_planes.make_css_demod_planes(
+        CSS_P, direct=False, **d),
+    "make_css_llr_planes": lambda **d: css_planes.make_css_llr_planes(CSS_P, **d),
+    "css_sync": lambda **d: css.css_sync(CSS_P, CSS_X, **d),
+    "css_receive": lambda **d: css.css_receive(CSS_P, CSS_X, 4, **d),
+    "css_receive_stream": lambda **d: css.css_receive_stream(CSS_P, CSS_X, 4, **d),
+    "css_decode_frames_soft_batch": lambda **d: css.css_decode_frames_soft_batch(
+        CSS_P, np.ones((2, css.css_frame_nsym(CSS_P, 4), CSS_P.sf), np.float32), 4, **d),
+    "fm_modulate": lambda **d: analog.fm_modulate(np.zeros(64), 0.02, **d),
+    "am_modulate": lambda **d: analog.am_modulate(np.zeros(64), 0.5, **d),
+    "blindscan_scan": lambda **d: blindscan.scan(np.ones(512, np.complex64), nfft=64, **d),
+    "detect_css": lambda **d: blindscan.detect_css(CSS_X, sf_range=range(6, 8), **d),
+    "fhss_acquire": lambda **d: fhss.fhss_acquire(FHSS_P, np.ones(1024, np.complex64), **d),
+    "make_frame_sync_params": lambda **d: framesync.make_frame_sync_params(PRE, **d),
+    "frame_sync_init": lambda **d: framesync.frame_sync_init(
+        framesync.make_frame_sync_params(PRE, **d), (2,)),
+    "make_dqpsk_params": lambda **d: dqpsk.make_dqpsk_params(0.1, 4, 8, **d),
+    "dqpsk_init": lambda **d: dqpsk.dqpsk_init(dqpsk.make_dqpsk_params(0.1, 4, 8, **d), (2,)),
+    "make_dsss_params": lambda **d: dsss.make_dsss_params(**d),
+    "eq_init": lambda **d: equalizer.eq_init(7, channel_shape=(2,), **d),
+    "rls_init": lambda **d: equalizer.rls_init(7, **d),
+    "dfe_init": lambda **d: equalizer.dfe_init(5, 3, **d),
+    **{f"make_{k}": (lambda k: lambda **d: ANALOG[k][0](**d))(k) for k in ANALOG},
+    **{f"{k}_init": (lambda k: lambda **d: ANALOG[k][1](ANALOG[k][0](**d), (2,)))(k)
+       for k in ANALOG},
+    **{f"{k}_params_from": (lambda k: lambda **d: getattr(convert, f"{k}_params_from")(
+        ANALOG[k][0](device="cpu"), **d))(k) for k in ANALOG},
+    **{f"{k}_state_from": (lambda k: lambda **d: getattr(convert, f"{k}_state_from")(
+        ANALOG[k][1](ANALOG[k][0](device="cpu"), (2,)), **d))(k) for k in ANALOG},
+    "dsss_params_from": lambda **d: convert.dsss_params_from(
+        dsss.make_dsss_params(device="cpu"), **d),
+    "dqpsk_state_from": lambda **d: convert.dqpsk_state_from(
+        dqpsk.dqpsk_init(dqpsk.make_dqpsk_params(0.1, 4, 8, device="cpu"), (2,)), **d),
+    "frame_sync_params_from": lambda **d: convert.frame_sync_params_from(
+        framesync.make_frame_sync_params(PRE, device="cpu"), **d),
+    "frame_sync_state_from": lambda **d: convert.frame_sync_state_from(
+        framesync.frame_sync_init(framesync.make_frame_sync_params(PRE, device="cpu")), **d),
+    "eq_state_from": lambda **d: convert.eq_state_from(equalizer.eq_init(7, device="cpu"), **d),
+    "rls_state_from": lambda **d: convert.rls_state_from(equalizer.rls_init(7, device="cpu"),
+                                                         **d),
+    "dfe_state_from": lambda **d: convert.dfe_state_from(equalizer.dfe_init(5, 3, device="cpu"),
+                                                         **d),
 }
 
 
