@@ -154,15 +154,34 @@ Phases, in order; any failure raises and the run exits non-zero:
    every frame back, payloads and flags equal; coded Mb/s); the demod planes
    at bench/css_onchip.py's defaults (16,384 symbols at -5 dB, direct and
    four-step, and four-step at sf 11), shifts equal, SER 0; the burst
-   receiver over 16 bursts with timing and CFO offsets at 0 dB, every
-   payload back, starts equal (two bursts on the reference sync's
-   ambiguities printed beside); the blind scan at nfft 4,096 over 2^22
+   receiver over 16 bursts with gaps drawn uniformly over 200-4000 chips and
+   CFOs uniformly over +-2.5 bins at 0 dB, every payload back, results and
+   starts equal, and two more bursts on the wraps of the sync's solve (N/2
+   off the frame grid, a CFO of exactly 1.5 bins) both decoded; the blind scan at nfft 4,096 over 2^22
    samples (three signals found, detections equal) and detect_css finding
    sf 9; frame sync, MSK, pi/4-DQPSK, FHSS dehop, FM, AM, SSB and the FM
    stereo receiver over 32 x 2^20 samples, DSSS acquire + RAKE and FHSS
    acquire on one channel, block LMS and CMA over 8 x 2^16, MLSE, RLS and
    the DFE over a few thousand symbols (host clock), decisions equal and
-   soft outputs within rel L2 1e-5.
+   soft outputs within rel L2 1e-5;
+18. the ops tier, plain torch (no kernel of ours), each step on the card held
+   against the port's own CPU run of the same call and against the reference
+   tests' physics, timed: the range-Doppler map and 2-D CFAR of a 256 x 8,192
+   cube (8 targets found at their cells; a noise cube's false-alarm rate
+   within 0.3-3x of the design); CA and GO CFAR over 64 x 2^20 cells (rate
+   in the reference test's band); the impairment estimators and the impulse
+   blanker over 32 x 2^20 samples (estimates within the reference tests'
+   bounds, 16 streamed blocks equal to one shot); FAM at Np 256, P 1,024
+   (BPSK's 2fc line, 4x QPSK's there, the baud line); the acceleration
+   search at N 2^16 over 121 rates (frequency within a bin, drift within a
+   grid step, dechirp phasors equal to numpy's); DPD ILA (> 20 dB) and the
+   predistorter over 32 x 2^20 (8 blocks equal to one shot); FRESH planes
+   at 2^21 samples (== CPU within 5e-3 of the RMS, SINR within 0.2 dB of
+   fresh_apply, > 6 dB over Wiener); a 16-element ULA over 2^20 snapshots
+   (covariance in 16 blocks, the three spectra find the sources) and the
+   MVDR -> PSK link (SER 0); ZF, MMSE and ML (4x4 16-QAM over 65,536
+   candidates too) equal to what was sent at 80 dB, ML <= MMSE <= ZF on an
+   ill-conditioned channel, the 2x2 MIMO-OFDM link.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -191,8 +210,8 @@ the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
 kernel must have run on the main path. Phase 15 launches none of them;
-phase 16 reads K15's count before and after its modem on its own; phase 17
-launches none. The last three lines are one JSON
+phase 16 reads K15's count before and after its modem on its own; phases 17
+and 18 launch none. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -277,6 +296,24 @@ C17_SCAN_SAMPLES, C17_SCAN_NFFT = 1 << 22, 4096
 C17_CHANNELS, C17_SAMPLES, C17_CPU_CHANNELS = 32, 1 << 20, 4
 C17_EQ_CHANNELS, C17_EQ_SAMPLES = 8, 1 << 16
 C17_MLSE_SYMBOLS, C17_RLS_SYMBOLS, C17_DFE_SYMBOLS = 4096, 1024, 2048
+# phase 18, the ops tier at its users' sizes: a pulse-Doppler cube of 256 pulses x
+# 8,192 range bins (8 targets), CFAR over 64 x 2^20 cells, the impairment estimators
+# and the blanker over 32 x 2^20 samples, FAM at Np 256 x P 1,024, the acceleration
+# search at N 2^16 over +-120/N^2 (121 rates), DPD ILA over 2^16 and the
+# predistorter over 32 x 2^20 in 8 blocks, bench/fresh_onchip.py's FRESH (2^21
+# samples, 24 taps, 2^14 training), a 16-element ULA over 2^20 snapshots (two unit
+# sources and a jammer at 6 dB) and the MVDR -> PSK link over 2^16 symbols, MIMO
+# detection over 2^20 vectors (4x4 16-QAM ML over 4,096) and the 2x2 MIMO-OFDM link
+# over 1,024 symbols; CPU runs of the batched steps on their first C18_CPU_CHANNELS
+# channels
+C18_PULSES, C18_RANGE, C18_CHIRP, C18_TARGETS = 256, 8192, 512, 8
+C18_CFAR_CHANNELS, C18_IMP_CHANNELS, C18_SAMPLES, C18_CPU_CHANNELS = 64, 32, 1 << 20, 4
+C18_FAM_NP, C18_FAM_P, C18_ACCEL_N, C18_ACCEL_RATES = 256, 1024, 1 << 16, 120.0
+C18_DPD_TRAIN, C18_DPD_CHANNELS, C18_DPD_BLOCKS = 1 << 16, 32, 8
+C18_FRESH_N, C18_FRESH_TAPS, C18_FRESH_TRAIN = 1 << 21, 24, 1 << 14
+C18_ELEMENTS, C18_SNAPSHOTS, C18_COV_BLOCKS, C18_ANGLES = 16, 1 << 20, 16, 961
+C18_LINK_SYMS = 1 << 16
+C18_MIMO_N, C18_ML16_N, C18_OFDM_SYMS = 1 << 20, 4096, 1024
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -1474,16 +1511,15 @@ def phase17(torch, dev) -> None:
         del xs, planes, on_card
 
     # --- (c) the burst receiver over a stream of 16 bursts ------------------
-    # The reference's sync (ported as it is) resolves the timing and the
-    # fractional CFO with two ambiguities, ROADMAP Queue 3: a preamble within a
-    # few chips of half a symbol off the receiver's frame grid, and a CFO whose
-    # fraction is near half a bin, can come back a symbol or a bin off. The
-    # stream draws its offsets in the range the sync resolves (grid offsets
-    # more than 16 chips from N/2, CFO fractions within +-0.4 bins); two extra
-    # bursts sit on the two ambiguities. The first (N/2 off the grid, a CFO
-    # fraction of 0.3) must give the card the CPU run's result; the second
-    # (a fraction of exactly 0.5, where float rounding picks the side) is
-    # only printed.
+    # Gaps drawn uniformly over 200-4000 chips (any offset from the frame grid,
+    # N/2 included) and CFOs uniformly over [-2.5, 2.5] bins (any fraction):
+    # the repaired sync (chains/css.css_sync) resolves the two wraps the
+    # reference's commits to. Every burst is gated: its payload back, and the
+    # card's results and starts equal to the CPU run's. Two more bursts sit
+    # on the wraps, N/2 off the grid (a CFO fraction of 0.3) and a CFO of
+    # exactly 1.5 bins: both must decode, with the CPU run's payloads and
+    # flags; at the exact half-bin fraction float rounding picks the side of
+    # the wrap, so the start may differ from the CPU run's by one chip.
     rng = np.random.default_rng(1)
     pls = [bytes(rng.integers(0, 256, C17_PLEN, dtype=np.uint8)) for _ in range(C17_BURSTS)]
 
@@ -1498,31 +1534,34 @@ def phase17(torch, dev) -> None:
         sigma = np.sqrt(10 ** (-C17_STREAM_SNR / 10) / 2)
         return (xs + awgn(rng, xs.size, sigma)).astype(np.complex64), starts
 
-    gaps = [int(g) + (p.n // 4 if abs(int(g) % p.n - p.n // 2) <= 16 else 0)
-            for g in rng.integers(200, 4000, C17_BURSTS)]
-    cfos = rng.integers(-2, 3, C17_BURSTS) + rng.uniform(-0.4, 0.4, C17_BURSTS)
+    gaps = [int(g) for g in rng.integers(200, 4001, C17_BURSTS)]
+    cfos = rng.uniform(-2.5, 2.5, C17_BURSTS)
     xs, starts = burst_stream(gaps, cfos, pls)
     xd = torch.as_tensor(xs, device=dev)
     got, ms = host_ms(lambda: css.css_receive_stream(p, xd, C17_PLEN))
     got_c = css.css_receive_stream(p, xs, C17_PLEN, device=cpu)
     back = [g[0] for g in got] == pls
     same = got == got_c
-    report(f"CSS burst receiver ({C17_BURSTS} bursts, {xs.size} chips, CFO -2.4..2.4 bins, "
-           f"gaps 200-4000 chips, {C17_STREAM_SNR:.0f} dB)", ms, xs.size,
+    report(f"CSS burst receiver ({C17_BURSTS} bursts, {xs.size} chips, CFO uniform over -2.5..2.5 "
+           f"bins, gaps uniform over 200-4000 chips, {C17_STREAM_SNR:.0f} dB)", ms, xs.size,
            op_count(torch, lambda: css.css_receive_stream(p, xd, C17_PLEN)),
            clock="host clock, one run",
-           extra=f"; payloads back {back}; results and starts == CPU run {same}; starts "
-           f"== transmitted {[g[2] for g in got] == starts}")
+           extra=f"; grid offsets {[int(s_ % p.n) for s_ in starts]}, CFO fractions "
+           f"{[round(float(c_ - np.round(c_)), 3) for c_ in cfos]}; payloads back {back}; results "
+           f"and starts == CPU run {same}; starts == transmitted {[g[2] for g in got] == starts}")
     require(back and same, f"CSS stream: payloads back {back}, == CPU run {same}")
-    xs, _ = burst_stream([2 * p.n + p.n // 2, 700], [0.3, 1.5], pls[:2])
+    xs, amb_starts = burst_stream([2 * p.n + p.n // 2, 700], [0.3, 1.5], pls[:2])
     amb = css.css_receive_stream(p, torch.as_tensor(xs, device=dev), C17_PLEN)
     amb_c = css.css_receive_stream(p, xs, C17_PLEN, device=cpu)
-    print(f"[17] CSS sync ambiguities (a burst N/2 off the grid, a CFO of 1.5 bins): "
-          f"{[(g[0] == q, g[1]) for g, q in zip(amb, pls)]} (decoded, crc ok) per burst "
-          f"found, {len(amb)} found; CPU run {[(g[0] == q, g[1]) for g, q in zip(amb_c, pls)]} "
-          f"({card})", flush=True)
-    require(len(amb) >= 1 and amb[:1] == amb_c[:1],
-            f"CSS burst N/2 off the grid: card {amb[:1]} != CPU run {amb_c[:1]}")
+    decoded = [g[0] for g in amb] == pls[:2] and all(g[1] for g in amb)
+    agree = (len(amb) == len(amb_c) == 2
+             and [g[:2] for g in amb] == [g[:2] for g in amb_c]
+             and amb[0][2] == amb_c[0][2] and abs(amb[1][2] - amb_c[1][2]) <= 1)
+    print(f"[17] CSS sync wraps (a burst N/2 off the grid, a CFO of exactly 1.5 bins): decoded "
+          f"{decoded}, starts {[g[2] for g in amb]} (transmitted {amb_starts}); CPU run "
+          f"{[(g[0] == q, g[1], g[2]) for g, q in zip(amb_c, pls)]}; == CPU run {agree} ({card})",
+          flush=True)
+    require(decoded and agree, f"CSS sync wraps: decoded {decoded}, == CPU run {agree}")
     del xs, xd
 
     # --- (d) the blind survey: 2^22 samples, three signals; detect_css --------
@@ -1834,6 +1873,607 @@ def phase17(torch, dev) -> None:
         require(soft <= 1e-5 and snr > 25.0, f"{name}: rel L2 {soft}, SNR {snr}")
         del iq, a
 
+
+
+def phase18(torch, dev) -> None:
+    """The ops tier (plain torch, no kernel of ours): radar, CFAR, the front-end
+    impairment estimators, FAM and the acceleration search, DPD, FRESH, array
+    processing and MIMO detection at their users' sizes, each step on the card
+    held against the port's own CPU run of the same call (the batched steps on
+    their first C18_CPU_CHANNELS channels) and against the reference tests'
+    physics, timed (CUDA events; host-driven steps by the host clock), with the
+    torch operations one call dispatches."""
+    from srcdsp_tpu_torch import array, mimo
+    from srcdsp_tpu_torch.chains import ofdm, psk, tx
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+    from srcdsp_tpu_torch.demap import psk_points
+    from srcdsp_tpu_torch.ops import accel, cfar, cyclo, dpd, fresh, fresh_planes, impairments
+    from srcdsp_tpu_torch.ops import radar
+    from srcdsp_tpu_torch.ops.fir import fir_full
+    from srcdsp_tpu_torch.ops.window import root_raised_cosine
+    from srcdsp_tpu_torch.testing.channel import add_noise_snr, multipath_apply
+    from srcdsp_tpu_torch.testing.signals import chirp, tone
+
+    cpu = torch.device("cpu")
+    card = card_line()
+    cc = C18_CPU_CHANNELS
+
+    def report(tag, ms, ops, clock="CUDA-event median of 5", rate="", extra=""):
+        print(f"[18] {tag}: {ms:.3f} ms per call ({clock}){rate}, {ops} torch ops a call, "
+              f"{ms * 1e3 / ops:.1f} us an op{extra}; peak memory since the step began "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})", flush=True)
+
+    def rel_l2(a, b) -> float:
+        a, b = a.cpu(), b.cpu()
+        return float(torch.linalg.norm((a - b).reshape(-1)) / torch.linalg.norm(b.reshape(-1)))
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def near_mask_mismatch(mask, mask_c, power, thr_c, tol):
+        """Cells where the card's mask differs from the CPU's, and how many of
+        them lie further than `tol` (relative) from the CPU's threshold."""
+        diff = mask.cpu() != mask_c
+        far = (power.cpu() - thr_c).abs() > tol * thr_c.abs()
+        return int(diff.sum()), int((diff & far).sum())
+
+    def float64_threshold(pw, guard, train, pfa, greatest):
+        w = guard + train
+        pp = torch.cat([pw[..., 1:w + 1].flip(-1), pw, pw[..., -w - 1:-1].flip(-1)], dim=-1)
+        c = torch.nn.functional.pad(torch.cumsum(pp, dim=-1), (1, 0))
+        n = pw.shape[-1]
+        lead = (c[..., w - guard:w - guard + n] - c[..., :n]) / train
+        lag = (c[..., 2 * w + 1:2 * w + 1 + n] - c[..., w + guard + 1:w + guard + 1 + n]) / train
+        if greatest:
+            return cfar.cfar_alpha(train, pfa) * torch.maximum(lead, lag)
+        return cfar.cfar_alpha(2 * train, pfa) * 0.5 * (lead + lag)
+
+    def cn(gen, shape):
+        z = torch.randn((2, *shape), generator=gen, device=dev)
+        return torch.complex(z[0], z[1]) * np.float32(np.sqrt(0.5))
+
+    def free(reset=True):
+        """Return the freed tensors' memory; reset the peak for the next step."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+
+    # --- (a) pulse-Doppler radar: 256 x 8192 cube, 8 targets --------------------
+    free()
+    rng = np.random.default_rng(0)
+    p_, n_ = C18_PULSES, C18_RANGE
+    ref = chirp(C18_CHIRP, -0.2, 0.2)
+    delays = rng.choice(np.arange(200, n_ - C18_CHIRP - 200, 700), C18_TARGETS, replace=False)
+    dopps = rng.choice(np.arange(-100, 100, 12), C18_TARGETS, replace=False)
+    cube = ((rng.standard_normal((p_, n_)) + 1j * rng.standard_normal((p_, n_))) / np.sqrt(2))
+    k = np.arange(p_)[:, None]
+    for dl, fd in zip(delays, dopps):
+        cube[:, dl: dl + C18_CHIRP] += 0.5 * ref[None, :] * np.exp(2j * np.pi * fd * k / p_)
+    cube = cube.astype(np.complex64)
+    noise = ((rng.standard_normal((p_, n_)) + 1j * rng.standard_normal((p_, n_))) / np.sqrt(2)
+             ).astype(np.complex64)
+    cube_d = torch.as_tensor(cube, device=dev)
+
+    def rdmap(c):
+        m = radar.range_doppler(c, ref)
+        return (m.real ** 2 + m.imag ** 2).contiguous()
+
+    pw = rdmap(cube_d)
+    mask, thr = radar.cfar_2d(pw, guard=2, train=4, pfa=1e-6)
+    dets, det_ms = host_ms(lambda: radar.detections(pw, mask))
+    pw_c = rdmap(torch.as_tensor(cube))
+    mask_c, thr_c = radar.cfar_2d(pw_c, guard=2, train=4, pfa=1e-6)
+    dets_c = radar.detections(pw_c, mask_c)
+    cells = {(p_ // 2 + int(fd), int(dl)) for dl, fd in zip(delays, dopps)}
+    found = cells <= {(int(r[0]), int(r[1])) for r in dets}
+    same_dets = ({(int(r[0]), int(r[1])) for r in dets} & cells
+                 == {(int(r[0]), int(r[1])) for r in dets_c} & cells)
+    mis, mis_far = near_mask_mismatch(mask, mask_c, pw, thr_c, 2e-2)
+    map_err = rel_l2(pw, pw_c)
+    nmask, _ = radar.cfar_2d(rdmap(torch.as_tensor(noise, device=dev)), guard=1, train=4, pfa=1e-3)
+    pfa = float(nmask.float().mean())
+    ms_rd = median_ms(torch, lambda: rdmap(cube_d))
+    ms_cf = median_ms(torch, lambda: radar.cfar_2d(pw, guard=2, train=4, pfa=1e-6))
+    report(f"radar range-Doppler map + |.|^2 ({p_} pulses x {n_} bins, chirp {C18_CHIRP})", ms_rd,
+           op_count(torch, lambda: rdmap(cube_d)), rate=f", {p_ * n_ / ms_rd / 1e3:.1f} Ms/s",
+           extra=f"; map rel L2 to the CPU run {map_err:.2e}")
+    report("radar 2-D CA-CFAR (guard 2, train 4, pfa 1e-6)", ms_cf,
+           op_count(torch, lambda: radar.cfar_2d(pw, guard=2, train=4, pfa=1e-6)),
+           extra=f"; detections {len(dets)} ({det_ms:.1f} ms, host); all {C18_TARGETS} targets at "
+           f"their cells {found}, == CPU run {same_dets}; masks differ on {mis} cells ({mis_far} "
+           f"further than 2e-2 from the threshold); noise-cube pfa {pfa:.3e} (design 1e-3)")
+    require(found and same_dets and mis_far == 0 and map_err <= 1e-5
+            and 0.3e-3 < pfa < 3e-3,
+            f"radar: targets {found}, == CPU {same_dets}, masks far {mis_far}, map {map_err}, "
+            f"pfa {pfa}")
+    del cube_d, pw, mask, thr, pw_c, mask_c, thr_c, nmask
+    free()
+
+    # --- (b) CFAR over 64 x 2^20 cells; impairments and the blanker over 32 x 2^20 --
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    c_, n_ = C18_CFAR_CHANNELS, C18_SAMPLES
+    power = 3.7 * torch.empty((c_, n_), device=dev).exponential_(generator=gen)
+    for name, fn, band in (("ca_cfar", cfar.ca_cfar, (0.5e-2, 2e-2)),
+                           ("go_cfar_split", cfar.go_cfar_split, (0.1e-2, 2e-2))):
+        det, thr = fn(power, guard=2, train=16, pfa=1e-2)
+        det_c, thr_c = fn(power[:cc].cpu(), guard=2, train=16, pfa=1e-2)
+        rate = float(det.float().mean())
+        mis, mis_far = near_mask_mismatch(det[:cc], det_c, power[:cc], thr_c, 2e-2)
+        err = rel_l2(thr[:cc], thr_c)
+        # the reference's float32 running sums over 2^20 cells against float64 ones
+        # (channel 0): the training sums are differences of sums that reach 4e6
+        thr64 = float64_threshold(power[:1].double(), 2, 16, 1e-2, name == "go_cfar_split")
+        err64 = (float(((thr[:1].double() - thr64).abs() / thr64).max()),
+                 float(((thr_c[:1].double() - thr64.cpu()).abs() / thr64.cpu()).max()))
+        ms = median_ms(torch, lambda: fn(power, guard=2, train=16, pfa=1e-2))
+        report(f"{name} ({c_} x {n_} cells, guard 2, train 16, pfa 1e-2)", ms,
+               op_count(torch, lambda: fn(power, guard=2, train=16, pfa=1e-2)),
+               rate=f", {c_ * n_ / ms / 1e3:.1f} Mcells/s",
+               extra=f"; false-alarm rate {rate:.4e}; thresholds rel L2 to the CPU run {err:.2e} "
+               f"(worst cell against float64 sums: card {err64[0]:.2e}, CPU {err64[1]:.2e}); masks "
+               f"differ on {mis} of {cc * n_} cells ({mis_far} further than 2e-2 from the "
+               f"threshold)")
+        require(band[0] < rate < band[1] and mis_far == 0 and err <= 1e-2,
+                f"{name}: rate {rate}, mismatches far {mis_far}, thresholds {err}")
+    del power, det, thr
+    free()
+    c_ = C18_IMP_CHANNELS
+    rng = np.random.default_rng(1)
+    gains, skews = rng.uniform(1.02, 1.15, c_), rng.uniform(-0.08, 0.08, c_)
+    dcs = rng.uniform(-0.05, 0.05, c_) + 1j * rng.uniform(-0.05, 0.05, c_)
+    freqs = rng.uniform(-0.2, 0.2, c_)
+    kk = torch.arange(n_, dtype=torch.float64, device=dev)
+    ph = torch.remainder(torch.as_tensor(freqs, device=dev)[:, None] * kk[None, :], 1.0)
+    ang = (2 * np.pi * ph).to(torch.float32)
+    clean = torch.polar(torch.ones_like(ang), ang)
+    clean = clean + 0.1 * cn(gen, (c_, n_))
+    i_, q_ = clean.real, clean.imag
+    g_t = torch.as_tensor(gains, dtype=torch.float32, device=dev)[:, None]
+    s_t = torch.as_tensor(skews, dtype=torch.float32, device=dev)[:, None]
+    bad = torch.complex(i_, g_t * (torch.cos(s_t) * q_ + torch.sin(s_t) * i_))
+    bad = bad + torch.as_tensor(dcs.astype(np.complex64), device=dev)[:, None]
+    del clean, i_, q_, ph, kk, ang
+
+    def estimators(x):
+        st = impairments.moments_update(impairments.moments_init((x.shape[0],), device=x.device), x)
+        dc = impairments.dc_offset(st)
+        y1 = x - dc[:, None]
+        g, phi = impairments.iq_imbalance_estimate(y1)
+        y2 = impairments.iq_imbalance_correct(y1, g, phi)
+        return (dc, g, phi, impairments.cfo_kay(y2), impairments.cfo_fft_peak(y2),
+                impairments.snr_m2m4(y2))
+
+    est = estimators(bad)
+    est_c = estimators(bad[:cc].cpu())
+    dc, g, phi, f_kay, f_fft, snr = (v.cpu().numpy() for v in est)
+    worst = dict(dc=float(np.abs(dc - dcs).max()), gain=float(np.abs(g - gains).max()),
+                 skew=float(np.abs(phi - skews).max()), kay=float(np.abs(f_kay - freqs).max()),
+                 fft=float(np.abs(f_fft - freqs).max()),
+                 snr_db=float(np.abs(10 * np.log10(snr) - 20.0).max()))
+    est_err = max(rel_l2(a[:cc], b) for a, b in zip(est, est_c))
+    st1 = impairments.moments_update(impairments.moments_init((c_,), device=dev), bad)
+    st16 = impairments.moments_init((c_,), device=dev)
+    for blk in bad.chunk(16, dim=-1):
+        st16 = impairments.moments_update(st16, blk)
+    g1, p1 = impairments.iq_imbalance_estimate(st1)
+    g16, p16 = impairments.iq_imbalance_estimate(st16)
+    stream_gap = (float((g1 - g16).abs().max() / g1.abs().max()), float((p1 - p16).abs().max()))
+    ms = median_ms(torch, lambda: estimators(bad))
+    report(f"impairment estimators (DC, IQ gain/skew, correction, Kay, FFT peak, M2M4; {c_} x {n_})",
+           ms, op_count(torch, lambda: estimators(bad)), rate=f", {c_ * n_ / ms / 1e3:.1f} Ms/s",
+           extra=f"; worst errors {worst}; == CPU run rel {est_err:.2e}; 16 blocks streamed "
+           f"against one shot: gain {stream_gap[0]:.1e}, skew {stream_gap[1]:.1e}")
+    require(worst["dc"] < 0.01 and worst["gain"] < 0.01 and worst["skew"] < 0.005
+            and worst["kay"] < 1e-4 and worst["fft"] < 0.25 / n_ + 1e-6 and worst["snr_db"] < 0.5
+            and est_err <= 1e-4 and stream_gap[0] <= 1e-5 and stream_gap[1] <= 1e-6,
+            f"impairments: {worst}, == CPU {est_err}, streamed {stream_gap}")
+    imp_pos = torch.as_tensor(np.stack([rng.choice(n_, 64, replace=False) for _ in range(c_)]),
+                              device=dev)
+    hits = bad.clone()
+    rows = torch.arange(c_, device=dev)[:, None].expand(-1, 64)
+    hits[rows, imp_pos] += 30.0
+    cleaned, bmask = impairments.blank_impulses(hits)
+    cleaned_c, bmask_c = impairments.blank_impulses(hits[:cc].cpu())
+    flagged = bmask.sum(dim=-1).cpu().numpy()
+    caught = bool(torch.gather(bmask, 1, imp_pos).all())
+    same_b = bool(torch.equal(bmask[:cc].cpu(), bmask_c)
+                  and torch.equal(cleaned[:cc].cpu(), cleaned_c))
+    ms = median_ms(torch, lambda: impairments.blank_impulses(hits))
+    report(f"impulse blanker ({c_} x {n_}, 64 impulses a channel)", ms,
+           op_count(torch, lambda: impairments.blank_impulses(hits)),
+           rate=f", {c_ * n_ / ms / 1e3:.1f} Ms/s",
+           extra=f"; every impulse flagged {caught}; flagged a channel {int(flagged.min())}.."
+           f"{int(flagged.max())}; mask and output == CPU run {same_b}")
+    require(caught and flagged.max() <= 3 * 64 and same_b,
+            f"blanker: caught {caught}, flagged {flagged.max()}, == CPU {same_b}")
+    del bad, hits, cleaned, bmask, est, st1, st16
+    free()
+
+    # --- (c) FAM at Np 256 x P 1024 (BPSK, QPSK); the acceleration search --------
+    rng = np.random.default_rng(2)
+    nfam = (C18_FAM_P - 1) * C18_FAM_NP // 4 + C18_FAM_NP
+    h = root_raised_cosine(8, 8, 0.35)
+
+    def linear(order, fc, noise):
+        nsym = nfam // 8 + 8
+        data = rng.integers(0, order, nsym)
+        sym = (2.0 * data - 1.0) if order == 2 else np.exp(2j * np.pi * (data + 0.5) / order)
+        up = np.zeros(nsym * 8, np.complex128)
+        up[::8] = sym
+        x = 8 * np.convolve(up, h)[:nfam] * tone(nfam, fc)
+        return (x + noise * (rng.standard_normal(nfam) + 1j * rng.standard_normal(nfam))
+                ).astype(np.complex64)
+
+    # the reference tests' fixtures: clean BPSK and QPSK at 0.12 for the
+    # conjugate SCF, BPSK at 0 with noise 0.3 (a third of its power) for the baud line
+    bpsk, qpsk, bpsk_n = linear(2, 0.12, 0.0), linear(4, 0.12, 0.0), linear(2, 0.0, 0.3)
+    xb = torch.as_tensor(bpsk, device=dev)
+    fam = dict(np_=C18_FAM_NP, p=C18_FAM_P)
+    rb = cyclo.fam_scf(xb, conj=True, **fam)
+    peaks_b = cyclo.detect_cycles(rb)
+    axis, pb = cyclo.cycle_profile(rb, normalize=False)
+    at2fc = (axis - 0.24).abs() <= 2.0 / 512           # the profile's bins around 2 fc
+    prof_b, line_b = float(pb.max()), float(pb[at2fc].max())
+    rb_c = cyclo.fam_scf(bpsk, conj=True, device=cpu, **fam)
+    scf_err = rel_l2(rb.scf, rb_c.scf)
+    peaks_bc = cyclo.detect_cycles(rb_c)
+    ms = median_ms(torch, lambda: cyclo.fam_scf(xb, conj=True, **fam))
+    ops = op_count(torch, lambda: cyclo.fam_scf(xb, conj=True, **fam))
+    del rb, rb_c, pb
+    free(reset=False)
+    rq = cyclo.fam_scf(torch.as_tensor(qpsk, device=dev), conj=True, **fam)
+    peaks_q = cyclo.detect_cycles(rq)
+    pq = cyclo.cycle_profile(rq, normalize=False)[1]
+    prof_q, line_q = float(pq.max()), float(pq[at2fc].max())
+    del rq, pq
+    free(reset=False)
+    rn = cyclo.fam_scf(torch.as_tensor(bpsk_n, device=dev), conj=False, **fam)
+    peaks_n = cyclo.detect_cycles(rn)
+    _, prof_ms = host_ms(lambda: cyclo.detect_cycles(rn))
+    del rn
+    free(reset=False)
+    near = lambda pk, a: any(abs(x - a) < 2e-3 for x, _ in pk)           # noqa: E731
+    conj_b, conj_q = near(peaks_b, 0.24), near(peaks_q, 0.24)
+    baud = near(peaks_n, 0.125) or near(peaks_n, -0.125)
+    same_pk = sorted(a for a, _ in peaks_b) == sorted(a for a, _ in peaks_bc)
+    report(f"FAM SCF, conjugate (Np {C18_FAM_NP}, P {C18_FAM_P}, {nfam} samples; [Np, Np, P] "
+           f"complex64 {C18_FAM_P * C18_FAM_NP ** 2 * 8 / 2 ** 20:.0f} MiB)", ms, ops,
+           extra=f"; SCF rel L2 to the CPU run {scf_err:.2e}, cycles == CPU run {same_pk}; "
+           f"BPSK 2fc line {conj_b} (QPSK, normalized to its own alpha = 0: {conj_q}); unnormalized "
+           f"profile BPSK/QPSK at 2fc {line_b / line_q:.1f}, at their maxima "
+           f"{prof_b / prof_q:.1f}; BPSK baud line {baud}; detect_cycles {prof_ms:.1f} ms (host)")
+    # the reference's discriminator (tests/unit/test_cyclo.py): the 2fc line in
+    # BPSK's conjugate SCF, and BPSK's unnormalized profile over 4x QPSK's, read
+    # at 2fc (the reference reads the global maxima at Np 64, P 256; over this
+    # grid's 67M points QPSK's largest estimate grows: the maxima are 4.7x apart
+    # at Np 128, P 1024 and 4.3x at Np 256). QPSK's own profile, normalized by
+    # its small alpha = 0 value, shows peaks anywhere, so its detection list is
+    # only printed.
+    require(conj_b and line_b > 4 * line_q and baud and scf_err <= 1e-5
+            and same_pk, f"FAM: conj BPSK {conj_b}, QPSK {conj_q}, ratio {line_b / line_q}, "
+            f"baud {baud}, == CPU {scf_err} {same_pk}")
+    del xb
+    free()
+    na = C18_ACCEL_N
+    f0, r0 = 0.123, 100.0 / na ** 2
+    t = np.arange(na, dtype=np.float64)
+    xa = np.exp(2j * np.pi * (f0 * t + 0.5 * r0 * t * t))
+    xa = (xa + np.sqrt(10 ** 1.5 / 2) * (rng.standard_normal(na) + 1j * rng.standard_normal(na))
+          ).astype(np.complex64)
+    xa_d = torch.as_tensor(xa, device=dev)
+    md = C18_ACCEL_RATES / na ** 2
+    rates = accel.accel_grid(na, md)
+    res, ms = host_ms(lambda: accel.accel_search(xa_d, max_drift=md))
+    res_c = accel.accel_search(xa, max_drift=md, device=cpu)
+    fr = np.mod(rates[:, None] * (t * t)[None, :] / 2.0, 1.0)
+    phasors_equal = bool(np.array_equal(accel.dechirp_phasors(rates, na, dev).cpu().numpy(),
+                                        np.exp(-2j * np.pi * fr).astype(np.complex64)))
+    del fr
+    step = rates[1] - rates[0]
+    ok_acc = abs(res.freq - f0) < 1.0 / na and abs(res.drift - r0) < step
+    same_acc = (np.unravel_index(np.argmax(res.metric), res.metric.shape)
+                == np.unravel_index(np.argmax(res_c.metric), res_c.metric.shape))
+    report(f"acceleration search (N {na}, {rates.size} rates, a tone drifting {r0 * na * na:.0f} "
+           f"bins at -15 dB)", ms, op_count(torch, lambda: accel.accel_search(xa_d, max_drift=md)),
+           clock="host clock, one run, the metric's copy back included",
+           extra=f"; freq error {abs(res.freq - f0) * na:.3f} bins, drift error "
+           f"{abs(res.drift - r0) / step:.3f} grid steps, ratio {res.ratio:.1f}; dechirp phasors == "
+           f"numpy's {phasors_equal}; peak cell == CPU run {same_acc}, metric rel L2 "
+           f"{float(np.linalg.norm(res.metric - res_c.metric) / np.linalg.norm(res_c.metric)):.2e}")
+    require(ok_acc and phasors_equal and same_acc,
+            f"accel: {res.freq} {res.drift}, phasors {phasors_equal}, == CPU {same_acc}")
+    del xa_d, res, res_c
+    free()
+
+    # --- (d) DPD: ILA on the memory PA, then 32 x 2^20 in 8 blocks -------------
+    pa_c = np.array([1.0 + 0.0j, 0.06 - 0.02j, -0.01 + 0.01j, -0.08 + 0.03j, 0.02 + 0.01j,
+                     0.0 - 0.005j, 0.012 - 0.004j, -0.004j, 0.001 + 0.0j], np.complex64)
+    taps = np.hamming(33) / np.sum(np.hamming(33))
+
+    def drive(x):
+        y = fir_full(torch.as_tensor(taps.astype(np.float32), device=x.device), x)[..., 32:]
+        return 0.6 * y / torch.sqrt((y.abs() ** 2).mean(dim=-1, keepdim=True))
+
+    def pa(z):
+        return dpd.pa_memory_polynomial(pa_c, 5, 3, z)
+
+    def nmse_db(ref_, y):
+        return float(10 * torch.log10((y - ref_).abs().pow(2).mean() / ref_.abs().pow(2).mean()))
+
+    xt = drive(cn(gen, (C18_DPD_TRAIN + 32,)))
+    (params, g), ms = host_ms(lambda: dpd.dpd_train_ila(pa, xt, 5, 3, iters=3))
+    params_c, g_c = dpd.dpd_train_ila(pa, xt.cpu(), 5, 3, iters=3)
+    raw = nmse_db(dpd.lin_gain_ls(xt, pa(xt)) * xt, pa(xt))
+    lin = nmse_db(g * xt, pa(dpd.dpd_full(params, xt)))
+    lin_c = nmse_db(g_c * xt.cpu(), pa(dpd.dpd_full(params_c, xt.cpu())))
+    coef_err = rel_l2(params.coeffs, params_c.coeffs)
+    report(f"DPD ILA (order 5, memory 3, 3 iterations over {C18_DPD_TRAIN} samples)", ms,
+           op_count(torch, lambda: dpd.dpd_train_ila(pa, xt, 5, 3, iters=3)),
+           clock="host clock, one run",
+           extra=f"; NMSE {raw:.2f} dB raw -> {lin:.2f} dB linearized (CPU run {lin_c:.2f}); "
+           f"coefficients rel L2 to the CPU run {coef_err:.2e}")
+    # the fit solves the float32 normal equations of a basis whose Gram has a
+    # condition number near 2e5: card and CPU round the Gram differently (on an
+    # H100 80GB HBM3 at 700 W: coefficients 1.71e-2 apart, NMSE 0.30 dB apart)
+    require(lin < raw - 20.0 and abs(lin - lin_c) <= 1.0 and coef_err <= 5e-2,
+            f"DPD ILA: {raw} -> {lin} (CPU {lin_c}), coefficients {coef_err}")
+    xd = drive(cn(gen, (C18_DPD_CHANNELS, C18_SAMPLES + 32)))
+    whole = dpd.dpd_full(params, xd)
+    st, pos, blocks_equal = dpd.dpd_init(params, (C18_DPD_CHANNELS,)), 0, True
+    for blk in xd.chunk(C18_DPD_BLOCKS, dim=-1):
+        st, y = dpd.dpd_apply(params, st, blk)
+        blocks_equal &= bool(torch.equal(y, whole[:, pos: pos + y.shape[-1]]))
+        pos += y.shape[-1]
+    del st, y
+    p_cpu = params._replace(coeffs=params.coeffs.cpu())
+    cpu_equal = bool(torch.equal(dpd.dpd_full(p_cpu, xd[:cc].cpu()), whole[:cc].cpu()))
+    ms = median_ms(torch, lambda: dpd.dpd_full(params, xd))
+    report(f"DPD apply ({C18_DPD_CHANNELS} x {C18_SAMPLES} one shot)", ms,
+           op_count(torch, lambda: dpd.dpd_full(params, xd)),
+           rate=f", {xd.numel() / ms / 1e3:.1f} Ms/s",
+           extra=f"; {C18_DPD_BLOCKS} blocks == one shot (torch.equal) {blocks_equal}; == CPU run "
+           f"(torch.equal) {cpu_equal}")
+    require(blocks_equal, "DPD: blocks differ from the one-shot run on the card")
+    require(cpu_equal or rel_l2(whole[:cc], dpd.dpd_full(p_cpu, xd[:cc].cpu())) <= 1e-6,
+            "DPD: card differs from the CPU run")
+    del xd, whole, xt
+    free()
+
+    # --- (e) FRESH: bench/fresh_onchip.py's widths ------------------------------
+    rng = np.random.default_rng(0)
+    nf, ntr, taps_f = C18_FRESH_N, C18_FRESH_TRAIN, C18_FRESH_TAPS
+
+    def bpsk_sig(nsym, sps, fc):
+        hh = root_raised_cosine(sps, 8, 0.9)
+        sym = 1.0 - 2.0 * rng.integers(0, 2, nsym).astype(np.float64)
+        up = np.zeros(nsym * sps)
+        up[::sps] = sym
+        bb = np.convolve(up, hh, "same")
+        return (bb * np.exp(2j * np.pi * fc * np.arange(bb.size))).astype(np.complex64)
+
+    a = bpsk_sig(nf // 8 + 8, 8, 0.02)[:nf]
+    b = bpsk_sig(nf // 5 + 8, 5, 0.035)[:nf]
+    x = (a + b + 0.03 * (rng.standard_normal(nf) + 1j * rng.standard_normal(nf))).astype(np.complex64)
+    br = fresh.merge_branches(fresh.bpsk_branches(0.02, 1 / 8), fresh.bpsk_branches(0.035, 1 / 5))
+    x_d, a_d = torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev)
+    f, ms_design = host_ms(lambda: fresh.fresh_design(x_d[:ntr], a_d[:ntr], br, taps=taps_f))
+    fw = fresh.fresh_design(x_d[:ntr], a_d[:ntr], (fresh.FreshBranch(0.0, False),), taps=taps_f)
+    fn = fresh_planes.make_fresh_planes(f, stride=128, device=dev)
+    nn = ((nf - ntr - fn.hist) // 128) * 128
+    seg = x_d[ntr: ntr + nn + fn.hist]
+    sr, si = seg.real[None].contiguous(), seg.imag[None].contiguous()
+    yr, yi = fn(sr, si, ntr)
+    y_pl = torch.complex(yr, yi)[0]
+    f_c = f._replace(weights=f.weights.cpu())
+    fn_c = fresh_planes.make_fresh_planes(f_c, stride=128, device=cpu)
+    yr_c, yi_c = fn_c(sr.cpu(), si.cpu(), ntr)
+    y_c = torch.complex(yr_c, yi_c)[0]
+    scale = float(y_c.abs().pow(2).mean().sqrt())
+    close = bool(torch.allclose(y_pl.cpu(), y_c, atol=5e-3 * scale, rtol=0))
+    y_ap = fresh.fresh_apply(f, x_d[ntr:], n0=ntr)[: y_pl.shape[0]]
+    y_w = fresh.fresh_apply(fw, x_d[ntr:], n0=ntr)[: y_pl.shape[0]]
+    dref = a_d[ntr:][taps_f - 1 - f.delay: taps_f - 1 - f.delay + y_pl.shape[0]]
+
+    def sinr(y):
+        return float(10 * torch.log10(dref.abs().pow(2).mean() / (y - dref).abs().pow(2).mean()))
+
+    s_pl, s_ap, s_w = sinr(y_pl), sinr(y_ap), sinr(y_w)
+    ms = median_ms(torch, lambda: fn(sr, si, ntr))
+    report(f"FRESH planes ({len(br)} branches, {taps_f} taps, {nn} samples)", ms,
+           op_count(torch, lambda: fn(sr, si, ntr)), rate=f", {nn / ms / 1e3:.1f} Ms/s",
+           extra=f"; design {ms_design:.1f} ms (host clock, {ntr} training samples); == CPU run "
+           f"(atol 5e-3 of the RMS) {close}; SINR planes {s_pl:.2f} dB, fresh_apply {s_ap:.2f}, "
+           f"Wiener {s_w:.2f}")
+    require(close and abs(s_pl - s_ap) < 0.2 and s_pl > s_w + 6.0 and s_pl > 9.0,
+            f"FRESH: == CPU {close}, SINR planes {s_pl}, apply {s_ap}, Wiener {s_w}")
+    del x_d, a_d, seg, sr, si, yr, yi, y_pl, y_ap, y_w, dref
+    free()
+
+    # --- (f) array: 16-element ULA, 2^20 snapshots, 2 sources + a jammer ---------
+    e_, ns = C18_ELEMENTS, C18_SNAPSHOTS
+    thetas = np.array([-0.35, 0.2, 0.6])
+    steer_src = array.ula_steering(e_, 0.5, thetas, device=dev)
+    pows = torch.as_tensor([1.0, 1.0, 4.0], device=dev)
+    src = cn(gen, (3, ns)) * pows.sqrt()[:, None]
+    snaps = (steer_src.T @ src.to(torch.complex64)) + np.float32(np.sqrt(0.1)) * cn(gen, (e_, ns))
+    del src
+
+    def covariance(xs):
+        stc = array.cov_init(e_, device=xs.device)
+        for blk in xs.chunk(C18_COV_BLOCKS, dim=-1):
+            stc = array.cov_update(stc, blk)
+        return array.cov_finalize(stc, loading=1e-3)
+
+    grid = np.linspace(-1.2, 1.2, C18_ANGLES)
+    steer = array.ula_steering(e_, 0.5, grid, device=dev)
+
+    def spectra(r):
+        st_ = steer.to(r.device)
+        return (array.bartlett_spectrum(r, st_), array.mvdr_spectrum(r, st_),
+                array.music_spectrum(r, st_, 3))
+
+    r = covariance(snaps)
+    r_c = covariance(snaps.cpu())
+    r_err = rel_l2(r, r_c)
+    specs = spectra(r)
+
+    def top(spec, k):
+        s_ = spec.cpu().numpy()
+        loc = np.flatnonzero((s_[1:-1] > s_[:-2]) & (s_[1:-1] > s_[2:])) + 1
+        return np.sort(grid[loc[np.argsort(s_[loc])[::-1][:k]]])
+
+    found = [bool(np.allclose(top(sp, 3), thetas, atol=tol))
+             for sp, tol in zip(specs, (0.05, 0.01, 0.005))]
+    same_pk = [bool(np.array_equal(top(a_, 3), top(b_, 3)))
+               for a_, b_ in zip(specs, spectra(r_c))]
+    ms_cov = median_ms(torch, lambda: covariance(snaps))
+    ms_sp = median_ms(torch, lambda: spectra(r))
+    report(f"array covariance ({e_} elements x {ns} snapshots in {C18_COV_BLOCKS} blocks)", ms_cov,
+           op_count(torch, lambda: covariance(snaps)), rate=f", {e_ * ns / ms_cov / 1e3:.1f} Ms/s",
+           extra=f"; rel L2 to the CPU run {r_err:.2e}")
+    report(f"Bartlett, MVDR, MUSIC over {C18_ANGLES} angles", ms_sp,
+           op_count(torch, lambda: spectra(r)),
+           extra=f"; sources found (Bartlett, MVDR, MUSIC) {found}; peaks == CPU run {same_pk}")
+    require(all(found) and all(same_pk) and r_err <= 1e-5,
+            f"array: found {found}, == CPU {same_pk}, covariance {r_err}")
+    del snaps, r, r_c, specs
+    free()
+    # MVDR -> beamform -> chains.psk (tests/e2e/test_array_link.py's composition)
+    order, decim, sps, center = 4, 2, 4, 0.12
+    rxp = psk.make_psk_params(center, decim=decim, sps=sps, order=order, device=dev)
+    txp = tx.make_linear_tx(center, rxp.taps, sps=decim * sps, device=dev)
+    data = torch.as_tensor(rng.integers(0, order, C18_LINK_SYMS), device=dev)
+    _, sig = tx.linear_tx_apply(txp, tx.linear_tx_init(txp), tx.psk_map(psk.diff_encode(data, order),
+                                                                         order))
+    jam = torch.as_tensor(rng.integers(0, order, C18_LINK_SYMS), device=dev)
+    _, jsig = tx.linear_tx_apply(txp, tx.linear_tx_init(txp), tx.psk_map(jam, order))
+    a2 = array.ula_steering(e_, 0.5, [-0.4, 0.5], device=dev)
+    xl = a2[0][:, None] * sig[None, :] + 2.0 * a2[1][:, None] * jsig[None, :]
+    xl = xl + np.float32(0.02 * np.sqrt(2)) * cn(gen, tuple(xl.shape))
+
+    def link(xs):
+        w = array.mvdr_weights(array.sample_covariance(xs, loading=1e-3), a2[0].to(xs.device))
+        y = array.beamform(w, xs)
+        p_ = rxp if xs.is_cuda else psk.make_psk_params(center, decim, sps, order, device="cpu")
+        return psk.psk_demod_stream(p_, y, 1 << 15)[0]
+
+    (idx), ms = host_ms(lambda: link(xl))
+    one = psk.psk_demod_stream(rxp, xl[0], 1 << 15)[0]
+    ser = float(ser_per_channel(data.cpu().numpy()[None], idx.cpu().numpy()[None], order)[0])
+    ser1 = float(ser_per_channel(data.cpu().numpy()[None], one.cpu().numpy()[None], order)[0])
+    idx_c = link(xl.cpu())
+    same_l = bool(torch.equal(idx.cpu(), idx_c))
+    report(f"MVDR -> beamform -> chains.psk ({e_} elements, {C18_LINK_SYMS} QPSK symbols, jammer "
+           f"+6 dB)", ms, op_count(torch, lambda: link(xl)), clock="host clock, one run",
+           extra=f"; SER after settling {ser} (one element alone {ser1:.3f}); symbols == CPU run "
+           f"{same_l}")
+    require(ser == 0.0 and ser1 > 0.1 and same_l, f"array link: SER {ser}, one element {ser1}, "
+            f"== CPU {same_l}")
+    del xl, sig, jsig, idx, one
+    free()
+
+    # --- (g) MIMO: ZF / MMSE / ML ------------------------------------------------
+    rng = np.random.default_rng(3)
+
+    def scene(pts, nt, n, snr_db, cond=1.0):
+        idx_ = torch.as_tensor(rng.integers(0, pts.size, (nt, n)), device=dev)
+        hh = (rng.standard_normal((nt, nt)) + 1j * rng.standard_normal((nt, nt))) / np.sqrt(2)
+        if cond != 1.0:
+            u_, sv, vt = np.linalg.svd(hh)
+            sv[-1] /= cond
+            hh = (u_ * sv) @ vt
+        hh = hh.astype(np.complex64)
+        yy = torch.as_tensor(hh, device=dev) @ torch.as_tensor(pts.astype(np.complex64), device=dev)[idx_]
+        sigma = float(np.sqrt(float(yy.abs().pow(2).mean()) / 10 ** (snr_db / 10) / 2))
+        yy = yy + np.float32(sigma * np.sqrt(2)) * cn(gen, tuple(yy.shape))
+        return idx_, hh, yy, 10 ** (snr_db / 10)
+
+    def sliced(pts, xhat):
+        pt = torch.as_tensor(pts.astype(np.complex64), device=xhat.device)
+        return torch.argmin((xhat[..., None] - pt).abs(), dim=-1)
+
+    q16, q4 = qam_constellation(16), np.asarray(psk_points(4))
+    lat16, lat4_4, lat16_4 = (mimo.make_ml_lattice(q16, 2), mimo.make_ml_lattice(q4, 4),
+                              mimo.make_ml_lattice(q16, 4))
+    idx_, hh, yy, snr = scene(q16, 2, C18_MIMO_N, 80.0)
+    dets = {"ZF": lambda: sliced(q16, mimo.zf_detect(hh, yy)),
+            "MMSE": lambda: sliced(q16, mimo.mmse_detect(hh, yy, snr)),
+            "ML": lambda: mimo.ml_detect(hh, yy, *lat16)}
+    for name, fn_ in dets.items():
+        got = fn_()
+        exact = bool(torch.equal(got.to(idx_.dtype), idx_))
+        ms = median_ms(torch, fn_)
+        report(f"MIMO {name} 2x2 16-QAM, {C18_MIMO_N} vectors at 80 dB", ms, op_count(torch, fn_),
+               rate=f", {C18_MIMO_N / ms / 1e3:.1f} M vectors/s", extra=f"; == sent {exact}")
+        require(exact, f"MIMO {name} 2x2 16-QAM at 80 dB differs from what was sent")
+    ml_c = mimo.ml_detect(hh, yy[:, :4096].cpu(), *lat16)
+    same_ml = bool(torch.equal(mimo.ml_detect(hh, yy[:, :4096], *lat16).cpu(), ml_c))
+    for name, (pts, nt, n, lat) in (("4x4 QPSK", (q4, 4, C18_MIMO_N, lat4_4)),
+                                    ("4x4 16-QAM (65,536 candidates)", (q16, 4, C18_ML16_N, lat16_4))):
+        idx_, hh, yy, _ = scene(pts, nt, n, 80.0)
+        got = mimo.ml_detect(hh, yy, *lat)
+        exact = bool(torch.equal(got.to(idx_.dtype), idx_))
+        ms = median_ms(torch, lambda: mimo.ml_detect(hh, yy, *lat))
+        got_c = mimo.ml_detect(hh, yy[:, :1024].cpu(), *lat)
+        same = bool(torch.equal(got[:, :1024].cpu(), got_c))
+        report(f"MIMO ML {name}, {n} vectors at 80 dB", ms,
+               op_count(torch, lambda: mimo.ml_detect(hh, yy, *lat)),
+               rate=f", {n / ms / 1e3:.3f} M vectors/s",
+               extra=f"; [N, C] cross {n * lat[0].shape[0] * 4 / 2 ** 30:.2f} GiB in float32; == sent "
+               f"{exact}; first 1,024 == CPU run {same}")
+        require(exact and same, f"MIMO ML {name}: == sent {exact}, == CPU {same}")
+    idx_, hh, yy, snr = scene(q4, 2, C18_MIMO_N, 14.0, cond=8.0)
+    sers = [float((v.to(idx_.dtype) != idx_).float().mean()) for v in (
+        mimo.ml_detect(hh, yy, *mimo.make_ml_lattice(q4, 2)),
+        sliced(q4, mimo.mmse_detect(hh, yy, snr)), sliced(q4, mimo.zf_detect(hh, yy)))]
+    print(f"[18] MIMO 2x2 QPSK, ill-conditioned (cond 8) at 14 dB over {C18_MIMO_N} vectors: SER "
+          f"ML {sers[0]:.4f} <= MMSE {sers[1]:.4f} <= ZF {sers[2]:.4f}; ML 2x2 16-QAM first 4,096 "
+          f"== CPU run {same_ml} ({card})", flush=True)
+    require(sers[0] <= sers[1] <= sers[2] and sers[0] < 0.5 * sers[2] and same_ml,
+            f"MIMO ordering {sers}, == CPU {same_ml}")
+    del idx_, hh, yy
+    free()
+    # the 2x2 MIMO-OFDM link (tests/e2e/test_mimo_ofdm.py) over 1,024 data symbols
+    spec = ofdm.make_ofdm_spec(64, 16, 52, 16)
+    nsym, act = C18_OFDM_SYMS, spec.active.size
+    idx_o = rng.integers(0, 16, (2, nsym, act))
+    pilot = np.exp(1j * 2 * np.pi * rng.integers(0, 4, act) / 4).astype(np.complex64)
+    txs = []
+    for t_ in range(2):
+        p1 = pilot if t_ == 0 else np.zeros_like(pilot)
+        p2 = pilot if t_ == 1 else np.zeros_like(pilot)
+        grid_ = np.concatenate([p1[None], p2[None], q16[idx_o[t_]]]).astype(np.complex64)
+        txs.append(ofdm.ofdm_modulate(spec, torch.as_tensor(grid_, device=dev)))
+    chans = [[np.asarray([1.0, 0.4 - 0.2j, 0.15j], np.complex64),
+              np.asarray([0.6j, 0.3, 0.1], np.complex64)],
+             [np.asarray([0.7, -0.25j, 0.1], np.complex64),
+              np.asarray([0.9 - 0.3j, 0.2, -0.1j], np.complex64)]]
+    rxs = [add_noise_snr(rng, sum(multipath_apply(chans[r_][t_], txs[t_]) for t_ in range(2)), 25.0)
+           for r_ in range(2)]
+
+    def mimo_ofdm(rx_list):
+        fq = torch.stack([ofdm.ofdm_fft(spec, r_) for r_ in rx_list])          # [Nr, 2+S, A]
+        pil = torch.as_tensor(pilot, device=fq.device)
+        hb = torch.stack([fq[:, 0, :] / pil, fq[:, 1, :] / pil], dim=1)       # [Nr, Nt, A]
+        return torch.stack([mimo.ml_detect(hb[:, :, a_], fq[:, 2:, a_], *lat16)
+                            for a_ in range(act)])                             # [A, Nt, S]
+
+    got, ms = host_ms(lambda: mimo_ofdm(rxs))
+    want = torch.as_tensor(np.stack([idx_o[:, :, a_] for a_ in range(act)]), device=dev)
+    ser_o = float((got.to(want.dtype) != want).float().mean())
+    same_o = bool(torch.equal(got.cpu(), mimo_ofdm([r_.cpu() for r_ in rxs])))
+    report(f"2x2 MIMO-OFDM link (64-point, 52 bins, 16-QAM, {nsym} symbols, 25 dB, per-bin ML)",
+           ms, op_count(torch, lambda: mimo_ofdm(rxs)), clock="host clock, one run",
+           extra=f"; SER {ser_o:.5f}; == CPU run {same_o}")
+    require(ser_o < 0.002 and same_o, f"MIMO-OFDM: SER {ser_o}, == CPU {same_o}")
+    del txs, rxs, got
+    free()
 
 def main() -> int:
     import torch
@@ -3077,6 +3717,11 @@ def main() -> int:
     t17 = time.perf_counter()
     phase17(torch, dev)
     print(f"[17] phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # --- 18. the ops tier: radar, CFAR, impairments, FAM, accel, DPD, FRESH, array, MIMO --
+    t18 = time.perf_counter()
+    phase18(torch, dev)
+    print(f"[18] phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

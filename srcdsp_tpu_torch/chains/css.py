@@ -19,9 +19,10 @@ Where each part runs:
   numpy, the port's own copy; the CRC-16 runs the port's gf2 CRC engine on
   the CPU, as the reference runs its own;
 - the device stages are torch on the input's device: `css_frames`,
-  `css_demod`, `css_demod_frames`, the dechirp FFTs of `css_sync`,
-  `css_derotate` and `css_soft_llrs`; the sync's run search and CFO solve
-  stay host logic over the copied-back bins, as in the reference;
+  `css_demod`, `css_demod_frames`, the dechirp FFTs and the candidate
+  scores of `css_sync`, `css_derotate` and `css_soft_llrs`; the sync's run
+  search and CFO solve stay host logic over the copied-back bins, as in the
+  reference;
 - `css_decode_frames_soft_batch` runs on the LLRs' device: the deinterleave
   is one index take, the ML nibble correlation one float64 product with the
   16 codewords, the CRC-16 one float64 GF(2) product; the payload bytes are
@@ -181,6 +182,22 @@ def css_sync(params: CssParams, x, device=None) -> CssSync:
     b_up = (eps - tau) mod N validated by the sync word, the fractional CFO
     from the peak phase advance, and the downchirp bin b_dn = (eps + tau)
     mod N from the stronger of two grid frames.
+
+    The solve has two wraps where the reference commits to one branch and
+    can be wrong: 2*eps is known mod N (the half-N branch, which moves tau
+    by N/2), and a fractional CFO near +-0.5 leaves the integer bin, and
+    with it tau, one off either way; a preamble near N/2 off the frame grid
+    also lets the sync-word search pick the frame one symbol off, or miss
+    sync1 (then the run's last frame stands for it, where the reference
+    goes on to a later burst's preamble). The peaks' phases lose the
+    fraction when the argmax flips between two bins, so it is also read at
+    fixed bins. So the reference's answer is held against the neighbouring
+    candidates (`_sync_candidates`), each scored on the capture by the
+    energy of the sync word and the two downchirps at their expected bins
+    (`_sync_scores`). The reference's answer stands unless its sync-word
+    energy is below half the best candidate's (then the data symbols, which
+    see the same eps - tau, would come out off); the best total energy
+    replaces it.
     """
     n, nup = params.n, params.n_up
     xx = as_tensor_on(x, device, CF32)
@@ -214,6 +231,17 @@ def css_sync(params: CssParams, x, device=None) -> CssSync:
             if abs(d1) <= 1 and abs(d2) <= 1:
                 sync_end = f + 2      # first downchirp frame index
                 break
+        if sync_end is None:
+            # a preamble near N/2 off the grid can hide sync1: the frame that
+            # straddles (up | sync1) shows the upchirp and the one that
+            # straddles (sync1 | sync2) shows sync2. Then sync1 is taken at the
+            # run's last frame; the candidates below try the grid index
+            # either way.
+            f = ri + rl - 1
+            if f + 2 < nsym and all(
+                    abs(int(_wrap_half(int(up_bin[g]) - b_up_c - params.sync2, n))) <= 1
+                    for g in (f + 1, f + 2)):
+                sync_end = f + 2
         if sync_end is not None:
             best_i, best_len = ri, rl
             break
@@ -225,8 +253,16 @@ def css_sync(params: CssParams, x, device=None) -> CssSync:
     if hi > lo:
         rot = up_pk[lo + 1: hi] * np.conj(up_pk[lo: hi - 1])
         eps_frac = float(np.angle(rot.sum()) / (2 * np.pi))
+        # the same phase advance read at fixed bins (b_up and its two
+        # neighbours) for every frame: a tone half a bin off puts the
+        # argmax on either side frame by frame, which the peaks' phases
+        # do not survive, and the fixed bins do
+        cols = torch.remainder(torch.arange(b_up - 1, b_up + 2, device=xx.device), n)
+        fx = up_spec[lo: hi][:, cols]
+        fracs = (eps_frac, float(torch.angle((fx[1:] * fx[:-1].conj()).sum()).cpu()) / (2 * np.pi))
     else:
         eps_frac = 0.0
+        fracs = (eps_frac,)
 
     if (sync_end + 2) * n > int(xx.shape[-1]):
         return CssSync(0, 0.0, 0, False)
@@ -240,7 +276,60 @@ def css_sync(params: CssParams, x, device=None) -> CssSync:
     eps = round(float(c) - eps_frac) + eps_frac
     tau = int(_wrap_half(round(eps) - b_up, n))
     start = (sync_end + 2) * n + tau
+    cands = _sync_candidates(n, s, b_up, fracs, sync_end, (start, eps), int(xx.shape[-1]))
+    if cands[0] != (start, eps):
+        # the reference's frame runs past the capture: nothing to score it on
+        return CssSync(start=int(start), cfo_bins=float(eps), tau=int(tau), ok=True)
+    sync_e, total_e = _sync_scores(params, xx, cands)
+    if sync_e[0] < 0.5 * sync_e.max():
+        start, eps = cands[int(np.argmax(total_e))]
+        tau = int(_wrap_half(start, n))
     return CssSync(start=int(start), cfo_bins=float(eps), tau=int(tau), ok=True)
+
+
+def _sync_candidates(n: int, s: int, b_up: int, fracs: tuple, sync_end: int,
+                     ref: tuple, length: int) -> list:
+    """(start, eps) pairs around the reference's solve, the reference's
+    first, each with its preamble tail [start - 4N, start) inside the
+    capture: each fractional CFO estimate, both half-N branches of eps = s/2
+    mod N/2, the integer bins on either side of each branch's snap, the two
+    integer taus around eps - b_up, and the frame grid index of the sync
+    word one symbol either way."""
+    out = []
+    for frac in fracs:
+        for a in (0.0, n / 2.0):
+            c = float(_wrap_half(s / 2.0 + a, n))
+            k0 = round(c - frac)
+            for k in (k0, k0 - 1, k0 + 1):
+                eps = k + frac
+                t = eps - b_up
+                for tau in sorted({int(_wrap_half(v, n)) for v in (np.floor(t), np.ceil(t))}):
+                    for j in (0, -1, 1):
+                        out.append(((sync_end + 2 + j) * n + tau, eps))
+    out = [ref] + [c for c in dict.fromkeys(out) if c != ref]
+    return [(st, e) for st, e in out if st - 4 * n >= 0 and st <= length]
+
+
+def _sync_scores(params: CssParams, xx: torch.Tensor, cands: list
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Energy of each candidate's preamble tail at its expected bins, on
+    xx's device: the 4N chips before `start` (sync1, sync2, two downchirps),
+    derotated by the candidate CFO and correlated symbol by symbol with the
+    transmitted ones (the dechirp-DFT value at the expected bin). Returns
+    (sync-word energy [C], sync-word + downchirp energy [C]) on the host."""
+    n = params.n
+    dev = xx.device
+    ref = torch.as_tensor(np.conj(css_preamble(params)[-4 * n:]), dtype=CF32, device=dev)
+    st = torch.as_tensor([c[0] for c in cands], dtype=torch.int64, device=dev)
+    eps = torch.as_tensor([c[1] for c in cands], dtype=torch.float64, device=dev)
+    m = torch.arange(4 * n, device=dev)
+    seg = xx[st[:, None] - 4 * n + m[None, :]]                         # [C, 4N]
+    fr = torch.remainder(eps[:, None] * m[None, :].to(torch.float64) / n, 1.0)
+    ph = (-2.0 * np.pi) * fr.to(F32)
+    corr = (seg * ref[None, :] * torch.complex(torch.cos(ph), torch.sin(ph))
+            ).reshape(len(cands), 4, n).sum(dim=-1)
+    e = (corr.real ** 2 + corr.imag ** 2).cpu().numpy().astype(np.float64)
+    return e[:, :2].sum(axis=1), e.sum(axis=1)
 
 
 def css_derotate(params: CssParams, x: torch.Tensor, cfo_bins: float) -> torch.Tensor:

@@ -76,10 +76,11 @@ class LinearTxState(NamedTuple):
 
 
 def make_linear_tx(center_freq, taps, sps: int, device=None) -> LinearTxParams:
-    """center_freq: one frequency, or one per channel (an array)."""
+    """center_freq: one frequency, or one per channel (an array). taps: numpy,
+    a list or a tensor on any device (a receiver's, e.g. `PskParams.taps`)."""
     device = resolve(device)
     return LinearTxParams(freq_word=word_tensor(freq_to_word(center_freq), device),
-                          taps=torch.as_tensor(np.asarray(taps, np.float32), device=device),
+                          taps=torch.as_tensor(taps, dtype=torch.float32, device=device),
                           sps=sps)
 
 

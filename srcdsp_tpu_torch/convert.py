@@ -7,7 +7,9 @@ AGC, AFC), the OFDM and SC-FDE specs, the CSS, DSSS, FHSS, MLSE, frame-sync
 and analog receivers' parameters, and the carried streaming state (the
 GF(2) / CRC register, the convolutional interleaver's delay lines, the
 tracking loops', the trackers', the OOK, DQPSK, equalizer, frame-sync and
-analog chains' included). The JAX
+analog chains' included), and the ops tier's designs and accumulators (the
+FRESH filter, the DPD coefficients and history, the covariance and moment
+sums). The JAX
 objects are read through their attributes and ``np.asarray`` (no JAX import
 here), so a stream started by the JAX package continues here with no seam;
 `fsk_state_to_numpy` gives back plain arrays from which the JAX ``FskState``
@@ -46,17 +48,21 @@ from srcdsp_tpu_torch.golay import Golay
 from srcdsp_tpu_torch.interleave import ConvInterleaverState
 from srcdsp_tpu_torch.kernels.fftconv_pallas import FftConvKernel, FftConvStream
 from srcdsp_tpu_torch.kernels.ldpc_pallas import EdgePlan, QcPlan
+from srcdsp_tpu_torch.array import CovState
 from srcdsp_tpu_torch.ldpc import LdpcCode
 from srcdsp_tpu_torch.ops.afc import AfcParams, AfcState
 from srcdsp_tpu_torch.ops.agc import AgcParams
 from srcdsp_tpu_torch.ops.cic import CicState
 from srcdsp_tpu_torch.ops.ddc import DdcParams, DdcState
+from srcdsp_tpu_torch.ops.dpd import DpdParams, DpdState
 from srcdsp_tpu_torch.ops.decimplan import DecimPlan, DecimPlanState
 from srcdsp_tpu_torch.ops.farrow import FarrowState
 from srcdsp_tpu_torch.ops.fftconv import FftConvState
 from srcdsp_tpu_torch.ops.fir import FirState
+from srcdsp_tpu_torch.ops.fresh import FreshBranch, FreshFilter
 from srcdsp_tpu_torch.ops.halfband import HalfbandState
 from srcdsp_tpu_torch.ops.iir import IirParams, IirState
+from srcdsp_tpu_torch.ops.impairments import MomentState
 from srcdsp_tpu_torch.ops.nco import NcoState, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState
 from srcdsp_tpu_torch.polar import PolarCode
@@ -690,3 +696,41 @@ def fm_stereo_rx_state_from(s, device=None) -> ana.FmStereoRxState:
                                disc_last=_c64(s.disc_last, device),
                                stereo=stereo_state_from(s.stereo, device),
                                deemph=_iir_state_or_none(s.deemph, device))
+
+
+# ---------- the ops tier ----------
+
+def fresh_filter_from(f, device=None) -> FreshFilter:
+    """FreshFilter from the JAX one: its weights, and its branches as the
+    port's FreshBranch (alpha, conj)."""
+    return FreshFilter(weights=_c64(f.weights, resolve(device)),
+                       branches=tuple(FreshBranch(float(b.alpha), bool(b.conj))
+                                      for b in f.branches),
+                       taps=int(f.taps), delay=int(f.delay))
+
+
+def dpd_params_from(p, device=None) -> DpdParams:
+    """DpdParams from the JAX one."""
+    return DpdParams(order=int(p.order), memory=int(p.memory),
+                     coeffs=_c64(p.coeffs, resolve(device)))
+
+
+def dpd_state_from(s, device=None) -> DpdState:
+    """DpdState (the carried input tail) from the JAX one."""
+    return DpdState(history=_c64(s.history, resolve(device)))
+
+
+def cov_state_from(s, device=None) -> CovState:
+    """CovState (the unnormalized X X^H and the snapshot count) from the JAX
+    one."""
+    device = resolve(device)
+    return CovState(acc=_c64(s.acc, device), count=_f32(s.count, device))
+
+
+def moment_state_from(s, device=None) -> MomentState:
+    """MomentState (the running sums of the impairment estimators) from the
+    JAX one."""
+    device = resolve(device)
+    return MomentState(n=_f32(s.n, device), s1=_c64(s.s1, device), sii=_f32(s.sii, device),
+                       sqq=_f32(s.sqq, device), siq=_f32(s.siq, device),
+                       sm2=_f32(s.sm2, device), sm4=_f32(s.sm4, device))

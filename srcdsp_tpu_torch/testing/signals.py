@@ -102,6 +102,16 @@ def zadoff_chu(root: int, length: int) -> np.ndarray:
     return np.exp(-1j * np.pi * ph).astype(np.complex64)
 
 
+def chirp(n: int, f0: float, f1: float, amplitude: float = 1.0) -> np.ndarray:
+    """Linear FM (LFM) chirp sweeping f0 -> f1 cycles/sample over n samples,
+    complex64, from the float64 host phase f0*k + (f1-f0)*k^2/(2n): the
+    pulse-compression waveform of ``ops.radar`` (bit for bit the
+    reference's)."""
+    k = np.arange(n, dtype=np.float64)
+    ph = f0 * k + (f1 - f0) * k * k / (2.0 * n)
+    return (amplitude * np.exp(2j * np.pi * ph)).astype(np.complex64)
+
+
 def ook_baseband(bits, sps: int, depth: float = 1.0, rise: int = 0) -> np.ndarray:
     """OOK/ASK baseband: bits [..., Nbit] {0,1} -> [..., Nbit*sps] complex64
     with on-level 1 and off-level (1-depth) (depth 1 is pure on-off keying).

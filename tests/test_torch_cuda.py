@@ -1520,3 +1520,194 @@ def test_plane_tier_on_card_equals_cpu(dev, name):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(soft_d, soft_c):
         assert float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) <= tol
+
+
+def _ops_tier_cases():
+    """name -> fn(device) -> (exact tensors, soft tensors, soft tolerance):
+    the ops tier at small shapes (numpy inputs made once)."""
+    from srcdsp_tpu_torch import array, mimo
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+    from srcdsp_tpu_torch.ops import accel, cfar, cyclo, dpd, fresh, fresh_planes, impairments
+    from srcdsp_tpu_torch.ops import radar
+    from srcdsp_tpu_torch.testing.signals import chirp
+
+    rng = np.random.default_rng(6)
+    cn = lambda *s: (rng.standard_normal(s) + 1j * rng.standard_normal(s)).astype(np.complex64)  # noqa: E731
+    t = lambda a, d: torch.as_tensor(a, device=d)                      # noqa: E731
+    power = (0.5 * np.abs(cn(4, 4096)) ** 2).astype(np.float32)
+    power[1, 900] += 60.0
+    ref = chirp(64, -0.2, 0.2)
+    cube = 0.1 * cn(32, 512)
+    for k in range(32):
+        cube[k, 137:201] += ref * np.exp(2j * np.pi * 5 * k / 32)
+    iq = cn(2, 8192)
+    iq[0] += 0.05
+    bpsk = np.repeat(1.0 - 2.0 * rng.integers(0, 2, 1024), 8).astype(np.complex64)
+    drift = np.exp(2j * np.pi * (0.1 * np.arange(4096) + 0.5 * 20 / 4096 ** 2 *
+                                 np.arange(4096) ** 2)).astype(np.complex64)
+    drive = (0.3 * cn(8192)).astype(np.complex64)
+    pa = np.array([1.0, 0.05j, -0.08, 0.02, 0.01, 0.0], np.complex64)
+    a_sig = (np.repeat(1.0 - 2.0 * rng.integers(0, 2, 1100), 8)[:8192]
+             * np.exp(2j * np.pi * 0.02 * np.arange(8192))).astype(np.complex64)
+    mix = (a_sig + np.repeat(1.0 - 2.0 * rng.integers(0, 2, 1700), 5)[:8192]
+           * np.exp(2j * np.pi * 0.035 * np.arange(8192)) + 0.03 * cn(8192)).astype(np.complex64)
+    br = fresh.merge_branches(fresh.bpsk_branches(0.02, 1 / 8), fresh.bpsk_branches(0.035, 0.2))
+    steer_in = np.linspace(-1.2, 1.2, 241)
+    snaps = cn(8, 4096)
+    pts = qam_constellation(16)
+    idx = rng.integers(0, 16, (2, 4096))
+    h = (rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))).astype(np.complex64)
+    y = (h @ pts[idx] + 0.05 * cn(2, 4096)).astype(np.complex64)
+    lat = mimo.make_ml_lattice(pts, 2)
+
+    def cf(d):
+        m1, t1 = cfar.ca_cfar(t(power, d), guard=2, train=16, pfa=1e-3)
+        m2, t2 = cfar.go_cfar_split(t(power, d), guard=2, train=16, pfa=1e-3)
+        return [m1, m2], [t1, t2], 1e-5
+
+    def rd(d):
+        m = radar.range_doppler(t(cube, d), ref)
+        pw = (m.real ** 2 + m.imag ** 2).contiguous()
+        mask, thr = radar.cfar_2d(pw, guard=2, train=4, pfa=1e-6)
+        return [mask], [m, thr], 1e-5
+
+    def imp(d):
+        g, phi = impairments.iq_imbalance_estimate(t(iq, d))
+        st = impairments.moments_init((2,), device=d)
+        for blk in t(iq, d).chunk(4, dim=-1):
+            st = impairments.moments_update(st, blk)
+        fixed = impairments.iq_imbalance_correct(t(iq, d), g, phi)
+        c, mask = impairments.blank_impulses(t(iq, d), guard=2, train=32)
+        est = torch.stack([g, phi, impairments.dc_offset(st).abs(), impairments.cfo_kay(t(iq, d)),
+                           impairments.cfo_fft_peak(t(iq, d)), impairments.snr_m2m4(st)])
+        return [mask], [est, fixed, c], 1e-5
+
+    def cy(d):
+        r = cyclo.fam_scf(t(bpsk, d), np_=64, p=128, conj=True)
+        axis, prof = cyclo.cycle_profile(r)
+        return [axis, torch.tensor(sorted(a for a, _ in cyclo.detect_cycles(r)))], [r.scf, prof], 1e-5
+
+    def ac(d):
+        res = accel.accel_search(t(drift, d), max_drift=30.0 / 4096 ** 2)
+        rates = res.rates
+        return ([accel.dechirp_phasors(rates, 4096, d),
+                 torch.tensor(np.unravel_index(np.argmax(res.metric), res.metric.shape))],
+                [torch.as_tensor(res.metric)], 1e-5)
+
+    def dp(d):
+        params, g = dpd.dpd_train_ila(lambda z: dpd.pa_memory_polynomial(pa, 3, 3, z),
+                                      t(drive, d), 3, 3, iters=2)
+        whole = dpd.dpd_full(params, t(drive, d))
+        st, outs = dpd.dpd_init(params), []
+        for blk in t(drive, d).tensor_split([100, 5000]):
+            st, o = dpd.dpd_apply(params, st, blk)
+            outs.append(o)
+        assert torch.equal(torch.cat(outs), whole)
+        return [], [whole], 1e-3
+
+    def fr(d):
+        f = fresh.fresh_design(t(mix[:4096], d), t(a_sig[:4096], d), br, taps=16)
+        yy = fresh.fresh_apply(f, t(mix[4096:], d), n0=4096)
+        fn = fresh_planes.make_fresh_planes(f, stride=128, device=d)
+        seg = mix[4096: 4096 + 2048 + fn.hist]
+        pr, pi = fn(t(seg.real[None].copy(), d), t(seg.imag[None].copy(), d), 4096)
+        return [], [yy, pr, pi], 1e-3
+
+    def ar(d):
+        r = array.sample_covariance(t(snaps, d), loading=1e-3)
+        steer = array.ula_steering(8, 0.5, steer_in, device=d)
+        return [], [r, array.bartlett_spectrum(r, steer), array.mvdr_spectrum(r, steer),
+                    array.music_spectrum(r, steer, 2),
+                    array.beamform(array.mvdr_weights(r, steer[100]), t(snaps, d))], 1e-4
+
+    def mi(d):
+        return ([mimo.ml_detect(h, t(y, d), *lat)],
+                [mimo.zf_detect(h, t(y, d)), mimo.mmse_detect(h, t(y, d), 100.0)], 1e-5)
+
+    return {"cfar": cf, "radar": rd, "impairments": imp, "cyclo": cy, "accel": ac, "dpd": dp,
+            "fresh": fr, "array": ar, "mimo": mi}
+
+
+@pytest.mark.parametrize("name", sorted(_ops_tier_cases()))
+def test_ops_tier_on_card_equals_cpu(dev, name):
+    """Each module of the ops tier at a small shape: its decisions (CFAR
+    masks, the blanker's mask, the cycle list, the accel phasors and peak
+    cell, ML indices) on the card equal the CPU run's; its soft outputs
+    within rel L2 1e-5 (1e-4 for the covariance's solves and eigh; 1e-3 for
+    the outputs of the DPD and FRESH fits, solves of ill-conditioned or
+    rank-deficient normal equations whose coefficients are not compared);
+    the DPD blocks equal the one-shot run on the card (`torch.equal`)."""
+    fn = _ops_tier_cases()[name]
+    ex_d, soft_d, tol = fn(dev)
+    ex_c, soft_c, _ = fn(torch.device("cpu"))
+    for a, b in zip(ex_d, ex_c):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(soft_d, soft_c):
+        assert float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) <= tol
+
+
+def test_ops_tier_matmuls_with_tf32_allowed(dev):
+    """With TF32 allowed globally, the tier's products stay float32 (each
+    pins TF32 off): the DPD fit (coefficients within 2e-2, the float32
+    spread of its ill-conditioned Gram), the FRESH design's output and
+    planes (1e-3), the covariance (1e-5) and the ML indices (equal) match
+    the CPU's."""
+    from srcdsp_tpu_torch import array, mimo
+    from srcdsp_tpu_torch.chains.qam import qam_constellation
+    from srcdsp_tpu_torch.ops import dpd, fresh, fresh_planes
+
+    rng = np.random.default_rng(7)
+    cn = lambda *s: (rng.standard_normal(s) + 1j * rng.standard_normal(s)).astype(np.complex64)  # noqa: E731
+    x = 0.3 * cn(8192)
+    snaps = cn(8, 8192)
+    pts = qam_constellation(16)
+    idx = rng.integers(0, 16, (2, 8192))
+    h = cn(2, 2)
+    y = (h @ pts[idx] + 0.01 * cn(2, 8192)).astype(np.complex64)
+    br = fresh.bpsk_branches(0.05, 0.125)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            pa_out = dpd.pa_saleh(torch.as_tensor(x, device=d))
+            c = dpd.dpd_identify_ila(torch.as_tensor(x, device=d), pa_out, 5, 2, 1.0)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            f = fresh.fresh_design(torch.as_tensor(x, device=d), torch.as_tensor(x, device=d), br,
+                                   taps=8)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            fy = fresh.fresh_apply(f, torch.as_tensor(x, device=d))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            fn = fresh_planes.make_fresh_planes(f, device=d)
+            seg = torch.as_tensor(x[: 4096 + fn.hist], device=d)
+            pr, _ = fn(seg.real[None].contiguous(), seg.imag[None].contiguous(), 0)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            r = array.sample_covariance(torch.as_tensor(snaps, device=d))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            ml = mimo.ml_detect(h, torch.as_tensor(y, device=d), *mimo.make_ml_lattice(pts, 2))
+            out[d.type] = (c, fy, pr, r, ml)
+        c, w, pr, r, ml = out["cuda"]
+        cc, wc, prc, rc, mlc = out["cpu"]
+        rel = lambda a, b: float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b))  # noqa: E731
+        assert rel(c, cc) <= 2e-2 and rel(w, wc) <= 1e-3 and rel(pr, prc) <= 1e-3
+        assert rel(r, rc) <= 1e-5
+        assert torch.equal(ml.cpu(), mlc) and torch.equal(mlc, torch.as_tensor(idx, dtype=torch.int32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def test_linear_tx_takes_the_receivers_card_taps(dev):
+    """make_linear_tx accepts a receiver's taps as they lie on the card (the
+    array link's composition: the PSK receiver's RRC shapes the transmitter)
+    and transmits what the CPU-built transmitter does."""
+    from srcdsp_tpu_torch.chains import psk, tx
+
+    rxp = psk.make_psk_params(0.12, decim=2, sps=4, order=4, device=dev)
+    sym = tx.psk_map(torch.arange(64, device=dev) % 4, 4)
+    out = {}
+    for taps, d in ((rxp.taps, dev), (rxp.taps.cpu().numpy(), "cpu")):
+        p = tx.make_linear_tx(0.12, taps, sps=8, device=d)
+        out[d if d == "cpu" else "card"] = tx.linear_tx_apply(p, tx.linear_tx_init(p), sym.to(d))[1]
+    assert float(torch.linalg.norm(out["card"].cpu() - out["cpu"])
+                 / torch.linalg.norm(out["cpu"])) <= 1e-5

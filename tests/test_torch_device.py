@@ -32,6 +32,8 @@ from srcdsp_tpu_torch.kernels import resample_pallas, resample_preframed
 from srcdsp_tpu_torch.ops import afc, agc, channelize_planes, cic, ddc, decimplan, farrow
 from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, halfband, iir, nco
 from srcdsp_tpu_torch.ops import planes, resample, spectrum
+from srcdsp_tpu_torch import array, mimo
+from srcdsp_tpu_torch.ops import accel, cfar, cyclo, dpd, fresh, fresh_planes, impairments, radar
 from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing import signals
 
@@ -128,6 +130,15 @@ def _pshards(mesh, n=1024):
 
 def _k20(mesh):
     return halo_fused.make_halo_fused_kernel(TAPS, 2, b_rows=2, device=mesh.devices[0][0])
+
+
+Z64 = np.zeros(64, np.complex64)
+PW = np.ones((2, 64), np.float32)
+FRESH_BR = (fresh.FreshBranch(0.0, False), fresh.FreshBranch(0.25, True))
+FRESH_F = fresh.FreshFilter(weights=torch.zeros(8, dtype=torch.complex64), branches=FRESH_BR,
+                            taps=4, delay=2)
+LATTICE = mimo.make_ml_lattice(np.array([1.0, -1.0]), 2)
+H22 = np.eye(2, dtype=np.complex64)
 
 
 ENTRY_POINTS = {
@@ -381,6 +392,50 @@ ENTRY_POINTS = {
                                                          **d),
     "dfe_state_from": lambda **d: convert.dfe_state_from(equalizer.dfe_init(5, 3, device="cpu"),
                                                          **d),
+    # the ops tier
+    "ca_cfar": lambda **d: cfar.ca_cfar(PW, guard=1, train=4, **d),
+    "go_cfar_split": lambda **d: cfar.go_cfar_split(PW, guard=1, train=4, **d),
+    "moments_init": lambda **d: impairments.moments_init((2,), **d),
+    "iq_imbalance_estimate": lambda **d: impairments.iq_imbalance_estimate(Z64 + 1, **d),
+    "iq_imbalance_apply": lambda **d: impairments.iq_imbalance_apply(Z64, 1.1, 0.1, **d),
+    "dc_offset": lambda **d: impairments.dc_offset(Z64, **d),
+    "cfo_kay": lambda **d: impairments.cfo_kay(Z64 + 1, **d),
+    "cfo_fft_peak": lambda **d: impairments.cfo_fft_peak(Z64 + 1, **d),
+    "snr_m2m4": lambda **d: impairments.snr_m2m4(Z64 + 1, **d),
+    "blank_impulses": lambda **d: impairments.blank_impulses(Z64 + 1, guard=1, train=4, **d),
+    "pulse_compress": lambda **d: radar.pulse_compress(np.ones((4, 64), np.complex64),
+                                                       Z64[:8] + 1, **d),
+    "range_doppler": lambda **d: radar.range_doppler(np.ones((4, 64), np.complex64),
+                                                     Z64[:8] + 1, **d),
+    "cfar_2d": lambda **d: radar.cfar_2d(np.ones((16, 16), np.float32), **d),
+    "fam_scf": lambda **d: cyclo.fam_scf(np.ones(512, np.complex64), np_=16, p=8, **d),
+    "accel_search": lambda **d: accel.accel_search(Z64 + 1, max_drift=1e-4, **d),
+    "mp_basis": lambda **d: dpd.mp_basis(Z64, 3, 2, **d),
+    "pa_saleh": lambda **d: dpd.pa_saleh(Z64, **d),
+    "pa_memory_polynomial": lambda **d: dpd.pa_memory_polynomial(
+        np.ones(4, np.complex64), 3, 2, Z64, **d),
+    "make_dpd_params": lambda **d: dpd.make_dpd_params(3, 2, **d),
+    "lin_gain_ls": lambda **d: dpd.lin_gain_ls(Z64 + 1, Z64 + 1, **d),
+    "dpd_identify_ila": lambda **d: dpd.dpd_identify_ila(Z64 + 1, Z64 + 1, 1, 1, 1.0, **d),
+    "dpd_train_ila": lambda **d: dpd.dpd_train_ila(lambda z: z, Z64 + 1, 1, 1, iters=1, **d),
+    "fresh_frames": lambda **d: fresh.fresh_frames(Z64, FRESH_BR, 4, **d),
+    "fresh_design": lambda **d: fresh.fresh_design(Z64 + 1, Z64 + 1, FRESH_BR, taps=4, **d),
+    "fresh_apply": lambda **d: fresh.fresh_apply(FRESH_F, Z64, **d),
+    "make_fresh_planes": lambda **d: fresh_planes.make_fresh_planes(FRESH_F, **d),
+    "ula_steering": lambda **d: array.ula_steering(4, 0.5, [0.0, 0.1], **d),
+    "sample_covariance": lambda **d: array.sample_covariance(np.ones((4, 16), np.complex64), **d),
+    "cov_init": lambda **d: array.cov_init(4, **d),
+    "zf_detect": lambda **d: mimo.zf_detect(H22, np.ones((2, 8), np.complex64), **d),
+    "mmse_detect": lambda **d: mimo.mmse_detect(H22, np.ones((2, 8), np.complex64), 10.0, **d),
+    "ml_detect": lambda **d: mimo.ml_detect(H22, np.ones((2, 8), np.complex64), *LATTICE, **d),
+    "fresh_filter_from": lambda **d: convert.fresh_filter_from(FRESH_F, **d),
+    "dpd_params_from": lambda **d: convert.dpd_params_from(dpd.make_dpd_params(3, 2, device="cpu"),
+                                                           **d),
+    "dpd_state_from": lambda **d: convert.dpd_state_from(
+        dpd.dpd_init(dpd.make_dpd_params(3, 2, device="cpu")), **d),
+    "cov_state_from": lambda **d: convert.cov_state_from(array.cov_init(4, device="cpu"), **d),
+    "moment_state_from": lambda **d: convert.moment_state_from(
+        impairments.moments_init(device="cpu"), **d),
 }
 
 
