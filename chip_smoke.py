@@ -181,7 +181,20 @@ Phases, in order; any failure raises and the run exits non-zero:
    (covariance in 16 blocks, the three spectra find the sources) and the
    MVDR -> PSK link (SER 0); ZF, MMSE and ML (4x4 16-QAM over 65,536
    candidates too) equal to what was sent at 80 dB, ML <= MMSE <= ZF on an
-   ill-conditioned channel, the 2x2 MIMO-OFDM link.
+   ill-conditioned channel, the 2x2 MIMO-OFDM link;
+19. the fifteen protocol receivers, plain torch (no kernel of ours), each at
+   a capture its users record, every message sent gated to come back and a
+   prefix gated equal to the port's own CPU run: one minute of one AIS
+   channel (2,250 slots at 9,600 bd, 4,608,000 samples, 500 type-1 frames,
+   GMSK BT 0.4, CFO, noise), 60 s of APRS (30 frames), 1,024 BLE packets as
+   1,024 channels of one FSK call, 1 s of ADS-B at 2 Msps (1,000 DF17
+   frames), 16 ACARS blocks in 30 s at 48 kHz, 20 POCSAG pages in 30 s, 10 s
+   of RDS MPX at 228 kHz, a GPS cold search (32 PRNs x 41 Dopplers x 10 ms,
+   four satellites at their cells) and one 6 s subframe tracked (nav bits and
+   the TLM preamble), 5 minutes of NAVTEX, 60 s of RTTY, three SAME headers,
+   a 12-minute APT pass (1,440 lines), a full Martin M1 SSTV image, 60 s of
+   CW and 60 minutes of DCF77; each step's time (host clock; its card part
+   by CUDA events), rate and torch operations a call.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -210,8 +223,8 @@ the same slices to its plain version per shard (rel L2 1e-5).
 
 Launch counts are reset just before phase 4 and read after phase 14: every
 kernel must have run on the main path. Phase 15 launches none of them;
-phase 16 reads K15's count before and after its modem on its own; phases 17
-and 18 launch none. The last three lines are one JSON
+phase 16 reads K15's count before and after its modem on its own; phases 17,
+18 and 19 launch none. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -314,6 +327,25 @@ C18_FRESH_N, C18_FRESH_TAPS, C18_FRESH_TRAIN = 1 << 21, 24, 1 << 14
 C18_ELEMENTS, C18_SNAPSHOTS, C18_COV_BLOCKS, C18_ANGLES = 16, 1 << 20, 16, 961
 C18_LINK_SYMS = 1 << 16
 C18_MIMO_N, C18_ML16_N, C18_OFDM_SYMS = 1 << 20, 4096, 1024
+# phase 19, the fifteen protocol receivers at captures their users record: one
+# minute of AIS (2,250 slots, 500 frames), 60 s of APRS, 1,024 BLE packets, 1 s of
+# ADS-B at 2 Msps (1,000 frames), 30 s of ACARS and of POCSAG, 10 s of RDS MPX, a
+# GPS cold search (32 PRNs x 41 Dopplers x 10 ms) and a 6 s subframe tracked,
+# 5 minutes of NAVTEX, 60 s of RTTY, three SAME headers, a 12-minute APT pass, a
+# Martin M1 image, 60 s of CW and 60 minutes of DCF77; each gated whole, and a
+# prefix of each (or the whole capture, where it is small) against the CPU run
+C19_AIS_SLOTS, C19_AIS_FRAMES, C19_AIS_PREFIX = 2250, 500, 1 << 19
+C19_AX25_SECONDS, C19_AX25_FRAMES, C19_AX25_PREFIX = 60, 30, 1 << 17
+C19_BLE_PACKETS, C19_BLE_BITS, C19_BLE_PREFIX = 1024, 448, 32
+C19_ADSB_SAMPLES, C19_ADSB_FRAMES, C19_ADSB_PREFIX = 2_000_000, 1000, 1 << 18
+C19_ACARS_SECONDS, C19_ACARS_BLOCKS, C19_ACARS_PREFIX = 30, 16, 1 << 18
+C19_POCSAG_SECONDS, C19_POCSAG_PAGES, C19_POCSAG_PREFIX = 30, 20, 1 << 16
+C19_RDS_SAMPLES, C19_RDS_PREFIX = 2_280_000, 1 << 18
+C19_GPS_ACQ_MS, C19_GPS_TRACK_MS, C19_GPS_TRACK_PREFIX, C19_GPS_CPU_PRNS = 10, 6000, 200, (3, 11)
+C19_NAVTEX_CHARS, C19_NAVTEX_PREFIX, C19_RTTY_CHARS, C19_RTTY_PREFIX = 1800, 1 << 16, 300, 1 << 15
+C19_APT_LINES, C19_APT_PREFIX, C19_SSTV_LINES, C19_SSTV_CPU_LINES, C19_SSTV_PREFIX = (
+    1440, 1 << 20, 256, 8, 1 << 16)
+C19_CW_WORDS, C19_DCF77_MINUTES = 16, 60
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -2475,6 +2507,504 @@ def phase18(torch, dev) -> None:
     del txs, rxs, got
     free()
 
+
+def phase19(torch, dev) -> None:
+    """The fifteen protocol receivers (plain torch, no kernel of ours), each at
+    a capture its users record: the capture made with numpy from a seed, put
+    on the card, decoded through the receiver's entry point (the FSK chain,
+    envelopes, filters and GPS products on the card; framing, codecs and
+    candidate searches on the host, from one copy), every message, page,
+    group, header, image, time and nav bit sent gated to come back, and a
+    prefix of the capture decoded on the card gated equal to the port's own
+    CPU run. Each step prints its time (the whole call by the host clock; the
+    card's share by CUDA events where it is one call), its rate and the torch
+    operations a call dispatches. The receivers take one symbol-timing phase
+    for a whole capture (one `fsk_apply`, as in the reference), so the bursts
+    of a capture start on one bit grid."""
+    from srcdsp_tpu_torch.chains import (acars, adsb, ais, apt, ax25, ble, cw, dcf77, gps,
+                                         navtex, pocsag, rds, rtty, same, sstv)
+    from srcdsp_tpu_torch.chains.analog import fm_stereo_mpx
+    from srcdsp_tpu_torch.chains.fsk import complex_audio, fsk_capture_bits
+    from srcdsp_tpu_torch.device import to_host
+    from srcdsp_tpu_torch.testing.signals import gmsk_baseband
+
+    cpu = torch.device("cpu")
+    card = card_line()
+
+    def report(tag, ms, rate, ops, card_ms=None, extra=""):
+        share = "" if card_ms is None else f"; card part {card_ms:.3f} ms (CUDA-event median of 5)"
+        print(f"[19] {tag}: {ms:.1f} ms per call (host clock, one warm run){share}, {rate}, {ops} "
+              f"torch ops a call{extra} ({card})", flush=True)
+
+    def timed(fn):
+        """(result, ms, ops): a first call warms the caches, a second counts
+        the torch ops, a third is timed by the host clock."""
+        fn()
+        ops = op_count(torch, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, ops
+
+    def rel_l2(a, b) -> float:
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        a, b = (a.cdouble(), b.cdouble()) if a.is_complex() else (a.double(), b.double())
+        return float(torch.linalg.norm((a - b).reshape(-1)) / torch.linalg.norm(b.reshape(-1)))
+
+    def cnoise(rng, n, sigma):
+        return (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+    def text(rng, n, alphabet="ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 "):
+        return "".join(rng.choice(list(alphabet), n))
+
+    # --- AIS: one minute of one channel, 500 type-1 frames in random slots ----------
+    t_step = time.perf_counter()
+    rng = np.random.default_rng(190)
+    slots = rng.choice(C19_AIS_SLOTS, C19_AIS_FRAMES, replace=False)
+    sent = {}
+    line = rng.integers(0, 2, (C19_AIS_SLOTS, 256)).astype(np.int32)
+    for s_ in np.sort(slots):
+        pl = bytes([0x04]) + bytes(rng.integers(0, 256, 20).astype(np.uint8))   # type 1
+        lv = ais.build_ais_frame(pl)
+        line[s_, :lv.size] = lv
+        sent[int(s_)] = pl
+    x = gmsk_baseband(line.reshape(-1), 8, bt=0.4)
+    x = (x * np.exp(2j * np.pi * 0.003 * np.arange(x.size)) + cnoise(rng, x.size, 0.05)
+         ).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+    fsk_args = (0.0, 64, 0.45 / 2, 4, 0.25 / 4, 2, 0.95)
+
+    def ais_rx(xx):
+        return ais.decode_all_ais_frames(fsk_capture_bits(xx, *fsk_args), max_ends_per_start=8)
+
+    got, ms, ops = timed(lambda: ais_rx(x_d))
+    card_ms = median_ms(torch, lambda: fsk_capture_bits(x_d, *fsk_args))
+    want = [sent[k] for k in sorted(sent)]
+    back = [p for p, _ in got] == want
+    pre = C19_AIS_PREFIX
+    same_cpu = ais_rx(x_d[:pre]) == ais_rx(torch.as_tensor(x[:pre]))
+    report(f"AIS, 1 minute at 9,600 bd ({C19_AIS_SLOTS} slots, {x.size} complex64 samples, "
+           f"{x.nbytes / 1e6:.1f} MB), GMSK BT 0.4, CFO 0.003, noise 0.05",
+           ms, f"{x.size / ms / 1e3:.1f} Ms/s", ops, card_ms,
+           f"; {len(got)} of {C19_AIS_FRAMES} frames back, in order and equal {back}; first "
+           f"{pre} samples == CPU run {same_cpu}")
+    require(back and same_cpu, f"AIS: {len(got)} frames, equal {back}, == CPU {same_cpu}")
+    del x_d
+
+    # --- AX.25 / APRS: 60 s of Bell-202 audio at 13.2 kHz, 30 frames ------------------
+    rng = np.random.default_rng(191)
+    fs, sps = 13200.0, 11
+    fm, fsp = 1200.0 / fs, 2200.0 / fs
+    audio = np.zeros(int(C19_AX25_SECONDS * fs), np.float32)
+    infos = []
+    for k in range(C19_AX25_FRAMES):
+        info = f"!{4900 + k:04d}.50N/07201.75W-{text(rng, 24)}"
+        infos.append(info.encode())
+        a = ax25.afsk_modulate(ax25.build_aprs_frame(f"N{k % 10}CALL", info), sps, fm, fsp)
+        s0 = k * (audio.size // C19_AX25_FRAMES) + sps * int(rng.integers(0, 700))
+        audio[s0: s0 + a.size] = a
+    audio = (audio + 0.08 * rng.standard_normal(audio.size)).astype(np.float32)
+    a_d = torch.as_tensor(audio, device=dev)
+    got, ms, ops = timed(lambda: ax25.decode_ax25_audio(a_d, sps, fm, fsp))
+    card_ms = median_ms(torch, lambda: fsk_capture_bits(complex_audio(a_d), 0.5 * (fm + fsp), 64,
+                                                        0.8 * (fsp - fm), sps, 0.5 * (fsp - fm)))
+    back = [r["info"] for r in got] == infos
+    pre = C19_AX25_PREFIX
+    same_cpu = (ax25.decode_ax25_audio(a_d[:pre], sps, fm, fsp)
+                == ax25.decode_ax25_audio(audio[:pre], sps, fm, fsp, device=cpu))
+    report(f"AX.25/APRS, {C19_AX25_SECONDS} s of Bell-202 audio at 13.2 kHz ({audio.size} samples), "
+           f"{C19_AX25_FRAMES} frames, noise 0.08", ms, f"{audio.size / ms / 1e3:.2f} Ms/s",
+           ops, card_ms,
+           f"; {len(got)} of {C19_AX25_FRAMES} frames back, equal {back}; first {pre} samples "
+           f"== CPU run {same_cpu}")
+    require(back and same_cpu, f"AX.25: {len(got)} frames, equal {back}, == CPU {same_cpu}")
+    del a_d
+
+    # --- BLE: 1,024 advertising packets on channel 37 as 1,024 channels --------------
+    rng = np.random.default_rng(192)
+    payloads = [bytes(rng.integers(0, 256, 31).astype(np.uint8)) for _ in range(C19_BLE_PACKETS)]
+    rows = np.zeros((C19_BLE_PACKETS, C19_BLE_BITS), np.int32)
+    for k, pl in enumerate(payloads):
+        fr = ble.build_adv_frame(pl, channel=37)
+        rows[k] = rng.integers(0, 2, C19_BLE_BITS)
+        rows[k, 40: 40 + fr.size] = fr
+    x = gmsk_baseband(rows, 8, bt=0.5)
+    x = (x * np.exp(2j * np.pi * 0.004 * np.arange(x.shape[-1]))
+         + cnoise(rng, x.shape, 0.05)).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+    ble_args = (0.004, 64, 0.45 / 2, 4, 0.25 / 4, 2, 0.95)
+
+    def ble_rx(xx):
+        bits = to_host(fsk_capture_bits(xx, *ble_args))
+        return [ble.decode_adv_frame(r, channel=37) for r in bits]
+
+    got, ms, ops = timed(lambda: ble_rx(x_d))
+    card_ms = median_ms(torch, lambda: fsk_capture_bits(x_d, *ble_args))
+    back = [(p, ok) for p, ok, _ in got] == [(p, True) for p in payloads]
+    pre = C19_BLE_PREFIX
+    same_cpu = ble_rx(x_d[:pre]) == ble_rx(torch.as_tensor(x[:pre]))
+    report(f"BLE, {C19_BLE_PACKETS} advertising packets (31-byte payloads, GFSK BT 0.5, CFO 0.004, "
+           f"noise 0.05) as {C19_BLE_PACKETS} channels of one FSK call", ms,
+           f"{C19_BLE_PACKETS / ms * 1e3:.0f} packets/s", ops,
+           card_ms, f"; every payload back with its CRC {back}; first {pre} channels == CPU run "
+           f"{same_cpu}")
+    require(back and same_cpu, f"BLE: back {back}, == CPU {same_cpu}")
+    del x_d
+
+    # --- ADS-B: 1 s at 2 Msps, 1,000 DF17 frames at random arrivals ------------------
+    rng = np.random.default_rng(193)
+    n = C19_ADSB_SAMPLES
+    cell = n // C19_ADSB_FRAMES
+    frames, env = [], np.zeros(n, np.float32)
+    for k in range(C19_ADSB_FRAMES):
+        f = adsb.build_frame(np.concatenate([[1, 0, 0, 0, 1], rng.integers(0, 2, 83)]))
+        w = adsb.modulate(f)
+        s0 = k * cell + int(rng.integers(0, cell - w.size))
+        env[s0: s0 + w.size] = w
+        frames.append(f)
+    iq_d = torch.as_tensor(env + cnoise(rng, n, 0.1), device=dev)
+
+    def adsb_rx(iq):
+        return adsb.decode_all_frames(iq.abs())
+
+    got, ms, ops = timed(lambda: adsb_rx(iq_d))
+    back = len(got) == len(frames) and all(np.array_equal(b, f) for (b, _), f in zip(got, frames))
+    pre = C19_ADSB_PREFIX
+    g1, g2 = adsb_rx(iq_d[:pre]), adsb_rx(iq_d[:pre].cpu())
+    same_cpu = [s for _, s in g1] == [s for _, s in g2] and all(
+        np.array_equal(a, b) for (a, _), (b, _) in zip(g1, g2))
+    report(f"ADS-B, 1 s at 2 Msps ({n} samples, |IQ| on the card), {C19_ADSB_FRAMES} DF17 frames, "
+           f"noise 0.1", ms, f"{n / ms / 1e3:.2f} Ms/s", ops,
+           None, f"; {len(got)} of {len(frames)} frames back, equal {back}; first {pre} samples "
+           f"== CPU run {same_cpu}")
+    require(back and same_cpu, f"ADS-B: {len(got)} frames, equal {back}, == CPU {same_cpu}")
+    del iq_d
+
+    # --- ACARS: 16 blocks in 30 s at 48 kHz ----------------------------------------
+    rng = np.random.default_rng(194)
+    fs = 48000.0
+    audio = (0.1 * rng.standard_normal(int(C19_ACARS_SECONDS * fs))).astype(np.float32)
+    texts = []
+    for k in range(C19_ACARS_BLOCKS):
+        t_ = text(rng, 80).encode()
+        texts.append(t_)
+        a = acars.acars_modulate(acars.build_acars_frame(t_, address=f".N{10000 + k}",
+                                                         bid=str(k % 10)), 20, fs)
+        s0 = k * (audio.size // C19_ACARS_BLOCKS) // 20 * 20 + 20 * int(rng.integers(0, 1000))
+        audio[s0: s0 + a.size] += a
+    a_d = torch.as_tensor(audio, device=dev)
+    got, ms, ops = timed(lambda: acars.decode_acars_audio(a_d, 20, fs))
+    card_ms = median_ms(torch, lambda: acars.demod_acars_bits(a_d, 20, fs))
+    back = [r["text"].encode() for r in got] == texts and all(r["bcs_ok"] for r in got)
+    pre = C19_ACARS_PREFIX
+    same_cpu = (acars.decode_acars_audio(a_d[:pre], 20, fs)
+                == acars.decode_acars_audio(audio[:pre], 20, fs, device=cpu))
+    report(f"ACARS, {C19_ACARS_SECONDS} s at 48 kHz ({audio.size} samples), {C19_ACARS_BLOCKS} blocks, noise 0.1",
+           ms, f"{audio.size / ms / 1e3:.2f} Ms/s",
+           ops, card_ms,
+           f"; {len(got)} of {C19_ACARS_BLOCKS} blocks back, BCS clean and equal {back}; first "
+           f"{pre} samples == CPU run {same_cpu}")
+    require(back and same_cpu, f"ACARS: {len(got)} blocks, equal {back}, == CPU {same_cpu}")
+    del a_d
+
+    # --- POCSAG: 30 s at 1,200 bd, 20 pages ------------------------------------------
+    rng = np.random.default_rng(195)
+    pages = []
+    for k in range(C19_POCSAG_PAGES):
+        ric = int(rng.integers(8, 1 << 21))
+        words = (pocsag.encode_numeric("".join(rng.choice(list("0123456789 -"), 15)))
+                 if k % 2 else pocsag.encode_alpha(text(rng, 30)))
+        pages.append((ric, int(rng.integers(0, 4)), words))
+    bits = pocsag.encode_transmission(pages)
+    sps = 8
+    bb = pocsag.pocsag_baseband(bits, sps, 0.05)
+    x = np.zeros(C19_POCSAG_SECONDS * 1200 * sps, np.complex64)
+    x[9600: 9600 + bb.size] = bb
+    x = (x + cnoise(rng, x.size, 0.05)).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+
+    def pocsag_rx(xx):
+        return pocsag.decode_transmission(fsk_capture_bits(xx, 0.0, 64, 0.45, sps, 0.05))
+
+    got, ms, ops = timed(lambda: pocsag_rx(x_d))
+    card_ms = median_ms(torch, lambda: fsk_capture_bits(x_d, 0.0, 64, 0.45, sps, 0.05))
+    back = [(p["ric"], p["func"], p["data"]) for p in got] == [(r, f, list(w)) for r, f, w in pages]
+    pre = C19_POCSAG_PREFIX
+    same_cpu = pocsag_rx(x_d[:pre]) == pocsag_rx(torch.as_tensor(x[:pre]))
+    report(f"POCSAG, {C19_POCSAG_SECONDS} s at 1,200 bd ({x.size} samples, sps 8), {C19_POCSAG_PAGES} pages "
+           f"({bits.size} air bits)", ms, f"{x.size / ms / 1e3:.2f} Ms/s",
+           ops, card_ms,
+           f"; {len(got)} of {C19_POCSAG_PAGES} pages back, equal {back}; first {pre} samples == "
+           f"CPU run {same_cpu}")
+    require(back and same_cpu, f"POCSAG: {len(got)} pages, equal {back}, == CPU {same_cpu}")
+    del x_d
+
+    # --- RDS: 10 s of MPX at 228 kHz -------------------------------------------------
+    rng = np.random.default_rng(196)
+    fs = 228000.0
+    fp = 19000.0 / fs
+    n = C19_RDS_SAMPLES
+    ngroups = n // (2 * 96 * 104)
+    groups = [[int(v) for v in rng.integers(0, 1 << 16, 4)] for _ in range(ngroups)]
+    gbits = np.concatenate([rds.rds_encode_group(g, "A" if k % 3 else "B")
+                            for k, g in enumerate(groups)])
+    t = np.arange(n)
+    mpx = fm_stereo_mpx(0.4 * np.sin(2 * np.pi * 1100.0 / fs * t),
+                        0.4 * np.sin(2 * np.pi * 2700.0 / fs * t), fp)
+    mpx = rds.rds_inject_mpx(mpx, gbits, fp, 96, level=0.06)
+    mpx = (mpx + 0.01 * rng.standard_normal(n)).astype(np.float32)
+    m_d = torch.as_tensor(mpx, device=dev)
+
+    def rds_rx(mm, **kw):
+        return rds.rds_sync_decode(rds.rds_demod_mpx(mm, fp, 96, **kw))
+
+    got, ms, ops = timed(lambda: rds_rx(m_d))
+    card_ms = median_ms(torch, lambda: rds.rds_demod_mpx(m_d, fp, 96))
+    words = [g["words"] for g in got]
+    k0 = groups.index(words[0]) if words and words[0] in groups else -1
+    back = k0 in (0, 1) and words == groups[k0: k0 + len(words)] and len(words) >= ngroups - 2
+    pre = C19_RDS_PREFIX
+    same_cpu = rds_rx(m_d[:pre]) == rds_rx(mpx[:pre], device=cpu)
+    report(f"RDS, 10 s of MPX at 228 kHz ({n} samples, stereo + RDS, noise 0.01)", ms,
+           f"{n / ms / 1e3:.2f} Ms/s", ops, card_ms,
+           f"; {len(got)} of {ngroups} groups back, consecutive and equal from group {k0} {back}; "
+           f"first {pre} samples == CPU run {same_cpu}")
+    require(back and same_cpu, f"RDS: {len(got)} groups from {k0}, equal {back}, == CPU {same_cpu}")
+    del m_d
+
+    # --- GPS: cold start over 32 PRNs x 41 Dopplers x 10 ms; a 6 s subframe tracked ---
+    rng = np.random.default_rng(197)
+    sps, n = 2, 2046
+    fs = 1.023e6 * sps
+    dop_grid = np.arange(-20, 21) * 500.0 / fs
+    sats = {3: (7, 1234, 0.125), 11: (-12, 88, 0.1), 19: (3, 2001, 0.1), 27: (15, 640, 0.09)}
+    nb_t = C19_GPS_TRACK_MS
+    code_dop = sats[3][0] * 500.0 / 1575.42e6 * n
+    nav = np.concatenate([gps.NAV_PREAMBLE, rng.integers(0, 2, nb_t // 20 - 8)]).astype(np.int32)
+    x = cnoise(rng, nb_t * n, np.sqrt(0.5))
+    blk = np.arange(nb_t)
+    for prn, (kd, p0, amp) in sats.items():
+        cs = gps.sample_ca(gps.ca_code(prn), sps)
+        drift = np.round(blk * kd * 500.0 / 1575.42e6 * n).astype(int)
+        chips = np.stack([np.roll(cs, p0 + int(d)) for d in drift]) if prn == 3 else \
+            np.tile(np.roll(cs, p0), (nb_t, 1))
+        sign = (1.0 - 2.0 * np.repeat(nav, 20)[:nb_t]) if prn == 3 else 1.0
+        ph = 2 * np.pi * np.mod(kd * 500.0 / fs * np.arange(nb_t * n, dtype=np.float64), 1.0)
+        x += (amp * (chips * np.asarray(sign)[..., None]).reshape(-1)
+              * np.exp(1j * (ph + prn))).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+    acq_x = x_d[: C19_GPS_ACQ_MS * n]
+    acqs = [gps.make_gps_acq(prn, sps, device=dev) for prn in range(1, 33)]
+
+    def search():
+        return [gps.acquire_ca(a, acq_x, dop_grid) for a in acqs]
+
+    res, ms, ops = timed(search)
+    card_ms = median_ms(torch, search)
+    cells = {a.prn: (int(r["d_idx"]), int(r["p_idx"]), float(r["ratio"])) for a, r in zip(acqs, res)}
+    found = all(cells[p][:2] == (kd + 20, p0) for p, (kd, p0, _) in sats.items())
+    lo = min(cells[p][2] for p in sats)
+    hi = max(c[2] for p, c in cells.items() if p not in sats)
+    res_c = [gps.acquire_ca(gps.make_gps_acq(p, sps, device=cpu), x[: C19_GPS_ACQ_MS * n], dop_grid)
+             for p in C19_GPS_CPU_PRNS]
+    same_cpu = all((int(rc["d_idx"]), int(rc["p_idx"])) == cells[p][:2]
+                   and rel_l2(res[p - 1]["metric"], rc["metric"]) <= 1e-5
+                   for p, rc in zip(C19_GPS_CPU_PRNS, res_c))
+    flop = 32 * 2 * 2 * len(dop_grid) * C19_GPS_ACQ_MS * n * n
+    report(f"GPS cold search, 32 PRNs x {len(dop_grid)} Dopplers x {C19_GPS_ACQ_MS} ms at sps 2 "
+           f"({flop / 1e9:.1f} GFLOP)", ms, f"{flop / card_ms / 1e9:.2f} TFLOP/s on the card",
+           ops, card_ms,
+           f"; the {len(sats)} satellites at their cells {found} (ratio >= {lo:.1f}, others <= "
+           f"{hi:.1f}); PRNs {C19_GPS_CPU_PRNS} == CPU run {same_cpu}")
+    require(found and lo > 2 * hi and same_cpu, f"GPS search: {cells}, == CPU {same_cpu}")
+    a3 = acqs[2]
+
+    def track():
+        fine = gps.fine_acquire(a3, res[2])
+        return gps.track_ca(a3, x_d, res[2], fine, code_doppler=code_dop)
+
+    trk, ms, ops = timed(track)
+    card_ms = median_ms(torch, track)
+    b = to_host(trk["bits"])
+    pol_ok = np.array_equal(b, nav) or np.array_equal(1 - b, nav)
+    hits = gps.nav_preamble_detect(trk["bits"])
+    pre = C19_GPS_TRACK_PREFIX
+    res_c3 = gps.acquire_ca(gps.make_gps_acq(3, sps, device=cpu), x[: C19_GPS_ACQ_MS * n], dop_grid)
+    trk_c = gps.track_ca(gps.make_gps_acq(3, sps, device=cpu), x[: pre * n], res_c3,
+                         gps.fine_acquire(a3, res_c3), code_doppler=code_dop)
+    trk_p = gps.track_ca(a3, x_d[: pre * n], res[2], gps.fine_acquire(a3, res[2]),
+                         code_doppler=code_dop)
+    same_cpu = (torch.equal(trk_p["bits"].cpu(), trk_c["bits"])
+                and rel_l2(trk_p["prompt"], trk_c["prompt"]) <= 1e-5)
+    report(f"GPS fine acquisition + tracking of PRN 3, one 6 s subframe ({nb_t} blocks, "
+           f"{x.nbytes / 1e6:.0f} MB, code Doppler {code_dop:.5f} samples a block)", ms,
+           f"{x.size / ms / 1e3:.1f} Ms/s", ops, card_ms,
+           f"; {b.size} nav bits == sent (either polarity) {pol_ok}, bit phase "
+           f"{trk['bit_phase']}, TLM preamble at {hits[:2]}; C/N0 {float(trk['cn0_db_hz']):.1f} "
+           f"dB-Hz; first {pre} blocks == CPU run {same_cpu}")
+    require(pol_ok and hits and hits[0][0] == 0 and same_cpu,
+            f"GPS track: bits {pol_ok}, preamble {hits[:2]}, == CPU {same_cpu}")
+    del x_d, acq_x, acqs, res, trk
+
+    # --- NAVTEX (5 minutes), RTTY (60 s), SAME (three headers) -----------------------
+    rng = np.random.default_rng(198)
+    body = text(rng, C19_NAVTEX_CHARS, "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 ")
+    msg = navtex.navtex_build("E", "A", "42", body)
+    x = navtex.navtex_modulate(navtex.sitor_b_encode(navtex._text_codes(msg)), 20, 0.05)
+    x = np.concatenate([x, np.zeros(40 * 20, np.complex64)])
+    x = (x + cnoise(rng, x.size, 0.1)).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+    got, ms, ops = timed(lambda: navtex.decode_navtex_audio(x_d, 20, 0.05))
+    parsed = navtex.navtex_parse(got[0])
+    inside = got[0][: got[0].find("NNNN")].count("*")
+    back = parsed is not None and parsed["body"] == body and inside == 0
+    pre = C19_NAVTEX_PREFIX
+    same_cpu = (navtex.decode_navtex_audio(x_d[:pre], 20, 0.05)
+                == navtex.decode_navtex_audio(x[:pre], 20, 0.05, device=cpu))
+    report(f"NAVTEX, {x.size / 2000 / 60:.1f} minutes at 100 Bd (sps 20, {x.size} samples, "
+           f"{len(msg)} characters)", ms, f"{x.size / ms / 1e3:.3f} Ms/s",
+           ops, None,
+           f"; message back with no erasure inside it {back} ({got[1]} in the noise after NNNN); "
+           f"first {pre} samples == CPU run {same_cpu}")
+    require(back and same_cpu, f"NAVTEX: back {back}, == CPU {same_cpu}")
+
+    sent_t = text(rng, C19_RTTY_CHARS, "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 .,?")
+    lv = rtty.uart_frame(rtty.ita2_encode(sent_t))
+    dev_r = 85.0 / 2000.0
+    x = np.concatenate([rtty.rtty_modulate(lv, 22, dev_r), np.ones(400, np.complex64)])
+    x = (x + cnoise(rng, x.size, 0.1)).astype(np.complex64)
+    x_d = torch.as_tensor(x, device=dev)
+    got, ms, ops = timed(lambda: rtty.decode_rtty(x_d, 22, dev_r))
+    back = sent_t in got
+    pre = C19_RTTY_PREFIX
+    same_cpu = (rtty.decode_rtty(x_d[:pre], 22, dev_r)
+                == rtty.decode_rtty(x[:pre], 22, dev_r, device=cpu))
+    report(f"RTTY, {x.size / 2000:.1f} s at 45.45 Bd, 170 Hz shift (fs 2 kHz, {len(sent_t)} "
+           f"characters)", ms, f"{x.size / ms / 1e3:.3f} Ms/s",
+           ops, None,
+           f"; text back {back}; first {pre} samples == CPU run {same_cpu}")
+    require(back and same_cpu, f"RTTY: back {back}, == CPU {same_cpu}")
+
+    fs = 12500.0
+    hdrs = [same.same_build("WXR", ev, ["039173", "039051"], "0030", "1051700", "KCLE/NWS")
+            for ev in ("TOR", "SVR", "FFW")]
+    gap = np.zeros(24 * 260, np.float32)          # about 0.5 s, whole bits
+    parts = [gap]
+    for h in hdrs:
+        for _ in range(3):
+            parts += [same.same_modulate(same.same_bytes_bits(h.encode()), fs), gap]
+    for _ in range(3):
+        parts += [same.same_modulate(same.same_bytes_bits(b"NNNN"), fs), gap]
+    audio = np.concatenate(parts)
+    audio = (audio + 0.05 * rng.standard_normal(audio.size)).astype(np.float32)
+    a_d = torch.as_tensor(audio, device=dev)
+    got, ms, ops = timed(lambda: same.decode_same_audio(a_d, fs))
+    heads = [same.same_parse(t_) for t_ in got if t_.startswith("ZCZC")]
+    back = heads == [same.same_parse(h) for h in hdrs for _ in range(3)] and sum(
+        t_.startswith("NNNN") for t_ in got) == 3
+    same_cpu = got == same.decode_same_audio(audio, fs, device=cpu)
+    report(f"SAME, three headers x 3 bursts + EOM ({audio.size / fs:.1f} s at 12.5 kHz)", ms,
+           f"{audio.size / ms / 1e3:.3f} Ms/s",
+           ops, None,
+           f"; 9 headers and 3 EOMs back {back}; the whole capture == CPU run {same_cpu}")
+    require(back and same_cpu, f"SAME: back {back}, == CPU {same_cpu}")
+    del x_d, a_d
+
+    # --- APT: one 12-minute pass, 1,440 lines at 20,800 Hz ----------------------------
+    rng = np.random.default_rng(199)
+    p = apt.make_apt_params(device=dev)
+    img = rng.standard_normal((C19_APT_LINES, 909))
+    img = np.apply_along_axis(lambda r: np.convolve(r, np.ones(9) / 9.0, "same"), 1, img)
+    img = ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+    mpx = apt.apt_modulate(p, apt.apt_build_lines(img))
+    cut = 700 * int(p.sps)
+    mpx = np.concatenate([mpx[cut:], mpx[:cut]])
+    mpx = (mpx + 0.005 * rng.standard_normal(mpx.size)).astype(np.float32)
+    m_d = torch.as_tensor(mpx, device=dev)
+    dec, ms, ops = timed(lambda: apt.apt_decode_mpx(p, m_d))
+    card_ms = median_ms(torch, lambda: apt.apt_words(p, apt.apt_envelope(p, m_d)))
+    va = dec["video_a"][1:-1]
+    ref = np.roll(img, -1, axis=0)[1: va.shape[0] + 1]
+    psnr = 10 * np.log10(float(np.var(img)) / float(np.mean((va - ref) ** 2)))
+    back = dec["offset"] == 2080 - 700 and psnr >= 20.0
+    pre = C19_APT_PREFIX
+    pc = apt.make_apt_params(device=cpu)
+    env_rel = rel_l2(apt.apt_envelope(p, m_d[:pre]), apt.apt_envelope(pc, mpx[:pre]))
+    same_cpu = env_rel <= 1e-5 and apt.apt_decode_mpx(p, m_d[:pre])["offset"] == \
+        apt.apt_decode_mpx(pc, mpx[:pre])["offset"]
+    report(f"APT, one 12-minute pass ({C19_APT_LINES} lines, {mpx.size} samples at 20,800 Hz)", ms,
+           f"{mpx.size / ms / 1e3:.2f} Ms/s", ops,
+           card_ms, f"; line offset {dec['offset']}, video A {psnr:.1f} dB against the image "
+           f"({back}); first {pre} samples: envelope rel L2 {env_rel:.2e} to the CPU run, offset "
+           f"equal ({same_cpu})")
+    require(back and same_cpu, f"APT: offset {dec['offset']}, {psnr} dB, == CPU {same_cpu}")
+    del m_d
+
+    # --- SSTV: a full Martin M1 image at 11,025 Hz --------------------------------------
+    rng = np.random.default_rng(200)
+    p = sstv.make_sstv_params(height=C19_SSTV_LINES, device=dev)
+    img = rng.standard_normal((C19_SSTV_LINES, 320, 3))
+    for c_ in range(3):
+        img[:, :, c_] = np.apply_along_axis(lambda r: np.convolve(r, np.ones(15) / 15.0, "same"),
+                                            1, img[:, :, c_])
+    img = ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+    audio = sstv.sstv_modulate(p, img)
+    audio = (audio + 0.05 * rng.standard_normal(audio.size)).astype(np.float32)
+    a_d = torch.as_tensor(audio, device=dev)
+    dec, ms, ops = timed(lambda: sstv.sstv_decode(p, a_d))
+    card_ms = median_ms(torch, lambda: sstv.sstv_inst_freq(p, a_d))
+    err = (dec["image"][:, 2:-2, :] - img[:, 2:-2, :]) ** 2
+    snr = 10 * np.log10(float(np.var(img)) / float(err.mean()))
+    back = dec["ok"] and dec["vis"] == sstv.MARTIN_M1_VIS and snr > 12.0
+    pre = C19_SSTV_PREFIX
+    pc = sstv.make_sstv_params(height=C19_SSTV_CPU_LINES, device=cpu)
+    pg = sstv.make_sstv_params(height=C19_SSTV_CPU_LINES, device=dev)
+    f_rel = rel_l2(sstv.sstv_inst_freq(pg, a_d[:pre]), sstv.sstv_inst_freq(pc, audio[:pre]))
+    d1, d2 = sstv.sstv_decode(pg, a_d[:pre]), sstv.sstv_decode(pc, audio[:pre])
+    same_cpu = f_rel <= 1e-5 and d1["vis"] == d2["vis"] and float(
+        np.abs(d1["image"] - d2["image"]).max()) <= 1e-3
+    report(f"SSTV, a Martin M1 image (320 x {C19_SSTV_LINES}, {audio.size} samples at 11,025 Hz, noise 0.05: "
+           f"23 dB audio SNR)", ms, f"{audio.size / ms / 1e3:.2f} Ms/s",
+           ops, card_ms,
+           f"; VIS {dec['vis']}, image {snr:.1f} dB against the sent one ({back}); first {pre} "
+           f"samples ({C19_SSTV_CPU_LINES} lines): inst. frequency rel L2 {f_rel:.2e} to the CPU "
+           f"run, pixels within 1e-3 ({same_cpu})")
+    require(back and same_cpu, f"SSTV: vis {dec['vis']}, {snr} dB, == CPU {same_cpu}")
+    del a_d
+
+    # --- CW (60 s at 20 wpm) and DCF77 (60 minutes at 1 kHz) -----------------------------
+    rng = np.random.default_rng(201)
+    words_cw = " ".join(text(rng, 5, "ABCDEFGHIJKLMNOPQRSTUVWXYZ") for _ in range(C19_CW_WORDS))
+    audio = cw.cw_modulate(words_cw, 20.0, 8000.0, 700.0)
+    audio = np.concatenate([np.zeros(4000, np.float32), audio, np.zeros(4000, np.float32)])
+    audio = (audio + 0.08 * rng.standard_normal(audio.size)).astype(np.float32)
+    a_d = torch.as_tensor(audio, device=dev)
+    got, ms, ops = timed(lambda: cw.decode_cw(a_d, 8000.0))
+    back = got["text"] == words_cw
+    same_cpu = got == cw.decode_cw(audio, 8000.0)
+    report(f"CW, {audio.size / 8000:.1f} s at 20 wpm (8 kHz, {C19_CW_WORDS} words)", ms,
+           f"{audio.size / ms / 1e3:.3f} Ms/s", ops,
+           None, f"; text back {back} at {got['wpm']:.1f} wpm, {got['tone_hz']:.1f} Hz; == CPU run "
+           f"{same_cpu}")
+    require(back and same_cpu, f"CW: {got['text'][:40]!r}, == CPU {same_cpu}")
+
+    times = [dcf77.Dcf77Time(m % 60, 10 + m // 60, 17, 5, 10, 26, True)
+             for m in range(C19_DCF77_MINUTES)]
+    env = dcf77.dcf77_modulate([dcf77.dcf77_encode_minute(t_) for t_ in times])
+    env = np.concatenate([np.full(1234, 1.0, np.float32), env, np.full(800, 1.0, np.float32)])
+    env = (env + 0.05 * rng.standard_normal(env.size)).astype(np.float32)
+    e_d = torch.as_tensor(env, device=dev)
+    got, ms, ops = timed(lambda: dcf77.dcf77_decode(e_d))
+    back = got == times
+    same_cpu = got == dcf77.dcf77_decode(env)
+    report(f"DCF77, {C19_DCF77_MINUTES} minutes at 1 kHz ({env.size} samples)", ms,
+           f"{env.size / ms / 1e3:.3f} Ms/s", ops, None,
+           f"; {len(got)} of {C19_DCF77_MINUTES} minutes back, equal {back}; == CPU run {same_cpu}")
+    require(back and same_cpu, f"DCF77: {len(got)} minutes, equal {back}, == CPU {same_cpu}")
+    print(f"[19] phase 19 steps took {time.perf_counter() - t_step:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3722,6 +4252,11 @@ def main() -> int:
     t18 = time.perf_counter()
     phase18(torch, dev)
     print(f"[18] phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
+
+    # --- 19. the fifteen protocol receivers at their users' capture lengths ----------------
+    t19 = time.perf_counter()
+    phase19(torch, dev)
+    print(f"[19] phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

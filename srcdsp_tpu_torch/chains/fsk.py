@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from srcdsp_tpu_torch.chains.sync import TimingState, timing_estimate, timing_init, timing_sample
-from srcdsp_tpu_torch.device import resolve
+from srcdsp_tpu_torch.device import as_tensor_on, resolve
 from srcdsp_tpu_torch.ops.fir import FirState, fir_apply, fir_init
 from srcdsp_tpu_torch.ops.nco import NcoState, TWO_PI, freq_to_word, nco_apply, nco_init, word_tensor
 from srcdsp_tpu_torch.ops.window import lowpass
@@ -115,3 +115,24 @@ def fsk_demod_stream(params: FskParams, x: torch.Tensor, block: int,
         bits.append(b)
         soft.append(sf)
     return torch.cat(bits, dim=-1), torch.cat(soft, dim=-1)
+
+
+def fsk_capture_bits(x: torch.Tensor, center_freq: float, num_taps: int, cutoff: float,
+                     sps: int, dev: float, decim: int = 1,
+                     timing_forget: float = 0.5) -> torch.Tensor:
+    """Hard bits [..., N // (decim * sps)] of whole captures x [..., N], on
+    x's device: `fsk_apply` once from a fresh state over the capture cut to
+    whole symbols, as the protocol receivers run it."""
+    params = make_fsk_params(center_freq, num_taps, cutoff, decim=decim, sps=sps, dev=dev,
+                             timing_forget=timing_forget, device=x.device)
+    n = (x.shape[-1] // (decim * sps)) * decim * sps
+    _, (bits, _) = fsk_apply(params, fsk_init(params, tuple(x.shape[:-1])), x[..., :n])
+    return bits
+
+
+def complex_audio(audio, device=None) -> torch.Tensor:
+    """Real audio -> complex64 with zero imaginary part on the capture's
+    device (a numpy array goes to `device`, None = the card), for the FSK
+    chain centred between two audio tones."""
+    x = as_tensor_on(audio, device, F32)
+    return torch.complex(x, torch.zeros_like(x))

@@ -4,7 +4,8 @@ For this DSP system the "weights" are the taps, the tuning words, the code
 descriptions (LDPC, QC, turbo, convolutional, RS, BCH, polar, Golay, the
 GF(2) machines and CRCs), the filter designs (IIR, decimation plan, DDC,
 AGC, AFC), the OFDM and SC-FDE specs, the CSS, DSSS, FHSS, MLSE, frame-sync
-and analog receivers' parameters, and the carried streaming state (the
+and analog receivers' parameters, the protocol receivers' operators (the GPS
+all-shifts matrix, the APT and SSTV lowpass taps), and the carried streaming state (the
 GF(2) / CRC register, the convolutional interleaver's delay lines, the
 tracking loops', the trackers', the OOK, DQPSK, equalizer, frame-sync and
 analog chains' included), and the ops tier's designs and accumulators (the
@@ -24,6 +25,7 @@ import torch
 from srcdsp_tpu_torch import bch as tbch
 from srcdsp_tpu_torch import rs as trs
 from srcdsp_tpu_torch.chains import analog as ana
+from srcdsp_tpu_torch.chains.apt import AptParams
 from srcdsp_tpu_torch.chains.channelizer import ChannelizerState
 from srcdsp_tpu_torch.chains.css import CssParams
 from srcdsp_tpu_torch.chains.dqpsk import DqpskState
@@ -35,10 +37,12 @@ from srcdsp_tpu_torch.chains.mlse import MlseTrellis
 from srcdsp_tpu_torch.chains import tracking as ttr
 from srcdsp_tpu_torch.chains import tracking_planes as ttp
 from srcdsp_tpu_torch.chains.fsk import FskParams, FskState
+from srcdsp_tpu_torch.chains.gps import GpsAcq
 from srcdsp_tpu_torch.chains.ofdm import OfdmSpec
 from srcdsp_tpu_torch.chains.ook import OokState
 from srcdsp_tpu_torch.chains.psk import PskParams, PskState
 from srcdsp_tpu_torch.chains.scfde import ScfdeSpec
+from srcdsp_tpu_torch.chains.sstv import SstvParams
 from srcdsp_tpu_torch.chains.sync import TimingState
 from srcdsp_tpu_torch.chains.sync_loop import CostasState, GardnerFreeState, GardnerState
 from srcdsp_tpu_torch.device import resolve
@@ -734,3 +738,24 @@ def moment_state_from(s, device=None) -> MomentState:
     return MomentState(n=_f32(s.n, device), s1=_c64(s.s1, device), sii=_f32(s.sii, device),
                        sqq=_f32(s.sqq, device), siq=_f32(s.siq, device),
                        sm2=_f32(s.sm2, device), sm4=_f32(s.sm4, device))
+
+
+def gps_acq_from_jax(acq, device=None) -> GpsAcq:
+    """GpsAcq (the all-shifts matrix float32 on `device`) from any object with
+    the JAX GpsAcq fields."""
+    return GpsAcq(shifts_t=_t(acq.shifts_t, resolve(device), np.float32), n=int(acq.n),
+                  sps=int(acq.sps), prn=int(acq.prn))
+
+
+def apt_params_from_jax(p, device=None) -> AptParams:
+    """AptParams (the host lowpass taps moved to `device`) from any object with
+    the JAX AptParams fields."""
+    return AptParams(fs=float(p.fs), sps=float(p.sps), lo=float(p.lo), hi=float(p.hi),
+                     lp_taps=_t(p.lp_taps, resolve(device), np.float32))
+
+
+def sstv_params_from_jax(p, device=None) -> SstvParams:
+    """SstvParams (the host lowpass taps moved to `device`) from any object with
+    the JAX SstvParams fields."""
+    return SstvParams(fs=float(p.fs), width=int(p.width), height=int(p.height),
+                      lp_taps=_t(p.lp_taps, resolve(device), np.float32))

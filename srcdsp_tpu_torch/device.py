@@ -8,6 +8,7 @@ falls back: with no CUDA device, a call that did not ask for the CPU raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,3 +33,11 @@ def as_tensor_on(x, device=None, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if dtype is None else x.to(dtype)
     return torch.as_tensor(x, dtype=dtype, device=resolve(device))
+
+
+def to_host(x) -> np.ndarray:
+    """The rule of the host sinks: a tensor on any device is copied to the
+    host once, as numpy; anything else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -96,9 +96,9 @@ class Gf2Machine:
             cab[j] = g[j]
             if self.d:
                 h[j, j] = 1
-        for i in range(length):
-            for j in range(i):
-                h[i, j] = int(cab[i - j - 1] @ b) & 1
+        v = (cab.astype(np.int64) @ b) & 1                 # C A^k B
+        i, j = np.tril_indices(length, -1)
+        h[i, j] = v[i - j - 1]
         return pw[length], f, g, h
 
 

@@ -108,3 +108,17 @@ def fir_full(taps, x: torch.Tensor, decim: int = 1) -> torch.Tensor:
                      device=x.device)
     _, y = fir_apply(taps, state, x, decim=decim)
     return y
+
+
+def convolve_same(x: torch.Tensor, taps) -> torch.Tensor:
+    """numpy's / jnp's ``convolve(x, h, mode="same")`` for real x [..., N]
+    (N >= M) and real taps [M]: the full convolution cropped from (M-1)//2,
+    one ``conv1d`` with the taps flipped (conv1d correlates), M//2 zeros on
+    the left and (M-1)//2 on the right."""
+    pin_f32(x)
+    h = _as_taps(taps, x.device).to(F32)
+    m = h.shape[0]
+    lead = x.shape[:-1]
+    xp = F.pad(x.to(F32).reshape(-1, 1, x.shape[-1]), (m // 2, (m - 1) // 2))
+    y = F.conv1d(xp, h.flip(0).reshape(1, 1, m))
+    return y.reshape(*lead, y.shape[-1])

@@ -40,6 +40,13 @@ def _mod_f32(x: torch.Tensor, m: float) -> torch.Tensor:
     return torch.where((r != 0) & ((r < 0) != (m < 0)), r + np.float32(m), r)
 
 
+def host_phase(freq: float, n: int) -> np.ndarray:
+    """2 pi frac(freq k) for k < n, made exactly in float64 on the host and
+    cast to float32: an unwrapped float32 ramp loses about half a radian by
+    sample 16M (the APT and SSTV receivers' mixing phase)."""
+    return (2 * np.pi * np.mod(freq * np.arange(n, dtype=np.float64), 1.0)).astype(np.float32)
+
+
 def freq_to_word_traced(freq) -> torch.Tensor:
     """u32 tuning word (an int64 tensor) from a float32 frequency on the
     device, for loops that retune per block (``ops.afc``). The JAX package's

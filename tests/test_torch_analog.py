@@ -35,6 +35,7 @@ import torch
 from srcdsp_tpu.chains import analog as ja
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.chains import analog as ta
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N, BLOCKS, REL = 1 << 14, 4, 1e-5
 FP = 19.0 / 240.0

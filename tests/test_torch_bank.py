@@ -30,6 +30,7 @@ from srcdsp_tpu.kernels import bank_pallas as jb
 from srcdsp_tpu_torch.chains.channelizer import channelize_full, design_prototype
 from srcdsp_tpu_torch.kernels import bank_pallas as tb
 from srcdsp_tpu_torch.kernels import mixfir as tmf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 M = 8
 

@@ -19,6 +19,7 @@ from srcdsp_tpu import turbo as jt
 from srcdsp_tpu.kernels import bcjr_pallas as jk
 from srcdsp_tpu_torch import turbo as tt
 from srcdsp_tpu_torch.kernels import bcjr_pallas as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CODES = [(0o13, 0o15), (0o15, 0o17), (0o17, 0o13)]
 B = 10   # not a multiple of 32: the kernel's last block has idle lanes

@@ -37,6 +37,7 @@ from srcdsp_tpu_torch.chains import blindscan as tbs
 from srcdsp_tpu_torch.chains import framesync as tfs
 from srcdsp_tpu_torch.ops.window import root_raised_cosine
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, tone
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_SCAN, BLOCK, T = 1 << 16, 1024, 64
 STARTS = [500, 2040, 7000]       # 2040 + 63 straddles the 2048 seam

@@ -33,6 +33,7 @@ from srcdsp_tpu_torch.chains import channelizer as tc
 from srcdsp_tpu_torch.io.capture import read_capture
 from srcdsp_tpu_torch.ops import channelize_planes as tcp
 from srcdsp_tpu_torch.testing.signals import tone
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIX = Path(__file__).resolve().parent / "fixtures"
 

@@ -29,6 +29,7 @@ from srcdsp_tpu_torch import fec as tf
 from srcdsp_tpu_torch import gf2 as tg
 from srcdsp_tpu_torch import interleave as ti
 from srcdsp_tpu_torch import rs as tr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GENS = (0o171, 0o133)
 # Eb/N0 2.5 dB at rate 1/2: sigma = sqrt(1 / (2 R Eb/N0)), the reference test's

@@ -26,6 +26,7 @@ from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch import configs as tconfigs
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import oracle as toracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_ONCHIP = 98304  # one block of the widest variant (preframed_bf16io: 32 x 3072)
 

@@ -25,6 +25,7 @@ from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch import configs as tconfigs
 from srcdsp_tpu_torch import oracle as toracle
 from srcdsp_tpu_torch.kernels.fft_pallas import unscramble
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_ONCHIP = 2 * 49152  # two K11 blocks at the serving tiling (b_frames 16, hop 3072)
 

@@ -29,6 +29,7 @@ from srcdsp_tpu_torch.kernels.bank_pallas import phase_major
 from srcdsp_tpu_torch.testing.signals import psk_wideband
 
 from test_torch_psk import _tx, ser_diff
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 M = 8
 

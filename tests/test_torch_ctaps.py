@@ -37,6 +37,7 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.kernels import mixfir_ctaps as tct
 from srcdsp_tpu_torch.kernels import mixfir_preframed as tpf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OT, BR = 128, 2
 BF16 = torch.bfloat16

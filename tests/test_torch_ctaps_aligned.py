@@ -24,6 +24,7 @@ from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import ctaps_aligned as tca
 from srcdsp_tpu_torch.kernels import mixfir_ctaps as tct
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DECIM, OT, BR, BC = 2, 128, 4, 64
 

@@ -29,6 +29,7 @@ from srcdsp_tpu_torch.ops import cic as tcic
 from srcdsp_tpu_torch.ops import ddc as tddc
 from srcdsp_tpu_torch.ops import decimplan as tdp
 from srcdsp_tpu_torch.ops import halfband as thb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

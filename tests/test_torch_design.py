@@ -6,6 +6,7 @@ import pytest
 
 from srcdsp_tpu.ops import design as jd
 from srcdsp_tpu_torch.ops import design as td
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     "firls_lowpass": lambda m: m.firls(31, [0, 0.1, 0.2, 0.5], [1, 1, 0, 0]),

@@ -7,6 +7,8 @@ raises; it never quietly builds the plain CPU version. Passing
 ``device="cpu"`` runs on the CPU, as every CPU test does.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -33,9 +35,12 @@ from srcdsp_tpu_torch.ops import afc, agc, channelize_planes, cic, ddc, decimpla
 from srcdsp_tpu_torch.ops import fft_planes, fftconv, fftconv_planes, fir, halfband, iir, nco
 from srcdsp_tpu_torch.ops import planes, resample, spectrum
 from srcdsp_tpu_torch import array, mimo
+from srcdsp_tpu_torch.chains import (acars, adsb, ais, apt, ax25, ble, cw, dcf77, gps, navtex,
+                                     pocsag, rds, rtty, same, sstv)
 from srcdsp_tpu_torch.ops import accel, cfar, cyclo, dpd, fresh, fresh_planes, impairments, radar
 from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing import signals
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TAPS = lowpass(64, 0.03)
 WORDS = np.asarray([1 << 28, 3 << 27], np.uint32)
@@ -133,6 +138,7 @@ def _k20(mesh):
 
 
 Z64 = np.zeros(64, np.complex64)
+NOISE = np.random.default_rng(1).standard_normal(20800).astype(np.float32)
 PW = np.ones((2, 64), np.float32)
 FRESH_BR = (fresh.FreshBranch(0.0, False), fresh.FreshBranch(0.25, True))
 FRESH_F = fresh.FreshFilter(weights=torch.zeros(8, dtype=torch.complex64), branches=FRESH_BR,
@@ -436,6 +442,87 @@ ENTRY_POINTS = {
     "cov_state_from": lambda **d: convert.cov_state_from(array.cov_init(4, device="cpu"), **d),
     "moment_state_from": lambda **d: convert.moment_state_from(
         impairments.moments_init(device="cpu"), **d),
+    # the protocol receivers: captures, factories, and what takes a factory's output
+    "complex_audio": lambda **d: fsk.complex_audio(np.zeros(8, np.float32), **d),
+    "decode_ax25_audio": lambda **d: ax25.decode_ax25_audio(
+        np.zeros(1100, np.float32), 11, 1200 / 13200, 2200 / 13200, **d),
+    "demod_acars_bits": lambda **d: acars.demod_acars_bits(np.zeros(2000, np.float32), 20, **d),
+    "decode_acars_audio": lambda **d: acars.decode_acars_audio(np.zeros(2000, np.float32), 20,
+                                                               **d),
+    "rds_syndromes": lambda **d: rds.rds_syndromes(np.zeros(40, np.int32), **d),
+    "rds_demod_mpx": lambda **d: rds.rds_demod_mpx(NOISE[:600], 19 / 228, 4, **d),
+    "decode_navtex_audio": lambda **d: navtex.decode_navtex_audio(np.ones(2000, np.complex64),
+                                                                  20, 0.05, **d),
+    "decode_rtty": lambda **d: rtty.decode_rtty(np.ones(400, np.complex64), 10, 0.04, **d),
+    "decode_same_audio": lambda **d: same.decode_same_audio(np.zeros(2400, np.float32), **d),
+    "make_gps_acq": lambda **d: gps.make_gps_acq(1, 1, **d),
+    "acquire_ca": lambda **d: gps.acquire_ca(gps.make_gps_acq(1, 1, **d),
+                                             np.ones(2046, np.complex64), [0.0, 1e-4]),
+    "acquire_ca_planes": lambda **d: gps.acquire_ca_planes(
+        gps.make_gps_acq(1, 1, **d), np.ones(2046, np.float32), np.zeros(2046, np.float32), [0.0]),
+    "track_ca": lambda **d: gps.track_ca(gps.make_gps_acq(1, 1, **d), np.ones(2046, np.complex64),
+                                         {"p_idx": torch.tensor(3)},
+                                         {"doppler": torch.tensor(0.0)}),
+    "make_apt_params": lambda **d: apt.make_apt_params(**d),
+    "apt_envelope": lambda **d: apt.apt_envelope(apt.make_apt_params(**d), NOISE[:2000]),
+    "apt_decode_mpx": lambda **d: apt.apt_decode_mpx(apt.make_apt_params(**d), NOISE),
+    "make_sstv_params": lambda **d: sstv.make_sstv_params(height=1, **d),
+    "sstv_inst_freq": lambda **d: sstv.sstv_inst_freq(sstv.make_sstv_params(height=1, **d),
+                                                      NOISE[:500]),
+    "sstv_decode": lambda **d: sstv.sstv_decode(sstv.make_sstv_params(height=1, **d), NOISE[:500]),
+    "gps_acq_from_jax": lambda **d: convert.gps_acq_from_jax(
+        _JaxLike(shifts_t=np.eye(4, dtype=np.float32), n=4, sps=1, prn=1), **d),
+    "apt_params_from_jax": lambda **d: convert.apt_params_from_jax(
+        _JaxLike(fs=20800.0, sps=5.0, lo=0.1, hi=0.95, lp_taps=np.ones(5, np.float32)), **d),
+    "sstv_params_from_jax": lambda **d: convert.sstv_params_from_jax(
+        _JaxLike(fs=11025.0, width=320, height=1, lp_taps=np.ones(6, np.float32)), **d),
+}
+
+# Host sinks: they copy a tensor from any device to the host once and never
+# resolve a device, so they run with no card; a tensor and a numpy array give
+# the same answer.
+_RNG = np.random.default_rng(0)
+BITS = _RNG.integers(0, 2, 4000).astype(np.int32)
+AIS_LV = np.concatenate([BITS[:100], ais.build_ais_frame(bytes(range(12))), BITS[:60]])
+MAG = np.concatenate([np.zeros(50, np.float32),
+                      adsb.modulate(adsb.build_frame(BITS[:88])), np.zeros(50, np.float32)])
+APT_P = apt.make_apt_params(device="cpu")
+SSTV_P = sstv.make_sstv_params(height=1, device="cpu")
+NOISE_WORDS = _RNG.random(5000).astype(np.float32)
+HOST_SINKS = {
+    "ais.decode_ais_frame": (ais.decode_ais_frame, AIS_LV),
+    "ais.decode_all_ais_frames": (ais.decode_all_ais_frames, AIS_LV),
+    "ais.nrzi_decode": (ais.nrzi_decode, AIS_LV),
+    "ais.ais_fcs": (ais.ais_fcs, BITS[:64]),
+    "ble.decode_adv_frame": (ble.decode_adv_frame, np.concatenate(
+        [BITS[:30], ble.build_adv_frame(b"abc"), BITS[:20]])),
+    "ble.whiten_bits": (lambda b: ble.whiten_bits(b, 37), BITS[:64]),
+    "ble.crc24": (ble.crc24, BITS[:64]),
+    "adsb.detect_preambles": (adsb.detect_preambles, MAG),
+    "adsb.decode_frame": (adsb.decode_frame, MAG),
+    "adsb.decode_all_frames": (adsb.decode_all_frames, MAG),
+    "adsb.modes_crc": (adsb.modes_crc, BITS[:112]),
+    "acars.bits_chars": (acars.bits_chars, BITS[:800]),
+    "acars.parse_acars_chars": (acars.parse_acars_chars, acars.bits_chars(
+        acars.build_acars_frame(b"HI")[168:168 + 8 * 20])),
+    "pocsag.decode_transmission": (pocsag.decode_transmission, pocsag.encode_transmission(
+        [(1234567, 0, [5])], preamble_bits=32)),
+    "rds.rds_sync_decode": (rds.rds_sync_decode, np.concatenate(
+        [BITS[:9], rds.rds_encode_group([1, 2, 3, 4]), BITS[:30]])),
+    "gps.nav_preamble_detect": (gps.nav_preamble_detect, BITS[:300]),
+    "navtex.sitor_b_decode": (navtex.sitor_b_decode,
+                              navtex.sitor_b_encode(navtex._text_codes("ZCZC AB12 X NNNN"))),
+    "rtty.uart_deframe": (rtty.uart_deframe, rtty.uart_frame(rtty.ita2_encode("RY RY"))),
+    "rtty.ita2_decode": (rtty.ita2_decode, np.asarray(rtty.ita2_encode("CQ 73"))),
+    "apt.apt_find_sync": (apt.apt_find_sync, NOISE_WORDS),
+    "apt.apt_decode_lines": (lambda w: apt.apt_decode_lines(APT_P, w), NOISE_WORDS),
+    "sstv.sstv_decode_vis": (lambda f: sstv.sstv_decode_vis(SSTV_P, f),
+                             np.full(20000, 1900.0, np.float32)),
+    "cw.decode_cw": (lambda a: cw.decode_cw(a, 8000.0), cw.cw_modulate("TEST", 20, 8000.0, 600.0)),
+    "dcf77.dcf77_decode": (dcf77.dcf77_decode, dcf77.dcf77_modulate(
+        [dcf77.dcf77_encode_minute(dcf77.Dcf77Time(1, 2, 3, 4, 5, 6, False))])),
+    "dcf77.dcf77_envelope_bits": (dcf77.dcf77_envelope_bits, dcf77.dcf77_modulate(
+        [dcf77.dcf77_encode_minute(dcf77.Dcf77Time(1, 2, 3, 4, 5, 6, False))])),
 }
 
 
@@ -476,3 +563,39 @@ def test_resolve_gives_the_indexed_current_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert resolve(None) == resolve("cuda") == torch.device("cuda", 0)
     assert resolve("cuda:1") == torch.device("cuda", 1)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("name", sorted(HOST_SINKS))
+def test_host_sinks_take_a_tensor_with_no_card(no_card, name):
+    fn, x = HOST_SINKS[name]
+    assert _same(fn(torch.as_tensor(x)), fn(x))
+
+
+def test_protocol_modules_import_with_no_card():
+    """The module constants (CRC specs, whitening machine, the BCH code) need
+    no device at import, and the host codecs run with no card."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from srcdsp_tpu_torch.chains import pocsag, ble, ais, acars, adsb\n"
+        "assert pocsag.make_codeword([1] * 21).size == 32\n"
+        "assert ble.crc24([1, 0, 1]).size == 24 and ais.ais_fcs([1, 0]) >= 0\n"
+        "assert acars.acars_bcs([65]) >= 0 and adsb.modes_crc([1] * 112) >= 0\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300, cwd=str(Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr

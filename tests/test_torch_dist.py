@@ -51,6 +51,7 @@ from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.ops.fir import fir_full
 from srcdsp_tpu_torch.ops.nco import freq_to_word
 from srcdsp_tpu_torch.ops.window import lowpass
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TIME = P(None, "time")
 

@@ -27,6 +27,7 @@ from srcdsp_tpu.chains import fhss as jfh
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.chains import dsss as tds
 from srcdsp_tpu_torch.chains import fhss as tfh
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

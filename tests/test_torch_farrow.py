@@ -16,6 +16,7 @@ import torch
 from srcdsp_tpu.ops import farrow as jf
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.ops import farrow as tf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _noise(shape, seed):

@@ -24,6 +24,7 @@ import torch
 from srcdsp_tpu import fec as jf
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import fec as tf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CODES = {"k7": (7, (0o171, 0o133)), "k3": (3, (0o7, 0o5)), "k5r3": (5, (0o23, 0o35, 0o37))}
 # the standard puncturing of the K=7 mother code (DVB-S / 802.11)

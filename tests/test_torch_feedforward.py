@@ -31,6 +31,7 @@ from srcdsp_tpu_torch.chains.tracking import compact_ragged
 from srcdsp_tpu_torch.ops.fir import fir_full
 from srcdsp_tpu_torch.ops.resample import resample_full
 from srcdsp_tpu_torch.testing.signals import fsk_baseband
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C, SPS, ORDER = 2, 4, 4
 NSYM = 1024

@@ -35,6 +35,7 @@ from srcdsp_tpu.ops.fft_planes import make_fft_planes as jmake_fft_planes
 from srcdsp_tpu_torch import oracle as toracle
 from srcdsp_tpu_torch.kernels import fft_pallas as kfft
 from srcdsp_tpu_torch.ops.fft_planes import fft_planes_flops, make_fft_planes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _snr_db(ref, got) -> float:

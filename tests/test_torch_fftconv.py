@@ -39,6 +39,7 @@ from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
 from srcdsp_tpu_torch.ops import fftconv as tfc
 from srcdsp_tpu_torch.ops.fftconv_planes import make_fftconv_planes
 from srcdsp_tpu_torch.ops.fir import fir_full
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _snr_db(ref, got) -> float:

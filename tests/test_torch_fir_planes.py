@@ -15,6 +15,7 @@ from srcdsp_tpu.ops import planes as jplanes
 from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch.ops import fir as tfir
 from srcdsp_tpu_torch.ops import planes as tplanes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, ref):

@@ -16,6 +16,7 @@ from srcdsp_tpu.io import framer as jfr
 from srcdsp_tpu_torch.io import framer as tfr
 from srcdsp_tpu_torch.kernels.mixfir_preframed import frame_planes
 from srcdsp_tpu_torch.ops.planes import planes_from_int16
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 HIST, STRIDE = 128, 1024
 SPAN = STRIDE + HIST

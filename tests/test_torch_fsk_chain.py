@@ -33,6 +33,7 @@ from srcdsp_tpu_torch.io.capture import read_capture
 from srcdsp_tpu_torch.kernels import fsk_ctaps as tct
 from srcdsp_tpu_torch.kernels.mixfir import make_mix_fir_kernel_mc as tmake_mc
 from srcdsp_tpu_torch.testing import signals as tsignals
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 DECIM, SPS, DEV = 4, 8, 0.05

@@ -29,6 +29,7 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import fsk_ctaps as tct
 from srcdsp_tpu_torch.kernels import fsk_preframed as tfp
 from srcdsp_tpu_torch.kernels import mixfir_preframed as tpf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NCH, DECIM, SPS, OT, BR = 2, 4, 8, 128, 2
 BF16 = torch.bfloat16

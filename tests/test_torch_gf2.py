@@ -23,6 +23,7 @@ import torch
 from srcdsp_tpu import gf2 as jg
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import gf2 as tg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CRC32 = (0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, True)
 

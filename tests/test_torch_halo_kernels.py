@@ -35,6 +35,7 @@ from srcdsp_tpu_torch.kernels import halo_fused as k20
 from srcdsp_tpu_torch.kernels.mixfir import make_mix_fir_kernel
 from srcdsp_tpu_torch.ops.nco import freq_to_word
 from srcdsp_tpu_torch.ops.window import lowpass
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TIME = P(None, "time")
 

@@ -27,6 +27,7 @@ from srcdsp_tpu_torch.ops import afc as tafc
 from srcdsp_tpu_torch.ops import agc as tagc
 from srcdsp_tpu_torch.ops import iir as tiir
 from srcdsp_tpu_torch.ops.nco import freq_to_word_traced as tword
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 # the JAX side jitted: eager associative_scan dispatches op by op

@@ -26,6 +26,7 @@ from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import golay as tgo
 from srcdsp_tpu_torch import hdlc as th
 from srcdsp_tpu_torch import interleave as ti
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _eq(got, want):

@@ -23,6 +23,7 @@ from srcdsp_tpu import qcldpc as jq
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import ldpc as tl
 from srcdsp_tpu_torch import qcldpc as tq
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _code_equal(jc, tc):

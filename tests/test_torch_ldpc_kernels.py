@@ -39,6 +39,7 @@ from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import ldpc as tl
 from srcdsp_tpu_torch import qcldpc as tq
 from srcdsp_tpu_torch.kernels import ldpc_pallas as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ITERS = 6
 

@@ -23,6 +23,7 @@ from srcdsp_tpu.testing import channel as jch
 from srcdsp_tpu_torch import metrics as tm
 from srcdsp_tpu_torch.testing import channel as tch
 from srcdsp_tpu_torch.testing.signals import complex_awgn
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng
 

@@ -22,6 +22,7 @@ from srcdsp_tpu.ops.nco import freq_to_word
 from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import mixfir as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, ref):

@@ -20,6 +20,7 @@ from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.kernels import mixfir_rows as trows
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cplx(yr, yi):

@@ -34,6 +34,7 @@ from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.chains import equalizer as teq
 from srcdsp_tpu_torch.chains import mlse as tml
 from srcdsp_tpu_torch.demap import psk_points
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

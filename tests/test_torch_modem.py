@@ -32,6 +32,7 @@ from srcdsp_tpu.ops.window import root_raised_cosine
 from srcdsp_tpu.qcldpc import make_dual_diagonal_base, make_qc_ldpc, qc_encode_dual_diagonal
 from srcdsp_tpu_torch import configs, convert
 from srcdsp_tpu_torch.chains import modem as tm
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tx_channel(sym, center, taps, sps):

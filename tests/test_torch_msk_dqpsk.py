@@ -33,6 +33,7 @@ from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.chains import dqpsk as tdq
 from srcdsp_tpu_torch.chains import msk as tmsk
 from srcdsp_tpu_torch.testing import signals as tsig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 DECIM, SPS, CENTER, NDIB, BLOCKS = 4, 8, 0.11, 256, 8

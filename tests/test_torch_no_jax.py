@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from srcdsp_tpu_torch.kernels import _build
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "srcdsp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -37,6 +37,7 @@ from srcdsp_tpu_torch.chains.qam import qam_constellation
 from srcdsp_tpu_torch.demap import qam_llr_bitplanes
 from srcdsp_tpu_torch.kernels.ldpc_pallas import make_qc_decoder_t, plan_qc
 from srcdsp_tpu_torch.qcldpc import make_dual_diagonal_base, make_qc_ldpc, qc_encode_dual_diagonal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C, NW, ORDER, Z, MB, NB, ITERS, N_PILOT = 2, 4, 16, 16, 4, 12, 4, 2
 N, K = NB * Z, (NB - MB) * Z

@@ -42,6 +42,7 @@ from srcdsp_tpu_torch.chains import scfde as tsc
 from srcdsp_tpu_torch.chains import scfde_planes as tscp
 from srcdsp_tpu_torch.chains.qam import qam_slice
 from srcdsp_tpu_torch.testing import signals as tsig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C = 2
 REL = 1e-5

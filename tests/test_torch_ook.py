@@ -31,6 +31,7 @@ from srcdsp_tpu.chains import ook as jook
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.chains import ook as took
 from srcdsp_tpu_torch.testing.signals import complex_awgn, manchester_encode, ook_baseband
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C, SPS, NBITS, BLOCKS = 2, 8, 512, 4
 REL, ABS = 1e-4, 1e-4

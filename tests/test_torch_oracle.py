@@ -24,6 +24,7 @@ from srcdsp_tpu_torch.ops.window import lowpass
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, random_bits, tone
 from srcdsp_tpu_torch.types import (
     complex64_to_int16, int16_to_complex64, np_complex64_to_int16, np_int16_to_complex64)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _snr_db(ref, got):

@@ -27,6 +27,7 @@ import torch
 from srcdsp_tpu import polar as jp
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import polar as tp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.cache

@@ -38,6 +38,7 @@ from srcdsp_tpu_torch.kernels import bank_pallas as tb
 from srcdsp_tpu_torch.ops.cpow import cpow
 from srcdsp_tpu_torch.ops.resample import resample_full
 from srcdsp_tpu_torch.testing.signals import psk_symbols, psk_wideband, tone, upsample_pulse
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIX = Path(__file__).resolve().parent / "fixtures"
 

@@ -32,6 +32,7 @@ from srcdsp_tpu.chains import tx as jtx
 from srcdsp_tpu_torch import demap as td
 from srcdsp_tpu_torch.chains import qam as tq
 from srcdsp_tpu_torch.chains import tx as ttx
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ORDERS = [4, 16, 64]
 

@@ -24,6 +24,7 @@ from srcdsp_tpu.ops.window import lowpass
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch.ops import resample as trs
 from srcdsp_tpu_torch.ops.fir import complex_conv
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = [(3, 4, 4096), (1, 2, 1024), (2, 1, 1024), (5, 3, 3072), (7, 4, 2048)]
 

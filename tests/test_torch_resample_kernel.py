@@ -32,6 +32,7 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.kernels import resample_pallas as trp
 from srcdsp_tpu_torch.ops.resample import resample_full
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = [(3, 4), (1, 2), (2, 3), (5, 4)]  # tests/unit/test_resample_kernel.py:15
 

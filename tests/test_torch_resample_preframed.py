@@ -31,6 +31,7 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels import mixfir_preframed as tpf
 from srcdsp_tpu_torch.kernels import resample_pallas as trp
 from srcdsp_tpu_torch.kernels import resample_preframed as trf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OT, BR, BC = 192, 2, 48
 BF16 = torch.bfloat16

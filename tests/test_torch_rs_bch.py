@@ -23,6 +23,7 @@ from srcdsp_tpu import rs as jr
 from srcdsp_tpu_torch import bch as tb
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import rs as tr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.cache

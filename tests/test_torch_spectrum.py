@@ -16,6 +16,7 @@ import torch
 from srcdsp_tpu.ops import spectrum as js
 from srcdsp_tpu_torch.ops import spectrum as ts
 from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _noise(n, seed, complex_=True):

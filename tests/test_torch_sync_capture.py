@@ -11,6 +11,7 @@ from srcdsp_tpu.chains import sync as jsync
 from srcdsp_tpu.io import capture as jcap
 from srcdsp_tpu_torch.chains import sync as tsync
 from srcdsp_tpu_torch.io import capture as tcap
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_timing_estimate_and_sample_match_jax():

@@ -45,6 +45,7 @@ from srcdsp_tpu_torch.chains import tracking as ttr
 from srcdsp_tpu_torch.chains import tracking_planes as ttp
 from srcdsp_tpu_torch.ops.resample import resample_full
 from srcdsp_tpu_torch.testing.signals import fsk_baseband, tone
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C = 2
 PSK_SPS, PSK_BLOCK = 4, 2048

@@ -26,6 +26,7 @@ from srcdsp_tpu.kernels import bcjr_pallas as jk
 from srcdsp_tpu_torch import convert
 from srcdsp_tpu_torch import turbo as tt
 from srcdsp_tpu_torch.kernels import bcjr_pallas as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _llrs(shape, seed):

@@ -14,6 +14,7 @@ from srcdsp_tpu.ops import window as jwindow
 from srcdsp_tpu_torch import types as ttypes
 from srcdsp_tpu_torch.ops import nco as tnco
 from srcdsp_tpu_torch.ops import window as twindow
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_int16_to_complex64_bit_exact():
