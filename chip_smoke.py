@@ -195,6 +195,29 @@ Phases, in order; any failure raises and the run exits non-zero:
    a 12-minute APT pass (1,440 lines), a full Martin M1 SSTV image, 60 s of
    CW and 60 minutes of DCF77; each step's time (host clock; its card part
    by CUDA events), rate and torch operations a call.
+20. the port's CLI (python -m srcdsp_tpu_torch.cli) on the card, file to
+   file, in a temporary directory removed at the end: a 2^26-sample FSK
+   capture (config 4's signal, 512 MiB of cf32) streamed in blocks of 2^20 as
+   its own process, unbroken, then again with a checkpoint every 8 blocks,
+   SIGKILLed once a checkpoint of block >= 16 is on disk and resumed: the
+   resumed file byte-equal to the unbroken one, the checkpoint gone, BER 0;
+   the time of each leg of a block (read + decode, H2D, chain, D2H + write);
+   a checkpoint written in the JAX package's format (uint32 phase word) from
+   the port's state at block 8, resumed to the same bytes; config 5's form in
+   files (channelize --demod psk over 2^25 samples of a 64-channel QPSK
+   wideband, SER 0, each file equal to the --device cpu run on 2^20;
+   channelize to cf32 and mux back, both within rel L2 1e-5 of the CPU);
+   fecenc / fecdec --code ldpc over 16,384 codewords through K14 (3 bit
+   errors a word, then BPSK LLRs at 6 dB: decoded == sent, K14's launches
+   rising, the first 256 codewords equal to the plain K14 on the CPU); every
+   other chain once (fir, resample, fm, fm --stereo, am, psk, qam, dqpsk,
+   fsk on GMSK, both tracking loops, mod psk / qam / fsk / gmsk, gen, scan
+   --analyze, scf, the six other codes, the fourteen decoder subcommands),
+   each equal to its --device cpu run (decisions and records equal, floats
+   within rel L2 1e-5) and what was sent back; bench/fault_injection.py's
+   stream over 8 time shards of one card, dropped after buffer 3 and
+   restored into a fresh mesh, bit-equal to the unbroken single-device run;
+   debug.checked around fsk_apply at 2^20, its cost a call and a NaN named.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -224,7 +247,8 @@ the same slices to its plain version per shard (rel L2 1e-5).
 Launch counts are reset just before phase 4 and read after phase 14: every
 kernel must have run on the main path. Phase 15 launches none of them;
 phase 16 reads K15's count before and after its modem on its own; phases 17,
-18 and 19 launch none. The last three lines are one JSON
+18 and 19 launch none; phase 20 reads K14's count around each `fecdec --code
+ldpc` of the CLI and adds those launches to K14's row. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -346,6 +370,19 @@ C19_NAVTEX_CHARS, C19_NAVTEX_PREFIX, C19_RTTY_CHARS, C19_RTTY_PREFIX = 1800, 1 <
 C19_APT_LINES, C19_APT_PREFIX, C19_SSTV_LINES, C19_SSTV_CPU_LINES, C19_SSTV_PREFIX = (
     1440, 1 << 20, 256, 8, 1 << 16)
 C19_CW_WORDS, C19_DCF77_MINUTES = 16, 60
+# phase 20, the CLI on the card, file to file: a 2^26-sample FSK capture (512 MiB of cf32,
+# config 4's signal) in blocks of 2^20, a checkpoint every 8 blocks, SIGKILL once a
+# checkpoint of block >= 16 is on disk; config 5's wideband (2^25 samples, 64 channels) and
+# its CPU run on 2^20; fecdec --code ldpc over 16,384 codewords (the CPU run on 256); the
+# other chains over 2^20 samples in blocks of 2^16 (the CPU runs on 2^17), the closed loops
+# on 2^16 / 2^14 samples both ways; the fault-injection stream over 8 shards of one card
+C20_FSK_SAMPLES, C20_BLOCK, C20_CKPT_EVERY, C20_KILL_AFTER, C20_LEG_BLOCKS = (
+    1 << 26, 1 << 20, 8, 16, 8)
+C20_WIDE_SAMPLES, C20_WIDE_PREFIX = 1 << 25, 1 << 20
+C20_LDPC_WORDS, C20_LDPC_CPU_WORDS, C20_LDPC_HARD_ERRORS, C20_LDPC_SIGMA = 16384, 256, 3, 0.5
+C20_STREAM_SAMPLES, C20_STREAM_BLOCK, C20_STREAM_PREFIX = 1 << 20, 1 << 16, 1 << 17
+C20_TRACK_FSK, C20_TRACK_PSK, C20_SCAN_SAMPLES = 1 << 16, 1 << 14, 1 << 17
+C20_FAULT_SHARDS, C20_FAULT_BUFFER, C20_CHECK_BLOCK = 8, 1 << 18, 1 << 20
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -3005,6 +3042,705 @@ def phase19(torch, dev) -> None:
     print(f"[19] phase 19 steps took {time.perf_counter() - t_step:.1f} s", flush=True)
 
 
+def protocol_files(work: Path, rng: np.random.Generator) -> dict:
+    """The fourteen decoder subcommands' captures, made with the port's numpy
+    generators (phase 19's and the reference CLI tests', a few messages
+    each), written under `work`: name -> (CLI argv with None for the output,
+    check(output bytes) -> every message sent came back)."""
+    from srcdsp_tpu_torch.chains import (acars, adsb, ais, apt, ax25, css, cw, gps, navtex,
+                                         pocsag, rds, rtty, same, sstv)
+    from srcdsp_tpu_torch.chains.analog import fm_modulate, fm_stereo_mpx
+    from srcdsp_tpu_torch.io.capture import CaptureMeta, write_capture
+    from srcdsp_tpu_torch.testing.signals import gmsk_baseband, tone
+
+    def noise(n, sigma):
+        return (sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+    def cf32(name, x):
+        write_capture(str(work / name), np.asarray(x, np.complex64), CaptureMeta(fmt="cf32"))
+        return work / name
+
+    def f32(name, a):
+        np.asarray(a, np.float32).tofile(work / name)
+        return work / name
+
+    def jl(raw):
+        return [json.loads(line) for line in raw.decode().splitlines()]
+
+    cases = {}
+    # ADS-B: 8 DF17 frames at 2 Msps (sps_half 1)
+    frames = [adsb.build_frame(np.concatenate([[1, 0, 0, 0, 1], rng.integers(0, 2, 83)]))
+              for _ in range(8)]
+    x = noise(80000, 0.06)
+    for k, f in enumerate(frames):
+        w = adsb.modulate(f)
+        x[k * 10000 + 500: k * 10000 + 500 + w.size] += w.astype(np.complex64)
+    want = [np.packbits(f.reshape(-1, 8)).tobytes() for f in frames]
+    cases["adsb"] = (["adsb", cf32("adsb.cf32", x), None],
+                     lambda raw, w=want: [bytes.fromhex(r["hex"]) for r in jl(raw)] == w)
+    # AIS: 6 frames of GMSK at 9,600 bd, 8 samples a bit, CFO
+    pls = [bytes([0x04]) + bytes(rng.integers(0, 256, 20).astype(np.uint8)) for _ in range(6)]
+    line = np.concatenate([np.concatenate([rng.integers(0, 2, 64), ais.build_ais_frame(p)])
+                           for p in pls] + [rng.integers(0, 2, 64)]).astype(np.int32)
+    x = gmsk_baseband(line, 8, bt=0.4)
+    x = (x * tone(x.size, 0.002) + noise(x.size, 0.04)).astype(np.complex64)
+    cases["ais"] = (["ais", cf32("ais.cf32", x), None, "--decim", 2, "--sps", 4],
+                    lambda raw, w=pls: [bytes.fromhex(r["hex"]) for r in jl(raw)] == w)
+    # RDS: 8 groups under a stereo program at 228 kHz
+    fs, sps_half, f_pilot = 228000.0, 96, 19000.0 / 228000.0
+    words = [rng.integers(0, 1 << 16, 4).tolist() for _ in range(8)]
+    bits = np.concatenate([rds.rds_encode_group(w, "A") for w in words]).astype(np.int32)
+    t = np.arange(bits.size * 2 * sps_half + 8000)
+    mpx = fm_stereo_mpx(0.3 * np.sin(2 * np.pi * 1000 / fs * t),
+                        0.3 * np.sin(2 * np.pi * 2500 / fs * t), f_pilot)
+    mpx = rds.rds_inject_mpx(mpx, bits, f_pilot, sps_half, level=0.07)
+    iq = fm_modulate(mpx.astype(np.float32), 0.3, device="cpu").numpy()
+    cases["rds"] = (["rds", cf32("rds.cf32", iq), None, "--sps-half", sps_half, "--pilot",
+                     f_pilot, "--dev", 0.3],
+                    lambda raw, w=words: [[int(v, 16) for v in r["words"]]
+                                          for r in jl(raw)][:len(w)] == w)
+    # GPS: PRN 9 under noise, 6 ms at 2 samples a chip; all 32 PRNs searched
+    n1 = 1023 * 2
+    x = np.tile(np.roll(gps.sample_ca(gps.ca_code(9), 2), 404), 6)
+    x = x * np.exp(2j * np.pi * 4.0 / (2 * n1) * np.arange(x.size))
+    x = (x + np.sqrt(50.0) * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))
+         ).astype(np.complex64)
+    cases["gps"] = (["gps", cf32("gps.cf32", x), None, "--sps", 2],
+                    lambda raw: [r["prn"] for r in jl(raw)] == [9]
+                    and abs(jl(raw)[0]["code_phase_samples"] - 404) < 1.0)
+    # POCSAG: 3 numeric pages
+    pages = [(0x2A2A1 + 7 * k, 0, pocsag.encode_numeric(f"{31337 + k}")) for k in range(3)]
+    pb = pocsag.encode_transmission(pages, preamble_bits=64)
+    x = np.concatenate([np.zeros(500, np.complex64),
+                        pocsag.pocsag_baseband(pb, 8, 0.05).astype(np.complex64),
+                        np.zeros(1024, np.complex64)])
+    cases["pocsag"] = (["pocsag", cf32("pocsag.cf32", x + noise(x.size, 0.04)), None, "--sps", 8,
+                        "--dev", 0.05, "--decim", 1],
+                       lambda raw: [r["numeric"] for r in jl(raw)] == [f"{31337 + k}"
+                                                                        for k in range(3)])
+    # AX.25 / APRS: 4 frames of Bell-202 audio at 13.2 kHz
+    infos = [f"!{4900 + k:04d}.50N/07201.75W-CARD{k}" for k in range(4)]
+    audio = np.concatenate([np.concatenate([np.zeros(700, np.float32), ax25.afsk_modulate(
+        ax25.build_aprs_frame(f"N{k}CALL", infos[k]), 11, 1200 / 13200, 2200 / 13200)])
+        for k in range(4)] + [np.zeros(700, np.float32)])
+    cases["ax25"] = (["ax25", f32("ax25.f32", audio), None, "--fs", 13200],
+                     lambda raw: [r["info"] for r in jl(raw)] == infos)
+    # CSS: 3 bursts at sf 7
+    pcss = css.make_css_params(sf=7, cr=4)
+    pays = [bytes(rng.integers(0, 256, 16).astype(np.uint8)) for _ in range(3)]
+    x = np.concatenate([np.concatenate([np.zeros(300, np.complex64), css.css_transmit(pcss, p)])
+                        for p in pays] + [np.zeros(300, np.complex64)])
+    cases["css"] = (["css", cf32("css.cf32", x + noise(x.size, 0.05)), None, "--css-sf", 7,
+                     "--css-cr", 4, "--css-len", 16],
+                    lambda raw, w=pays: [bytes.fromhex(r["hex"]) for r in jl(raw)] == w)
+    # APT: 12 lines of a smooth image, FM at dev 0.25
+    pa = apt.make_apt_params(device="cpu")
+    img = rng.standard_normal((12, 909))
+    img = np.apply_along_axis(lambda r: np.convolve(r, np.ones(9) / 9.0, "same"), 1, img)
+    img = ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+    iq = fm_modulate((apt.apt_modulate(pa, apt.apt_build_lines(img)) * 0.9).astype(np.float32),
+                     0.25, device="cpu").numpy()
+
+    def apt_ok(raw, img=img):
+        head = b"P5\n2080 12\n255\n"
+        pix = np.frombuffer(raw[len(head):], np.uint8).reshape(12, 2080) / 255.0
+        a0, aw = apt.apt_line_layout()["video_a"]
+        got = pix[1:-1, a0: a0 + aw]
+        return raw.startswith(head) and float(np.mean((img[1:1 + got.shape[0]] - got) ** 2)) < (
+            float(np.var(img)) / 20.0)
+
+    cases["apt"] = (["apt", cf32("apt.cf32", iq), None, "--dev", 0.25 * 0.9], apt_ok)
+    # ACARS: 3 blocks, AM at complex baseband
+    texts = [f"CARD BLOCK {k}".encode() for k in range(3)]
+    a = np.concatenate([np.concatenate([np.zeros(900, np.float32), acars.acars_modulate(
+        acars.build_acars_frame(t_, address=f".CARD0{k}", label="SA"), 20, 48000.0)])
+        for k, t_ in enumerate(texts)] + [np.zeros(900, np.float32)])
+    iq = ((1.0 + 0.8 * a) * np.exp(1j * 2 * np.pi * 0.003 * np.arange(a.size))
+          ).astype(np.complex64) + noise(a.size, 0.01)
+    cases["acars"] = (["acars", cf32("acars.cf32", iq), None],
+                      lambda raw: [r["text"].encode() for r in jl(raw)] == texts
+                      and all(r["bcs_ok"] for r in jl(raw)))
+    # SSTV: Martin M1, 16 lines of a smooth image, raw audio
+    ps = sstv.make_sstv_params(height=16, device="cpu")
+    simg = np.repeat(rng.random((16, 40, 3)), 8, axis=1).astype(np.float32)
+
+    def sstv_ok(raw, simg=simg):
+        head = b"P6\n320 16\n255\n"
+        pix = np.frombuffer(raw[len(head):], np.uint8).reshape(16, 320, 3) / 255.0
+        err = float(np.mean((pix[:, 2:-2] - simg[:, 2:-2]) ** 2))
+        return raw.startswith(head) and 10 * np.log10(float(np.var(simg)) / err) > 14.0
+
+    cases["sstv"] = (["sstv", f32("sstv.f32", sstv.sstv_modulate(ps, simg)), None, "--mpx",
+                      "--lines", 16], sstv_ok)
+    # NAVTEX, RTTY, SAME, CW
+    msg = navtex.navtex_build("K", "B", "12", "NO WARNINGS FOR THE CARD")
+    x = navtex.navtex_modulate(navtex.sitor_b_encode(navtex._text_codes(msg)), 20, 0.05)
+    cases["navtex"] = (["navtex", cf32("navtex.cf32", np.concatenate(
+        [x, np.zeros(800, np.complex64)])), None, "--sps", 20, "--dev", 0.05],
+        lambda raw: json.loads(raw)["ok"] and "NO WARNINGS FOR THE CARD" in json.loads(raw)["body"])
+    text = "RYRYRY DE CARD TEST 73"
+    x = rtty.rtty_modulate(rtty.uart_frame(rtty.ita2_encode(text)), sps_half=10, dev=0.04)
+    cases["rtty"] = (["rtty", cf32("rtty.cf32", np.concatenate([x, np.ones(100, np.complex64)])),
+                      None, "--sps", 10, "--dev", 0.04], lambda raw: text in raw.decode())
+    hdrs = [same.same_build("EAS", ev, "099999", "0015", "2331200", "CARDTEST")
+            for ev in ("RWT", "TOR")]
+    audio = np.concatenate([np.concatenate([np.zeros(500, np.float32), same.same_modulate(
+        same.same_bytes_bits(h_.encode()), 12500.0)]) for h_ in hdrs]
+        + [np.zeros(500, np.float32)])
+    cases["same"] = (["same", f32("same.f32", audio), None, "--mpx"],
+                     lambda raw: [r.get("event") for r in jl(raw)] == ["RWT", "TOR"])
+    x = cw.cw_modulate("CQ CQ DE CARD", 20.0, 8000.0, 700.0)
+    cases["cw"] = (["cw", f32("cw.f32", np.concatenate([np.zeros(1000, np.float32), x,
+                                                         np.zeros(1000, np.float32)])), None,
+                    "--mpx"], lambda raw: json.loads(raw)["text"] == "CQ CQ DE CARD")
+    return cases
+
+
+def fault_injection(torch, dev, work: Path) -> None:
+    """bench/fault_injection.py on shards of one card: the time-sharded halo
+    FIR then the channelizer stream over C20_FAULT_SHARDS shards, 16 channels
+    in 6 buffers, a checkpoint after each; every live tensor dropped after
+    buffer 3, the state restored into a fresh mesh, the stream continued;
+    the result bit-equal to the unbroken single-device run."""
+    from srcdsp_tpu_torch import checkpoint
+    from srcdsp_tpu_torch.chains.channelizer import channelize_full, design_prototype, pad_prototype
+    from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.dist.channelize import channelize_time_sharded_stream
+    from srcdsp_tpu_torch.dist.halo import fir_time_sharded_stream
+    from srcdsp_tpu_torch.ops.fir import fir_full
+    from srcdsp_tpu_torch.ops.window import lowpass
+    from srcdsp_tpu_torch.testing.signals import complex_awgn
+
+    t0 = time.perf_counter()
+    m, nbuf, shards = 16, 6, C20_FAULT_SHARDS
+    pre = lowpass(48, 0.45)
+    proto = design_prototype(m, taps_per_phase=4)
+    tproto = int(pad_prototype(proto, m).shape[0])
+    x = torch.as_tensor(complex_awgn(np.random.default_rng(3), (nbuf * C20_FAULT_BUFFER,)),
+                        device=dev)
+    n = C20_FAULT_BUFFER
+    ckpt = str(work / "fault_ck")
+
+    def fresh_state():
+        return (torch.zeros(47, dtype=torch.complex64, device=dev),
+                torch.zeros(tproto - 1, dtype=torch.complex64, device=dev))
+
+    def run_(start, state, mesh, stop_after=None):
+        outs = []
+        tail_f, tail_c = state
+        for b in range(start, nbuf):
+            xb = dmesh.shard(x[b * n:(b + 1) * n], mesh)
+            tail_f, y = fir_time_sharded_stream(pre, tail_f, xb, mesh)
+            tail_c, banks = channelize_time_sharded_stream(proto, tail_c, y, m, mesh)
+            outs.append(dmesh.unshard(banks, dev, dim=0).cpu())
+            checkpoint.save(ckpt, (tail_f, tail_c), block_index=b + 1)
+            if stop_after is not None and b + 1 == stop_after:
+                return outs
+        return outs
+
+    ref = channelize_full(proto, fir_full(pre, x), m).cpu()
+    outs_a = run_(0, fresh_state(), dmesh.make_mesh(time=shards, devices=[dev] * shards),
+                  stop_after=3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()                  # every live tensor of the run is gone
+    state, start = checkpoint.restore(ckpt, fresh_state())
+    outs_b = run_(start, state, dmesh.make_mesh(time=shards, devices=[dev] * shards))
+    got = torch.cat(outs_a + outs_b, dim=-1)
+    same = bool(torch.equal(got, ref))
+    print(f"[20] fault injection (bench/fault_injection.py): {nbuf} buffers of {n} samples, "
+          f"48-tap FIR -> {m}-channel bank over {shards} time shards of one card, a checkpoint "
+          f"after each buffer, the slice dropped after buffer 3 and restored at buffer {start} "
+          f"into a fresh mesh: output [{got.shape[0]}, {got.shape[1]}] == the unbroken "
+          f"single-device channelize_full(fir_full(...)) bit for bit {same} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(same and start == 3, "fault injection: recovered stream != unbroken run")
+
+
+def phase20(torch, dev) -> int:
+    """The port's CLI on the card, file to file (``python -m
+    srcdsp_tpu_torch.cli``): a 2^26-sample FSK capture streamed unbroken, the
+    same run SIGKILLed once a checkpoint of block >= 16 is on disk and
+    resumed, byte-equal, BER 0; a checkpoint in the JAX package's format
+    resumed; config 5's form in files (`channelize --demod psk`, then
+    `channelize` and `mux`); `fecenc` / `fecdec --code ldpc` over 16,384
+    codewords through K14; every other chain once, equal to its `--device
+    cpu` run; the fault-injection run of bench/fault_injection.py on shards
+    of one card; `debug.checked` on the card. Returns K14's launches made by
+    the CLI. The files live in a temporary directory removed at the end."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from srcdsp_tpu_torch import checkpoint, cli, tree
+    from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
+    from srcdsp_tpu_torch.io.capture import CaptureMeta, read_capture_blocks, write_capture
+    from srcdsp_tpu_torch.kernels import _build
+    from srcdsp_tpu_torch.testing.signals import fsk_baseband, psk_wideband, random_bits, tone
+
+    card = card_line()
+    print(f"[20] card: {card}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="srcdsp_cli_"))
+    k14_cli = 0
+
+    on = str(dev)
+
+    def run(argv, device=on):
+        """cli.main in this process; (seconds, its stderr)."""
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            cli.main([str(a) for a in argv] + ["--device", device])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, err.getvalue().strip()
+
+    def sub(argv):
+        """The CLI as its own process on the card (`python -m`)."""
+        return subprocess.Popen([sys.executable, "-m", "srcdsp_tpu_torch.cli"]
+                                + [str(a) for a in argv], cwd=str(REPO),
+                                env=dict(os.environ, PYTHONPATH=str(REPO)),
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what):
+        _, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"{what}: exit {proc.returncode}: {err[-2000:]}")
+        return err
+
+    def cap(name, x):
+        path = work / name
+        write_capture(str(path), np.asarray(x, np.complex64), CaptureMeta(fmt="cf32"))
+        return path
+
+    def prefix(path, n, name):
+        """The first n samples of a cf32 capture as a capture of its own."""
+        raw = np.fromfile(path, np.float32, count=2 * n)
+        return cap(name, raw[0::2] + 1j * raw[1::2])
+
+    def rel_l2(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+    def head_equal(card_path, cpu_path, kind):
+        """The card's file against the CPU run of a prefix: u8 / text bytes
+        equal, f32 / cf32 within rel L2 1e-5 over the CPU run's length."""
+        a, b = Path(card_path).read_bytes(), Path(cpu_path).read_bytes()
+        if kind == "bytes":
+            return a[:len(b)] == b and len(b) > 0, "equal"
+        x, y = np.frombuffer(a[:len(b)], np.float32), np.frombuffer(b, np.float32)
+        r = rel_l2(x, y)
+        return r <= 1e-5 and y.size > 0, f"rel L2 {r:.3g}"
+
+    try:
+        # --- 1. crash and resume, for real: 2^26 samples, SIGKILL, resume ----------------
+        t_step = time.perf_counter()
+        n1 = C20_FSK_SAMPLES
+        rng = np.random.default_rng(200)
+        bits = random_bits(rng, (n1 // (DECIM * SPS),))
+        x = (fsk_baseband(bits, DECIM * SPS, DEV / DECIM) * tone(n1, 0.11)).astype(np.complex64)
+        capf = cap("fsk.cf32", x)
+        del x
+        t_make = time.perf_counter() - t_step
+        fsk_argv = ["fsk", capf, None, "--center", "0.11", "--decim", DECIM, "--sps", SPS,
+                    "--dev", DEV, "--cutoff", "0.03", "--block", C20_BLOCK]
+        with_out = lambda out: [out if a is None else a for a in fsk_argv]   # noqa: E731
+        nblk = n1 // C20_BLOCK
+        per_blk = C20_BLOCK // (DECIM * SPS)
+        t0 = time.perf_counter()
+        finish(sub(with_out(work / "unbroken.u8") + ["--device", on]), "fsk unbroken")
+        t_sub = time.perf_counter() - t0
+        ref = np.fromfile(work / "unbroken.u8", np.uint8)
+        require(ref.size == nblk * per_blk, f"fsk unbroken: {ref.size} symbols")
+        ck = work / "ck"
+        killed = sub(with_out(work / "killed.u8") + ["--ckpt", ck, "--ckpt-every", C20_CKPT_EVERY,
+                                                     "--device", on])
+        at = None
+        while killed.poll() is None:
+            if (work / "ck.json").exists():
+                blk = json.loads((work / "ck.json").read_text())["block_index"]
+                if blk >= C20_KILL_AFTER:
+                    killed.send_signal(signal.SIGKILL)
+                    at = blk
+                    break
+            time.sleep(0.002)
+        killed.communicate(timeout=600)
+        require(at is not None and killed.returncode == -signal.SIGKILL,
+                f"fsk: the run ended (exit {killed.returncode}) before a checkpoint of block "
+                f">= {C20_KILL_AFTER}")
+        on_disk = os.path.getsize(work / "killed.u8")
+        err = finish(sub(with_out(work / "killed.u8") + ["--ckpt", ck, "--ckpt-every",
+                                                         C20_CKPT_EVERY, "--device", on]),
+                     "fsk resume")
+        got = np.fromfile(work / "killed.u8", np.uint8)
+        same = np.array_equal(got, ref)
+        ber = float(ber_per_channel(bits[None], ref[None].astype(np.int32))[0])
+        t_first, _ = run(with_out(work / "warm.u8"))
+        t_warm, _ = run(with_out(work / "warm.u8"))
+        require(np.array_equal(np.fromfile(work / "warm.u8", np.uint8), ref),
+                "fsk: in-process run != the subprocess run")
+        print(f"[20] fsk, config 4's signal at decim {DECIM}, sps {SPS}: {n1} samples "
+              f"({n1 * 8 / 2 ** 20:.0f} MiB cf32, made in {t_make:.1f} s), {nblk} blocks of "
+              f"{C20_BLOCK}: unbroken subprocess {t_sub:.2f} s wall ({n1 / t_sub / 1e6:.1f} Ms/s "
+              f"file to file, process start included); in process: first {t_first:.3f} s, "
+              f"then {t_warm:.3f} s ({n1 / t_warm / 1e6:.1f} Ms/s file to file) ({card})",
+              flush=True)
+        print(f"[20] SIGKILL after the checkpoint of block {at} ({on_disk} bytes of output on "
+              f"disk); resumed: '{err.splitlines()[0]}'; output == unbroken byte for byte "
+              f"{same}; checkpoint gone {not checkpoint.exists(str(ck))}; BER {ber} over "
+              f"{bits.size} bits after 16 settling symbols", flush=True)
+        require(same and not checkpoint.exists(str(ck)) and ber == 0.0,
+                f"fsk resume: equal {same}, BER {ber}")
+
+        # per-block legs of the stream, timed on the first blocks (host clock)
+        params = make_fsk_params(0.11, 64, 0.03, DECIM, SPS, DEV, device=dev)
+        st = fsk_init(params)
+        legs = np.zeros(4)
+        gen = read_capture_blocks(str(capf), C20_BLOCK)
+        legs_out = open(work / "legs.u8", "wb")
+        for _ in range(C20_LEG_BLOCKS):
+            t0 = time.perf_counter()
+            xb = next(gen)
+            t1 = time.perf_counter()
+            xd = torch.as_tensor(xb, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            st, (b, _) = fsk_apply(params, st, xd)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            legs_out.write(b.cpu().numpy().astype(np.uint8).tobytes())
+            legs += np.array([t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3])
+        legs_out.close()
+        legs = legs / C20_LEG_BLOCKS * 1e3
+        print(f"[20] one block of {C20_BLOCK} ({C20_BLOCK * 8 / 2 ** 20:.0f} MiB), mean of "
+              f"{C20_LEG_BLOCKS} (host clock): read + decode {legs[0]:.3f} ms, H2D "
+              f"{legs[1]:.3f} ms, chain {legs[2]:.3f} ms, D2H + write {legs[3]:.3f} ms; "
+              f"{nblk} blocks in process {t_warm * 1e3 / nblk:.3f} ms a block", flush=True)
+
+        # --- 2. a checkpoint in the JAX package's format, resumed by the port ---------------
+        st = fsk_init(params)
+        with open(work / "jaxfmt.u8", "wb") as f:
+            for i, xb in enumerate(read_capture_blocks(str(capf), C20_BLOCK)):
+                if i == C20_CKPT_EVERY:
+                    break
+                st, (b, _) = fsk_apply(params, st, torch.as_tensor(xb, device=dev))
+                f.write(b.cpu().numpy().astype(np.uint8).tobytes())
+        leaves = [x.cpu().numpy() for x in tree.flatten(st)[0]]
+        leaves = [a.astype(np.uint32) if a.dtype == np.int64 else a for a in leaves]
+        arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
+        arrays["block_index"] = np.asarray(C20_CKPT_EVERY)
+        np.savez(work / "jck.npz", **arrays)
+        (work / "jck.json").write_text(json.dumps({
+            "block_index": C20_CKPT_EVERY, "num_leaves": len(leaves),
+            "treedef": "PyTreeDef(CustomNode(namedtuple[FskState], [CustomNode(namedtuple["
+                       "NcoState], [*]), CustomNode(namedtuple[FirState], [*]), *, CustomNode("
+                       "namedtuple[TimingState], [*, *])]))", "extra": {}}))
+        t_j, err = run(with_out(work / "jaxfmt.u8") + ["--ckpt", work / "jck", "--ckpt-every",
+                                                        C20_CKPT_EVERY])
+        same = np.array_equal(np.fromfile(work / "jaxfmt.u8", np.uint8), ref)
+        print(f"[20] a JAX-format checkpoint (uint32 phase word, leaf_0..leaf_{len(leaves) - 1}, "
+              f"block_index {C20_CKPT_EVERY}) written from the port's state: '"
+              f"{err.splitlines()[0]}' in {t_j:.3f} s; output == unbroken byte for byte {same}",
+              flush=True)
+        require(same and err.startswith(f"resumed from block {C20_CKPT_EVERY}"),
+                "JAX-format checkpoint: resumed output differs")
+        for p in work.glob("*.u8"):
+            p.unlink()
+        capf.unlink()
+
+        # --- 3. config 5's form in files: channelize --demod psk, channelize, mux --------
+        m, sps5 = C5_CHANNELS, C5_SPS
+        data, _, wb = psk_wideband(np.random.default_rng(201), m, C20_WIDE_SAMPLES // (m * sps5),
+                                   C5_ORDER, sps5, device=dev)
+        wbf = cap("wide.cf32", wb.cpu().numpy())
+        wpre = prefix(wbf, C20_WIDE_PREFIX, "wide_pre.cf32")
+        del wb
+        chan = ["--channels", m, "--sps", sps5, "--order", C5_ORDER, "--block", C20_BLOCK]
+        t_c, _ = run(["channelize", wbf, work / "dm"] + chan + ["--demod", "psk"])
+        run(["channelize", wpre, work / "dmc"] + chan + ["--demod", "psk"], device="cpu")
+        idx = np.stack([np.fromfile(work / f"dm.ch{c:03d}.u8", np.uint8) for c in range(m)])
+        same = all(head_equal(work / f"dm.ch{c:03d}.u8", work / f"dmc.ch{c:03d}.u8", "bytes")[0]
+                   for c in range(m))
+        ser = ser_per_channel(data, idx.astype(np.int64), C5_ORDER)
+        print(f"[20] channelize --demod psk: {C20_WIDE_SAMPLES} wideband samples ({m} QPSK "
+              f"channels of psk_wideband, sps {sps5}, the CLI's bank and rrc_span 4) -> {m} u8 "
+              f"files in {t_c:.3f} s ({C20_WIDE_SAMPLES / t_c / 1e6:.1f} Ms/s file to file); "
+              f"max SER {ser.max()} after diff_decode; each file == the --device cpu run on the "
+              f"first {C20_WIDE_PREFIX} samples {same}", flush=True)
+        require(same and bool(np.all(ser == 0.0)), f"channelize --demod psk: SER {ser.max()}, "
+                f"== CPU {same}")
+        t_c2, _ = run(["channelize", wbf, work / "ch"] + chan)
+        run(["channelize", wpre, work / "chc"] + chan, device="cpu")
+        rels = [head_equal(work / f"ch.ch{c:03d}.cf32", work / f"chc.ch{c:03d}.cf32", "rel")
+                for c in range(m)]
+        t_m, _ = run(["mux", work / "ch", work / "mux.cf32", "--channels", m,
+                      "--block", C20_BLOCK])
+        run(["mux", work / "chc", work / "muxc.cf32", "--channels", m, "--block", C20_BLOCK],
+            device="cpu")
+        ok_m, txt_m = head_equal(work / "mux.cf32", work / "muxc.cf32", "rel")
+        print(f"[20] channelize -> {m} cf32 files in {t_c2:.3f} s, each == CPU "
+              f"{all(r for r, _ in rels)} (worst {max(float(t.split()[-1]) for _, t in rels):.3g}"
+              f" rel L2); mux back -> {C20_WIDE_SAMPLES} samples in {t_m:.3f} s "
+              f"({C20_WIDE_SAMPLES / t_m / 1e6:.1f} Ms/s), == CPU {ok_m} ({txt_m})", flush=True)
+        require(all(r for r, _ in rels) and ok_m, "channelize / mux: card != CPU")
+        for p in list(work.glob("*.ch*")) + [wbf, wpre, work / "mux.cf32", work / "muxc.cf32"]:
+            p.unlink()
+
+        # --- 4. fecenc / fecdec --code ldpc over 16,384 codewords (K14) ---------------------
+        rng = np.random.default_rng(202)
+        kb, nb = 252, 504
+        u = rng.integers(0, 2, C20_LDPC_WORDS * kb).astype(np.uint8)
+        u.tofile(work / "u.u8")
+        t_e, _ = run(["fecenc", work / "u.u8", work / "c.u8"])
+        c = np.fromfile(work / "c.u8", np.uint8)
+        require(c.size == C20_LDPC_WORDS * nb, f"fecenc: {c.size} coded bits")
+        hard = c.reshape(C20_LDPC_WORDS, nb).copy()
+        for w in range(C20_LDPC_WORDS):
+            hard[w, rng.choice(nb, C20_LDPC_HARD_ERRORS, replace=False)] ^= 1
+        hard.tofile(work / "h.u8")
+        sigma = C20_LDPC_SIGMA
+        llr = (2.0 / sigma ** 2 * ((1.0 - 2.0 * c) + sigma * rng.standard_normal(c.size))
+               ).astype(np.float32)
+        llr.tofile(work / "l.f32")
+        n_pre = C20_LDPC_CPU_WORDS
+        hard[:n_pre].tofile(work / "h_pre.u8")
+        llr[:n_pre * nb].tofile(work / "l_pre.f32")
+        rows_ = {}
+        for tag, src, extra in (("hard", "h", ["--hard"]), ("LLR", "l", [])):
+            suffix = ".u8" if tag == "hard" else ".f32"
+            before = _build.LAUNCHES["ldpc_edges"]
+            t_d, err = run(["fecdec", work / f"{src}{suffix}", work / f"d_{src}.u8"] + extra)
+            k14 = _build.LAUNCHES["ldpc_edges"] - before
+            k14_cli += k14
+            run(["fecdec", work / f"{src}_pre{suffix}", work / f"dc_{src}.u8"] + extra,
+                device="cpu")
+            d = np.fromfile(work / f"d_{src}.u8", np.uint8)
+            dc = np.fromfile(work / f"dc_{src}.u8", np.uint8)
+            rows_[tag] = (np.array_equal(d, u), np.array_equal(d[:dc.size], dc), k14, t_d, err)
+            print(f"[20] fecdec --code ldpc ({tag}: "
+                  + (f"{C20_LDPC_HARD_ERRORS} bit errors a word" if tag == "hard"
+                     else f"BPSK LLRs at sigma {sigma}, {10 * np.log10(1 / (sigma ** 2)):.1f} dB")
+                  + f"), {C20_LDPC_WORDS} codewords of the (3,6) n {nb} code, 10 iterations: "
+                  f"'{err}'; decoded == sent {rows_[tag][0]}; K14 launches {k14}; first {n_pre} "
+                  f"codewords == the --device cpu run (plain K14) byte for byte {rows_[tag][1]}; "
+                  f"{t_d:.3f} s, {C20_LDPC_WORDS * nb / t_d / 1e6:.1f} Mb/s coded file to file",
+                  flush=True)
+            require(rows_[tag][0] and rows_[tag][1] and k14 > 0,
+                    f"fecdec ldpc {tag}: decoded {rows_[tag][0]}, == CPU {rows_[tag][1]}, "
+                    f"K14 launches {k14}")
+        from srcdsp_tpu_torch.kernels.ldpc_pallas import make_ldpc_decoder, plan_edges
+        from srcdsp_tpu_torch.ldpc import make_ldpc_code, make_regular_ldpc
+
+        t0 = time.perf_counter()
+        h = make_regular_ldpc(nb, 3, 6, seed=0)
+        dec = make_ldpc_decoder(make_ldpc_code(h, device=dev), plan_edges(h), device=dev)
+        t_setup = time.perf_counter() - t0
+        llr_d = torch.as_tensor(llr.reshape(C20_LDPC_WORDS, nb), device=dev)
+        ms_dec = median_ms(torch, lambda: dec(llr_d))
+        print(f"[20] fecenc --code ldpc: {u.size} info bits -> {c.size} coded bits in "
+              f"{t_e:.3f} s; of fecdec's time, the code, its edge plan and the decoder take "
+              f"{t_setup * 1e3:.1f} ms to build (host), one decode of the {C20_LDPC_WORDS} "
+              f"LLR words on the card (K14, bits, info, syndromes) {ms_dec:.3f} ms (CUDA-event "
+              f"median of {REPS}; {C20_LDPC_WORDS * nb / ms_dec / 1e3:.1f} Mb/s coded)",
+              flush=True)
+        del llr_d, dec
+
+        # --- 5. every other chain once, the card against --device cpu ---------------------
+        t5 = time.perf_counter()
+        n5, pre5 = C20_STREAM_SAMPLES, C20_STREAM_PREFIX
+        rng = np.random.default_rng(203)
+        from srcdsp_tpu_torch.chains.analog import am_modulate, fm_modulate, fm_stereo_mpx
+        from srcdsp_tpu_torch.chains.dqpsk import dqpsk_baseband
+
+        b5 = random_bits(rng, (n5 // (DECIM * SPS),))
+        streams = {"fsk": cap("s_fsk.cf32", fsk_baseband(b5, DECIM * SPS, DEV / DECIM)
+                              * tone(n5, 0.11))}
+        audio = np.sin(2 * np.pi * 0.003 * np.arange(n5)).astype(np.float32)
+        streams["am"] = cap("s_am.cf32", am_modulate(audio, 0.5, 0.21, device=dev).cpu().numpy())
+        k = np.arange(n5)
+        mpx = fm_stereo_mpx(0.7 * np.cos(2 * np.pi * 0.001 * k), 0.7 * np.cos(
+            2 * np.pi * 0.0016 * k), FM_PILOT / 4)
+        streams["stereo"] = cap("s_st.cf32", fm_modulate(mpx.astype(np.float32), 0.02, 0.07,
+                                                         device=dev).cpu().numpy())
+        dq = dqpsk_baseband(rng.integers(0, 4, n5 // (DECIM * SPS)), DECIM * SPS)
+        streams["dqpsk"] = cap("s_dq.cf32", dq[:n5] * tone(n5, 0.11))
+        syms = {"psk": rng.integers(0, 4, n5 // 8), "qam": rng.integers(0, 16, n5 // 8),
+                "fsk": rng.integers(0, 2, n5 // 8), "gmsk": rng.integers(0, 2, n5 // 8),
+                "bpsk": rng.integers(0, 2, n5 // 8)}
+        mod_rows = []
+        for mod, s_ in syms.items():
+            s_.astype(np.uint8).tofile(work / f"{mod}.u8")
+            s_[:pre5 // 8].astype(np.uint8).tofile(work / f"{mod}_pre.u8")
+            margs = ["--mod", "psk" if mod == "bpsk" else mod, "--order",
+                     {"qam": 16, "bpsk": 2}.get(mod, 4), "--sps", 8, "--center", 0.12, "--dev",
+                     0.0625, "--block", C20_BLOCK]
+            t_mod, _ = run(["mod", work / f"{mod}.u8", work / f"mod_{mod}.cf32"] + margs)
+            run(["mod", work / f"{mod}_pre.u8", work / f"modc_{mod}.cf32"] + margs, device="cpu")
+            ok, txt = head_equal(work / f"mod_{mod}.cf32", work / f"modc_{mod}.cf32", "rel")
+            mod_rows.append(f"{mod} {t_mod * 1e3:.1f} ms {ok} ({txt})")
+            require(ok, f"mod {mod}: card != CPU ({txt})")
+            streams[f"mod_{mod}"] = work / f"mod_{mod}.cf32"
+        print(f"[20] mod ({n5 // 8} symbols each at sps 8 -> {n5} samples; == CPU on the first "
+              f"{pre5 // 8} symbols): " + "; ".join(mod_rows), flush=True)
+        blk = ["--block", C20_STREAM_BLOCK]
+        stream_cases = [
+            ("fir", "fsk", ["--taps", 64, "--cutoff", 0.1, "--decim", 2], "rel"),
+            ("resample", "fsk", ["--up", 3, "--down", 4, "--taps", 96], "rel"),
+            ("fm", "fsk", ["--center", 0.11, "--decim", 4, "--dev", 0.08, "--audio-decim", 2],
+             "rel"),
+            ("fm", "stereo", ["--stereo", "--center", 0.07, "--decim", 4, "--dev", 0.08,
+                              "--audio-decim", 4, "--taps", 96], "rel"),
+            ("am", "am", ["--center", 0.21, "--decim", 4], "rel"),
+            ("psk", "mod_psk", ["--center", 0.12, "--decim", 2, "--sps", 4], "bytes"),
+            ("qam", "mod_qam", ["--center", 0.12, "--decim", 2, "--sps", 4, "--order", 16],
+             "bytes"),
+            ("dqpsk", "dqpsk", ["--center", 0.11], "bytes"),
+            ("fsk", "mod_gmsk", ["--center", 0.12, "--sps", 2, "--dev", 0.125,
+                                 "--timing-forget", 0.95], "bytes"),
+        ]
+        rows5 = []
+        for i, (chain, src, args_, kind) in enumerate(stream_cases):
+            srcp = streams[src]
+            srcpre = prefix(srcp, pre5, f"pre_{i}.cf32")
+            t_s, _ = run([chain, srcp, work / f"o{i}"] + args_ + blk)
+            run([chain, srcpre, work / f"oc{i}"] + args_ + blk, device="cpu")
+            ok, txt = head_equal(work / f"o{i}", work / f"oc{i}", kind)
+            tag = f"{chain}{' --stereo' if '--stereo' in args_ else ''} ({src})"
+            rows5.append(f"{tag} {t_s * 1e3:.1f} ms, {n5 / t_s / 1e6:.1f} Ms/s, == CPU {ok} "
+                         f"({txt})")
+            require(ok, f"{tag}: card != CPU ({txt})")
+        print(f"[20] streams of {n5} samples, block {C20_STREAM_BLOCK}, each card file's first part == "
+              f"the --device cpu run on the first {pre5} samples:\n    " + "\n    ".join(rows5),
+              flush=True)
+        # the closed loops: per-symbol Python loops, on a short capture both ways
+        loops = []
+        for i, (src, args_, n_) in enumerate((
+                ("fsk", ["--center", 0.11, "--cutoff", 0.03, "--tracking"], C20_TRACK_FSK),
+                ("mod_psk", ["--center", 0.12, "--decim", 2, "--sps", 4, "--tracking"],
+                 C20_TRACK_PSK))):
+            short = prefix(streams[src], n_, f"track_{i}.cf32")
+            chain = "psk" if src == "mod_psk" else "fsk"
+            t_s, _ = run([chain, short, work / f"t{i}"] + args_ + ["--block", n_ // 2])
+            t_c, _ = run([chain, short, work / f"tc{i}"] + args_ + ["--block", n_ // 2],
+                         device="cpu")
+            ok = Path(work / f"t{i}").read_bytes() == Path(work / f"tc{i}").read_bytes()
+            loops.append(f"{chain} --tracking ({n_} samples) card {t_s:.2f} s, CPU {t_c:.2f} s, "
+                         f"decisions equal {ok}")
+            require(ok, f"{chain} --tracking: card decisions != CPU")
+        print("[20] " + "; ".join(loops), flush=True)
+
+        gens = []
+        for argv in (["--gen", "tone", "--center", 0.11, "--snr", 20, "--fmt", "cu8"],
+                     ["--gen", "chirp", "--fmt", "ci16"], ["--gen", "noise", "--seed", 4]):
+            run(["gen", work / "g.iq"] + argv + ["--num-samples", n5])
+            run(["gen", work / "gc.iq"] + argv + ["--num-samples", n5], device="cpu")
+            gens.append((work / "g.iq").read_bytes() == (work / "gc.iq").read_bytes())
+        mixed = np.fromfile(streams["mod_psk"], np.float32)
+        mixed = (mixed[0::2] + 1j * mixed[1::2])[:C20_SCAN_SAMPLES]
+        mixed = cap("scan.cf32", mixed + 0.4 * tone(mixed.size, -0.3)
+                    + 0.01 * (rng.standard_normal(mixed.size)
+                              + 1j * rng.standard_normal(mixed.size)))
+        surveys = []
+        bpsk = streams["mod_bpsk"]
+        for name, argv in (("scan --analyze", ["scan", mixed, None, "--analyze"]),
+                           ("scf (BPSK)", ["scf", bpsk, None, "--scf-thresh", 0.3]),
+                           ("scf --conj (BPSK)", ["scf", bpsk, None, "--conj"])):
+            t_s, _ = run([work / "r.jsonl" if a is None else a for a in argv])
+            run([work / "rc.jsonl" if a is None else a for a in argv], device="cpu")
+            ra = [json.loads(x) for x in (work / "r.jsonl").read_text().splitlines()]
+            rb = [json.loads(x) for x in (work / "rc.jsonl").read_text().splitlines()]
+            ok = len(ra) == len(rb) > 0 and all(
+                a.keys() == b.keys() and all(
+                    abs(a[f] - b[f]) <= 1e-5 * max(1.0, abs(a[f])) + 1.01e-4
+                    if isinstance(a[f], float) else a[f] == b[f] for f in a)
+                for a, b in zip(ra, rb))
+            surveys.append(f"{name} {len(ra)} records {t_s * 1e3:.0f} ms == CPU {ok}")
+            require(ok, f"{name}: card records != CPU: {ra} vs {rb}")
+        print(f"[20] gen (tone cu8, chirp ci16, noise; {n5} samples) == CPU {gens}; "
+              + "; ".join(surveys), flush=True)
+        require(all(gens), "gen: card != CPU")
+
+        fec_rows = []
+        for code, extra, words in (("polar", ["--fec-n", 128, "--fec-k", 64], 256),
+                                   ("turbo", ["--fec-k", 128, "--fec-iters", 4], 64),
+                                   ("conv", [], 64), ("rs", [], 64), ("bch", [], 1024),
+                                   ("golay", [], 4096)):
+            kk = {"polar": 64, "turbo": 128, "conv": 128, "rs": 223, "bch": 21, "golay": 12}[code]
+            msg = rng.integers(0, 256 if code == "rs" else 2, words * kk).astype(np.uint8)
+            msg.tofile(work / "m.u8")
+            run(["fecenc", work / "m.u8", work / "mc.u8", "--code", code] + extra)
+            run(["fecenc", work / "m.u8", work / "mcc.u8", "--code", code] + extra, device="cpu")
+            enc_ok = (work / "mc.u8").read_bytes() == (work / "mcc.u8").read_bytes()
+            cw = np.fromfile(work / "mc.u8", np.uint8).copy()
+            if code == "rs":
+                cw.reshape(words, -1)[:, 3:9] ^= 0x5A
+            else:
+                cw[::97] ^= 1
+            cw.tofile(work / "mn.u8")
+            hard = [] if code == "rs" else ["--hard"]
+            t_d, err = run(["fecdec", work / "mn.u8", work / "md.u8", "--code", code] + hard
+                           + extra)
+            run(["fecdec", work / "mn.u8", work / "mdc.u8", "--code", code] + hard + extra,
+                device="cpu")
+            d = np.fromfile(work / "md.u8", np.uint8)
+            dec_ok = d.tobytes() == (work / "mdc.u8").read_bytes()
+            back = np.array_equal(d[:msg.size], msg)
+            fec_rows.append(f"{code} ({words} words) encode == CPU {enc_ok}, decode == CPU "
+                            f"{dec_ok}, sent back {back}, {t_d * 1e3:.1f} ms")
+            require(enc_ok and dec_ok and back, f"fec {code}: {fec_rows[-1]}")
+        print("[20] fecenc / fecdec, the six other codes, errors injected: "
+              + "; ".join(fec_rows), flush=True)
+        protocols = protocol_files(work, np.random.default_rng(204))
+        proto_rows = []
+        for name, (argv, check) in protocols.items():
+            t_s, _ = run([work / f"p_{name}" if a is None else a for a in argv])
+            run([work / f"pc_{name}" if a is None else a for a in argv], device="cpu")
+            out = (work / f"p_{name}").read_bytes()
+            ok = out == (work / f"pc_{name}").read_bytes()
+            if name in ("apt", "sstv"):       # images: float envelopes, within a grey level
+                a, b = (np.frombuffer(x.split(b"\n", 3)[3], np.uint8).astype(int)
+                        for x in (out, (work / f"pc_{name}").read_bytes()))
+                ok = bool(np.abs(a - b).max() <= 1)
+            sent = check(out)
+            proto_rows.append(f"{name} {t_s * 1e3:.0f} ms == CPU {ok} sent back {sent}")
+            require(ok and sent, f"{name}: == CPU {ok}, sent back {sent}")
+        print("[20] the fourteen decoder subcommands on the card, each == its --device cpu run "
+              "on the same file: " + "; ".join(proto_rows), flush=True)
+        print(f"[20] step 5 took {time.perf_counter() - t5:.1f} s", flush=True)
+        for p in list(work.iterdir()):
+            p.unlink()
+
+        # --- 6. fault injection on shards of one card (bench/fault_injection.py) -----------
+        fault_injection(torch, dev, work)
+
+        # --- 7. debug.checked on the card -------------------------------------------------
+        from srcdsp_tpu_torch.debug import NonFiniteError, checked
+
+        xc = torch.as_tensor(tone(C20_CHECK_BLOCK, 0.11), device=dev)
+        plain = lambda: fsk_apply(params, fsk_init(params), xc)      # noqa: E731
+        wrapped = checked(lambda s, v: fsk_apply(params, s, v))
+        ms_plain = median_ms(torch, plain)
+        ms_checked = median_ms(torch, lambda: wrapped(fsk_init(params), xc))
+        bad = xc.clone()
+        bad[C20_CHECK_BLOCK // 3] = float("nan")
+        try:
+            wrapped(fsk_init(params), bad)
+            named = None
+        except NonFiniteError as e:
+            named = str(e)
+        after = int(wrapped(fsk_init(params), xc)[1][0].sum())
+        print(f"[20] debug.checked(fsk_apply) at a block of {C20_CHECK_BLOCK}: {ms_plain:.3f} ms "
+              f"a call plain, {ms_checked:.3f} ms checked (CUDA-event medians of {REPS}; one "
+              f"stacked finiteness read a call); a NaN in the input raises '{named}'; the card "
+              f"runs on after it ({after} one bits) ({card})", flush=True)
+        require(named is not None and named.endswith("[0].timing.acc"),
+                f"checked: raised {named!r}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return k14_cli
+
+
 def main() -> int:
     import torch
 
@@ -4257,6 +4993,15 @@ def main() -> int:
     t19 = time.perf_counter()
     phase19(torch, dev)
     print(f"[19] phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
+
+    # --- 20. the CLI on the card, file to file; a killed run resumed ------------------------
+    t20 = time.perf_counter()
+    k14_cli = phase20(torch, dev)
+    for row in rows:
+        if row["name"] == "ldpc_edges":
+            row["launches"] += k14_cli
+    print(f"[20] K14 launches by the CLI: {k14_cli} (added to its row); phase 20 took "
+          f"{time.perf_counter() - t20:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -80,6 +80,12 @@ def discriminate(last: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, tor
     return x[..., -1:], d.to(F32)
 
 
+def np_discriminate(x: np.ndarray) -> np.ndarray:
+    """numpy twin of the discriminator (zero history), for tests/oracle."""
+    xin = np.concatenate([np.zeros((*x.shape[:-1], 1), x.dtype), x], axis=-1)
+    return (np.angle(xin[..., 1:] * np.conj(xin[..., :-1])) / (2 * np.pi)).astype(np.float32)
+
+
 def fsk_apply(params: FskParams, state: FskState, x: torch.Tensor,
               ) -> tuple[FskState, tuple[torch.Tensor, torch.Tensor]]:
     """Demodulate one block. x: [..., N], N % (decim*sps) == 0.

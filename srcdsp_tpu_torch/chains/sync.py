@@ -96,7 +96,10 @@ def timing_sample_phase(last: torch.Tensor, x: torch.Tensor, phase: torch.Tensor
     nsym = n // sps
     xin = torch.cat([last, x], dim=-1)  # [..., N + sps + 1]
     t = torch.arange(nsym, dtype=F32, device=x.device) * sps + phase[..., None]
-    i0 = torch.floor(t).to(torch.int64)
+    # a non-finite phase (a NaN or Inf in the block) gives NaN symbols, as the
+    # reference's gather does; the clamp only keeps its index in bounds (on
+    # the card an out-of-bounds gather is a device-side assert)
+    i0 = torch.floor(t).to(torch.int64).clamp(0, xin.shape[-1] - 2)
     frac = t - i0.to(F32)
     shape = (*xin.shape[:-1], nsym)
     lo = torch.gather(xin, -1, torch.broadcast_to(i0, shape))

@@ -27,6 +27,7 @@ from srcdsp_tpu_torch.chains.qam import qam_constellation
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.nco import TWO_PI, NcoState, freq_to_word, nco_apply, nco_init, word_tensor
 from srcdsp_tpu_torch.ops.resample import ResampleState, resample_apply, resample_init
+from srcdsp_tpu_torch.ops.window import gaussian_freq_pulse
 from srcdsp_tpu_torch.types import CF32, F32
 
 
@@ -105,16 +106,6 @@ def linear_tx_apply(params: LinearTxParams, state: LinearTxState, symbols: torch
 
 _SCALE = float(1 << 32)
 _INV_SCALE = float(2.0 ** -32)
-
-
-def gaussian_freq_pulse(sps: int, bt: float = 0.3, span: int = 3, h: float = 0.5) -> np.ndarray:
-    """Gaussian CPM frequency pulse (cycles/sample), integrating to h/2
-    cycles per bit."""
-    tt = (np.arange(span * sps) - (span * sps - 1) / 2.0) / sps
-    sigma = np.sqrt(np.log(2.0)) / (2.0 * np.pi * bt)
-    g = np.exp(-0.5 * (tt / sigma) ** 2)
-    p = np.convolve(np.ones(sps), g)
-    return (p / p.sum() * (h / 2.0)).astype(np.float64)
 
 
 def _pulse_words(pulse: np.ndarray, sps: int) -> np.ndarray:

@@ -20,6 +20,13 @@ import torch
 from srcdsp_tpu_torch.device import resolve
 
 
+@dataclasses.dataclass(frozen=True)
+class ConfigSpec:
+    name: str
+    description: str
+    build: Callable[..., "BuiltConfig"]
+
+
 @dataclasses.dataclass
 class BuiltConfig:
     step: Callable          # (inputs...) -> outputs
@@ -810,3 +817,23 @@ def build_turbo(t: int = 512, iters: int = 4, batch: int = 256, snr_db: float = 
     return BuiltConfig(step, llrs, batch * t,
                        dict(impl=layout, tc=tc, u=torch.as_tensor(u, device=device),
                             iters=iters, n_coded=sum(s.shape[-1] for s in streams)))
+
+
+# the reference's registry (srcdsp_tpu/configs.py CONFIGS): the same names and
+# descriptions; each build function takes the port's arguments (use_kernel, device)
+CONFIGS = {
+    "config1": ConfigSpec(
+        "config1",
+        "single-channel 64-tap FIR + 2x decimate (+fused NCO), 1M samples",
+        build_config1),
+    "config2": ConfigSpec(
+        "config2", "NCO + 128-tap FIR + 3/4 resample, 4 channels",
+        build_config2),
+    "config3": ConfigSpec(
+        "config3", "overlap-save FFT conv 4096-pt, 16 channels",
+        build_config3),
+    "config4": ConfigSpec(
+        "config4", "FSK demod chain, 32 channels", build_config4),
+    "config5": ConfigSpec(
+        "config5", "64-ch polyphase channelizer + PSK demods", build_config5),
+}

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -108,6 +109,18 @@ def fir_full(taps, x: torch.Tensor, decim: int = 1) -> torch.Tensor:
                      device=x.device)
     _, y = fir_apply(taps, state, x, decim=decim)
     return y
+
+
+def np_fir_full(taps: np.ndarray, x: np.ndarray, decim: int = 1) -> np.ndarray:
+    """numpy reference twin of fir_full (float64 accumulate), for tests."""
+    T = len(taps)
+    xin = np.concatenate([np.zeros(x.shape[:-1] + (T - 1,), dtype=x.dtype), x], axis=-1)
+    n = x.shape[-1]
+    out = np.stack([
+        np.sum(taps[::-1] * xin[..., j * decim: j * decim + T], axis=-1)
+        for j in range(n // decim)
+    ], axis=-1)
+    return out.astype(x.dtype)
 
 
 def convolve_same(x: torch.Tensor, taps) -> torch.Tensor:

@@ -27,7 +27,7 @@ from srcdsp_tpu_torch.types import CF32
 
 __all__ = [
     "design_halfband", "HalfbandState", "halfband_init", "halfband_decim",
-    "cascade_init", "cascade_apply", "np_halfband_decim",
+    "HalfbandCascade", "cascade_init", "cascade_apply", "np_halfband_decim",
 ]
 
 
@@ -93,6 +93,10 @@ def halfband_decim(h: np.ndarray, state: HalfbandState, x: torch.Tensor
     y_odd = odd_full[..., : n // 2]            # = x_odd[m - (d+1)]
     new_state = HalfbandState(even=ev_state, odd=odd_full[..., odd_full.shape[-1] - (d + 1):])
     return new_state, (y_even + y_odd * np.float32(center)).to(x.dtype)
+
+
+class HalfbandCascade(NamedTuple):
+    taps: tuple        # per-stage designs (np arrays)
 
 
 def cascade_init(stages: Sequence[np.ndarray], channel_shape: tuple = (), dtype=CF32,

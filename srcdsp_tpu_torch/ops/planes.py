@@ -60,6 +60,20 @@ def planes_from_int16(iq: torch.Tensor, scale: float = 32767.0
     return de[..., 0].to(F32) / s, de[..., 1].to(F32) / s
 
 
+def planes_to_int16(xr: torch.Tensor, xi: torch.Tensor, scale: float = 32767.0
+                    ) -> torch.Tensor:
+    """Device-side capture write path: f32 planes -> interleaved int16 IQ.
+
+    Saturating round-half-even, same bits as types.complex64_to_int16.
+    xr/xi: [..., N] -> [..., 2N] int16.
+    """
+    s = _f32(scale, xr)
+    i = torch.clamp(torch.round(xr * s), -32768, 32767)
+    q = torch.clamp(torch.round(xi * s), -32768, 32767)
+    out = torch.stack([i, q], dim=-1).to(torch.int16)
+    return out.reshape(*out.shape[:-2], -1)
+
+
 def nco_planes(word0, dword, n: int, row_offset: int = 0, device=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin planes [1, n] of the NCO phasor from the u32 accumulator.

@@ -80,3 +80,16 @@ def root_raised_cosine(sps: int, num_symbols: int, beta: float = 0.35) -> np.nda
             h[i] = num / den
     h /= np.sqrt(np.sum(h * h))
     return h.astype(np.float32)
+
+
+def gaussian_freq_pulse(sps: int, bt: float = 0.3, span: int = 3, h: float = 0.5) -> np.ndarray:
+    """Gaussian CPM frequency pulse (cycles/sample), integrating to h/2
+    cycles per bit: the Gaussian lowpass with -3 dB at `bt` (bit-period
+    units) convolved with the one-bit rectangle. Shared by the GMSK
+    modulator fixture (testing.signals.gmsk_baseband) and the CPM
+    transmitter (chains.tx.make_gmsk_tx)."""
+    tt = (np.arange(span * sps) - (span * sps - 1) / 2.0) / sps
+    sigma = np.sqrt(np.log(2.0)) / (2.0 * np.pi * bt)
+    g = np.exp(-0.5 * (tt / sigma) ** 2)
+    p = np.convolve(np.ones(sps), g)
+    return (p / p.sum() * (h / 2.0)).astype(np.float64)

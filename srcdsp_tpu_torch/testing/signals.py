@@ -16,6 +16,12 @@ def tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np
     return (amplitude * np.exp(2j * np.pi * ((freq * k + phase0) % 1.0))).astype(np.complex64)
 
 
+def np_tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np.ndarray:
+    """The reference's numpy tone, which the CLI's `gen` and `scan` call; the
+    port's `tone` is numpy already, so it is the same samples."""
+    return tone(n, freq, phase0, amplitude)
+
+
 def complex_awgn(rng: np.random.Generator, shape: tuple, power: float = 1.0) -> np.ndarray:
     """Circular complex white Gaussian noise with total power `power`, complex64."""
     s = np.sqrt(power / 2.0)
@@ -144,7 +150,7 @@ def gmsk_baseband(bits, sps: int, bt: float | None = 0.3, span: int = 3) -> np.n
     given BT product (bt=None selects the rectangular pulse = pure MSK, where
     the step completes within its own bit).
     """
-    from srcdsp_tpu_torch.chains.tx import gaussian_freq_pulse
+    from srcdsp_tpu_torch.ops.window import gaussian_freq_pulse
 
     bits = np.asarray(bits)
     nrz = 2.0 * bits.astype(np.float64) - 1.0

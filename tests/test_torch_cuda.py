@@ -1711,3 +1711,62 @@ def test_linear_tx_takes_the_receivers_card_taps(dev):
         out[d if d == "cpu" else "card"] = tx.linear_tx_apply(p, tx.linear_tx_init(p), sym.to(d))[1]
     assert float(torch.linalg.norm(out["card"].cpu() - out["cpu"])
                  / torch.linalg.norm(out["cpu"])) <= 1e-5
+
+
+def test_cli_fecdec_ldpc_on_card_equals_cpu(dev, tmp_path):
+    """`fecdec --code ldpc` on the card runs K14 (its launch count rises) and
+    writes the same bytes as the `--device cpu` run (the plain K14)."""
+    from srcdsp_tpu_torch.cli import main as cli_main
+
+    rng = np.random.default_rng(4)
+    u = rng.integers(0, 2, 252 * 64).astype(np.uint8)
+    u.tofile(tmp_path / "u.u8")
+    cli_main(["fecenc", str(tmp_path / "u.u8"), str(tmp_path / "c.u8"), "--device", "cpu"])
+    c = np.fromfile(tmp_path / "c.u8", np.uint8)
+    llr = (2.0 * (1.0 - 2.0 * c) + 0.8 * rng.standard_normal(c.size)).astype(np.float32)
+    llr.tofile(tmp_path / "llr.f32")
+    before = _build.LAUNCHES["ldpc_edges"]
+    for tag, d in (("card", "cuda"), ("cpu", "cpu")):
+        cli_main(["fecdec", str(tmp_path / "llr.f32"), str(tmp_path / f"{tag}.u8"),
+                  "--device", d])
+    assert _build.LAUNCHES["ldpc_edges"] > before
+    card = np.fromfile(tmp_path / "card.u8", np.uint8)
+    assert np.array_equal(card, np.fromfile(tmp_path / "cpu.u8", np.uint8))
+    assert np.array_equal(card, u)
+
+
+def test_checkpoint_restore_onto_a_card_example(dev, tmp_path):
+    """A state saved from the CPU restores onto card tensors (each leaf on its
+    example's device) and back to the CPU bit for bit."""
+    from srcdsp_tpu_torch import checkpoint, tree
+    from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
+
+    params = make_fsk_params(0.11, 64, 0.1, 4, 8, 0.05, device="cpu")
+    x = torch.as_tensor((np.random.default_rng(5).standard_normal(4096)
+                         + 1j * np.random.default_rng(6).standard_normal(4096)
+                         ).astype(np.complex64))
+    st, _ = fsk_apply(params, fsk_init(params), x)
+    checkpoint.save(str(tmp_path / "ck"), st, 1)
+    on_card, blk = checkpoint.restore(str(tmp_path / "ck"), fsk_init(
+        make_fsk_params(0.11, 64, 0.1, 4, 8, 0.05, device=dev)))
+    assert blk == 1
+    for a, b in zip(tree.flatten(st)[0], tree.flatten(on_card)[0]):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu())
+    checkpoint.save(str(tmp_path / "ck2"), on_card, 2)
+    back, _ = checkpoint.restore(str(tmp_path / "ck2"), st)
+    for a, b in zip(tree.flatten(st)[0], tree.flatten(back)[0]):
+        assert b.device.type == "cpu" and torch.equal(a, b)
+
+
+def test_checked_raises_on_the_card(dev):
+    from srcdsp_tpu_torch.chains.fsk import fsk_apply, fsk_init, make_fsk_params
+    from srcdsp_tpu_torch.debug import NonFiniteError, checked
+
+    params = make_fsk_params(0.11, 64, 0.1, 4, 8, 0.05, device=dev)
+    step = checked(lambda s, x: fsk_apply(params, s, x))
+    x = torch.ones(4096, dtype=torch.complex64, device=dev)
+    step(fsk_init(params), x)
+    x[100] = float("nan")
+    with pytest.raises(NonFiniteError, match=r"\[0\]\.timing\.acc"):
+        step(fsk_init(params), x)
+    step(fsk_init(params), torch.ones(4096, dtype=torch.complex64, device=dev))   # still usable

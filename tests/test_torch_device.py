@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from srcdsp_tpu_torch import configs, convert
+from srcdsp_tpu_torch import cli, configs, convert
 from srcdsp_tpu_torch import bch, gf2, interleave, ldpc, qcldpc, rs, turbo
 from srcdsp_tpu_torch.chains import channelizer, fsk, modem, psk, qam, sync, tx
 from srcdsp_tpu_torch.chains import ofdm, ofdm_modem, ofdm_planes, ook, scfde, scfde_planes
@@ -135,6 +135,18 @@ def _pshards(mesh, n=1024):
 
 def _k20(mesh):
     return halo_fused.make_halo_fused_kernel(TAPS, 2, b_rows=2, device=mesh.devices[0][0])
+
+
+def _cli(argv, device=None):
+    """The CLI's main on a small capture in a fresh directory; `--device`
+    only where the caller gives one (none = the card)."""
+    import tempfile
+
+    d = tempfile.mkdtemp()
+    capture.write_capture(f"{d}/in.cf32", np.ones(512, np.complex64),
+                          capture.CaptureMeta(fmt="cf32"))
+    cli.main([a.replace("{dir}", d) for a in argv]
+             + ([] if device is None else ["--device", str(device)]))
 
 
 Z64 = np.zeros(64, np.complex64)
@@ -476,6 +488,11 @@ ENTRY_POINTS = {
         _JaxLike(fs=20800.0, sps=5.0, lo=0.1, hi=0.95, lp_taps=np.ones(5, np.float32)), **d),
     "sstv_params_from_jax": lambda **d: convert.sstv_params_from_jax(
         _JaxLike(fs=11025.0, width=320, height=1, lp_taps=np.ones(6, np.float32)), **d),
+    "cli.main gen": lambda **d: _cli(["gen", "{dir}/g.cf32", "--num-samples", "64"], **d),
+    "cli.main fir": lambda **d: _cli(["fir", "{dir}/in.cf32", "{dir}/out.cf32", "--taps", "8",
+                                      "--decim", "2", "--block", "256"], **d),
+    "cli.main fecdec": lambda **d: _cli(["fecdec", "{dir}/in.cf32", "{dir}/b.u8", "--code",
+                                         "ldpc", "--fec-n", "120", "--hard"], **d),
 }
 
 # Host sinks: they copy a tensor from any device to the host once and never
