@@ -24,7 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from srcdsp_tpu_torch.chains.sync import TimingState, timing_estimate, timing_init, timing_sample
+from srcdsp_tpu_torch.chains.sync import (
+    TimingState, fixed_sum, timing_estimate, timing_init, timing_sample)
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.ops.cpow import cpow
 from srcdsp_tpu_torch.ops.fir import FirState, fir_apply, fir_init
@@ -79,7 +80,7 @@ def vv_phase(acc: torch.Tensor, sym: torch.Tensor, order: int, off: float,
     """Viterbi&Viterbi block phase estimate with a carried circular accumulator."""
     powered = torch.complex(*cpow(sym.real, sym.imag, order))
     rot = torch.exp(torch.tensor(-1j * TWO_PI * off, dtype=CF32, device=sym.device))
-    c = torch.sum(powered * rot, dim=-1)
+    c = fixed_sum(powered * rot)
     acc = (np.float32(forget) * acc + c).to(CF32)
     return acc, torch.angle(acc) / order
 

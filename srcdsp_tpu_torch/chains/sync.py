@@ -2,7 +2,7 @@
 
 Feedforward Oerder & Meyr block synchronizer (square-law timing tone):
 
-    C      = sum_n s[n] * exp(-j*2*pi*n/sps)        (one reduction)
+    C      = sum_n s[n] * exp(-j*2*pi*n/sps)        (one reduction, `fixed_sum`)
     tau    = -sps/(2*pi) * angle(C)  (mod sps)       (peak-energy offset)
 
 The complex accumulator C is carried across blocks with a one-pole
@@ -38,6 +38,25 @@ def timing_init(sps: int, channel_shape: tuple = (), dtype=CF32, device=None) ->
     )
 
 
+def fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a fixed pairwise tree: zero-padded to a
+    power of two, then halves added elementwise until one term is left.
+
+    Every row is the same sequence of rounded adds whatever the number of
+    rows, the thread count or the device, so a channel-sharded call equals
+    the unsharded one bit for bit. (``torch.sum``'s CUDA reduction picks its
+    split from the whole shape: 2 channels and 8 sum in other orders.)
+    """
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.cat([x, x.new_zeros((*x.shape[:-1], width - n))], dim=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def timing_estimate(state_acc: torch.Tensor, metric: torch.Tensor, sps: int,
                     forget: float = 0.5) -> tuple[torch.Tensor, torch.Tensor]:
     """Update the timing accumulator from one block's timing metric.
@@ -51,7 +70,7 @@ def timing_estimate(state_acc: torch.Tensor, metric: torch.Tensor, sps: int,
     # reduce the index mod sps BEFORE the float angle (f32 rounding at large k)
     k = torch.remainder(torch.arange(n, dtype=F32, device=metric.device), sps)
     tone = torch.exp((-1j * (TWO_PI / sps)) * k).to(CF32)
-    c = torch.sum(metric.to(F32) * tone, dim=-1)
+    c = fixed_sum(metric.to(F32) * tone)
     acc = (np.float32(forget) * state_acc + c).to(CF32)
     tau = (-sps / TWO_PI) * torch.angle(acc)
     return acc, torch.remainder(tau, sps)

@@ -428,16 +428,21 @@ def build_config5(frames: int = 512, num_channels: int = 64, device=None,
     step(x [N]) -> (idx int32 [M, frames/4], soft complex64 [M, frames/4]).
 
     With `mesh` (``dist.make_mesh``), the distributed form: the input is
-    time-sharded over the mesh's time axis (the example is its shards), the
-    channelizer re-shards it to channels (``dist.channelize_time_sharded``),
-    and the demod runs on each channel shard with no collective
-    (``dist.mesh.map_shards``); step(shards) gathers the outputs onto
-    `device`, which defaults to the mesh's first device.
+    time-sharded over the mesh's time axis (the example is the shards this
+    process holds), the channelizer re-shards it to channels
+    (``dist.channelize_time_sharded``), and the demod runs on each channel
+    shard with no collective (``dist.mesh.map_shards``); step(shards)
+    gathers the outputs onto `device`, which defaults to this process's
+    first shard device. Across processes (`dist.init_multihost`) every rank
+    makes the same seed-0 input, holds its shards, and gathers the outputs
+    of every rank, as the reference's ``process_allgather``.
     """
     from srcdsp_tpu_torch.chains.channelizer import channelize_full, design_prototype
     from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
 
-    device = resolve(mesh.devices[0][0] if mesh is not None and device is None else device)
+    if mesh is not None and device is None:
+        device = mesh.local_devices()[0]
+    device = resolve(device)
     proto = design_prototype(num_channels, taps_per_phase=C5_TAPS_PER_PHASE)
     n = frames * num_channels
     rng = np.random.default_rng(0)
@@ -459,16 +464,18 @@ def build_config5(frames: int = 512, num_channels: int = 64, device=None,
 
         example = (x,)
     else:
-        from srcdsp_tpu_torch.dist import channelize_time_sharded, shard, unshard
-        from srcdsp_tpu_torch.dist.mesh import map_shards, per_device
+        from srcdsp_tpu_torch.dist import channelize_time_sharded, shard
+        from srcdsp_tpu_torch.dist.mesh import (
+            TIME_AXIS, map_shards, per_device, process_allgather, sharding)
 
-        psks = per_device(psk_for, mesh.axis_devices())
+        psks = per_device(psk_for, mesh.local_devices())
+        rows = sharding(mesh, TIME_AXIS, 0)
 
         def step(shards):
             bank = channelize_time_sharded(proto, shards, num_channels, mesh)
             outs = map_shards(demod, mesh, psks, bank)
-            return (unshard([o[0] for o in outs], device, dim=0),
-                    unshard([o[1] for o in outs], device, dim=0))
+            return (process_allgather([o[0] for o in outs], rows).to(device),
+                    process_allgather([o[1] for o in outs], rows).to(device))
 
         example = (shard(x, mesh),)
     return BuiltConfig(step, example, n, dict(channels=num_channels, impl="torch",

@@ -12,19 +12,26 @@ path. The cross-shard glue is data:
   the phase sequence one device would have used.
 
 So the output equals the single-card kernel on ``[tail | x]`` bit for bit.
-Both functions return the next buffer's tail as a copy on shard 0's device,
-never a view of the caller's buffer. A kernel is built for one device (its
-call raises on another): pass one kernel when every shard lies on that
-device, else one per shard (``dist.mesh.per_device``). K20's
-``kernels.halo_fused.mix_fir_halo_sharded`` takes its kernels the same way.
+Both functions return the next buffer's tail as a buffer of its own on this
+process's first shard device, never a view of the caller's buffer. A kernel
+is built for one device (its call raises on another): pass one kernel when
+every shard lies on that device, else one per shard
+(``dist.mesh.per_device``). K20's ``kernels.halo_fused.mix_fir_halo_sharded``
+takes its kernels the same way.
+
+Across processes (a mesh from `init_multihost`), `shards` are this rank's
+shards, p in `shard_word` is the shard's global index, the history at a rank
+boundary arrives by message and the next tail is broadcast from the rank
+holding the last shard (``dist.halo.from_left`` / ``last_tail``); each rank
+passes its kernels for its own shards.
 """
 
 from __future__ import annotations
 
 import torch
 
-from srcdsp_tpu_torch.dist.halo import from_left, trailing
-from srcdsp_tpu_torch.dist.mesh import Mesh, copy_to, map_shards
+from srcdsp_tpu_torch.dist.halo import from_left, last_tail, trailing
+from srcdsp_tpu_torch.dist.mesh import TIME_AXIS, Mesh, map_shards
 from srcdsp_tpu_torch.kernels.fftconv_pallas import fftconv_pallas
 from srcdsp_tpu_torch.ops.nco import MASK32
 
@@ -61,6 +68,7 @@ def mix_fir_time_sharded(kernel, word0: int, dword: int, state_tail: torch.Tenso
     of kernel.block_in(); state_tail [2, hist] (zeros at stream start); word0
     the phase word of the buffer's sample 0. Returns (new tail, y [2,
     S_local/decim] per shard), bit-identical to K1 fed [state_tail | x].
+    Shard p's word counts p from the mesh's first shard, on any rank.
     """
     ks = per_shard(kernel, len(shards))
     hist = ks[0].hist
@@ -72,9 +80,9 @@ def mix_fir_time_sharded(kernel, word0: int, dword: int, state_tail: torch.Tenso
                       torch.cat([tail, x], dim=-1))
         return torch.stack([yr.reshape(-1), yi.reshape(-1)])
 
-    ys = map_shards(body, mesh, tuple(range(len(shards))), ks, from_left(local, state_tail),
-                    shards)
-    return copy_to(local[-1], shards[0].device), ys
+    ys = map_shards(body, mesh, mesh.local_indices(TIME_AXIS), ks,
+                    from_left(local, state_tail, mesh), shards)
+    return last_tail(local, mesh), ys
 
 
 def fftconv_time_sharded(kernel, state_tail: torch.Tensor, shards, mesh: Mesh
@@ -90,6 +98,5 @@ def fftconv_time_sharded(kernel, state_tail: torch.Tensor, shards, mesh: Mesh
     ks = per_shard(kernel, len(shards))
     local = trailing(shards, ks[0].overlap)
     outs = map_shards(lambda k, seed, x: fftconv_pallas(k, torch.cat([seed, x], dim=-1)), mesh,
-                      ks, from_left(local, state_tail), shards)
-    return (copy_to(local[-1], shards[0].device), tuple(o[0] for o in outs),
-            tuple(o[1] for o in outs))
+                      ks, from_left(local, state_tail, mesh), shards)
+    return last_tail(local, mesh), tuple(o[0] for o in outs), tuple(o[1] for o in outs)

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
@@ -42,7 +41,6 @@ from srcdsp_tpu_torch.kernels.fsk_fused import (
     PAD, demod_tail, discriminate_call, om_partials, to_class_major)
 from srcdsp_tpu_torch.kernels.mixfir import (
     LANE, _round_up, check_in_dtype, check_planes, cuda_or_cpu)
-from srcdsp_tpu_torch.ops.fir import pin_f32
 from srcdsp_tpu_torch.ops.nco import TWO_PI, _INV_SCALE
 from srcdsp_tpu_torch.types import F32
 
@@ -72,15 +70,28 @@ def ctaps_fir_rows(x: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor, decim: i
                    hist: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain complex FIR + decimate per channel: x [C, 2, hist+N] (f32, or
     bf16 converted first), g [C, T] -> yr, yi [C, N/decim] f32 with
-    y[J] = sum_a g[a] x[J*decim + hist - a]."""
-    pin_f32(x)
-    c, _, _ = x.shape
+    y[J] = sum_a g[a] x[J*decim + hist - a].
+
+    The sum runs tap by tap, a = 0 .. T-1, in real planes: each tap adds
+    gr[a]·(xr, xi) and then gi[a]·(-xi, xr) to the running (yr, yi), one
+    rounded product and one rounded add at a time. So every output is the
+    same sequence of float32 operations whatever the block length, the
+    channel count, the thread count or the device, and chunked calls join
+    the one-shot call bit for bit (a grouped conv1d sums in an order that
+    follows the shape and the threads).
+    """
+    c = x.shape[0]
     t = gr.shape[-1]
-    v = x[..., hist - (t - 1):].float().reshape(1, 2 * c, -1)
-    hr, hi = gr.flip(-1), gi.flip(-1)
-    # per channel: (yr, yi) = [[gr, -gi], [gi, gr]] * (xr, xi)
-    w = torch.stack([torch.stack([hr, -hi], 1), torch.stack([hi, hr], 1)], 1)  # [C,2,2,T]
-    y = F.conv1d(v, w.reshape(2 * c, 2, t), stride=decim, groups=c).reshape(c, 2, -1)
+    v = x[..., hist - (t - 1):].float()
+    rot = torch.stack([-v[:, 1], v[:, 0]], dim=1)          # (-xi, xr): exact
+    n_out = (v.shape[-1] - t) // decim + 1
+    span = decim * (n_out - 1) + 1
+    g_r, g_i = gr.reshape(c, 1, t, 1), gi.reshape(c, 1, t, 1)
+    y = torch.zeros((c, 2, n_out), dtype=F32, device=x.device)
+    for a in range(t):
+        s0 = t - 1 - a                                      # x[J*decim + hist - a]
+        y += g_r[:, :, a] * v[..., s0:s0 + span:decim]
+        y += g_i[:, :, a] * rot[..., s0:s0 + span:decim]
     return y[:, 0], y[:, 1]
 
 

@@ -118,7 +118,12 @@ def mix_fir_halo_sharded(kernel, word0: int, dword: int, state_tail: torch.Tenso
     carried tail, word0 the word of the buffer's sample 0; `kernel` one
     HaloFusedKernel, or one per shard. Returns (new tail on shard 0's device,
     y [2, S_local/decim] per shard), bit-identical to K1 on [state_tail | x].
-    One K20 launch per shard, no concatenation."""
+    One K20 launch per shard, no concatenation. K20 reads the left shard in
+    place, so every shard lies in this process: a mesh across processes
+    raises (``dist.fused.mix_fir_time_sharded`` takes one)."""
+    if mesh.multiprocess():
+        raise ValueError("K20 reads its left shard in place within one process; across "
+                         "processes use dist.fused.mix_fir_time_sharded")
     devs = mesh.axis_devices()
     if tuple(x.device for x in shards) != devs:
         raise ValueError(f"shards on {[x.device for x in shards]}, mesh time axis {devs}")

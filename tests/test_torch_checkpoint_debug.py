@@ -7,10 +7,13 @@ checkpoint.py``, ``debug.py``, and the leaf order of ``tree.py``).
 - The file format is the reference's: the port's ``.npz`` and ``.json``
   keys equal a JAX-written file's; a checkpoint that
   ``srcdsp_tpu.checkpoint.save`` wrote from a JAX `fsk` state is restored by
-  the port and streamed on, bits equal to the JAX unbroken run.
+  the port and streamed on, bits equal to the JAX unbroken run, and the
+  other way round: a port-written file resumes on the JAX package (int64
+  phase words in [0, 2^32) are stored as uint32).
 - For every chain the CLI streams, the port's state flattens to the JAX
   state's leaf paths and shapes, dtypes equal up to the one rule (a u32 /
-  int32 leaf into an int64 example), and a JAX-written file of it restores.
+  int32 leaf into an int64 example), a JAX-written file of it restores, and
+  a port-written file of it restores in ``srcdsp_tpu.checkpoint.restore``.
 - ``debug``: the reference's three tests, a complex leaf, a nested
   NamedTuple path; `checked` raises `NonFiniteError`, a FloatingPointError.
 """
@@ -220,6 +223,72 @@ def test_state_leaves_match_the_reference_and_restore(tmp_path, name):
     assert blk == 7 and type(got) is type(ts)
     for a, b in zip(filled, tree.flatten(got)[0]):
         assert np.array_equal(np.asarray(a).astype(b.numpy().dtype), b.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_port_written_checkpoint_restores_on_the_reference(tmp_path, name):
+    """The port saves its state with nonzero leaves (int64 words up to
+    2^32 - 1, floats, complex); ``srcdsp_tpu.checkpoint.restore`` takes the
+    file into the JAX example, values equal (u32 words stored as uint32)."""
+    js, ts = STATES[name]
+    rng = np.random.default_rng(2)
+    leaves, treedef = tree.flatten(ts)
+    filled = []
+    for x in leaves:
+        if x.dtype == torch.int64:
+            v = rng.integers(0, 2 ** 32, tuple(x.shape), dtype=np.uint64).astype(np.int64)
+            v.reshape(-1)[:1] = 2 ** 32 - 1
+        elif x.is_complex():
+            v = (rng.standard_normal(tuple(x.shape))
+                 + 1j * rng.standard_normal(tuple(x.shape))).astype(x.numpy().dtype)
+        else:
+            v = rng.standard_normal(tuple(x.shape)).astype(x.numpy().dtype)
+        filled.append(torch.as_tensor(v))
+    ckpt = str(tmp_path / "c")
+    checkpoint.save(ckpt, tree.unflatten(treedef, filled), 11)
+    got, blk = jck.restore(ckpt, js)
+    assert blk == 11
+    for a, b in zip(filled, jax.tree_util.tree_leaves(got)):
+        b = np.asarray(b)
+        assert np.array_equal(a.numpy().astype(b.dtype), b) and np.array_equal(
+            a.numpy(), b.astype(a.numpy().dtype))
+
+
+def test_int64_leaf_outside_u32_stays_int64(tmp_path):
+    ckpt = str(tmp_path / "c")
+    checkpoint.save(ckpt, (torch.tensor([0, 2 ** 32 - 1]), torch.tensor([-1, 3]),
+                           torch.tensor([2 ** 32])), 0)
+    data = np.load(ckpt + ".npz")
+    assert [data[f"leaf_{i}"].dtype for i in range(3)] == [np.uint32, np.int64, np.int64]
+    (a, b, c), _ = checkpoint.restore(ckpt, tuple(torch.zeros(2, dtype=torch.int64)
+                                                  for _ in range(2)) + (torch.zeros(1, dtype=torch.int64),))
+    assert a.tolist() == [0, 2 ** 32 - 1] and b.tolist() == [-1, 3] and c.tolist() == [2 ** 32]
+
+
+def test_port_written_checkpoint_resumes_on_the_reference(capture, tmp_path):
+    """The port streams 3 blocks and saves; the JAX package restores that
+    file and streams the rest: bits equal to JAX's unbroken run."""
+    from srcdsp_tpu.chains import fsk as jfsk
+
+    jparams = jfsk.make_fsk_params(CENTER, 64, 0.03, DECIM, SPS, DEV)
+    blocks = list(read_capture_blocks(capture, BLOCK))
+    st = jfsk.fsk_init(jparams)
+    ref = []
+    for xb in blocks:
+        st, (b, _) = jfsk.fsk_apply(jparams, st, jnp.asarray(xb))
+        ref.append(np.asarray(b))
+    params, ckpt = _params(), str(tmp_path / "tck")
+    st_t = fsk_init(params)
+    for xb in blocks[:3]:
+        st_t, _ = fsk_apply(params, st_t, torch.as_tensor(xb))
+    checkpoint.save(ckpt, st_t, block_index=3)
+    st_j, start = jck.restore(ckpt, jfsk.fsk_init(jparams))
+    assert start == 3 and np.asarray(st_j.nco.phase).dtype == np.uint32
+    got = []
+    for xb in blocks[start:]:
+        st_j, (b, _) = jfsk.fsk_apply(jparams, st_j, jnp.asarray(xb))
+        got.append(np.asarray(b))
+    np.testing.assert_array_equal(np.concatenate(ref[start:]), np.concatenate(got))
 
 
 def test_tree_round_trip_and_order():

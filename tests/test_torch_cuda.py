@@ -1770,3 +1770,68 @@ def test_checked_raises_on_the_card(dev):
     with pytest.raises(NonFiniteError, match=r"\[0\]\.timing\.acc"):
         step(fsk_init(params), x)
     step(fsk_init(params), torch.ones(4096, dtype=torch.complex64, device=dev))   # still usable
+
+
+def _ranks_init(tmp_path, device: str, timeout: float = 60.0):
+    """Start two fresh processes that call init_multihost(..., "nccl",
+    device=device); return their exit codes and outputs."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    code = ("import sys, torch\n"
+            "from srcdsp_tpu_torch.dist.mesh import init_multihost\n"
+            "try:\n"
+            f"    init_multihost('file://{tmp_path}/rdv', 2, int(sys.argv[1]), 'nccl', "
+            f"device='{device}', timeout=60)\n"
+            "except ValueError as e:\n"
+            "    print('REFUSED', e)\n"
+            "    sys.exit(3)\n"
+            "torch.distributed.destroy_process_group()\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root,
+                                                                   os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+             for r in range(2)]
+    outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    return [p.returncode for p in procs], outs
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """NCCL needs one card a rank: two ranks that name cuda:0 both raise in
+    init_multihost, before any NCCL communicator opens (no switch to gloo)."""
+    codes, outs = _ranks_init(tmp_path, "cuda:0")
+    assert codes == [3, 3], outs
+    assert all("one card per rank" in o for o in outs), outs
+
+
+def test_multihost_check_on_one_card_over_gloo(dev, tmp_path):
+    """The pipeline, K1 and K11 across 2 ranks that share the card (gloo,
+    card tensors staged through the host and counted): each equal to its
+    one-process form, the kernels launched by the workers."""
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    res = mhc.run(2, "cuda", "gloo", shards=2, cases=("pipeline", "k1", "k11"),
+                  work=tmp_path, timeout=300)
+    assert res["ok"], res["error"]
+    for rep in res["reports"]:
+        assert all(c["ok"] for c in rep["cases"].values())
+        assert rep["cases"]["pipeline"]["staged"]["bytes"] > 0
+        assert rep["cases"]["k1"]["launches"].get("mixfir", 0) == 2
+        assert rep["cases"]["k11"]["launches"].get("fftconv", 0) == 2
+
+
+def test_multihost_check_one_card_a_rank_over_nccl(dev, tmp_path):
+    """The same across 2 cards, one a rank, over NCCL: nothing staged."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    res = mhc.run(2, "cuda", "nccl", shards=2, cases=("pipeline", "k1", "k11"),
+                  work=tmp_path, timeout=300)
+    assert res["ok"], res["error"]
+    for rep in res["reports"]:
+        assert all(c["ok"] for c in rep["cases"].values())
+        assert all(c["staged"]["bytes"] == 0 for c in rep["cases"].values())

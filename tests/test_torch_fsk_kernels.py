@@ -30,6 +30,7 @@ from srcdsp_tpu.testing.signals import fsk_baseband, random_bits, tone
 from srcdsp_tpu_torch.kernels import fsk_ctaps as tct
 from srcdsp_tpu_torch.kernels import fsk_fused as tff
 from srcdsp_tpu_torch.kernels import mixfir as tmf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NCH, DECIM, SPS, OT = 2, 4, 8, 128
 
@@ -133,6 +134,47 @@ def test_seam_and_chunk_join_match_jax():
     assert torch.equal(d1[:, :nt], da)
     assert torch.equal(d1[:, nt + 1:], db[:, 1:])
     assert torch.equal(d1[:, nt, 1:], db[:, 0, 1:])
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_seam_and_chunk_join_hold_under_thread_counts(threads):
+    """The plain K3 sums each output tap by tap in a fixed order
+    (`ctaps_fir_rows`), so the seam check holds bit for bit whatever torch's
+    intra-op thread count: the same test under 1 and 4 threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        test_seam_and_chunk_join_match_jax()
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_plain_k1_chunk_join_under_thread_counts(threads, per_channel):
+    """The plain K1 FIR (`mixfir.fir_decim_rows`, a conv1d of one input
+    channel per group) joins chunks bit for bit under 1 and 4 threads, at
+    decim 1..4 and 33 / 64 taps: it needs no fixed-order rewrite."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    rng = np.random.default_rng(5)
+    try:
+        for t in (33, 64):
+            for decim in (1, 2, 3, 4):
+                u = torch.as_tensor(rng.standard_normal((3, 2, 128 + decim * 128 * 12))
+                                    .astype(np.float32))
+                taps = torch.as_tensor(rng.standard_normal((3, t) if per_channel else t)
+                                       .astype(np.float32))
+                y = tmf.fir_decim_rows(u, taps, decim, 128)
+                for cut in (decim * 128, decim * 128 * 5):
+                    ya = tmf.fir_decim_rows(u[..., :128 + cut].contiguous(), taps, decim, 128)
+                    yb = tmf.fir_decim_rows(u[..., cut:].contiguous(), taps, decim, 128)
+                    assert torch.equal(torch.cat([ya, yb], dim=-1), y)
+                    assert torch.equal(tmf.fir_decim_rows(u[1:2].contiguous(),
+                                                          taps[1:2] if per_channel else taps,
+                                                          decim, 128), y[1:2])
+    finally:
+        torch.set_num_threads(n)
 
 
 # --- the CUDA body's index map (csrc/fsk.cu on csrc/fir_ring.cuh), in numpy ---

@@ -32,6 +32,39 @@ def test_timing_estimate_and_sample_match_jax():
     np.testing.assert_allclose(tsym.numpy(), np.asarray(jsym), atol=1e-6)
 
 
+def _np_pairwise(x: np.ndarray) -> np.ndarray:
+    """numpy twin of `fixed_sum`: zero-pad to a power of two, add halves."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = np.concatenate([x, np.zeros((*x.shape[:-1], width - n), x.dtype)], axis=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+@pytest.mark.parametrize("n", [1, 5, 1024, 1000, 32768])
+def test_fixed_sum_is_one_order_for_every_batch(n):
+    """`fixed_sum` (the timing and V&V accumulators' reduction) equals its
+    numpy twin bit for bit, and each row is the same sum whatever the number
+    of rows or torch's thread count: a channel-sharded demod equals the
+    unsharded one."""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((8, n)) + 1j * rng.standard_normal((8, n))).astype(np.complex64)
+    full = tsync.fixed_sum(torch.as_tensor(x))
+    assert np.array_equal(full.numpy(), _np_pairwise(x))
+    threads = torch.get_num_threads()
+    try:
+        for t in (1, 4):
+            torch.set_num_threads(t)
+            parts = torch.cat([tsync.fixed_sum(torch.as_tensor(x[i:i + 2])) for i in (0, 2, 4, 6)])
+            assert torch.equal(parts, full)
+            assert torch.equal(tsync.fixed_sum(torch.as_tensor(x[3])), full[3])
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_allclose(full.numpy(), x.astype(np.complex128).sum(-1), rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("prev", [-1.0, 0.2, 7.9, 14.5])
 def test_phase_unwrap_matches_jax(prev):
     tau = np.linspace(0.0, 7.99, 41).astype(np.float32)
