@@ -399,9 +399,10 @@ C20_STREAM_SAMPLES, C20_STREAM_BLOCK, C20_STREAM_PREFIX = 1 << 20, 1 << 16, 1 <<
 C20_TRACK_FSK, C20_TRACK_PSK, C20_SCAN_SAMPLES = 1 << 16, 1 << 14, 1 << 17
 C20_FAULT_SHARDS, C20_FAULT_BUFFER, C20_CHECK_BLOCK = 8, 1 << 18, 1 << 20
 # phase 21, the multi-process tier (dist.multihost_check --size full): 2 ranks x 2 shards
-# (config 5 at 64 channels x 2^16 frames, K1 over 2^26 samples, K11 over config 3's 16
-# channels), 3 ranks x 2 shards (the pipeline, M = 24), the 2 -> 1 fault injection; gloo
-# on one card, and NCCL with one rank a card where the machine has two
+# (config 5 at 64 channels x 2^16 frames, K1 and K20 over 2^26 samples, K11 over config
+# 3's 16 channels, K19 on config 1's planes at halo 128 and config 3's 32 rows at halo
+# 1024), 3 ranks x 2 shards (the pipeline, M = 24), the 2 -> 1 fault injection; gloo on
+# one card, and NCCL with one rank a card where the machine has two
 C21_SHARDS, C21_TIMEOUT = 2, 420.0
 FM_PILOT = 19.0 / 240.0
 REPS = 5
@@ -3762,6 +3763,50 @@ def phase20(torch, dev) -> int:
     return k14_cli
 
 
+def halo_steps(backend: str, nproc: int, reports, card: str) -> None:
+    """Phase 21's K19 and K20 across ranks: each == its one-process form, no
+    byte staged in the step without the gather, its time beside its bound
+    and beside the message path's in turns."""
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    decim = mhc.SIZES["full"]["k1"][2]
+    for name in ("k19", "k20"):
+        cs = [rep["cases"][name] for rep in reports]
+        shapes = [c["shapes"] for c in cs] if name == "k19" else [[c] for c in cs]
+        for j, r0 in enumerate(shapes[0]):
+            per = [sh[j] for sh in shapes]
+            staged = [c["staged"]["bytes"] for c in per]
+            if name == "k19":
+                # each rank reads and writes its shards' halos and one pushed block
+                what = f"{r0['rows']} x {r0['samples']}, halo {r0['halo']}"
+                nbytes = 2 * (C21_SHARDS + 1) * r0["rows"] * r0["halo"] * 4
+                equal = r0["equal_slices"] and r0["equal_one_process"]
+                yard = "halo_from_left"
+            else:
+                # a rank's K20 reads its 2 x S/nproc samples (and one 2 x 128 history)
+                # and writes 2 x S/nproc/decim
+                what = f"2^{int(np.log2(r0['samples']))} samples"
+                rank_samples = r0["samples"] // nproc
+                nbytes = 4 * (2 * rank_samples + 2 * 128 + 2 * rank_samples // decim)
+                equal = r0["equal_one_call"] and r0["equal_one_process"]
+                yard = "mix_fir_time_sharded"
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            print(f"[21] {backend} {nproc} ranks {name.upper()} ({what}): == one-process form "
+                  f"(torch.equal) {equal}; step without the gather "
+                  + ", ".join(f"rank {i} {c['ms_bare']:.4f} ms" for i, c in enumerate(per))
+                  + f", with it {per[0]['ms']:.3f} ms; staged {staged} B; in "
+                  f"{mhc.TURNS} turns "
+                  + ", ".join(f"rank {i} {name.upper()} {c['turns'][name]['ms']:.4f} ms (of it "
+                              f"{c['turns'][name]['signal_ms']:.4f} ms host waits for signals) / "
+                              f"{yard} {c['turns'][yard]['ms']:.4f} ms (staged "
+                              f"{c['turns'][yard]['staged']} B)" for i, c in enumerate(per))
+                  + f"; bound {bound:.7f} ms (bytes, a rank); launches "
+                  + ", ".join(str(c["launches"]) for c in per) + f" ({card})", flush=True)
+            require(equal, f"{name} across ranks ({backend}) != its one-process form")
+            require(all(b == 0 for b in staged),
+                    f"{name} across ranks ({backend}): {staged} B staged through the host")
+
+
 def phase21(torch, dev) -> dict:
     """The multi-process tier (``dist.multihost_check``, ``dist.
     fault_injection_multihost``): fresh worker processes, the kernels built
@@ -3769,9 +3814,11 @@ def phase21(torch, dev) -> dict:
     gloo (card tensors staged through the host); with two cards, also NCCL
     with one rank a card. Config 5 across 2 ranks == the one-process mesh4
     form of phase 14 (torch.equal) and its indices == the single-device
-    build, soft within 2e-5; K1 and K11 across ranks == one unsharded call
-    (torch.equal); the pipeline on 3 ranks; the 2 -> 1 fault injection.
-    Returns the workers' kernel launches in their distributed steps."""
+    build, soft within 2e-5; K1, K11 and K20 across ranks == one unsharded
+    call (torch.equal), K19 and K20 == their one-process forms, with no
+    byte staged through the host in their steps (the boundary by CUDA IPC);
+    the pipeline on 3 ranks; the 2 -> 1 fault injection. Returns the
+    workers' kernel launches in their distributed steps."""
     import tempfile
 
     from srcdsp_tpu_torch.configs import build_config5
@@ -3813,7 +3860,7 @@ def phase21(torch, dev) -> dict:
             t0 = time.perf_counter()
             work = Path(tmp) / f"{backend}{nproc}"
             res = mhc.run(nproc, "cuda", backend, shards=C21_SHARDS,
-                          cases=("config5", "k1", "k11"), size="full", work=work,
+                          cases=("config5", "k1", "k11", "k19", "k20"), size="full", work=work,
                           timeout=C21_TIMEOUT)
             require(res["ok"], f"multihost_check ({backend}): {res['error']}")
             show(f"{backend} {nproc} ranks", res)
@@ -3834,6 +3881,7 @@ def phase21(torch, dev) -> dict:
                     f"{c5_single}, soft {dsoft}")
             require(all(c["ok"] for rep in res["reports"] for c in rep["cases"].values()),
                     f"multihost_check ({backend}): a case failed")
+            halo_steps(backend, nproc, res["reports"], card)
         t0 = time.perf_counter()
         res = mhc.run(3, "cuda", "gloo", shards=C21_SHARDS, cases=("pipeline",), size="full",
                       work=Path(tmp) / "gloo3", timeout=C21_TIMEOUT)
@@ -5127,8 +5175,8 @@ def main() -> int:
     workers = phase21(torch, dev)
     for row in rows:
         row["launches"] += workers.get(row["name"], 0)
-    require(workers.get("mixfir", 0) > 0 and workers.get("fftconv", 0) > 0,
-            f"phase 21: the workers launched no K1 or K11 ({workers})")
+    require(all(workers.get(k, 0) > 0 for k in ("mixfir", "fftconv", "halo_dma", "halo_fused")),
+            f"phase 21: the workers launched no K1, K11, K19 or K20 ({workers})")
     print(f"[21] the workers' launches {workers} (added to their rows); phase 21 took "
           f"{time.perf_counter() - t21:.1f} s", flush=True)
 

@@ -16,6 +16,16 @@
 // What bounds it: R * halo floats in and out per shard, nanoseconds of
 // bandwidth; the launch and the host work around it set its time, so a call
 // makes one launch per device (one on one card, whatever the shard count).
+//
+// Across processes of one host the left rank pushes, as the TPU kernel does:
+// its table gets one more entry whose `out` is the right rank's receive
+// buffer, mapped into this process by CUDA IPC (srcdsp_ipc_open), so the
+// launch writes the tail straight into memory the other process owns (over
+// NVLink between two cards, device-local when both ranks share a card). The
+// buffers are plain cudaMalloc allocations exported once (srcdsp_ipc_alloc):
+// a handle to the caching allocator's memory would cover its whole segment,
+// and its expandable segments cannot be exported at all. The order between
+// the processes is kept outside the kernel (srcdsp_tpu_torch/dist/ipc.py).
 #include <cstring>
 
 #include "fsk_common.cuh"
@@ -88,4 +98,61 @@ extern "C" int srcdsp_enable_peer(int device, int peer) {
     return 0;
   }
   return (int)err;
+}
+
+// CUDA IPC for the receive buffers of srcdsp_tpu_torch/dist/ipc.py. Each entry
+// returns its cudaError_t as an int and restores the caller's current device.
+
+// Allocate `bytes` on `device` (zeroed) and export it: *ptr the allocation,
+// `handle` the 64 bytes of its cudaIpcMemHandle_t.
+extern "C" int srcdsp_ipc_alloc(long long bytes, int device, void** ptr, void* handle) {
+  *ptr = nullptr;
+  DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(0);  // zeros before any import
+  cudaIpcMemHandle_t h;
+  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err != cudaSuccess) {
+    if (*ptr) cudaFree(*ptr);
+    *ptr = nullptr;
+    return (int)err;
+  }
+  std::memcpy(handle, &h, sizeof(h));
+  return 0;
+}
+
+// Map another process's exported allocation into this one, on `device` (the
+// card whose kernels write it), with peer access enabled as needed. A handle
+// opens once per process, and never in the process that exported it.
+extern "C" int srcdsp_ipc_open(const void* handle, int device, void** ptr) {
+  *ptr = nullptr;
+  DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+// Unmap what srcdsp_ipc_open mapped.
+extern "C" int srcdsp_ipc_close(void* ptr, int device) {
+  DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+// Free what srcdsp_ipc_alloc allocated, once every importer has closed it.
+extern "C" int srcdsp_ipc_free(void* ptr, int device) {
+  DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaFree(ptr);
+}
+
+// The name of a cudaError_t (cudaGetErrorName) into out[0..n), NUL-ended.
+extern "C" int srcdsp_error_name(int err, char* out, int n) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  std::strncpy(out, cudaGetErrorName((cudaError_t)err), (size_t)n - 1);
+  out[n - 1] = '\0';
+  return 0;
 }

@@ -23,7 +23,10 @@ array is then the tuple of the shards this rank holds, in mesh order
 glue that is a copy inside one process becomes a message (``dist.comm``):
 `local_shards` is ``host_local_array_to_global_array``'s counterpart and
 `process_allgather` gathers a sharded result onto every rank. In one
-process all of this reduces to `shard`, `unshard` and `map_shards`.
+process all of this reduces to `shard`, `unshard` and `map_shards`. The
+mesh also records each rank's host (`Mesh.hosts`), so a boundary between
+two ranks moves by CUDA IPC where both lie on one host and by message
+where they do not (``dist.ipc``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import socket
 from typing import Callable, ClassVar
 
 import torch
@@ -47,11 +51,13 @@ BACKENDS = ("gloo", "nccl")
 class Mesh:
     """devices[p][q]: the shard at time index p and channel index q;
     ranks[p][q] the process that holds it (None: every shard in this
-    process, `rank` 0). A device of another rank is as that rank named it."""
+    process, `rank` 0). A device of another rank is as that rank named it.
+    hosts[r]: the host name of rank r (None: one process)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
     ranks: tuple[tuple[int, ...], ...] | None = None
     rank: int = 0
+    hosts: tuple[str, ...] | None = None
     axis_names: ClassVar[tuple[str, str]] = (TIME_AXIS, CHANNEL_AXIS)
 
     @property
@@ -87,6 +93,10 @@ class Mesh:
     def multiprocess(self) -> bool:
         """True when the mesh spans more than one process."""
         return self.ranks is not None and len({r for row in self.ranks for r in row}) > 1
+
+    def same_host(self, a: int, b: int) -> bool:
+        """True when ranks a and b run on one host."""
+        return self.hosts is None or self.hosts[a] == self.hosts[b]
 
 
 def init_multihost(coordinator: str | None = None, num_processes: int | None = None,
@@ -141,9 +151,14 @@ def init_multihost(coordinator: str | None = None, num_processes: int | None = N
     torch.cuda.set_device(card)
 
 
-def layout(time: int, channel: int, rank_devices, rank: int) -> Mesh:
+def layout(time: int, channel: int, rank_devices, rank: int, hosts=None) -> Mesh:
     """The [time, channel] mesh over every rank's local devices in rank
-    order (`rank_devices[r]`: rank r's devices), as this `rank` sees it."""
+    order (`rank_devices[r]`: rank r's devices), as this `rank` sees it;
+    `hosts[r]` is rank r's host name (default: every rank on this host)."""
+    if hosts is None:
+        hosts = [socket.gethostname()] * len(rank_devices)
+    if len(hosts) != len(rank_devices):
+        raise ValueError(f"{len(hosts)} host names for {len(rank_devices)} ranks")
     flat = [(torch.device(d), r) for r, devs in enumerate(rank_devices) for d in devs]
     n = time * channel
     if n > len(flat):
@@ -151,7 +166,7 @@ def layout(time: int, channel: int, rank_devices, rank: int) -> Mesh:
     flat = flat[:n]
     grid = [flat[p * channel:(p + 1) * channel] for p in range(time)]
     return Mesh(tuple(tuple(d for d, _ in row) for row in grid),
-                tuple(tuple(r for _, r in row) for row in grid), rank)
+                tuple(tuple(r for _, r in row) for row in grid), rank, tuple(hosts))
 
 
 def _enable_peers(devices) -> None:
@@ -183,10 +198,11 @@ def make_mesh(time: int = 1, channel: int = 1, devices=None) -> Mesh:
     from srcdsp_tpu_torch.dist import comm
 
     if comm.world() > 1:
-        names = [None] * comm.world()
-        dist.all_gather_object(names, [str(d) for d in devs])
+        got = [None] * comm.world()
+        dist.all_gather_object(got, (socket.gethostname(), [str(d) for d in devs]))
+        names = [n for _, n in got]
         names[comm.rank()] = devs
-        mesh = layout(time, channel, names, comm.rank())
+        mesh = layout(time, channel, names, comm.rank(), [h for h, _ in got])
         _enable_peers([d for drow, rrow in zip(mesh.devices, mesh.ranks)
                        for d, r in zip(drow, rrow) if r == mesh.rank])
         return mesh

@@ -21,6 +21,14 @@ before it starts the workers. Cases (`--cases`, default pipeline,k1):
 - ``k1``: K1 (``dist.fused.mix_fir_time_sharded``) with its history across
   the process boundary;
 - ``k11``: K11 (``dist.fused.fftconv_time_sharded``) the same way;
+- ``k19``: K19 (``kernels.halo_dma.halo_from_left_pallas`` with the mesh)
+  at K1's halo on [2, S] planes and at K11's overlap on 32 rows (config 3's
+  16 channels): the boundary by CUDA IPC on one host (``dist.ipc``), by
+  message across hosts and on the CPU; timed in turns with the message
+  path, ``dist.halo.halo_from_left``;
+- ``k20``: K20 (``kernels.halo_fused.mix_fir_halo_sharded``) at K1's shapes,
+  its history and carried tail moving the same way; timed in turns with
+  ``dist.fused.mix_fir_time_sharded`` (message halo plus concatenation);
 - ``config5``: ``configs.build_config5``'s mesh form (64 channels);
 - ``orbax``: each rank saves its shard states with
   ``checkpoint.save_orbax`` and restores a checkpoint one process wrote for
@@ -28,15 +36,18 @@ before it starts the workers. Cases (`--cases`, default pipeline,k1):
 
 Rank 0 holds each gathered result against the port's one-process form on
 its own device: the same mesh of P shards in one process (``torch.equal``),
-one kernel call over the unsharded stream (K1, K11: ``torch.equal``, tails
-exact), and the single-device form (indices equal; soft within 2e-5 for
+one kernel call over the unsharded stream (K1, K11, K20: ``torch.equal``,
+tails exact; K19: the slices of the unsharded stream), and the single-device form (indices equal; soft within 2e-5 for
 config 5, its gate, and 1e-3 for the pipeline, the reference's). `--size small` runs the reference's shapes (out_tile 128,
 b_rows 2), `--size full` the card's: config 1's 2^26 samples, config 3's 16
 channels, config 5's 64 channels x 2^16 frames. Each worker reports its
 step time (CUDA events on the card, the host clock on the CPU), the staged
 bytes and its kernel launches in the distributed step (``kernels._build.
-LAUNCHES``) on a ``SRCDSP_REPORT`` line; exit status 0 only if every case
-holds on every rank.
+LAUNCHES``) on a ``SRCDSP_REPORT`` line; K19 and K20 report the step
+without the gather too (`ms_bare`; its staged bytes and launches are the
+ones reported) and their times in turns with the message path. Exit status
+0 only if every case holds on every rank. The workers release the IPC
+buffers (``dist.ipc.release``) before they leave the group.
 """
 
 from __future__ import annotations
@@ -50,16 +61,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-CASES = ("pipeline", "k1", "k11", "config5", "orbax")
+CASES = ("pipeline", "k1", "k11", "k19", "k20", "config5", "orbax")
 SIZES = {
-    # the reference's shapes (bench/multihost_check.py, tests/dist)
+    # the reference's shapes (bench/multihost_check.py, tests/dist); K19's
+    # (rows, columns a shard, halo) near tests/dist/test_halo_dma.py's, the
+    # second at K11's overlap on 8 rows (the JAX interpreter's halo kernel,
+    # which the CPU tests hold these to, stalls at 32 rows and halo 256 up)
     "small": dict(frames_per_shard=32, k1=(32, 0.2, 2, 0.31, 128, 2, 1),
-                  k11=(64, 0.1, 2048, 2, 2, 1), c5_frames_per_shard=32),
-    # the card's: K1 at config 1 (2^26 samples), K11 over config 3's 16
-    # channels (8 blocks a shard), config 5 at 64 channels x 2^16 frames
+                  k11=(64, 0.1, 2048, 2, 2, 1), c5_frames_per_shard=32,
+                  k19=((2, 512, 128), (8, 2048, 1024))),
+    # the card's: K1 (and K20) at config 1 (2^26 samples), K11 over config 3's
+    # 16 channels (8 blocks a shard), config 5 at 64 channels x 2^16 frames,
+    # K19's (rows, columns in all, halo): config 1's planes (halo: K1's hist)
+    # and config 3's 32 rows of 8,355,840 samples (K11's overlap at 1024
+    # taps), as phase 14 runs them
     "full": dict(frames_per_shard=1 << 14, k1=(64, 0.2, 2, 0.11, 512, 32, 1 << 26),
-                 k11=(1024, 0.1, 4096, 16, 16, 8), c5_frames=1 << 16),
+                 k11=(1024, 0.1, 4096, 16, 16, 8), c5_frames=1 << 16,
+                 k19=((2, 1 << 26, 128), (32, 8_355_840, 1024))),
 }
+TURNS = 10                # timed turns of a kernel and its message-path yardstick
 SOFT_GATE = 2e-5          # config 5's soft gate against the single-device build
 # the pipeline's, as bench/multihost_check.py holds it: the composed stages sum
 # in another order than fir_full + channelize_full over the whole stream
@@ -129,17 +149,9 @@ def _local_slice(x: torch.Tensor, spec, dim: int = -1) -> torch.Tensor:
     return x.narrow(dim, spec.indices[0] * n, len(spec.indices) * n)
 
 
-def _step(fn, dev: torch.device):
-    """{ms, launches, staged} and the result of one distributed step after a
-    warm-up call: CUDA events on a card (the collectives' waits included),
-    the host clock on the CPU; the kernel launches and the host-staged bytes
-    (``dist.comm.STAGED``) are the timed call's alone."""
-    from srcdsp_tpu_torch.dist import comm
-    from srcdsp_tpu_torch.kernels import _build
-
-    fn()
-    _build.reset_launches()
-    comm.reset_staged()
+def _timed(fn, dev: torch.device):
+    """(ms, result) of one call: CUDA events on a card (the collectives' and
+    signals' waits included), the host clock on the CPU."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -147,13 +159,63 @@ def _step(fn, dev: torch.device):
         out = fn()
         e1.record()
         e1.synchronize()
-        ms = e0.elapsed_time(e1)
+        return e0.elapsed_time(e1), out
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _step(fn, dev: torch.device, bare=None):
+    """{ms, launches, staged} and the result of one distributed step after a
+    warm-up call; the kernel launches and the host-staged bytes
+    (``dist.comm.STAGED``) are the timed call's alone. With `bare` (the step
+    without its gather) that is timed first as `ms_bare`, and the launches
+    and staged bytes reported are its own, with its IPC signal waits
+    (``dist.ipc.SIGNALS``); `staged_gather` the full step's."""
+    from srcdsp_tpu_torch.dist import comm, ipc
+    from srcdsp_tpu_torch.kernels import _build
+
+    res = {}
+    if bare is not None:
+        bare()
+        _build.reset_launches()
+        comm.reset_staged()
+        ipc.reset_signals()
+        res["ms_bare"], _ = _timed(bare, dev)
+        res["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        res["staged"] = dict(comm.STAGED)
+        res["signals"] = dict(ipc.SIGNALS)
+    fn()
+    _build.reset_launches()
+    comm.reset_staged()
+    res["ms"], out = _timed(fn, dev)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if bare is None:
+        res.update(launches=launches, staged=dict(comm.STAGED))
     else:
-        t0 = time.perf_counter()
-        out = fn()
-        ms = (time.perf_counter() - t0) * 1e3
-    return dict(ms=ms, launches={k: v for k, v in _build.LAUNCHES.items() if v},
-                staged=dict(comm.STAGED)), out
+        res["staged_gather"] = dict(comm.STAGED)
+    return res, out
+
+
+def _turns(fns: dict, dev: torch.device) -> dict:
+    """Median ms of each step over TURNS rounds in alternating order, with the
+    bytes each staged and the median host ms it waited for IPC signals:
+    {name: {"ms", "staged", "signal_ms"}}."""
+    from srcdsp_tpu_torch.dist import comm, ipc
+
+    times = {k: [] for k in fns}
+    waits = {k: [] for k in fns}
+    staged = {}
+    for rnd in range(TURNS):
+        for name in (fns if rnd % 2 == 0 else reversed(list(fns))):
+            comm.reset_staged()
+            ipc.reset_signals()
+            ms, _ = _timed(fns[name], dev)
+            times[name].append(ms)
+            waits[name].append(ipc.SIGNALS["seconds"] * 1e3)
+            staged[name] = comm.STAGED["bytes"]
+    return {k: {"ms": float(np.median(v)), "staged": staged[k],
+                "signal_ms": float(np.median(waits[k]))} for k, v in times.items()}
 
 
 def _psk_demod(mesh, psks, bank):
@@ -290,6 +352,105 @@ def case_k11(a, mesh, dev, work: Path) -> dict:
     return res
 
 
+def case_k19(a, mesh, dev, work: Path) -> dict:
+    """K19 with the mesh on this rank's time shards, at each of its shapes."""
+    from srcdsp_tpu_torch.dist.halo import halo_from_left
+    from srcdsp_tpu_torch.dist.mesh import (
+        TIME_AXIS, local_shards, process_allgather, shard, sharding, time_sharding)
+    from srcdsp_tpu_torch.kernels.halo_dma import halo_from_left_pallas
+
+    p = mesh.shape[TIME_AXIS]
+    res = dict(ok=True, shapes=[])
+    saved = {}
+    for i, (rows, cols, halo) in enumerate(SIZES[a.size]["k19"]):
+        n = cols if a.size == "full" else p * cols
+        x = planes(19 + i, (rows, n), dev)
+        spec = time_sharding(mesh, 2)
+        shards = local_shards(_local_slice(x, spec), mesh, spec)
+        stacked = sharding(mesh, TIME_AXIS, 0)
+
+        def step(shards=shards, halo=halo, stacked=stacked):
+            return process_allgather(halo_from_left_pallas(shards, halo, mesh), stacked,
+                                     tiled=False)
+
+        r, got = _step(step, dev, bare=lambda s=shards, h=halo: halo_from_left_pallas(s, h, mesh))
+        r.update(rows=rows, samples=n, halo=halo, turns=_turns({
+            "k19": lambda s=shards, h=halo: halo_from_left_pallas(s, h, mesh),
+            "halo_from_left": lambda s=shards, h=halo: halo_from_left(s, h, mesh)}, dev))
+        s_local = n // p
+        want = torch.stack([torch.zeros((rows, halo), device=dev)]
+                           + [x[:, q * s_local - halo:q * s_local] for q in range(1, p)])
+        r["equal_slices"] = bool(torch.equal(got, want))
+        r["ok"] = r["equal_slices"]
+        if mesh.rank == 0:
+            one = halo_from_left_pallas(shard(x, one_process_mesh(p, dev)), halo)
+            r["equal_one_process"] = bool(torch.equal(got, torch.stack(one)))
+            r["ok"] = r["ok"] and r["equal_one_process"]
+            saved.update({f"x{i}": x.cpu().numpy(), f"got{i}": got.cpu().numpy(),
+                          f"halo{i}": halo})
+        res["ok"] = res["ok"] and r["ok"]
+        res["shapes"].append(r)
+        del x, shards, got, want
+    # the first shape's step stands for the case in the report's common keys
+    res.update({k: res["shapes"][0][k] for k in ("ms", "ms_bare", "launches", "staged")})
+    if mesh.rank == 0 and a.size == "small":
+        np.savez(work / "k19.npz", **saved)
+    return res
+
+
+def case_k20(a, mesh, dev, work: Path) -> dict:
+    """K20 with the mesh on this rank's time shards, K1's shapes."""
+    from srcdsp_tpu_torch.dist.fused import mix_fir_time_sharded
+    from srcdsp_tpu_torch.dist.mesh import (
+        TIME_AXIS, local_shards, per_device, process_allgather, shard, sharding, time_sharding)
+    from srcdsp_tpu_torch.kernels.halo_fused import make_halo_fused_kernel, mix_fir_halo_sharded
+    from srcdsp_tpu_torch.kernels.mixfir import make_mix_fir_kernel
+    from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    ntaps, cutoff, decim, freq, ot, br, n = SIZES[a.size]["k1"]
+    p = mesh.shape[TIME_AXIS]
+    taps = lowpass(ntaps, cutoff)
+    ks = per_device(lambda d: make_halo_fused_kernel(taps, decim, out_tile=ot, b_rows=br,
+                                                     device=d), mesh.local_devices())
+    k1s = per_device(lambda d: make_mix_fir_kernel(taps, decim, out_tile=ot, b_rows=br,
+                                                   device=d), mesh.local_devices())
+    n = n if n > 1 else p * k1s[0].block_in()
+    word = int(freq_to_word(freq))
+    x = planes(1, (2, n), dev)
+    spec = time_sharding(mesh, 2)
+    shards = local_shards(_local_slice(x, spec), mesh, spec)
+    hist = ks[0].hist
+    tail0 = torch.zeros((2, hist), device=dev)
+
+    def bare():
+        return mix_fir_halo_sharded(ks, 0, word, tail0, shards, mesh)
+
+    def step():
+        tail, ys = bare()
+        return tail, process_allgather(ys, sharding(mesh, TIME_AXIS, 1))
+
+    res, (tail, y) = _step(step, dev, bare=bare)
+    res["turns"] = _turns({"k20": bare, "mix_fir_time_sharded": lambda: mix_fir_time_sharded(
+        k1s, 0, word, tail0, shards, mesh)}, dev)
+    res.update(samples=n, ok=bool(torch.equal(tail, x[:, -hist:])))
+    if mesh.rank == 0:
+        k1 = k1s[0]
+        yr, yi = k1.fn((-hist * word) & MASK32, word,
+                       torch.cat([torch.zeros((2, hist), device=dev), x], dim=-1))
+        res["equal_one_call"] = bool(torch.equal(y, torch.stack([yr.reshape(-1),
+                                                                  yi.reshape(-1)])))
+        mesh1 = one_process_mesh(p, dev)
+        t1, y1 = mix_fir_halo_sharded(ks[0], 0, word, tail0, shard(x, mesh1), mesh1)
+        res["equal_one_process"] = bool(torch.equal(y, torch.cat(y1, dim=-1))
+                                        and torch.equal(tail, t1))
+        res["ok"] = res["ok"] and res["equal_one_call"] and res["equal_one_process"]
+        if a.size == "small":
+            np.savez(work / "k20.npz", x=x.cpu().numpy(), y=y.cpu().numpy(),
+                     tail=tail.cpu().numpy(), word=word, taps=ntaps, cutoff=cutoff)
+    return res
+
+
 def case_config5(a, mesh, dev, work: Path) -> dict:
     """build_config5's mesh form across ranks against its one-process forms."""
     from srcdsp_tpu_torch.configs import build_config5
@@ -334,6 +495,7 @@ def case_orbax(a, mesh, dev, work: Path) -> dict:
 
 
 def worker(a) -> int:
+    from srcdsp_tpu_torch.dist import ipc
     from srcdsp_tpu_torch.dist.launch import report
     from srcdsp_tpu_torch.dist.mesh import init_multihost, make_mesh
 
@@ -348,6 +510,7 @@ def worker(a) -> int:
         cases = {name: globals()[f"case_{name}"](a, mesh, dev, work) for name in a.cases}
         report(rank=rank, backend=a.backend, device=str(dev), shards=a.shards,
                mesh=mesh.shape, cases=cases)
+        ipc.release()
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -360,7 +523,7 @@ def start(nproc: int = 2, device: str = "cpu", backend: str = "gloo", shards: in
     first when the run is on the card. `collect` waits for them."""
     from srcdsp_tpu_torch.dist import launch
 
-    if device == "cuda" and any(c in cases for c in ("k1", "k11")):
+    if device == "cuda" and any(c in cases for c in ("k1", "k11", "k19", "k20")):
         from srcdsp_tpu_torch.kernels import _build
 
         rank_device(device, 0)

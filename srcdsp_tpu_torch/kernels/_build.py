@@ -78,6 +78,11 @@ _SIGNATURES = {
     "srcdsp_halo": [_P, _I, _I, _I, _I, _P],
     "srcdsp_halo_fused": [_P] * 5 + [_U, _U, _LL, _LL] + [_I] * 7 + [_P],
     "srcdsp_enable_peer": [_I, _I],
+    "srcdsp_ipc_alloc": [_LL, _I, ctypes.POINTER(_P), _P],
+    "srcdsp_ipc_open": [_P, _I, ctypes.POINTER(_P)],
+    "srcdsp_ipc_close": [_P, _I],
+    "srcdsp_ipc_free": [_P, _I],
+    "srcdsp_error_name": [_I, ctypes.c_char_p, _I],
 }
 
 
@@ -180,10 +185,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
+def error_name(rc: int) -> str:
+    """The cudaError_t's name (``cudaGetErrorName``), e.g. ``cudaErrorInvalidValue``."""
+    buf = ctypes.create_string_buffer(64)
+    load().srcdsp_error_name(rc, buf, len(buf))
+    return buf.value.decode()
+
+
 def stream_handle(t) -> int:
-    """The current CUDA stream of `t`'s device, as the C entry points take it:
-    the raw handle from torch's CUDA binding, a few microseconds of host time
-    less per launch than building a ``torch.cuda.Stream``."""
+    """The current CUDA stream of `t`'s device (or of the device `t`), as the
+    C entry points take it: the raw handle from torch's CUDA binding, a few
+    microseconds of host time less per launch than building a
+    ``torch.cuda.Stream``."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(getattr(t, "device", t).index)

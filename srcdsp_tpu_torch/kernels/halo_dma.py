@@ -26,6 +26,17 @@ those streams waits on an event from the reader's, so the caching allocator
 cannot hand a left shard's memory out while it is still read. On CPU tensors
 the wrapper runs the plain version, ``dist.halo.halo_from_left`` (torch
 copies).
+
+Across processes (a `mesh` from ``dist.init_multihost`` + ``make_mesh``),
+each rank passes its own shards, and a left neighbour on another rank is a
+route of ``dist.ipc``. On one host the left rank pushes, as the TPU kernel
+does: its launch carries one more table entry, whose output is the right
+rank's receive buffer mapped into this process by CUDA IPC, and the right
+rank's launch then reads that buffer as a local source. Across hosts the
+columns come by message into a buffer of their own, and the launch reads
+that; on CPU shards the plain version, ``dist.halo.halo_from_left`` with the
+mesh, sends them by message too. Interprocess events and host signals order
+the two ranks (``dist.ipc``); within a rank the order is as above.
 """
 
 from __future__ import annotations
@@ -36,10 +47,13 @@ import functools
 
 import torch
 
+from srcdsp_tpu_torch.dist import ipc
 from srcdsp_tpu_torch.dist.halo import halo_from_left
+from srcdsp_tpu_torch.dist.mesh import TIME_AXIS, Mesh
 from srcdsp_tpu_torch.kernels import _build
 
-__all__ = ["HaloGroup", "HALO_MAX_ENTRIES", "halo_from_left_pallas", "halo_plan", "order_after"]
+__all__ = ["HaloGroup", "HALO_MAX_ENTRIES", "halo_from_left_pallas", "halo_plan", "launch",
+           "order_after"]
 
 HALO_MAX_ENTRIES = 64  # kHaloMaxEntries of csrc/halo.cu: destination shards per launch
 _FLOAT = 4
@@ -125,7 +139,21 @@ def _launch_plan(layout: tuple, halo: int):
     return tuple(out)
 
 
-def halo_from_left_pallas(shards, halo: int) -> tuple[torch.Tensor, ...]:
+def launch(entries, rows: int, halo: int, device: torch.device) -> None:
+    """One K19 launch on `device`'s current stream over `entries`, (src
+    pointer or 0 for zeros, src row stride in floats, out pointer) each: the
+    form that carries pushes into another process's mapped buffer."""
+    if not 0 < len(entries) <= HALO_MAX_ENTRIES:
+        raise ValueError(f"{len(entries)} entries: one launch serves 1 to {HALO_MAX_ENTRIES}")
+    table = (ctypes.c_longlong * (3 * len(entries)))(*(v for e in entries for v in e))
+    rc = _build.load().srcdsp_halo(ctypes.addressof(table), len(entries), rows, halo,
+                                   device.index, _build.stream_handle(device))
+    _build.check(rc, "halo_dma")
+    _build.LAUNCHES["halo_dma"] += 1
+
+
+def halo_from_left_pallas(shards, halo: int, mesh: Mesh | None = None
+                          ) -> tuple[torch.Tensor, ...]:
     """shards: [R, S_p] float32 per shard (complex streams pass their planes
     as rows, R = 2), rows contiguous, any row stride -> [R, halo] per shard:
     the left neighbour's trailing `halo` columns, zeros on shard 0. Each
@@ -134,10 +162,14 @@ def halo_from_left_pallas(shards, halo: int) -> tuple[torch.Tensor, ...]:
     The host work of a call is the layout key, one allocation and one launch
     per device: the device is named explicitly (the allocation, the stream
     handle, and the C entry point's DeviceScope), so no device guard is
-    needed."""
+    needed. With a `mesh` across processes, `shards` are this rank's time
+    shards, in mesh order (`_across`); with none, or a mesh of one process,
+    the call is as above."""
     plan = _launch_plan(tuple((x.device, x.shape, x.stride(), x.dtype) for x in shards), halo)
     if plan is None:
-        return halo_from_left(shards, halo)
+        return halo_from_left(shards, halo, mesh)
+    if mesh is not None and mesh.multiprocess():
+        return _across(shards, halo, mesh)
     lib = _build.load()
     r = shards[0].shape[0]
     out = [None] * len(shards)
@@ -157,4 +189,55 @@ def halo_from_left_pallas(shards, halo: int) -> tuple[torch.Tensor, ...]:
             order_after(d, g.device)
         for p, o in zip(g.shards, buf.unbind(0)):
             out[p] = o
+    return tuple(out)
+
+
+def _across(shards, halo: int, mesh: Mesh) -> tuple[torch.Tensor, ...]:
+    """K19 on this rank's card shards of a mesh across processes: local lefts
+    in place, a left on another rank from its route (``dist.ipc``: the IPC
+    receive buffer, or the message), and this rank's pushes into the right
+    ranks' buffers in the same launch."""
+    idx = mesh.local_indices(TIME_AXIS)
+    if tuple(x.device for x in shards) != mesh.local_devices(TIME_AXIS) or not idx:
+        raise ValueError(f"shards on {[x.device for x in shards]}, this rank's time devices "
+                         f"{mesh.local_devices(TIME_AXIS)}")
+    pos = {p: i for i, p in enumerate(idx)}
+    rows = shards[0].shape[0]
+
+    def tail(p):
+        x = shards[pos[p]]
+        return x[:, x.shape[-1] - halo:]
+
+    route = ipc.plan(mesh, rows, halo)
+    got = route.exchange(tail)
+    groups: dict[torch.device, list] = {}
+    producers: dict[torch.device, set] = {}
+    out = []
+    for p, x in zip(idx, shards):
+        o = torch.empty((rows, halo), dtype=torch.float32, device=x.device)
+        out.append(o)
+        if p == 0:
+            src = (0, 0)
+        elif p - 1 in pos:
+            left = shards[pos[p - 1]]
+            src = (tail(p - 1).data_ptr(), left.stride(0))
+            if left.device != x.device:
+                producers.setdefault(x.device, set()).add(left.device)
+        else:
+            src = (route.received(p, got).data_ptr(), halo)
+        groups.setdefault(x.device, []).append((*src, o.data_ptr()))
+    for r in route.sends:
+        if r.ipc:
+            x = shards[pos[r.shard]]
+            groups[x.device].append((tail(r.shard).data_ptr(), x.stride(0), route.remote[r.index]))
+    route.send_begin()
+    route.recv_begin()
+    for dev, entries in groups.items():
+        for d in producers.get(dev, ()):
+            order_after(dev, d)
+        launch(entries, rows, halo, dev)
+        for d in producers.get(dev, ()):
+            order_after(d, dev)
+    route.recv_end()
+    route.send_end()
     return tuple(out)

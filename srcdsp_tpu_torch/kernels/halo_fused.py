@@ -19,6 +19,16 @@ Shard p's word is ``word0 + (p*S_local - hist)*dword`` (``dist.fused.
 shard_word``), the word K1 would use for ``[tail | x_p]``, so K20 gives K1's
 bits on the same stream. On CPU tensors the per-shard call runs the plain
 version: the concatenation, then ``kernels.mixfir.mix_fir_plain``.
+
+Across processes (`mix_fir_halo_sharded` on a mesh from
+``dist.init_multihost`` + ``make_mesh``) each rank runs K20 on its own
+shards with their global words. A boundary shard's history is its route of
+``dist.ipc``: on one host the left rank pushes its last shard's tail into
+the right rank's receive buffer (one K19 launch, before it waits on its own
+left), and the right rank's K20 reads that buffer in place as ``x_hist``;
+across hosts (and on the CPU) the tail comes by message. The carried tail
+for the next buffer moves the same way, from the rank holding the last
+shard to every other rank.
 """
 
 from __future__ import annotations
@@ -30,10 +40,11 @@ import numpy as np
 import torch
 
 from srcdsp_tpu_torch.device import resolve
+from srcdsp_tpu_torch.dist import ipc
 from srcdsp_tpu_torch.dist.fused import per_shard, shard_length, shard_word
-from srcdsp_tpu_torch.dist.mesh import Mesh, copy_to, device_guard
+from srcdsp_tpu_torch.dist.mesh import TIME_AXIS, Mesh, copy_to, device_guard
 from srcdsp_tpu_torch.kernels import _build
-from srcdsp_tpu_torch.kernels.halo_dma import order_after
+from srcdsp_tpu_torch.kernels.halo_dma import launch, order_after
 from srcdsp_tpu_torch.kernels.mixfir import LANE, MixFirKernel, _round_up, mix_fir_plain
 
 __all__ = ["HaloFusedKernel", "halo_fused_plain", "make_halo_fused_kernel",
@@ -118,26 +129,55 @@ def mix_fir_halo_sharded(kernel, word0: int, dword: int, state_tail: torch.Tenso
     carried tail, word0 the word of the buffer's sample 0; `kernel` one
     HaloFusedKernel, or one per shard. Returns (new tail on shard 0's device,
     y [2, S_local/decim] per shard), bit-identical to K1 on [state_tail | x].
-    One K20 launch per shard, no concatenation. K20 reads the left shard in
-    place, so every shard lies in this process: a mesh across processes
-    raises (``dist.fused.mix_fir_time_sharded`` takes one)."""
-    if mesh.multiprocess():
-        raise ValueError("K20 reads its left shard in place within one process; across "
-                         "processes use dist.fused.mix_fir_time_sharded")
-    devs = mesh.axis_devices()
+    One K20 launch per shard, no concatenation. On a mesh across processes,
+    `shards` (and `kernel`) are this rank's, p counts from the mesh's first
+    shard on any rank, and the new tail lands on this rank's first shard
+    device, on every rank."""
+    idx = mesh.local_indices(TIME_AXIS)
+    devs = mesh.local_devices(TIME_AXIS)
     if tuple(x.device for x in shards) != devs:
         raise ValueError(f"shards on {[x.device for x in shards]}, mesh time axis {devs}")
     ks = per_shard(kernel, len(shards))
     s_local = shard_length(shards)
     hist = ks[0].hist
-    ys = []
-    for p, (k, x) in enumerate(zip(ks, shards)):
-        left = state_tail if p == 0 else shards[p - 1][:, s_local - hist:]
+    pos = {p: i for i, p in enumerate(idx)}
+
+    def tail(p):
+        return shards[pos[p]][:, s_local - hist:]
+
+    if mesh.multiprocess():
+        route = ipc.plan(mesh, 2, hist, tail=True)
+        got = route.exchange(tail)
+        pushes = [(route.source(r), (tail(r.shard).data_ptr(), shards[pos[r.shard]].stride(0),
+                                     route.remote[r.index])) for r in route.sends if r.ipc]
+        route.send_begin()
+        for dev in dict.fromkeys(d for d, _ in pushes):
+            launch([e for d, e in pushes if d == dev], 2, hist, dev)
+        route.send_end()
+    ys = [None] * len(shards)
+
+    def run(i, left):
+        x = shards[i]
         on_card = x.device.type == "cuda"
         with device_guard(x.device):
             if on_card:
                 order_after(x.device, left.device)
-            ys.append(k.planes(shard_word(word0, dword, p, s_local, hist), dword, left, x))
+            ys[i] = ks[i].planes(shard_word(word0, dword, idx[i], s_local, hist), dword, left, x)
             if on_card:
                 order_after(left.device, x.device)
-    return copy_to(shards[-1][:, s_local - hist:], shards[0].device), tuple(ys)
+
+    # shards whose history is on this rank go first: their launches run while
+    # the host waits for a route's signal
+    for i, p in enumerate(idx):
+        if p == 0 or p - 1 in pos:
+            run(i, state_tail if p == 0 else tail(p - 1))
+    if mesh.multiprocess():
+        route.recv_begin()
+    for i, p in enumerate(idx):
+        if p > 0 and p - 1 not in pos:
+            run(i, route.received(p, got))
+    last = mesh.shape[TIME_AXIS] - 1
+    new_tail = copy_to(tail(last) if last in pos else route.received(None, got), shards[0].device)
+    if mesh.multiprocess():
+        route.recv_end()
+    return new_tail, tuple(ys)

@@ -1835,3 +1835,57 @@ def test_multihost_check_one_card_a_rank_over_nccl(dev, tmp_path):
     for rep in res["reports"]:
         assert all(c["ok"] for c in rep["cases"].values())
         assert all(c["staged"]["bytes"] == 0 for c in rep["cases"].values())
+
+
+def _halo_ranks_hold(res):
+    """K19 and K20 across ranks: every case equal to its one-process form, no
+    byte staged in the step without the gather, K19 launched in both cases
+    (K20's boundary and tail are K19 pushes) and K20 once a shard."""
+    assert res["ok"], res["error"]
+    for rep in res["reports"]:
+        k19, k20 = rep["cases"]["k19"], rep["cases"]["k20"]
+        assert k19["ok"] and k20["ok"]
+        for c in k19["shapes"] + [k20]:
+            assert c["staged"]["bytes"] == 0, c["staged"]
+        assert all(c["launches"].get("halo_dma", 0) == 1 for c in k19["shapes"])
+        assert k20["launches"].get("halo_dma", 0) == 1
+        assert k20["launches"].get("halo_fused", 0) == 2
+    r0 = res["reports"][0]["cases"]
+    assert all(c["equal_one_process"] and c["equal_slices"] for c in r0["k19"]["shapes"])
+    assert r0["k20"]["equal_one_process"] and r0["k20"]["equal_one_call"]
+
+
+def test_halo_kernels_across_two_ranks_on_one_card_over_ipc(dev, tmp_path):
+    """K19 and K20 across 2 ranks that share the card (gloo for the group,
+    the boundary and the carried tail by CUDA IPC): equal to the one-process
+    forms, nothing staged through the host in the halo step."""
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    _halo_ranks_hold(mhc.run(2, "cuda", "gloo", shards=2, cases=("k19", "k20"), work=tmp_path,
+                             timeout=300))
+
+
+def test_halo_kernels_one_card_a_rank_over_nccl_and_ipc(dev, tmp_path):
+    """The same across 2 cards, one a rank, over NCCL: the push crosses
+    NVLink into the other process's buffer."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    _halo_ranks_hold(mhc.run(2, "cuda", "nccl", shards=2, cases=("k19", "k20"), work=tmp_path,
+                             timeout=300))
+
+
+def test_ipc_open_of_a_handle_this_process_exported_raises(dev):
+    """A handle opens only in another process: opening this process's own
+    export raises, naming the CUDA error; the export itself frees cleanly."""
+    from srcdsp_tpu_torch.dist import ipc
+
+    card = torch.device("cuda", 0)
+    ptr, handle = ipc.export(4096, card)
+    try:
+        assert ptr and len(handle) == ipc.HANDLE_BYTES
+        with pytest.raises(RuntimeError, match=r"cudaIpcOpenMemHandle .*: cudaError\w+ \("):
+            ipc.open_handle(handle, card, owner=0)
+    finally:
+        ipc.free(ptr, card)

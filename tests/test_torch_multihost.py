@@ -19,6 +19,11 @@ the reference:
 - K1 (plain) across 2 ranks: rel L2 < 1e-5 against JAX
   ``mix_fir_decim_pallas(interpret=True)``, ``torch.equal`` to one port K1
   call over the unsharded stream, the carried tail exact;
+- K19 (plain) across 2 ranks with the mesh, at two shapes: equal to JAX
+  ``halo_from_left_pallas(interpret=True)`` on conftest's 8 virtual devices;
+- K20 (plain) across 2 ranks with the mesh: rel L2 < 1e-5 against JAX K1 on
+  the unsharded stream, ``torch.equal`` to the port's one-process
+  ``mix_fir_halo_sharded`` on 8 shards, the carried tail exact;
 - the fault injection, 2 ranks -> 1 process: the stitched stream equal to
   the port's uninterrupted run, within rel L2 < 1e-5 of JAX
   ``channelize_full(fir_full(...))``;
@@ -26,19 +31,26 @@ the reference:
   (``tests/unit/test_checkpoint.py``), a 2-rank save restored in one
   process, and a one-process save restored on 2 ranks.
 
-The pure tests lay meshes for 2 and 3 ranks x 4 devices without processes.
+The pure tests lay meshes for 2 and 3 ranks x 4 devices without processes:
+the shardings, and the routes of ``dist.ipc`` (which boundary is read in
+place, by CUDA IPC or by message, on one host and on two), with K19 and K20
+run on one rank's shards against a stand-in for the peers' messages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from srcdsp_tpu.chains.channelizer import channelize_full as jchannelize_full
 from srcdsp_tpu.chains.channelizer import design_prototype as jdesign_prototype
 from srcdsp_tpu.chains.psk import make_psk_params as jmake_psk
 from srcdsp_tpu.chains.psk import psk_apply as jpsk_apply
 from srcdsp_tpu.chains.psk import psk_init as jpsk_init
+from srcdsp_tpu.dist import make_mesh as jmake_mesh
+from srcdsp_tpu.kernels.halo_dma import halo_from_left_pallas as jhalo
 from srcdsp_tpu.kernels.mixfir import make_mix_fir_kernel as jmake_k1
 from srcdsp_tpu.kernels.mixfir import mix_fir_decim_pallas
 from srcdsp_tpu.ops.fir import fir_full as jfir_full
@@ -49,10 +61,13 @@ from srcdsp_tpu_torch.chains.fsk import fsk_init, make_fsk_params
 from srcdsp_tpu_torch.chains.psk import make_psk_params, psk_apply, psk_init
 from srcdsp_tpu_torch.dist import comm
 from srcdsp_tpu_torch.dist import fault_injection_multihost as fim
+from srcdsp_tpu_torch.dist import ipc
 from srcdsp_tpu_torch.dist import mesh as tdm
 from srcdsp_tpu_torch.dist import multihost_check as mhc
 from srcdsp_tpu_torch.dist.channelize import channelize_time_sharded
 from srcdsp_tpu_torch.dist.halo import fir_time_sharded
+from srcdsp_tpu_torch.kernels import halo_dma as k19
+from srcdsp_tpu_torch.kernels import halo_fused as k20
 from srcdsp_tpu_torch.kernels import mixfir as tmf
 from srcdsp_tpu_torch.ops.window import lowpass
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -77,8 +92,8 @@ def runs(tmp_path_factory):
     checkpoint.save_orbax(str(work2 / "orbax_one"),
                           tuple(mhc.shard_state(g, CPU) for g in range(8)), 9,
                           sharding=tdm.time_sharding(mesh8))
-    r2 = mhc.start(2, cases=("pipeline", "k1", "k11", "config5", "orbax"), work=work2,
-                   timeout=TIMEOUT)
+    r2 = mhc.start(2, cases=("pipeline", "k1", "k11", "k19", "k20", "config5", "orbax"),
+                   work=work2, timeout=TIMEOUT)
     r3 = mhc.start(3, cases=("pipeline",), work=work3, timeout=TIMEOUT)
     rf = fim.start("cpu", workf, TIMEOUT)
     return {2: mhc.collect(r2), 3: mhc.collect(r3), "fault": fim.resume(rf, "cpu")}
@@ -116,10 +131,9 @@ def test_config5_pipeline_across_ranks_matches_jax_and_one_process(runs, nproc):
     assert torch.equal(torch.as_tensor(d["soft"]), torch.cat([o[1] for o in outs]))
 
 
-def test_k1_across_two_ranks_matches_jax_and_one_call(runs):
-    c = _rank0(runs[2], "k1")
-    assert c["ok"] and c["equal_one_call"]
-    d = np.load(runs[2]["work"] / "k1.npz")
+def _k1_matches_jax_and_one_call(d) -> None:
+    """A 2-rank K1-contract result (x, y, tail, word, taps) == one port K1
+    call over [zeros | x], the tail exact, within rel L2 1e-5 of JAX K1."""
     x, y, word = d["x"], d["y"], int(d["word"])
     taps = lowpass(int(d["taps"]), float(d["cutoff"]))
     k = tmf.make_mix_fir_kernel(taps, 2, out_tile=128, b_rows=2, device="cpu")
@@ -134,6 +148,45 @@ def test_k1_across_two_ranks_matches_jax_and_one_call(runs):
     jr, ji = mix_fir_decim_pallas(jk, w0, word, jnp.asarray(xpad))
     jy = np.stack([np.asarray(jr).reshape(-1), np.asarray(ji).reshape(-1)])
     assert _rel(y, jy) < 1e-5
+
+
+def test_k1_across_two_ranks_matches_jax_and_one_call(runs):
+    c = _rank0(runs[2], "k1")
+    assert c["ok"] and c["equal_one_call"]
+    _k1_matches_jax_and_one_call(np.load(runs[2]["work"] / "k1.npz"))
+
+
+def test_k19_across_two_ranks_matches_jax(runs):
+    """K19 with the mesh: 2 ranks x 4 shards, each shape equal to the JAX
+    kernel on 8 virtual devices and to the one-process port on rank 0."""
+    c = _rank0(runs[2], "k19")
+    assert c["ok"] and all(r["equal_one_process"] and r["equal_slices"] for r in c["shapes"])
+    assert all(r["cases"]["k19"]["ok"] for r in runs[2]["reports"])
+    d = np.load(runs[2]["work"] / "k19.npz")
+    jmesh = jmake_mesh(time=8)
+    for i in range(len(c["shapes"])):
+        x, got, halo = d[f"x{i}"], d[f"got{i}"], int(d[f"halo{i}"])
+        ref = np.asarray(jhalo(jax.device_put(jnp.asarray(x), NamedSharding(jmesh, P(None, "time"))),
+                               halo, jmesh, interpret=True))
+        np.testing.assert_array_equal(got, ref.reshape(x.shape[0], 8, halo).transpose(1, 0, 2))
+
+
+def test_k20_across_two_ranks_matches_jax_one_process_and_one_call(runs):
+    """K20 with the mesh: 2 ranks x 4 shards within rel L2 1e-5 of JAX K1 on
+    the unsharded stream, equal to one port K1 call and to the port's
+    one-process K20 on 8 shards, the carried tail exact."""
+    c = _rank0(runs[2], "k20")
+    assert c["ok"] and c["equal_one_call"] and c["equal_one_process"]
+    assert all(r["cases"]["k20"]["ok"] for r in runs[2]["reports"])
+    d = np.load(runs[2]["work"] / "k20.npz")
+    _k1_matches_jax_and_one_call(d)
+    kf = k20.make_halo_fused_kernel(lowpass(int(d["taps"]), float(d["cutoff"])), 2, out_tile=128,
+                                    b_rows=2, device="cpu")
+    mesh8 = tdm.make_mesh(time=8, devices=["cpu"] * 8)
+    tail, ys = k20.mix_fir_halo_sharded(kf, 0, int(d["word"]), torch.zeros((2, kf.hist)),
+                                        tdm.shard(torch.as_tensor(d["x"]), mesh8), mesh8)
+    assert torch.equal(torch.as_tensor(d["y"]), torch.cat(ys, dim=-1))
+    assert torch.equal(torch.as_tensor(d["tail"]), tail)
 
 
 def test_k11_across_two_ranks_equals_one_call(runs):
@@ -250,3 +303,88 @@ def test_init_multihost_refuses_what_it_cannot_run(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):      # no card: no fallback
             tdm.init_multihost(rdv, 2, 0, "nccl")
     assert not comm.active()
+
+
+def _boundaries(mesh) -> tuple[str, ...]:
+    """How each boundary p = 1..P-1 moves: "local" (read in place on one
+    rank), "ipc" or "message"."""
+    by_shard = {r.to: r for r in ipc.routes(mesh)}
+    return tuple("local" if p not in by_shard else "ipc" if by_shard[p].ipc else "message"
+                 for p in range(1, mesh.shape["time"]))
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+@pytest.mark.parametrize("hosts", ["one", "two"])
+def test_boundary_routes_by_topology(ranks, hosts):
+    """Which boundaries of a time axis are read in place, moved by CUDA IPC
+    or by message: IPC between ranks of one host on cards, a message across
+    hosts or on the CPU; the carried tail's routes likewise."""
+    cards = [[f"cuda:{r % 2}"] * 4 for r in range(ranks)]
+    names = (["node0"] * ranks if hosts == "one"
+             else [f"node{0 if r < ranks - 1 else 1}" for r in range(ranks)])
+    for r in range(ranks):
+        mesh = tdm.layout(4 * ranks, 1, cards, r, names)
+        assert mesh.hosts == tuple(names)
+        want = []
+        for p in range(1, 4 * ranks):
+            if p % 4:
+                want.append("local")
+            else:
+                want.append("ipc" if names[p // 4 - 1] == names[p // 4] else "message")
+        assert _boundaries(mesh) == tuple(want)
+        rs = ipc.routes(mesh, tail=True)
+        edges = [x for x in rs if x.to is not None]
+        assert [(x.src, x.dst, x.shard, x.to) for x in edges] == [
+            (q, q + 1, 4 * q + 3, 4 * q + 4) for q in range(ranks - 1)]
+        tails = [x for x in rs if x.to is None]
+        assert [(x.src, x.dst, x.shard) for x in tails] == [
+            (ranks - 1, q, 4 * ranks - 1) for q in range(ranks - 1)]
+        assert [x.ipc for x in tails] == [names[q] == names[-1] for q in range(ranks - 1)]
+        cpu = tdm.layout(4 * ranks, 1, [["cpu"] * 4] * ranks, r, names)
+        assert set(_boundaries(cpu)) == {"local", "message"}
+        assert not any(x.ipc for x in ipc.routes(cpu, tail=True))
+    one = tdm.make_mesh(time=4, devices=["cpu"] * 4)
+    assert _boundaries(one) == ("local",) * 3 and ipc.routes(one, tail=True) == ()
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_halo_kernels_on_one_rank_of_a_multiprocess_mesh(ranks, monkeypatch):
+    """K19 and K20 on each rank's shards of a CPU mesh of 2 or 3 ranks (no
+    longer refused as multi-process), the peers' messages stood in for by
+    the slices of the whole stream: equal to the one-process forms; each
+    rank sends exactly its routes' columns."""
+    per, hist = 512, 128
+    n = 4 * ranks * per
+    x = torch.as_tensor(np.random.default_rng(ranks).standard_normal((2, n)).astype(np.float32))
+    kf = k20.make_halo_fused_kernel(lowpass(32, 0.2), 2, out_tile=128, b_rows=2, device="cpu")
+    one = tdm.make_mesh(time=4 * ranks, devices=["cpu"] * (4 * ranks))
+    h1 = k19.halo_from_left_pallas(tdm.shard(x, one), hist)
+    t1, y1 = k20.mix_fir_halo_sharded(kf, 7, 12345, torch.ones((2, hist)), tdm.shard(x, one), one)
+    for r in range(ranks):
+        mesh = tdm.layout(4 * ranks, 1, [["cpu"] * 4] * ranks, r)
+        sent = []
+
+        def exchange(sends, recvs):
+            sent.extend((dst, t.clone()) for t, dst, _ in sends)
+            out = []
+            for shape, dtype, src, tag, device in recvs:
+                route = next(q for q in ipc.routes(mesh, tail=True) if q.src == src
+                             and q.dst == r)
+                got = x[:, (route.shard + 1) * per - hist:(route.shard + 1) * per]
+                out.append(got.clone().to(device, dtype).reshape(shape))
+            return out
+
+        monkeypatch.setattr(ipc.comm, "exchange", exchange)
+        mine = tdm.shard(x, mesh)
+        assert len(mine) == 4
+        got = k19.halo_from_left_pallas(mine, hist, mesh)
+        assert all(torch.equal(a, b) for a, b in zip(got, h1[4 * r:4 * r + 4]))
+        t, ys = k20.mix_fir_halo_sharded(kf, 7, 12345, torch.ones((2, hist)), mine, mesh)
+        assert all(torch.equal(a, b) for a, b in zip(ys, y1[4 * r:4 * r + 4]))
+        assert torch.equal(t, t1)
+        tail = x[:, (4 * r + 4) * per - hist:(4 * r + 4) * per]
+        if r < ranks - 1:   # the boundary, twice (K19, then K20)
+            assert [d for d, _ in sent] == [r + 1, r + 1]
+        else:               # K20's carried tail to every other rank
+            assert [d for d, _ in sent] == list(range(ranks - 1))
+        assert all(torch.equal(t, tail) for _, t in sent)

@@ -60,6 +60,17 @@ def test_scan_covers_the_distribution_tier_and_halo_cu_is_built():
     assert {"halo_dma", "halo_fused"} <= set(_build.LAUNCHES)
 
 
+def test_scan_covers_the_ipc_boundary_and_its_entry_points_are_registered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "srcdsp_tpu_torch/dist/ipc.py" in names
+    assert {"srcdsp_ipc_alloc", "srcdsp_ipc_open", "srcdsp_ipc_close", "srcdsp_ipc_free",
+            "srcdsp_error_name"} <= set(_build._SIGNATURES)
+    halo_cu = (ROOT / "srcdsp_tpu_torch" / "csrc" / "halo.cu").read_text()
+    for name in ("srcdsp_ipc_alloc", "srcdsp_ipc_open", "srcdsp_ipc_close", "srcdsp_ipc_free",
+                 "srcdsp_error_name"):
+        assert f'extern "C" int {name}(' in halo_cu
+
+
 def test_scan_covers_the_fec_tier():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("gf2", "interleave", "hdlc", "golay", "fec", "rs", "bch", "polar", "metrics",
