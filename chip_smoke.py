@@ -228,8 +228,21 @@ Phases, in order; any failure raises and the run exits non-zero:
    channels == one unsharded call by torch.equal, tails exact; the pipeline
    on 3 ranks (M = 24) == its one-process form; the 2 -> 1 fault injection
    (save_orbax by both ranks, restore_orbax in this process) == the
-   uninterrupted run. Printed: the backend, each rank's step time (CUDA
-   events), the staged bytes and their time, the phase's seconds.
+   uninterrupted run; the capture case (3 blocks of 2^26 ci16 samples, each
+   rank decoding and copying only its own shards, K20 over IPC) == the
+   one-process stream, K19 and K20 launched. Printed: the backend, each
+   rank's step time (CUDA events), the staged bytes and their time, the
+   phase's seconds.
+22. a capture straight onto a time-sharded mesh: a ci16 file of 4 x 2^26
+   samples (seeded noise, 1 GiB) streamed unsharded through K1 on [tail |
+   block] (the yardstick), then through io.capture.device_blocks with
+   time_sharding(mesh, 2) and K20 (dist.multihost_check.stream_k20) onto 4
+   shards of one card and, where the machine has two cards, one shard a
+   card: every block's output and the carried tail == the yardstick's by
+   torch.equal, one host-to-device copy a shard a block (io.capture.H2D)
+   into a buffer of its own; the Ms/s of each pass file to result (host
+   clock), K20 and K1 on a resident block in turns, and one shard's host
+   decode and host-to-device copy.
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -263,7 +276,9 @@ phase 16 reads K15's count before and after its modem on its own; phases 17,
 ldpc` of the CLI and adds those launches to K14's row; phase 21's workers
 count their K1 and K11 launches in their distributed steps (each worker
 starts at 0, its warm-up call and rank 0's one-call comparisons left out),
-and those are added to K1's and K11's rows. The last three lines are one JSON
+and those are added to K1's and K11's rows (and K19's and K20's); phase 22
+resets the counts before its passes and adds its K1 and K20 launches to
+their rows. The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -404,6 +419,9 @@ C20_FAULT_SHARDS, C20_FAULT_BUFFER, C20_CHECK_BLOCK = 8, 1 << 18, 1 << 20
 # 1024), 3 ranks x 2 shards (the pipeline, M = 24), the 2 -> 1 fault injection; gloo on
 # one card, and NCCL with one rank a card where the machine has two
 C21_SHARDS, C21_TIMEOUT = 2, 420.0
+# phase 22, a capture streamed straight onto a time-sharded mesh: 4 blocks of config
+# 1's 2^26 samples (1 GiB of ci16), 4 shards of one card, then a shard a card on two
+C22_BLOCKS, C22_SHARDS = 4, 4
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -3807,6 +3825,26 @@ def halo_steps(backend: str, nproc: int, reports, card: str) -> None:
                     f"{name} across ranks ({backend}): {staged} B staged through the host")
 
 
+def capture_steps(backend: str, nproc: int, reports, card: str) -> None:
+    """Phase 21's capture case: every rank streams its own shards of a ci16
+    file through K20, == the one-process stream, each rank one host copy a
+    shard a block, K19 (the pushes over IPC) and K20 launched."""
+    caps = [rep["cases"]["capture"] for rep in reports]
+    c0 = caps[0]
+    streamed = {k: sum(c["launches"].get(k, 0) for c in caps) for k in ("halo_dma", "halo_fused")}
+    print(f"[21] {backend} {nproc} ranks: capture ({c0['blocks']} blocks of {c0['block']} ci16 "
+          f"samples, each rank decoding and copying its own {C21_SHARDS} shards) -> K20 == the "
+          f"one-process stream (torch.equal) {c0['equal_one_process']}; file to result without "
+          f"the gather "
+          + ", ".join(f"rank {i} {c['ms_bare']:.1f} ms ({c['samples'] / c['ms_bare'] / 1e3:.1f} "
+                      f"Ms/s of the whole file)" for i, c in enumerate(caps))
+          + f", with it {c0['ms']:.1f} ms; host-to-device copies "
+          + ", ".join(str(c["h2d"]) for c in caps) + f"; K19 / K20 launches {streamed} ({card})",
+          flush=True)
+    require(all(c["ok"] for c in caps) and c0["equal_one_process"] and all(streamed.values()),
+            f"capture across ranks ({backend}): {caps}")
+
+
 def phase21(torch, dev) -> dict:
     """The multi-process tier (``dist.multihost_check``, ``dist.
     fault_injection_multihost``): fresh worker processes, the kernels built
@@ -3860,8 +3898,8 @@ def phase21(torch, dev) -> dict:
             t0 = time.perf_counter()
             work = Path(tmp) / f"{backend}{nproc}"
             res = mhc.run(nproc, "cuda", backend, shards=C21_SHARDS,
-                          cases=("config5", "k1", "k11", "k19", "k20"), size="full", work=work,
-                          timeout=C21_TIMEOUT)
+                          cases=("config5", "k1", "k11", "k19", "k20", "capture"), size="full",
+                          work=work, timeout=C21_TIMEOUT)
             require(res["ok"], f"multihost_check ({backend}): {res['error']}")
             show(f"{backend} {nproc} ranks", res)
             r0 = res["reports"][0]["cases"]
@@ -3882,6 +3920,7 @@ def phase21(torch, dev) -> dict:
             require(all(c["ok"] for rep in res["reports"] for c in rep["cases"].values()),
                     f"multihost_check ({backend}): a case failed")
             halo_steps(backend, nproc, res["reports"], card)
+            capture_steps(backend, nproc, res["reports"], card)
         t0 = time.perf_counter()
         res = mhc.run(3, "cuda", "gloo", shards=C21_SHARDS, cases=("pipeline",), size="full",
                       work=Path(tmp) / "gloo3", timeout=C21_TIMEOUT)
@@ -3905,6 +3944,128 @@ def phase21(torch, dev) -> dict:
               f"{res['start']} of {fim.NBUF}, resumed in one process on {fim.NPROC * fim.SHARDS} "
               f"shards: stitched == uninterrupted single-device run (torch.equal) True; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase22(torch, dev, taps1_np, word1) -> dict:
+    """A ci16 capture streamed straight onto a time-sharded mesh (``io.capture.
+    device_blocks`` with ``time_sharding(mesh, 2)``) through K20, block after
+    block, the tail and the phase carried (``dist.multihost_check.stream_k20``):
+    on C22_SHARDS shards of one card and, where the machine has two cards, on
+    one shard a card. The one-card yardstick is the unsharded stream of the
+    same file, K1 on [tail | block]; every block's output and the carried
+    tail equal it by torch.equal. Each shard is one host-to-device copy of
+    its own bytes (``io.capture.H2D``) into a buffer of its own: no whole
+    block lands on a device first. Returns the launches of the phase."""
+    import tempfile
+
+    from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+    from srcdsp_tpu_torch.io import capture
+    from srcdsp_tpu_torch.kernels import _build
+    from srcdsp_tpu_torch.kernels import halo_fused as khf
+    from srcdsp_tpu_torch.kernels import mixfir as kmf
+
+    card = card_line()
+    block, n = C1_SAMPLES, C22_BLOCKS * C1_SAMPLES
+    cards = torch.cuda.device_count()
+    k1 = kmf.make_mix_fir_kernel(taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=dev)
+    hist = k1.hist
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "capture.ci16"
+        t0 = time.perf_counter()
+        mhc.write_noise_capture(path, n, seed=22)
+        print(f"[22] wrote a ci16 capture of {C22_BLOCKS} x {block} samples "
+              f"({path.stat().st_size / 2**30:.2f} GiB, seeded noise) in "
+              f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+        _build.reset_launches()
+        capture.reset_h2d()
+
+        # the yardstick: the unsharded stream on one card, K1 on [tail | block]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tail, ref = torch.zeros((2, hist), device=dev), []
+        for b, xb in enumerate(capture.device_blocks(str(path), block, planes=True, device=dev)):
+            yr, yi = k1.fn((b * block * word1 - hist * word1) & 0xFFFFFFFF, word1,
+                           torch.cat([tail, xb], dim=-1))
+            ref.append(torch.stack([yr.reshape(-1), yi.reshape(-1)]))
+            tail = xb[:, -hist:]
+        torch.cuda.synchronize()
+        s_k1 = time.perf_counter() - t0
+        ref_tail = tail
+        print(f"[22] unsharded stream (device_blocks -> K1 on [tail | block]), one card: "
+              f"{s_k1 * 1e3:.1f} ms for {n} samples, {n / s_k1 / 1e6:.1f} Ms/s file to "
+              f"result (host clock; {card})", flush=True)
+
+        legs = [("one card", dmesh.make_mesh(time=C22_SHARDS, devices=[dev] * C22_SHARDS))]
+        if cards >= 2:
+            legs.append(("two cards", dmesh.make_mesh(time=2)))
+        else:
+            print("[22] two-card leg: 1 device, not run", flush=True)
+        for label, mesh in legs:
+            devs = mesh.axis_devices()
+            p = len(devs)
+            ks = dmesh.per_device(lambda d: khf.make_halo_fused_kernel(
+                taps1_np, 2, out_tile=OUT_TILE, b_rows=B_ROWS, device=d), devs)
+            spec = dmesh.time_sharding(mesh, 2)
+            cards_used = sorted({d.index for d in devs})
+            for c in cards_used:
+                torch.cuda.synchronize(c)
+            capture.reset_h2d()
+            t0 = time.perf_counter()
+            tail, ys = mhc.stream_k20(ks, word1, path, block, mesh)
+            for c in cards_used:
+                torch.cuda.synchronize(c)
+            s_mesh = time.perf_counter() - t0
+            equal = all(torch.equal(torch.cat([y.to(dev) for y in yb], dim=-1), r)
+                        for yb, r in zip(ys, ref)) and torch.equal(tail.to(dev), ref_tail)
+            print(f"[22] {label}: capture -> device_blocks(sharding) -> K20 over {p} shards, "
+                  f"{C22_BLOCKS} blocks: every block and the carried tail == K1 on [tail | block] "
+                  f"(torch.equal) {equal}; {s_mesh * 1e3:.1f} ms, {n / s_mesh / 1e6:.1f} Ms/s "
+                  f"file to result (host clock; the unsharded K1 stream {n / s_k1 / 1e6:.1f} "
+                  f"Ms/s; {card})", flush=True)
+            require(equal, f"capture streamed onto {label} != K1 on [tail | block]")
+            h2d = {d: dict(c) for d, c in capture.H2D.items()}
+            per_dev = {str(d): devs.count(d) for d in set(devs)}
+            shards = next(capture.device_blocks(str(path), block, planes=True, sharding=spec))
+            own = all(s.untyped_storage().nbytes() == s.numel() * 4 for s in shards)
+            placed = h2d == {d: {"copies": C22_BLOCKS * k, "bytes": C22_BLOCKS * k * block * 8 // p}
+                             for d, k in per_dev.items()}
+            print(f"[22] {label}: host-to-device copies of the stream {h2d}, one a shard a block "
+                  f"of {block * 8 // p} B: {placed}; every shard a buffer of its own: {own}",
+                  flush=True)
+            require(placed and own, f"capture onto {label}: shards not placed one copy each "
+                    f"({h2d}, own buffers {own})")
+            # the steps on resident blocks: K20 on the shards against K1 on [tail | block]
+            xb = torch.cat([s.to(dev) for s in shards], dim=-1)
+            cat = torch.cat([ref_tail, xb], dim=-1)
+            t = in_turns(torch, {
+                "K20": lambda: khf.mix_fir_halo_sharded(ks, 0, word1, ref_tail.to(devs[0]),
+                                                        shards, mesh),
+                "K1": lambda: k1.fn(0, word1, cat)}, 2 * REPS, cards_used)
+            print(f"[22] {label}: step on a resident block of {block} samples, median of "
+                  f"{2 * REPS} in turns: K20 over {p} shards {np.median(t['K20']):.4f} ms, K1 on "
+                  f"[tail | block] {np.median(t['K1']):.4f} ms ({card})", flush=True)
+            del ks, ys, shards, xb, cat
+        # one shard's leg of a block: decode on the host, then its host-to-device copy
+        per = block // C22_SHARDS
+        t0 = time.perf_counter()
+        xs = next(capture.read_capture_blocks(str(path), per))
+        arr = np.stack([xs.real, xs.imag]).astype(np.float32)
+        s_dec = time.perf_counter() - t0
+        h2d_ms = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(arr).to(dev)
+            torch.cuda.synchronize()
+            h2d_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[22] a shard of {per} samples: decode {s_dec * 1e3:.1f} ms (host), host-to-"
+              f"device copy of {arr.nbytes} B median {np.median(h2d_ms):.2f} ms, "
+              f"{arr.nbytes / np.median(h2d_ms) / 1e6:.2f} GB/s (pageable; {card})", flush=True)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(launches.get("halo_fused", 0) > 0 and launches.get("mixfir", 0) > 0,
+            f"phase 22 launched no K20 or K1 ({launches})")
     return launches
 
 
@@ -5179,6 +5340,14 @@ def main() -> int:
             f"phase 21: the workers launched no K1, K11, K19 or K20 ({workers})")
     print(f"[21] the workers' launches {workers} (added to their rows); phase 21 took "
           f"{time.perf_counter() - t21:.1f} s", flush=True)
+
+    # --- 22. a capture streamed straight onto a time-sharded mesh through K20 ----------------
+    t22 = time.perf_counter()
+    streamed = phase22(torch, dev, taps1_np, word1)
+    for row in rows:
+        row["launches"] += streamed.get(row["name"], 0)
+    print(f"[22] the phase's launches {streamed} (added to their rows); phase 22 took "
+          f"{time.perf_counter() - t22:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

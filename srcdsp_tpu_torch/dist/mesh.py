@@ -217,23 +217,32 @@ def make_mesh(time: int = 1, channel: int = 1, devices=None) -> Mesh:
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """How a tensor is cut over a mesh axis: tensor dim `dim` in equal
-    blocks along mesh axis `axis`, block i held by rank ``owners[i]``;
-    `indices` are the global blocks this rank holds, in order (all of them
-    in one process)."""
+    blocks along mesh axis `axis`, block i held by rank ``owners[i]`` on
+    ``devices[i]``; `indices` are the global blocks this rank holds, in
+    order (all of them in one process). It places a tensor with no mesh at
+    hand, as the reference's ``NamedSharding`` does (``io.capture.
+    device_blocks``)."""
 
     axis: str
     dim: int
     owners: tuple[int, ...]
     indices: tuple[int, ...]
+    devices: tuple[torch.device, ...]
 
     @property
     def num_shards(self) -> int:
         return len(self.owners)
 
+    @property
+    def local_devices(self) -> tuple[torch.device, ...]:
+        """The devices of this rank's blocks, in `indices` order."""
+        return tuple(self.devices[i] for i in self.indices)
+
 
 def sharding(mesh: Mesh, axis: str, dim: int) -> Sharding:
     """Tensor dim `dim` (>= 0) cut over mesh axis `axis`."""
-    return Sharding(axis, dim, mesh.axis_ranks(axis), mesh.local_indices(axis))
+    return Sharding(axis, dim, mesh.axis_ranks(axis), mesh.local_indices(axis),
+                    mesh.axis_devices(axis))
 
 
 def time_sharding(mesh: Mesh, ndim: int = 1) -> Sharding:

@@ -29,6 +29,12 @@ before it starts the workers. Cases (`--cases`, default pipeline,k1):
 - ``k20``: K20 (``kernels.halo_fused.mix_fir_halo_sharded``) at K1's shapes,
   its history and carried tail moving the same way; timed in turns with
   ``dist.fused.mix_fir_time_sharded`` (message halo plus concatenation);
+- ``capture``: a ci16 capture file (seeded noise, written by rank 0) that
+  every rank streams straight onto its shards (``io.capture.device_blocks``
+  with ``time_sharding(mesh, 2)``: each rank decodes and copies only its own
+  shards) through K20 over IPC (``mix_fir_halo_sharded``), the tail and the
+  phase word carried from block to block (`stream_k20`); the outputs of all
+  blocks gathered once;
 - ``config5``: ``configs.build_config5``'s mesh form (64 channels);
 - ``orbax``: each rank saves its shard states with
   ``checkpoint.save_orbax`` and restores a checkpoint one process wrote for
@@ -37,10 +43,12 @@ before it starts the workers. Cases (`--cases`, default pipeline,k1):
 Rank 0 holds each gathered result against the port's one-process form on
 its own device: the same mesh of P shards in one process (``torch.equal``),
 one kernel call over the unsharded stream (K1, K11, K20: ``torch.equal``,
-tails exact; K19: the slices of the unsharded stream), and the single-device form (indices equal; soft within 2e-5 for
+tails exact; K19: the slices of the unsharded stream; the capture: the
+one-process stream of the same file), and the single-device form (indices equal; soft within 2e-5 for
 config 5, its gate, and 1e-3 for the pipeline, the reference's). `--size small` runs the reference's shapes (out_tile 128,
-b_rows 2), `--size full` the card's: config 1's 2^26 samples, config 3's 16
-channels, config 5's 64 channels x 2^16 frames. Each worker reports its
+b_rows 2), `--size full` the card's: config 1's 2^26 samples (the capture:
+3 blocks of 2^26), config 3's 16 channels, config 5's 64 channels x 2^16
+frames. Each worker reports its
 step time (CUDA events on the card, the host clock on the CPU), the staged
 bytes and its kernel launches in the distributed step (``kernels._build.
 LAUNCHES``) on a ``SRCDSP_REPORT`` line; K19 and K20 report the step
@@ -61,7 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-CASES = ("pipeline", "k1", "k11", "k19", "k20", "config5", "orbax")
+CASES = ("pipeline", "k1", "k11", "k19", "k20", "capture", "config5", "orbax")
 SIZES = {
     # the reference's shapes (bench/multihost_check.py, tests/dist); K19's
     # (rows, columns a shard, halo) near tests/dist/test_halo_dma.py's, the
@@ -69,7 +77,7 @@ SIZES = {
     # which the CPU tests hold these to, stalls at 32 rows and halo 256 up)
     "small": dict(frames_per_shard=32, k1=(32, 0.2, 2, 0.31, 128, 2, 1),
                   k11=(64, 0.1, 2048, 2, 2, 1), c5_frames_per_shard=32,
-                  k19=((2, 512, 128), (8, 2048, 1024))),
+                  k19=((2, 512, 128), (8, 2048, 1024)), capture=(3, 1)),
     # the card's: K1 (and K20) at config 1 (2^26 samples), K11 over config 3's
     # 16 channels (8 blocks a shard), config 5 at 64 channels x 2^16 frames,
     # K19's (rows, columns in all, halo): config 1's planes (halo: K1's hist)
@@ -77,7 +85,7 @@ SIZES = {
     # taps), as phase 14 runs them
     "full": dict(frames_per_shard=1 << 14, k1=(64, 0.2, 2, 0.11, 512, 32, 1 << 26),
                  k11=(1024, 0.1, 4096, 16, 16, 8), c5_frames=1 << 16,
-                 k19=((2, 1 << 26, 128), (32, 8_355_840, 1024))),
+                 k19=((2, 1 << 26, 128), (32, 8_355_840, 1024)), capture=(3, 1 << 26)),
 }
 TURNS = 10                # timed turns of a kernel and its message-path yardstick
 SOFT_GATE = 2e-5          # config 5's soft gate against the single-device build
@@ -451,6 +459,92 @@ def case_k20(a, mesh, dev, work: Path) -> dict:
     return res
 
 
+def write_noise_capture(path: Path, samples: int, seed: int, chunk: int = 1 << 24) -> None:
+    """A ci16 capture of `samples` seeded int16 noise (+-8192, no sidecar: a
+    full-scale ci16 file), written `chunk` samples at a time."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for s0 in range(0, samples, chunk):
+            n = min(chunk, samples - s0)
+            rng.integers(-8192, 8192, 2 * n, dtype=np.int16).tofile(f)
+
+
+def stream_k20(ks, word: int, path, block: int, mesh, start_block: int = 0):
+    """K20 over a capture streamed straight onto the mesh's time shards
+    (``io.capture.device_blocks`` with ``time_sharding(mesh, 2)``), block
+    after block from rest, the tail and the phase carried: block b starts at
+    word ``b*block*word`` mod 2^32 (`dist.fused.shard_word` with no history,
+    exact integers). Returns (tail, [this rank's outputs of each block])."""
+    from srcdsp_tpu_torch.dist.fused import shard_word
+    from srcdsp_tpu_torch.dist.mesh import time_sharding
+    from srcdsp_tpu_torch.io.capture import device_blocks
+    from srcdsp_tpu_torch.kernels.halo_fused import mix_fir_halo_sharded
+
+    spec = time_sharding(mesh, 2)
+    hist = (ks[0] if isinstance(ks, (tuple, list)) else ks).hist
+    tail = torch.zeros((2, hist), device=spec.local_devices[0])
+    ys = []
+    for b, shards in enumerate(device_blocks(str(path), block, start_block, planes=True,
+                                             sharding=spec), start_block):
+        tail, y = mix_fir_halo_sharded(ks, shard_word(0, word, b, block, 0), word, tail, shards,
+                                       mesh)
+        ys.append(y)
+    return tail, ys
+
+
+def case_capture(a, mesh, dev, work: Path) -> dict:
+    """A capture file streamed onto this rank's shards through K20."""
+    from srcdsp_tpu_torch.dist.mesh import TIME_AXIS, per_device, process_allgather, sharding
+    from srcdsp_tpu_torch.io import capture
+    from srcdsp_tpu_torch.kernels.halo_fused import make_halo_fused_kernel
+    from srcdsp_tpu_torch.ops.nco import freq_to_word
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    ntaps, cutoff, decim, freq, ot, br, _ = SIZES[a.size]["k1"]
+    blocks, block = SIZES[a.size]["capture"]
+    p = mesh.shape[TIME_AXIS]
+    taps = lowpass(ntaps, cutoff)
+    ks = per_device(lambda d: make_halo_fused_kernel(taps, decim, out_tile=ot, b_rows=br,
+                                                     device=d), mesh.local_devices())
+    block = block if block > 1 else p * ks[0].block_in()
+    word = int(freq_to_word(freq))
+    path = work / "capture.ci16"
+    if mesh.rank == 0:
+        write_noise_capture(path, blocks * block, seed=23)
+    torch.distributed.barrier()
+
+    def bare():
+        capture.reset_h2d()
+        return stream_k20(ks, word, path, block, mesh)
+
+    def step():
+        tail, ys = bare()
+        # one gather for the run: each shard's blocks stacked [blocks, 2, L]
+        got = process_allgather([torch.stack(bs) for bs in zip(*ys)],
+                                sharding(mesh, TIME_AXIS, 0), tiled=False)
+        return tail, got.permute(1, 2, 0, 3).reshape(len(ys), 2, -1)
+
+    res, (tail, y) = _step(step, dev, bare=bare)
+    hist = ks[0].hist
+    last = next(capture.read_capture_blocks(str(path), hist, blocks * block // hist - 1))
+    want_tail = torch.as_tensor(np.stack([last.real, last.imag]), device=tail.device)
+    k = len(mesh.local_devices())
+    h2d = {d: dict(c) for d, c in capture.H2D.items()}
+    res.update(samples=blocks * block, blocks=blocks, block=block, h2d=h2d,
+               ok=bool(torch.equal(tail, want_tail))
+               and sum(c["copies"] for c in h2d.values()) == blocks * k
+               and sum(c["bytes"] for c in h2d.values()) == blocks * k * 8 * block // p)
+    if mesh.rank == 0:
+        t1, ys1 = stream_k20(ks[0], word, path, block, one_process_mesh(p, dev))
+        y1 = torch.stack([torch.cat(yb, dim=-1) for yb in ys1])
+        res["equal_one_process"] = bool(torch.equal(y, y1) and torch.equal(tail, t1))
+        res["ok"] = res["ok"] and res["equal_one_process"]
+        if a.size == "small":
+            np.savez(work / "capture.npz", y=y.cpu().numpy(), tail=tail.cpu().numpy(),
+                     word=word, taps=ntaps, cutoff=cutoff, block=block)
+    return res
+
+
 def case_config5(a, mesh, dev, work: Path) -> dict:
     """build_config5's mesh form across ranks against its one-process forms."""
     from srcdsp_tpu_torch.configs import build_config5
@@ -523,7 +617,7 @@ def start(nproc: int = 2, device: str = "cpu", backend: str = "gloo", shards: in
     first when the run is on the card. `collect` waits for them."""
     from srcdsp_tpu_torch.dist import launch
 
-    if device == "cuda" and any(c in cases for c in ("k1", "k11", "k19", "k20")):
+    if device == "cuda" and any(c in cases for c in ("k1", "k11", "k19", "k20", "capture")):
         from srcdsp_tpu_torch.kernels import _build
 
         rank_device(device, 0)

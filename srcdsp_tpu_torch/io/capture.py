@@ -8,8 +8,8 @@ uint8 ('cu8', the rtl-sdr wire format: (b-127.5)/127.5), or signed int8
 frequency, and scale; files without a sidecar default to ci16 full-scale.
 
 Host side is numpy memmap (zero-copy view of the capture); `device_blocks`
-hands fixed-size blocks to a torch device — the streaming source for the
-block loops of the chains.
+hands fixed-size blocks to a torch device, or time-sharded over a mesh — the
+streaming source for the block loops of the chains.
 """
 
 from __future__ import annotations
@@ -29,6 +29,10 @@ FORMATS = ("ci16", "cf32", "cu8", "ci8")
 # wire dtype and bytes per complex sample
 _WIRE = {"ci16": (np.dtype("<i2"), 4), "cf32": (np.dtype("<f4"), 8),
          "cu8": (np.dtype("u1"), 2), "ci8": (np.dtype("i1"), 2)}
+
+# host-to-device copies made by `device_blocks`, per target device (a
+# placement on the CPU counts too): {device: {"copies", "bytes"}}
+H2D: dict[str, dict[str, int]] = {}
 
 
 def _decode(raw: np.ndarray, meta: "CaptureMeta") -> np.ndarray:
@@ -134,14 +138,79 @@ def read_capture_blocks(path: str, block: int, start_block: int = 0):
         yield _decode(raw[b * per_block:(b + 1) * per_block], meta)
 
 
-def device_blocks(path: str, block: int, start_block: int = 0,
-                  device=None, planes: bool = False):
+def _placed(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """arr on `device`: one host-to-device copy, counted in `H2D`."""
+    t = torch.from_numpy(arr).to(device)
+    c = H2D.setdefault(str(device), {"copies": 0, "bytes": 0})
+    c["copies"] += 1
+    c["bytes"] += arr.nbytes
+    return t
+
+
+def reset_h2d() -> None:
+    """Zero the `H2D` counts."""
+    H2D.clear()
+
+
+def _block_array(xb: np.ndarray, planes: bool) -> np.ndarray:
+    return np.stack([xb.real, xb.imag]).astype(np.float32) if planes else xb
+
+
+def _shard_plan(sharding, block: int, planes: bool) -> tuple[int, tuple]:
+    """(samples a shard, this process's resolved devices) of a time sharding
+    of the capture's blocks; raises for what it cannot place."""
+    from srcdsp_tpu_torch.dist.mesh import TIME_AXIS
+
+    ndim, what = (2, "[2, block] planes") if planes else (1, "[block] samples")
+    if sharding.axis != TIME_AXIS or sharding.dim != ndim - 1:
+        raise ValueError(f"a capture is one channel: its {what} shard only along time (dim "
+                         f"{ndim - 1} over {TIME_AXIS!r}), got dim {sharding.dim} over "
+                         f"{sharding.axis!r}")
+    n = sharding.num_shards
+    if block % n != 0:
+        raise ValueError(f"block {block} does not split over {n} shards")
+    return block // n, tuple(resolve(d) for d in sharding.local_devices)
+
+
+def device_blocks(path: str, block: int, start_block: int = 0, device=None,
+                  planes: bool = False, sharding=None):
     """Generator of fixed-size blocks as torch tensors on `device`.
 
     planes=True yields [2, block] float32 (real, imag) planes — the layout
     the kernels consume — instead of [block] complex64.
+
+    With `sharding` (``dist.mesh.time_sharding(mesh, 2)`` for planes, ``1``
+    for complex samples) each block lands time-sharded, as the reference's
+    ``device_put`` with a ``NamedSharding`` lands it: the block is the tuple
+    of this process's shards in mesh order (every shard in one process, the
+    shards of ``sharding.indices`` on a mesh across processes), each decoded
+    from its own slice of the memmap and copied from the host straight to
+    its device. No block is assembled on one device, and no shard moves
+    between devices. The shards equal ``dist.mesh.shard`` of the whole
+    block. Each host-to-device copy is counted in `H2D`. Raises (at the
+    call) for `device` and `sharding` together, for a sharding that does not
+    cut the blocks' time dim, for a block that does not split evenly, and
+    for a mesh on a card this machine lacks.
     """
-    device = resolve(device)
-    for xb in read_capture_blocks(path, block, start_block=start_block):
-        arr = np.stack([xb.real, xb.imag]).astype(np.float32) if planes else xb
-        yield torch.as_tensor(arr, device=device)
+    if sharding is None:
+        device = resolve(device)
+        return (_placed(_block_array(xb, planes), device)
+                for xb in read_capture_blocks(path, block, start_block=start_block))
+    if device is not None:
+        raise ValueError("pass device or sharding, not both: a sharding names its devices")
+    per, devs = _shard_plan(sharding, block, planes)
+    return _sharded_blocks(path, block, start_block, planes, per,
+                           tuple(zip(sharding.indices, devs)))
+
+
+def _sharded_blocks(path: str, block: int, start_block: int, planes: bool, per: int,
+                    targets: tuple):
+    meta = read_meta(path)
+    raw = np.memmap(path, _WIRE[meta.fmt][0], mode="r")
+    for b in range(start_block, raw.shape[0] // (2 * block)):
+        shards = []
+        for q, d in targets:
+            s0 = b * block + q * per
+            xb = _decode(raw[2 * s0:2 * (s0 + per)], meta)
+            shards.append(_placed(_block_array(xb, planes), d))
+        yield tuple(shards)

@@ -52,11 +52,29 @@ def _as_taps(taps, device) -> torch.Tensor:
     return t
 
 
-def complex_conv(xin: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
-    """Valid-mode strided convolution of complex data with (real|complex) taps.
+def _dilate_pad(x: torch.Tensor, lhs_dilation: int, padding) -> torch.Tensor:
+    """x [..., N] upsampled by `lhs_dilation` (zeros between samples), then
+    padded by ``padding = ((lo, hi),)`` in the dilated domain; a negative
+    side crops, as XLA's padding does."""
+    if lhs_dilation < 1:
+        raise ValueError(f"lhs_dilation must be >= 1, got {lhs_dilation}")
+    (lo, hi), = padding
+    n = x.shape[-1]
+    if lhs_dilation > 1 and n > 0:
+        u = x.new_zeros((*x.shape[:-1], (n - 1) * lhs_dilation + 1))
+        u[..., ::lhs_dilation] = x
+        x = u
+    return F.pad(x, (int(lo), int(hi))) if (lo, hi) != (0, 0) else x
 
-    y[n] = sum_k h[k] xin[n*stride + T-1 - k]. conv1d is a correlation, so
-    the taps go in reversed.
+
+def complex_conv(xin: torch.Tensor, taps, stride: int = 1, lhs_dilation: int = 1,
+                 padding=((0, 0),)) -> torch.Tensor:
+    """Strided/dilated true convolution of complex data with (real|complex) taps.
+
+    y[n] = sum_k h[k] u[n*stride + T-1 - k] where u is xin upsampled by
+    `lhs_dilation` (zeros between samples) and padded per `padding` (applied
+    in the dilated domain; the defaults give valid mode). conv1d is a
+    correlation, so the taps go in reversed.
     """
     pin_f32(xin)
     taps = _as_taps(taps, xin.device)
@@ -66,6 +84,7 @@ def complex_conv(xin: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     xr = xin.real.to(F32).reshape(-1, 1, nin)
     # a real input is complex with zero imaginary part, as jnp.imag makes it
     xi = xin.imag.to(F32).reshape(-1, 1, nin) if xin.is_complex() else torch.zeros_like(xr)
+    xr, xi = _dilate_pad(xr, lhs_dilation, padding), _dilate_pad(xi, lhs_dilation, padding)
     hrev = taps.flip(0)
     if taps.is_complex():
         # channel-mixing conv: (yr, yi) = [[hr, -hi], [hi, hr]] * (xr, xi)

@@ -1,0 +1,3 @@
+"""Test signals and channels (counterpart of ``srcdsp_tpu/testing``)."""
+
+from srcdsp_tpu_torch.testing import signals  # noqa: F401

@@ -10,10 +10,13 @@ import numpy as np
 import torch
 
 
-def tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np.ndarray:
-    """Complex exponential at `freq` cycles/sample: a*exp(j*2pi*(f*n + p0))."""
+def tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0,
+         channel_shape: tuple = ()) -> np.ndarray:
+    """Complex exponential at `freq` cycles/sample: a*exp(j*2pi*(f*n + p0)),
+    the same in every channel of [*channel_shape, n]."""
     k = np.arange(n, dtype=np.float64)
-    return (amplitude * np.exp(2j * np.pi * ((freq * k + phase0) % 1.0))).astype(np.complex64)
+    x = (amplitude * np.exp(2j * np.pi * ((freq * k + phase0) % 1.0))).astype(np.complex64)
+    return np.broadcast_to(x, (*channel_shape, n)).copy() if channel_shape else x
 
 
 def np_tone(n: int, freq: float, phase0: float = 0.0, amplitude: float = 1.0) -> np.ndarray:

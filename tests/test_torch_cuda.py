@@ -1876,6 +1876,62 @@ def test_halo_kernels_one_card_a_rank_over_nccl_and_ipc(dev, tmp_path):
                              timeout=300))
 
 
+@pytest.mark.parametrize("cards", [1, 2])
+def test_capture_streamed_onto_a_card_mesh_equals_the_k1_stream(dev, tmp_path, cards):
+    """A ci16 capture onto 4 shards of one card (or one shard a card on two):
+    one host copy a shard a block into a buffer of its own, K20 over the
+    shards block after block == K1 on [tail | block] by torch.equal."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+    from srcdsp_tpu_torch.io import capture
+    from srcdsp_tpu_torch.kernels import halo_fused as khf
+
+    card = torch.device("cuda", 0)
+    mesh = (dmesh.make_mesh(time=4, devices=[card] * 4) if cards == 1
+            else dmesh.make_mesh(time=2))
+    devs = mesh.axis_devices()
+    taps, word = lowpass(64, 0.2), int(freq_to_word(0.11))
+    ks = dmesh.per_device(lambda d: khf.make_halo_fused_kernel(taps, 2, out_tile=128, b_rows=2,
+                                                               device=d), devs)
+    k1 = kmf.make_mix_fir_kernel(taps, 2, out_tile=128, b_rows=2, device=card)
+    block, blocks, hist = 4 * 4 * ks[0].block_in(), 3, k1.hist
+    path = tmp_path / "x.ci16"
+    mhc.write_noise_capture(path, blocks * block, seed=7)
+    capture.reset_h2d()
+    for shards in capture.device_blocks(str(path), block, planes=True,
+                                        sharding=dmesh.time_sharding(mesh, 2)):
+        assert tuple(s.device for s in shards) == devs
+        assert all(s.untyped_storage().nbytes() == s.numel() * 4 for s in shards)
+    for d in set(devs):
+        k = devs.count(d)
+        assert capture.H2D[str(d)] == {"copies": blocks * k,
+                                       "bytes": blocks * k * block * 8 // len(devs)}
+    tail, ys = mhc.stream_k20(ks, word, path, block, mesh)
+    ktail = torch.zeros((2, hist), device=card)
+    for b, xb in enumerate(capture.device_blocks(str(path), block, planes=True, device=card)):
+        yr, yi = k1.fn((b * block * word - hist * word) & 0xFFFFFFFF, word,
+                       torch.cat([ktail, xb], dim=-1))
+        got = torch.cat([y.to(card) for y in ys[b]], dim=-1)
+        assert torch.equal(got, torch.stack([yr.reshape(-1), yi.reshape(-1)]))
+        ktail = xb[:, -hist:]
+    assert torch.equal(tail.to(card), ktail)
+
+
+def test_capture_streamed_across_two_ranks_on_one_card(dev, tmp_path):
+    """The multihost capture case on the card: each rank streams its own
+    shards of one file through K20 over IPC, == the one-process stream."""
+    from srcdsp_tpu_torch.dist import multihost_check as mhc
+
+    res = mhc.run(2, "cuda", "gloo", shards=2, cases=("capture",), work=tmp_path, timeout=300)
+    assert res["ok"], res["error"]
+    caps = [rep["cases"]["capture"] for rep in res["reports"]]
+    assert all(c["ok"] for c in caps) and caps[0]["equal_one_process"]
+    assert sum(c["launches"].get("halo_fused", 0) for c in caps) == 2 * 2 * caps[0]["blocks"]
+    assert caps[0]["launches"].get("halo_dma", 0) > 0
+
+
 def test_ipc_open_of_a_handle_this_process_exported_raises(dev):
     """A handle opens only in another process: opening this process's own
     export raises, naming the CUDA error; the export itself frees cleanly."""

@@ -2,7 +2,8 @@
 across processes, ``checkpoint.save_orbax`` / ``restore_orbax``).
 
 The workers start once for the module, all at once: 2 ranks x 4 CPU shards
-(the pipeline, K1, K11, config 5 and the orbax case), 3 ranks x 4 shards
+(the pipeline, K1, K11, K19, K20, the capture stream, config 5 and the orbax
+case), 3 ranks x 4 shards
 (the pipeline: 12 shards, the non-power-of-two case) and the fault
 injection's 2 ranks. Each is a fresh interpreter joined over gloo at a
 ``file://`` rendezvous under the test's tmp path, on one torch thread, at the
@@ -24,6 +25,10 @@ the reference:
 - K20 (plain) across 2 ranks with the mesh: rel L2 < 1e-5 against JAX K1 on
   the unsharded stream, ``torch.equal`` to the port's one-process
   ``mix_fir_halo_sharded`` on 8 shards, the carried tail exact;
+- a ci16 capture streamed onto the 2 ranks' shards (``io.capture.
+  device_blocks`` with a time sharding, each rank decoding only its shards)
+  through K20, 3 blocks: ``torch.equal`` to the one-process stream, to one
+  port K1 call over the whole capture, rel L2 < 1e-5 against JAX K1;
 - the fault injection, 2 ranks -> 1 process: the stitched stream equal to
   the port's uninterrupted run, within rel L2 < 1e-5 of JAX
   ``channelize_full(fir_full(...))``;
@@ -66,6 +71,7 @@ from srcdsp_tpu_torch.dist import mesh as tdm
 from srcdsp_tpu_torch.dist import multihost_check as mhc
 from srcdsp_tpu_torch.dist.channelize import channelize_time_sharded
 from srcdsp_tpu_torch.dist.halo import fir_time_sharded
+from srcdsp_tpu_torch.io import capture as tcapture
 from srcdsp_tpu_torch.kernels import halo_dma as k19
 from srcdsp_tpu_torch.kernels import halo_fused as k20
 from srcdsp_tpu_torch.kernels import mixfir as tmf
@@ -92,8 +98,8 @@ def runs(tmp_path_factory):
     checkpoint.save_orbax(str(work2 / "orbax_one"),
                           tuple(mhc.shard_state(g, CPU) for g in range(8)), 9,
                           sharding=tdm.time_sharding(mesh8))
-    r2 = mhc.start(2, cases=("pipeline", "k1", "k11", "k19", "k20", "config5", "orbax"),
-                   work=work2, timeout=TIMEOUT)
+    r2 = mhc.start(2, cases=("pipeline", "k1", "k11", "k19", "k20", "capture", "config5",
+                             "orbax"), work=work2, timeout=TIMEOUT)
     r3 = mhc.start(3, cases=("pipeline",), work=work3, timeout=TIMEOUT)
     rf = fim.start("cpu", workf, TIMEOUT)
     return {2: mhc.collect(r2), 3: mhc.collect(r3), "fault": fim.resume(rf, "cpu")}
@@ -187,6 +193,26 @@ def test_k20_across_two_ranks_matches_jax_one_process_and_one_call(runs):
                                         tdm.shard(torch.as_tensor(d["x"]), mesh8), mesh8)
     assert torch.equal(torch.as_tensor(d["y"]), torch.cat(ys, dim=-1))
     assert torch.equal(torch.as_tensor(d["tail"]), tail)
+
+
+def test_capture_streamed_across_two_ranks_matches_jax_and_one_process(runs):
+    """A ci16 capture streamed by 2 ranks x 4 shards through K20 (3 blocks, the
+    tail and word carried): equal to the one-process stream on rank 0, each
+    rank one host copy a shard a block, the outputs equal to the port's K1
+    over the whole capture from rest and within rel L2 1e-5 of JAX K1."""
+    c = _rank0(runs[2], "capture")
+    assert c["ok"] and c["equal_one_process"]
+    for rep in runs[2]["reports"]:
+        cap = rep["cases"]["capture"]
+        assert cap["ok"] and cap["h2d"]["cpu"]["copies"] == cap["blocks"] * 4
+    d = np.load(runs[2]["work"] / "capture.npz")
+    blocks = c["blocks"]
+    x, _ = tcapture.read_capture(str(runs[2]["work"] / "capture.ci16"))
+    xp = np.stack([x.real, x.imag]).astype(np.float32)
+    assert xp.shape[1] == blocks * int(d["block"])
+    y = np.concatenate(list(d["y"]), axis=-1)             # [blocks, 2, L] -> [2, blocks*L]
+    _k1_matches_jax_and_one_call(dict(x=xp, y=y, tail=d["tail"], word=d["word"],
+                                      taps=d["taps"], cutoff=d["cutoff"]))
 
 
 def test_k11_across_two_ranks_equals_one_call(runs):
