@@ -243,6 +243,22 @@ Phases, in order; any failure raises and the run exits non-zero:
    into a buffer of its own; the Ms/s of each pass file to result (host
    clock), K20 and K1 on a resident block in turns, and one shard's host
    decode and host-to-device copy.
+23. K10 and K11 past the powers of two up to 8192 (kernels.fft_pallas.fft_plan:
+   csrc/fft_mixed.cu, one block a frame, below 16384; csrc/fft_4step.cu, the
+   four-step, from 16384 to 2^20): the six new kernels' registers, local
+   bytes and blocks per SM, no spill; K10 over 2^25 samples at 3072 (n2 384),
+   5120, 11264 (a direct-DFT pass over 11), 12288, 16384, 65536 (n2 128) and
+   2^20 (n2 1024) against its plain version, timed with cuFFT in turns (one
+   call, 5 back to back); K11 on one chunk of config 3 with 4096 taps (fft
+   16384) and with 3000 taps at fft 12288 against its plain version and
+   cuDNN conv1d; then, counts at 0, K10's three orders at every size
+   (natural == kernel-natural == digit unscrambled by torch.equal; > 110 dB
+   against complex128, > 100 dB with a direct-DFT pass; conj round trip >
+   110 dB) and config 3 at 4096 taps, 16 x 8,355,840 (one launch == 5
+   FftConvStream chunks == fftconv_time_sharded over 5 shards == per-channel
+   taps by torch.equal; > 100 dB against the plain K11, > 90 dB against the
+   C++ oracle on channels 0 and 15), and K11 at fft 12288 over 16 x
+   8,331,264 (> 100 dB, > 90 dB).
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -278,13 +294,19 @@ count their K1 and K11 launches in their distributed steps (each worker
 starts at 0, its warm-up call and rank 0's one-call comparisons left out),
 and those are added to K1's and K11's rows (and K19's and K20's); phase 22
 resets the counts before its passes and adds its K1 and K20 launches to
-their rows. The last three lines are one JSON
+their rows; phase 23 times its bodies first, one row a body and size
+(fft_mixed_3072 ... fft_4step_1048576, fftconv_4step_16384,
+fftconv_mixed_12288), then resets the counts before its path and gives
+each row the launches of its body at its size there (fft, fft_digit,
+fft_nat, fftconv and fftconv_per_channel count launches of the register
+body alone, which the phase's path never runs). The last three lines are one JSON
 object per kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -422,6 +444,17 @@ C21_SHARDS, C21_TIMEOUT = 2, 420.0
 # phase 22, a capture streamed straight onto a time-sharded mesh: 4 blocks of config
 # 1's 2^26 samples (1 GiB of ci16), 4 shards of one card, then a shard a card on two
 C22_BLOCKS, C22_SHARDS = 4, 4
+# phase 23, K10 and K11 past the powers of two up to 8192: K10 over 2^25 samples a size
+# (frames rounded down to whole groups of 16) at the JAX kernels' sizes (n2 384 at 3072,
+# 1024 at 2^20, else 128; 11264 = 1024 x 11 runs a direct-DFT pass), the SNR against
+# complex128 on the first C23_SNR_SAMPLES; config 3 with 4096 taps (fft 16384, hop 12,288:
+# 16 x 8,355,840 = 85 blocks of 8 frames, 5 chunks of 17) and K11's one-block body at fft
+# 12288 with 3000 taps (hop 9216, 113 blocks of 8 frames)
+C23_SAMPLES, C23_BFRAMES, C23_SNR_SAMPLES = 1 << 25, 16, 1 << 22
+C23_SIZES = ((3072, 384), (5120, 128), (11264, 128), (12288, 128), (16384, 128),
+             (65536, 128), (1 << 20, 1024))
+C23_TAPS, C23_FFT, C23_BFRAMES_K11, C23_BLOCKS = 4096, 16384, 8, 85
+C23_MIXED_TAPS, C23_MIXED_FFT, C23_MIXED_BLOCKS = 3000, 12288, 113
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -481,6 +514,46 @@ def roofline_ms(flops: float, nbytes: int) -> tuple[float, str]:
 
 def snr_db(torch, ref, got) -> float:
     return float(10 * torch.log10(ref.abs().pow(2).mean() / (got - ref).abs().pow(2).mean()))
+
+
+def complex_err(torch, k, p) -> tuple[float, float]:
+    """(max abs error, rel L2) of the complex planes k against p."""
+    got, ref = torch.complex(*k), torch.complex(*p)
+    err = float(torch.max(torch.abs(got - ref)))
+    return err, float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+
+
+def record_row(torch, rows, name, source, replaces, err, rel, within, agree, k_fn, p_fn,
+               flops, nbytes, lib_fn=None, per_call=1, counter=None) -> dict:
+    """Time kernel and plain version (and the library call where one
+    computes the same function) and append the kernel's row to `rows`
+    (returned too); flops counts the least operations of the function (for
+    the filters the multiply-adds of their sums: real taps on complex
+    samples, 4 flop per tap and output whatever form the kernel uses;
+    complex taps are the kernel's choice; phasors and atan2 left out),
+    nbytes the inputs and outputs once each (taps, at most 2 KB, left out);
+    per_call the launches in one k_fn call (one per shard for K20, one per
+    card for K19, one per batch and kernel for the four-step), counted under
+    `counter` (the row's name unless given)."""
+    from srcdsp_tpu_torch.kernels import _build
+
+    counter = counter or name
+    before = _build.LAUNCHES[counter]
+    ms, plain_ms = median_ms(torch, k_fn), median_ms(torch, p_fn)
+    require(_build.LAUNCHES[counter] == before + per_call * (REPS + 1), f"{name}: launch count")
+    lib_ms = median_ms(torch, lib_fn) if lib_fn is not None else None
+    bound_ms, bound_by = roofline_ms(flops, nbytes)
+    print(f"    {name}: max_abs_err {err:.3e} rel_l2 {rel:.3e} decisions_equal {agree} "
+          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+          flush=True)
+    require(within, f"{name}: max abs error {err} / rel L2 {rel} over tolerance")
+    require(agree, f"{name}: decisions differ from the plain version")
+    row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=lib_ms)
+    rows.append(row)
+    return row
 
 
 def ber_per_channel(tx: np.ndarray, rx: np.ndarray, settle: int = 16) -> np.ndarray:
@@ -674,6 +747,256 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
     require(rel_forms < 1e-5, f"IIR: assoc against scan rel L2 {rel_forms}")
     require(bool(((pw - 1.0).abs() < 0.05).all()), f"AGC: settled power {pw}")
     require(bool((peak == 240).all()), f"Welch: peak bins {peak}")
+
+
+def phase23(torch, dev) -> tuple[list, dict]:
+    """K10 and K11 at the sizes past the powers of two (``kernels.fft_pallas.
+    fft_plan``: one block a frame below 16384, the four-step from there).
+    First each body against its plain version and the library call, timed
+    (kernel and plain: median of 5; K10 and cuFFT in turns, one call a turn
+    and 5 back to back); then, with the counts at 0, the path a user drives:
+    K10 in its three orders at every size (natural == kernel-natural ==
+    digit unscrambled by torch.equal; SNR against torch.fft in complex128
+    above 110 dB where the odd factor is built of 3, 5 and 7, above 100 dB
+    where a prime above 7 runs the direct-DFT pass, whose sums of p float32
+    products round more; the conj round trip above 110 dB), and config 3
+    with 4096 taps through K11 (one launch == 5 FftConvStream chunks ==
+    fftconv_time_sharded over 5 shards by torch.equal, per-channel taps
+    equal to shared ones, > 100 dB against the plain K11, > 90 dB against
+    the C++ oracle's direct FIR) and K11's one-block body at fft 12288.
+    Returns the new bodies' rows, one a body and size, each with the
+    launches of that size on the path, and the path's launches."""
+    from srcdsp_tpu_torch import oracle
+    from srcdsp_tpu_torch.configs import C3_CUTOFF, seeded_planes
+    from srcdsp_tpu_torch.dist import fused as dfused
+    from srcdsp_tpu_torch.dist import mesh as dmesh
+    from srcdsp_tpu_torch.kernels import _build
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+    from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
+    from srcdsp_tpu_torch.ops.window import lowpass
+
+    card = card_line()
+    rows = []
+    orders = (("fft", True), ("fft_digit", False), ("fft_nat", "kernel"))
+    bodies = {k: v for k, v in _build.ptxas_report().items()
+              if any(f"{b}_kernel" in k for b in ("fft_mixed", "fftconv_mixed", "fft4_step1",
+                                                   "fft4_step2", "fftconv4_mid", "fftconv4_out"))}
+    spilled = [k for k, (_, st, ld) in bodies.items() if st or ld]
+    for n, n2 in ((12288, 128), (11264, 128), (C23_FFT, 128), (1 << 20, 1024)):
+        plan = kfft.fft_plan(n, n2)
+        names = (("fft_mixed", "fftconv_mixed"),) if plan.body == "mixed" else (
+            ("fft4_step1", "fftconv4_out"), ("fft4_step2", "fftconv4_mid"))
+        for g, pair in zip(plan.lines, names):
+            for name in pair:
+                regs, local, blocks = kfft.lines_info(name, g)
+                print(f"[23] {name} at {n} ({g.length}-point lines x {g.lanes}, "
+                      f"{g.smem_bytes()} B of shared memory): {regs} registers, {local} bytes "
+                      f"of local memory, {blocks} blocks per SM")
+                require(local == 0 and blocks >= 1, f"{name} at {n}: {local} B local, {blocks}")
+    print(f"[23] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} fft_mixed / fft_4step "
+          f"kernels without spills", flush=True)
+    require(len(bodies) == 6 and not spilled, f"ptxas spills in {spilled}")
+
+    def frames(n: int) -> int:
+        return C23_SAMPLES // n // C23_BFRAMES * C23_BFRAMES
+
+    def inputs(n: int):
+        g = torch.Generator(device=dev).manual_seed(n)
+        return (torch.randn((frames(n), n), device=dev, generator=g),
+                torch.randn((frames(n), n), device=dev, generator=g))
+
+    # --- each body at each size against its plain version and the library, timed --
+    for n, n2 in C23_SIZES:
+        plan = kfft.fft_plan(n, n2)
+        body = "fft_" + ("mixed" if plan.body == "mixed" else "4step")
+        xr, xi = inputs(n)
+        xc = torch.complex(xr, xi)
+        k = kfft.make_fft_kernel(n, n2=n2, b_frames=C23_BFRAMES, device=dev)
+
+        def plain(k=k, xr=xr, xi=xi):
+            pr, pi = kfft.fft_rows_plain(xr.reshape(-1, k.n2), xi.reshape(-1, k.n2), k.consts,
+                                         k.n1, k.n2)
+            return kfft.unscramble(pr, k.n1, k.n2), kfft.unscramble(pi, k.n1, k.n2)
+
+        y = k.fn(xr, xi)
+        err, rel = complex_err(torch, y, plain())
+        per_call = 1 if plan.body == "mixed" else 2 * -(-frames(n) // kfft.scratch_frames(n, 2))
+        print(f"[23] K10 {n} (n2 {n2}, {plan.body}: "
+              f"{'; '.join(f'{g.length} x {g.lanes} lanes {g.radices}' for g in plan.lines)}), "
+              f"{frames(n)} frames, {per_call} launches a call:", flush=True)
+        row = record_row(torch, rows, f"{body}_{n}", "srcdsp_tpu_torch/csrc/" + (
+            "fft_mixed.cu" if plan.body == "mixed" else "fft_4step.cu"),
+            "srcdsp_tpu/kernels/fft_pallas.py:201", err, rel, rel < 1e-5, True,
+            lambda: k.fn(xr, xi), plain, 5 * n * np.log2(n) * frames(n),
+            tensor_bytes(xr, xi, y), lib_fn=lambda: torch.fft.fft(xc, dim=-1),
+            per_call=per_call, counter=body)
+        t1 = {a: float(np.median(v)) for a, v in in_turns(
+            torch, {"kernel": lambda: k.fn(xr, xi), "cuFFT": lambda: torch.fft.fft(xc, dim=-1)},
+            2 * REPS).items()}
+        t5 = {a: float(np.median(v)) for a, v in in_turns(
+            torch, {"kernel": lambda: k.fn(xr, xi), "cuFFT": lambda: torch.fft.fft(xc, dim=-1)},
+            2 * REPS, calls=REPS).items()}
+        print(f"[23] K10 {n} in turns: one call kernel {t1['kernel']:.4f} / cuFFT "
+              f"{t1['cuFFT']:.4f} ms, {REPS} back to back {t5['kernel']:.4f} / "
+              f"{t5['cuFFT']:.4f} ms ({t5['kernel'] / t5['cuFFT']:.3f} x cuFFT, "
+              f"{row['bound_ms'] / t5['kernel']:.3f} of the bound); {card}", flush=True)
+        del xr, xi, xc, y, k
+
+    taps = lowpass(C23_TAPS, C3_CUTOFF)
+    for fft, ntaps, blocks in ((C23_FFT, C23_TAPS, C23_BLOCKS),
+                               (C23_MIXED_FFT, C23_MIXED_TAPS, C23_MIXED_BLOCKS)):
+        mixed = fft < kfft.FOUR_STEP_MIN
+        body = "fftconv_" + ("mixed" if mixed else "4step")
+        t_k = taps if fft == C23_FFT else lowpass(ntaps, C3_CUTOFF)
+        kc = kfc.make_fftconv_kernel(t_k, fft, num_channels=C3_CHANNELS,
+                                     b_frames=C23_BFRAMES_K11, device=dev)
+        chunk = blocks // 5 * kc.block_in()
+        xk = seeded_planes(C3_CHANNELS, kc.overlap, chunk, seed=23, device=dev)
+        hresp = torch.as_tensor(kfc.freq_response_planes(t_k, fft), device=dev)
+        fftp = make_fft_planes(fft, device=dev)
+        w = torch.as_tensor(np.ascontiguousarray(t_k[::-1]), dtype=torch.float32,
+                            device=dev)[None, None]
+        yc = kfc.fftconv_pallas(kc, xk)
+        err, rel = complex_err(torch, yc, kfc.fftconv_plain(xk, hresp, fftp, fft, kc.hop))
+        nf = C3_CHANNELS * chunk // kc.hop
+        per_call = 1 if mixed else 3 * -(-nf // kfft.scratch_frames(fft, 4))
+        print(f"[23] K11 {fft}, {ntaps} taps (hop {kc.hop}), one chunk of {C3_CHANNELS} x "
+              f"{chunk}, {per_call} launches a call; library: cuDNN conv1d (TF32 off):",
+              flush=True)
+        row = record_row(torch, rows, f"{body}_{fft}", "srcdsp_tpu_torch/csrc/" + (
+            "fft_mixed.cu" if mixed else "fft_4step.cu"),
+            "srcdsp_tpu/kernels/fftconv_pallas.py:361", err, rel, rel < 1e-5, True,
+            lambda: kfc.fftconv_pallas(kc, xk),
+            lambda: kfc.fftconv_plain(xk, hresp, fftp, fft, kc.hop),
+            nf * (2 * 5 * fft * np.log2(fft) + 6 * fft), tensor_bytes(xk, yc),
+            lib_fn=lambda: torch.nn.functional.conv1d(xk.reshape(2 * C3_CHANNELS, 1, -1), w),
+            per_call=per_call, counter=body)
+        print(f"[23] K11 {fft}: {C3_CHANNELS * chunk / row['ms'] / 1e3:.1f} Ms/s; {card}",
+              flush=True)
+        del xk, yc, kc
+    by_name = {row["name"]: row for row in rows}
+
+    # --- the path, with the counts at 0 ---------------------------------------
+    _build.reset_launches()
+    for n, n2 in C23_SIZES:
+        body = "fft_" + ("mixed" if kfft.fft_plan(n, n2).body == "mixed" else "4step")
+        before = _build.LAUNCHES[body]
+        xr, xi = inputs(n)
+        outs = {}
+        for name, order in orders:
+            kn = kfft.make_fft_kernel(n, n2=n2, b_frames=C23_BFRAMES, natural_order=order,
+                                      device=dev)
+            outs[name] = (kn, kn.fn(xr, xi))
+        nat = outs["fft"][1]
+        kd = outs["fft_digit"][0]
+        require(all(torch.equal(a, b) for a, b in zip(nat, outs["fft_nat"][1])),
+                f"K10 {n}: kernel-natural store != natural")
+        require(all(torch.equal(kfft.unscramble(d.reshape(-1, n2), kd.n1, kd.n2), a)
+                    for d, a in zip(outs["fft_digit"][1], nat)),
+                f"K10 {n}: digit store + unscramble != natural store (torch.equal)")
+        b = max(1, C23_SNR_SAMPLES // n)
+        ref = torch.fft.fft(torch.complex(xr[:b].double(), xi[:b].double()), dim=-1)
+        snr = snr_db(torch, ref, torch.complex(nat[0][:b], nat[1][:b]).to(torch.complex128))
+        rr, ri = kfft.ifft_pallas(outs["fft"][0], *nat)
+        trip = min(snr_db(torch, xr, rr), snr_db(torch, xi, ri))
+        direct = any(g.direct for g in kfft.fft_plan(n, n2).lines)
+        floor = 100.0 if direct else 110.0
+        print(f"[23] K10 {n}: natural == kernel-natural == unscrambled digit (torch.equal); SNR "
+              f"{snr:.2f} dB against torch.fft in complex128 on {b} frames (floor {floor:.0f}"
+              f"{', a direct-DFT pass' if direct else ''}); conj round trip {trip:.2f} dB (floor "
+              f"110)", flush=True)
+        require(snr > floor, f"K10 {n}: SNR {snr} dB against complex128")
+        require(trip > 110.0, f"K10 {n}: round trip SNR {trip} dB")
+        by_name[f"{body}_{n}"]["launches"] = _build.LAUNCHES[body] - before
+        del xr, xi, outs, nat, ref, rr, ri
+
+    before = _build.LAUNCHES["fftconv_4step"]
+    k11 = kfc.make_fftconv_kernel(taps, C23_FFT, num_channels=C3_CHANNELS,
+                                  b_frames=C23_BFRAMES_K11, device=dev)
+    chunk = C23_BLOCKS // 5 * k11.block_in()
+    n3 = 5 * chunk
+    require((k11.overlap, k11.hop, n3) == (4096, 12288, 8355840),
+            f"config 3 at 4096 taps: overlap {k11.overlap}, hop {k11.hop}, {n3} samples")
+    x = seeded_planes(C3_CHANNELS, k11.overlap, n3, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = kfc.fftconv_pallas(k11, x)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    st = kfc.FftConvStream(k11)
+    body = x[..., k11.overlap:]
+    parts = [st.process(body[..., i * chunk:(i + 1) * chunk]) for i in range(5)]
+    require(all(torch.equal(torch.cat([q[j] for q in parts], -1), one[j]) for j in range(2)),
+            "config 3 at 4096 taps: 5 FftConvStream chunks != one launch (torch.equal)")
+    del parts
+    mesh5 = dmesh.make_mesh(time=5, devices=[dev] * 5)
+    tail, yr5, yi5 = dfused.fftconv_time_sharded(
+        k11, torch.zeros((C3_CHANNELS, 2, k11.overlap), device=dev), dmesh.shard(body, mesh5),
+        mesh5)
+    require(torch.equal(torch.cat(yr5, -1), one[0]) and torch.equal(torch.cat(yi5, -1), one[1]),
+            "config 3 at 4096 taps: fftconv_time_sharded over 5 shards != one launch")
+    require(torch.equal(tail, x[..., -k11.overlap:]), "fftconv_time_sharded: carried tail")
+    del yr5, yi5, tail
+    kpc = kfc.make_fftconv_kernel(np.tile(taps, (C3_CHANNELS, 1)), C23_FFT,
+                                  num_channels=C3_CHANNELS, b_frames=C23_BFRAMES_K11, device=dev)
+    pc = kfc.fftconv_pallas(kpc, x)
+    require(torch.equal(pc[0], one[0]) and torch.equal(pc[1], one[1]),
+            "config 3 at 4096 taps: per-channel taps != shared taps (torch.equal)")
+    del pc
+    h2s = torch.as_tensor(kfc.freq_response_planes(taps, C23_FFT), device=dev)
+    y3 = torch.complex(*one)
+    snr_plain = snr_db(torch, torch.complex(*kfc.fftconv_plain(
+        x, h2s, make_fft_planes(C23_FFT, device=dev), C23_FFT, k11.hop)), y3)
+    snr_or = []
+    for c in (0, C3_CHANNELS - 1):
+        xc = torch.complex(x[c, 0, k11.overlap:k11.overlap + C3_ORACLE_SAMPLES],
+                           x[c, 1, k11.overlap:k11.overlap + C3_ORACLE_SAMPLES]).cpu().numpy()
+        snr_or.append(snr_db(torch, torch.from_numpy(oracle.fir(xc, taps)),
+                             y3[c, :C3_ORACLE_SAMPLES].cpu()))
+    ms3 = median_ms(torch, lambda: kfc.fftconv_pallas(k11, x))
+    print(f"[23] config 3 at {C23_TAPS} taps (fft {C23_FFT}, hop {k11.hop}): {C3_CHANNELS} ch x "
+          f"{n3} samples, one launch {one_s * 1e3:.3f} ms (first call), median {ms3:.3f} ms "
+          f"({C3_CHANNELS * n3 / ms3 / 1e3:.1f} Ms/s); == 5 FftConvStream chunks == "
+          f"fftconv_time_sharded over 5 shards == per-channel taps (torch.equal); SNR "
+          f"{snr_plain:.2f} dB against the plain K11 (floor 100), {snr_or[0]:.2f} / "
+          f"{snr_or[1]:.2f} dB against the C++ oracle's direct FIR on the first "
+          f"{C3_ORACLE_SAMPLES} samples of channels 0 and {C3_CHANNELS - 1} (floor 90); {card}",
+          flush=True)
+    require(snr_plain > 100.0, f"config 3 at 4096 taps: SNR {snr_plain} dB against plain")
+    require(min(snr_or) > 90.0, f"config 3 at 4096 taps: SNR {snr_or} dB against the oracle")
+    by_name[f"fftconv_4step_{C23_FFT}"]["launches"] = _build.LAUNCHES["fftconv_4step"] - before
+    del x, one, y3, body
+
+    before = _build.LAUNCHES["fftconv_mixed"]
+    taps_m = lowpass(C23_MIXED_TAPS, C3_CUTOFF)
+    km = kfc.make_fftconv_kernel(taps_m, C23_MIXED_FFT, num_channels=C3_CHANNELS,
+                                 b_frames=C23_BFRAMES_K11, device=dev)
+    nm = C23_MIXED_BLOCKS * km.block_in()
+    x = seeded_planes(C3_CHANNELS, km.overlap, nm, seed=0, device=dev)
+    ym = torch.complex(*kfc.fftconv_pallas(km, x))
+    hm = torch.as_tensor(kfc.freq_response_planes(taps_m, C23_MIXED_FFT), device=dev)
+    snr_m = snr_db(torch, torch.complex(*kfc.fftconv_plain(
+        x, hm, make_fft_planes(C23_MIXED_FFT, device=dev), C23_MIXED_FFT, km.hop)), ym)
+    xc = torch.complex(x[0, 0, km.overlap:km.overlap + C3_ORACLE_SAMPLES],
+                       x[0, 1, km.overlap:km.overlap + C3_ORACLE_SAMPLES]).cpu().numpy()
+    snr_mo = snr_db(torch, torch.from_numpy(oracle.fir(xc, taps_m)),
+                    ym[0, :C3_ORACLE_SAMPLES].cpu())
+    print(f"[23] K11 at fft {C23_MIXED_FFT}, {C23_MIXED_TAPS} taps (hop {km.hop}, one block a "
+          f"frame): {C3_CHANNELS} ch x {nm} samples, SNR {snr_m:.2f} dB against the plain K11 "
+          f"(floor 100), {snr_mo:.2f} dB against the C++ oracle on channel 0 (floor 90)",
+          flush=True)
+    require(snr_m > 100.0 and snr_mo > 90.0, f"K11 {C23_MIXED_FFT}: SNR {snr_m}, {snr_mo} dB")
+    by_name[f"fftconv_mixed_{C23_MIXED_FFT}"]["launches"] = (_build.LAUNCHES["fftconv_mixed"]
+                                                            - before)
+    del x, ym
+
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(set(launches) <= {"fft_mixed", "fft_4step", "fftconv_mixed", "fftconv_4step"},
+            f"phase 23: the path launched a kernel other than the new bodies ({launches})")
+    for row in rows:
+        require(row["launches"] > 0, f"phase 23: {row['name']} never launched on the path")
+    return rows, launches
 
 
 def in_turns(torch, fns: dict, turns: int, cards=None, calls: int = 1) -> dict:
@@ -4206,6 +4529,8 @@ def main() -> int:
 
     # --- 3. kernels vs plain at the main path's shapes --------------------------
     rows = []
+    record = functools.partial(record_row, torch, rows)
+    cplx_err = functools.partial(complex_err, torch)
     t0 = time.perf_counter()
     bits_tx, x4, words = config4_signal(torch, dev)
     print(f"[3] config-4 signal {tuple(x4.shape)} made in {time.perf_counter() - t0:.1f} s",
@@ -4215,36 +4540,6 @@ def main() -> int:
     hist = 128
     chunk0 = torch.cat([torch.zeros((C4_CHANNELS, 2, hist), device=dev),
                         x4[:, :, :C4_CHUNK]], dim=-1)
-
-    def record(name, source, replaces, err, rel, within, agree, k_fn, p_fn, flops, nbytes,
-               lib_fn=None, per_call=1):
-        """Time kernel and plain version (and the library call where one
-        computes the same function); flops counts the least multiply-adds of
-        the function's filter sums: real taps on complex samples, 4 flop per
-        tap and output whatever form the kernel uses (complex taps are the
-        kernel's choice; phasors and atan2 left out), nbytes the inputs and
-        outputs once each (taps, at most 2 KB, left out); per_call the
-        launches in one k_fn call (one per shard for K20, one per card for
-        K19)."""
-        before = _build.LAUNCHES[name]
-        ms, plain_ms = median_ms(torch, k_fn), median_ms(torch, p_fn)
-        require(_build.LAUNCHES[name] == before + per_call * (REPS + 1), f"{name}: launch count")
-        lib_ms = median_ms(torch, lib_fn) if lib_fn is not None else None
-        bound_ms, bound_by = roofline_ms(flops, nbytes)
-        print(f"    {name}: max_abs_err {err:.3e} rel_l2 {rel:.3e} decisions_equal {agree} "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
-              flush=True)
-        require(within, f"{name}: max abs error {err} / rel L2 {rel} over tolerance")
-        require(agree, f"{name}: decisions differ from the plain version")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-
-    def cplx_err(k, p):
-        got, ref = torch.complex(*k), torch.complex(*p)
-        err = float(torch.max(torch.abs(got - ref)))
-        return err, float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
 
     # K1, one channel, config-1 shapes
     c1 = build_config1(C1_SAMPLES, use_kernel=True, device=dev)
@@ -5348,6 +5643,14 @@ def main() -> int:
         row["launches"] += streamed.get(row["name"], 0)
     print(f"[22] the phase's launches {streamed} (added to their rows); phase 22 took "
           f"{time.perf_counter() - t22:.1f} s", flush=True)
+
+    # --- 23. K10 and K11 past the powers of two: every size the JAX kernels take -------------
+    t23 = time.perf_counter()
+    rows23, launches23 = phase23(torch, dev)
+    rows += rows23
+    sizes = ", ".join(f"{row['name']} {row['launches']}" for row in rows23)
+    print(f"[23] the phase's launches {launches23}, in the new bodies' rows one a body and "
+          f"size: {sizes}; phase 23 took {time.perf_counter() - t23:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

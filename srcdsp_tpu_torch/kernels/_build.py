@@ -30,8 +30,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mixfir.cu", "fsk.cu", "ctaps.cu", "frame.cu", "resample.cu", "fft.cu", "fftconv.cu",
-           "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu", "halo.cu")
-HEADERS = ("fsk_common.cuh", "fir_ring.cuh", "fft_regs.cuh")
+           "fft_mixed.cu", "fft_4step.cu", "bank.cu", "ldpc.cu", "bcjr.cu", "rows.cu", "halo.cu")
+HEADERS = ("fsk_common.cuh", "fir_ring.cuh", "fft_regs.cuh", "fft_lines.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srcdsp_tpu_torch"
@@ -43,6 +43,7 @@ LAUNCHES = {"mixfir": 0, "mixfir_mc": 0, "fsk_fused": 0, "fsk_ctaps": 0,
             "fsk_preframed": 0, "fsk_preframed_bf16": 0, "mix_resample": 0,
             "mix_resample_mc": 0, "resample_preframed": 0, "resample_preframed_bf16": 0,
             "fft": 0, "fft_digit": 0, "fft_nat": 0, "fftconv": 0, "fftconv_per_channel": 0,
+            "fft_mixed": 0, "fft_4step": 0, "fftconv_mixed": 0, "fftconv_4step": 0,
             "bank": 0, "bank_psk": 0, "ldpc_edges": 0, "ldpc_qc": 0, "bcjr": 0,
             "ctaps_aligned": 0, "mixfir_rows": 0, "halo_dma": 0, "halo_fused": 0}
 
@@ -70,6 +71,12 @@ _SIGNATURES = {
     "srcdsp_fft_occupancy": [_I, ctypes.POINTER(_I)],
     "srcdsp_fftconv": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_P],
     "srcdsp_fftconv_info": [_I] + [ctypes.POINTER(_I)] * 3,
+    "srcdsp_fft_mixed": [_P] * 6 + [_I, ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    "srcdsp_fftconv_mixed": [_P] * 6 + [_I, _LL, _I, _I, ctypes.POINTER(_I)] + [_I] * 3 + [_P],
+    "srcdsp_fft_4step": [_P] * 7 + [_I, _I] + [ctypes.POINTER(_I), _I, _I] * 2 + [_I] * 5 + [_P],
+    "srcdsp_fftconv_4step": ([_P] * 7 + [_I, _LL, _I, _I, _I] + [ctypes.POINTER(_I), _I, _I] * 2
+                             + [_I] * 3 + [_P]),
+    "srcdsp_fft_lines_info": [_I, _I] + [ctypes.POINTER(_I)] * 3,
     "srcdsp_bank": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [_F, _I, _I, _P],
     "srcdsp_bank_info": [_I] * 5 + [ctypes.POINTER(_I)] * 4,
     "srcdsp_ldpc_edges": [_P] * 3 + [_I] * 8 + [_F] + [_I] * 3 + [_P],

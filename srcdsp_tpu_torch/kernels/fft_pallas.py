@@ -8,18 +8,32 @@ n2] -> [B, n2, n1] transpose that gives index-linear spectra,
 `natural_order=False` returns the digit order and `natural_order="kernel"`
 has the kernel store in natural order itself.
 
-The CUDA kernel (``csrc/fft.cu`` over ``csrc/fft_regs.cuh``) is a
-register-resident radix-16 Stockham FFT for powers of two 256 <= N <= 8192:
-16 samples per thread, two shared-memory exchanges between the three passes
-at N = 4096. The output order is its store index, so the natural store
-equals the digit store followed by the transpose bit for bit, and
-`natural_order=True` launches the natural store with no transpose. The
-kernel's schedule is mirrored here (`regs_passes`, `regs_pad`,
-`regs_store_index`, `regs_twiddle_exponent`): the host builds the kernel's
-twiddle table from it (`stockham_twiddles`) and the CPU tests run it in
-numpy. On a CPU tensor the wrappers run `fft_rows_plain`, the JAX kernel's
-own factorization in float32 matrix products with its constants
-(`fft_consts`); on a CUDA tensor they launch the kernel or raise.
+On the card `fft_plan` picks one of three CUDA bodies for each size:
+
+- a power of two from 256 to 8192: ``csrc/fft.cu`` over ``csrc/fft_regs.cuh``,
+  a register-resident radix-16 Stockham FFT (16 samples per thread, two
+  shared-memory exchanges between the three passes at N = 4096);
+- any other size the JAX kernel takes (n2 % 128 == 0 and n1 % 8 == 0, so a
+  multiple of 1024) below 16384: ``csrc/fft_mixed.cu``, one block a frame,
+  the frame in shared memory, in-place mixed-radix passes (the odd primes
+  first: 3, 5 and 7 in registers, any other prime as a direct DFT; then 16s
+  and a last 2, 4 or 8);
+- such a size from 16384 to 2^20: ``csrc/fft_4step.cu``, the four-step
+  N = f1 * f2 in two kernels over a scratch buffer in device memory (the
+  f1-point column transforms times W_N^{b c}, then the f2-point row
+  transforms), each a tile of lines on the same passes.
+
+The output order is always a store index, so the natural store equals the
+digit store followed by the transpose bit for bit, and `natural_order=True`
+launches the natural store with no transpose. The kernels' schedules are
+mirrored here (`regs_*` for ``fft_regs.cuh``; the private `_line_*` and
+`_digit_position` for ``fft_lines.cuh`` and its two bodies): the host builds
+the kernels' tables from them (`stockham_twiddles`, `FftPlan.tables`:
+`_line_table`, `_line_rev` and the four-step's post-twiddles) and the CPU
+tests run them in numpy. On a CPU tensor the
+wrappers run `fft_rows_plain`, the JAX kernel's own factorization in float32
+matrix products with its constants (`fft_consts`), which takes any n1, n2;
+on a CUDA tensor they launch a kernel or raise.
 
 `ifft_pallas` is the inverse by conj -> forward -> conj and 1/N, around a
 natural-order kernel.
@@ -39,13 +53,20 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import cuda_or_cpu
 from srcdsp_tpu_torch.ops.fir import pin_f32
 
-__all__ = ["FftKernel", "make_fft_kernel", "ifft_pallas", "fft_consts", "fft_rows_plain",
-           "fft_twiddles", "fft_occupancy", "stockham_twiddles", "unscramble",
-           "check_cuda_fft_size", "regs_pad", "regs_passes", "regs_shape", "regs_store_index",
-           "regs_twiddle_exponent"]
+__all__ = ["FftKernel", "FftPlan", "LineGeometry", "make_fft_kernel", "ifft_pallas",
+           "fft_consts", "fft_rows_plain", "fft_twiddles", "fft_occupancy", "fft_plan",
+           "lines_info", "stockham_twiddles", "unscramble", "regs_pad", "regs_passes",
+           "regs_shape", "regs_store_index", "regs_twiddle_exponent"]
 
 LANE = 128
-MIN_LOG2, MAX_LOG2 = 8, 13      # the CUDA kernels' sizes: 256 ... 8192 points
+MIN_LOG2, MAX_LOG2 = 8, 13      # the register body's sizes: 256 ... 8192 points
+MAX_FFT_SIZE = 1 << 20          # the card's cap (the JAX kernel's [2 n1, 2 n1] f32 DFT
+                                # matrix alone is 1 GiB there at n2 = 128)
+FOUR_STEP_MIN = 16384           # from here the four-step body; one block a frame below
+LINE_TILE = 8192                # points (lines x length) a four-step block holds at most
+MAX_LANES = 32                  # lines a four-step block holds at most
+SCRATCH_BYTES = 1 << 28         # the four-step's scratch per launch batch (256 MiB)
+LINE_RADICES = (2, 3, 4, 5, 7, 8, 16)  # fft_lines.cuh's register butterflies
 
 
 def _dft(n: int, sign: float) -> np.ndarray:
@@ -137,14 +158,242 @@ def stockham_twiddles(n: int) -> np.ndarray:
     return np.ascontiguousarray(full[:, np.concatenate(idx)])
 
 
-def check_cuda_fft_size(fft_size: int) -> int:
-    """log2(fft_size) for a size the CUDA kernels take (a power of two from
-    256 to 8192); anything else raises."""
+# The schedule of csrc/fft_lines.cuh (the bodies of fft_mixed.cu and
+# fft_4step.cu), mirrored item by item. A line is one transform of L points;
+# a block holds `lanes` adjacent lines, element j of lane l at shared-memory
+# index pad(j * lanes + l). The passes run in place, decimation in frequency
+# (DIF) for a forward transform: pass q of radix R over spans M = L / (R_0 ...
+# R_q) takes butterfly bf's R elements, runs the R-point DFT and multiplies
+# output m by W_{R M}^{n0 m} (n0 = bf mod M), back into the same places;
+# after the last pass X[k] lies at _line_rev(k). The transposed passes (DIT,
+# reversed pass order, the twiddle before the DFT) take that order back to
+# natural order: K11's inverse.
+
+def _line_radices(n: int) -> tuple[int, ...]:
+    """fft_lines.cuh lines_transform's passes over n points, in order: the odd
+    primes of n ascending (3, 5 and 7 as register butterflies, any other as
+    a direct DFT), then radix 16 and the leftover 2, 4 or 8 last."""
+    odd, a = n, 0
+    while odd % 2 == 0:
+        odd //= 2
+        a += 1
+    primes, p = [], 3
+    while p * p <= odd:
+        while odd % p == 0:
+            primes.append(p)
+            odd //= p
+        p += 2
+    if odd > 1:
+        primes.append(odd)
+    return tuple(primes) + (16,) * (a // 4) + ((1 << (a % 4),) if a % 4 else ())
+
+
+def _line_spans(radices, n: int) -> tuple[int, ...]:
+    """M of each pass (fft_lines.cuh LinePlan::span): n / (R_0 ... R_q)."""
+    spans, m = [], n
+    for r in radices:
+        m //= r
+        spans.append(m)
+    return tuple(spans)
+
+
+def _line_elements(bf, m: int, r: int, k):
+    """fft_lines.cuh lines_pass: element k of butterfly bf of a pass (R, M),
+    base + M k with base = (bf - n0) R + n0, n0 = bf mod M (ints or arrays)."""
+    n0 = bf % m
+    return (bf - n0) * r + n0 + m * k
+
+
+def _line_twiddle_exponent(bf, m: int, r: int, k, n: int, length: int):
+    """fft_lines.cuh lines_pass: output k of butterfly bf (DIF; input k for
+    DIT) is multiplied by W_N^e, e this: W_{R M}^{n0 k} as a power of the
+    frame's W_N (n points), for a line of `length` points (`_line_table`
+    holds it at `_line_twiddle_index`)."""
+    return (bf % m) * k * (n // length) * (length // (m * r))
+
+
+def _line_table_offsets(radices, n: int) -> tuple[int, ...]:
+    """fft_lines.cuh LinePlan::tw_off: pass q's section of the table after
+    the (R - 1) M twiddles and R DFT constants of each pass before it."""
+    offs, at = [], 0
+    for r, m in zip(radices, _line_spans(radices, n)):
+        offs.append(at)
+        at += (r - 1) * m + r
+    return tuple(offs)
+
+
+def _line_twiddle_index(bf, m: int, k, off: int):
+    """fft_lines.cuh lines_pass: where output k >= 1 of butterfly bf (DIF;
+    input k for DIT) finds its twiddle, W_N^{_line_twiddle_exponent}: entry
+    (k - 1) M + n0 of the pass's section at `off`."""
+    return off + (k - 1) * m + bf % m
+
+
+def _line_dft_index(nn, k, r: int, m: int, off: int):
+    """fft_lines.cuh lines_dft_odd / lines_pass_direct: input nn of the
+    pass's R-point DFT contributes to output k times W_R^{nn k mod R}, entry
+    (R - 1) M + (nn k mod R) of the pass's section at `off`."""
+    return off + (r - 1) * m + (nn * k) % r
+
+
+def _line_table(g: "LineGeometry", n: int) -> np.ndarray:
+    """The table of one pass plan [2, size] (fft_lines.cuh; the pass
+    sections at _line_table_offsets): each pass's (R - 1) M twiddles W_N^e,
+    e = _line_twiddle_exponent, at (m - 1) M + n0, then its R DFT constants
+    W_R^j = W_N^{j N / R}; every entry made in float64 and rounded to
+    float32 once."""
+    parts = []
+    for r, m in zip(g.radices, _line_spans(g.radices, g.length)):
+        e = _line_twiddle_exponent(np.arange(m)[None, :], m, r, np.arange(1, r)[:, None], n,
+                                  g.length)
+        parts += [e.ravel(), np.arange(r) * (n // r)]
+    return _unit_roots(np.concatenate(parts), n)
+
+
+def _unit_roots(e: np.ndarray, n: int) -> np.ndarray:
+    """W_N^e as float32 planes [2, len(e)], made in float64."""
+    w = np.exp(-2j * np.pi * np.asarray(e, np.float64) / n)
+    return np.stack([w.real, w.imag]).astype(np.float32)
+
+
+def _line_rev(radices, n: int) -> np.ndarray:
+    """Where the DIF passes leave X[k]: k = d_0 + R_0 (d_1 + R_1 (...)) lies
+    at sum_q d_q M_q (int32, the kernels' `rev` table)."""
+    k = np.arange(n)
+    pos = np.zeros(n, np.int64)
+    for r, m in zip(radices, _line_spans(radices, n)):
+        pos += (k % r) * m
+        k //= r
+    return pos.astype(np.int32)
+
+
+def _digit_position(k, n1: int, n2: int):
+    """The digit store (every body): X[k] at offset (k mod n1) * n2 + k div n1
+    of the frame, row k1 = k mod n1, lane k2 = k div n1 of the [n1, n2] tile."""
+    return (k % n1) * n2 + k // n1
+
+
+@dataclasses.dataclass(frozen=True)
+class LineGeometry:
+    """One pass plan of fft_lines.cuh (LinePlan): `length`-point lines,
+    `lanes` of them a block, its radices."""
+
+    length: int
+    lanes: int
+    radices: tuple[int, ...]
+
+    @property
+    def direct(self) -> bool:
+        """A pass runs as a direct DFT (a prime above 7): the block takes a
+        second pair of planes."""
+        return any(r not in LINE_RADICES for r in self.radices)
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: 2 planes (4 with a direct pass)
+        of lanes * length floats, padded one in 32."""
+        return (4 if self.direct else 2) * (regs_pad(self.lanes * self.length - 1) + 1) * 4
+
+
+def _line_geometry(length: int, lines: int) -> LineGeometry:
+    """The pass plan of `length`-point lines, `lines` of them in a frame:
+    lanes the largest power of two up to MAX_LANES that divides `lines` and
+    keeps lanes * length <= LINE_TILE (at least 1)."""
+    lanes = 1
+    while (lanes * 2 <= MAX_LANES and lines % (lanes * 2) == 0
+           and lanes * 2 * length <= LINE_TILE):
+        lanes *= 2
+    return LineGeometry(length, lanes, _line_radices(length))
+
+
+@dataclasses.dataclass(frozen=True)
+class FftPlan:
+    """Which CUDA body runs `fft_size` points (`fft_plan`)."""
+
+    fft_size: int
+    n1: int                       # the caller's digit tile [n1, n2]
+    n2: int
+    body: str                     # "regs", "mixed" or "four_step"
+    lines: tuple[LineGeometry, ...]  # mixed: (the frame,); four_step: (f1 columns, f2 rows)
+
+    @property
+    def log2n(self) -> int:
+        return self.fft_size.bit_length() - 1
+
+    @property
+    def factors(self) -> tuple[int, int]:
+        """(f1, f2) of the four-step: N = f1 * f2."""
+        return self.lines[0].length, self.lines[1].length
+
+    def tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """(twiddle table, rev tables) the body reads: stockham_twiddles and
+        a one-entry placeholder for the register body, which reads no rev;
+        else the lines' _line_table (the
+        four-step's columns, then rows, then W_N^{b c} at b f1 + c and
+        W_N^{c e} at c f2 + e, the two post-twiddles of
+        fft_4step.cu) and their _line_rev, concatenated in that order."""
+        n = self.fft_size
+        if self.body == "regs":
+            return stockham_twiddles(n), np.zeros(1, np.int32)
+        tabs = [_line_table(g, n) for g in self.lines]
+        if self.body == "four_step":
+            f1, f2 = self.factors
+            b, c = np.arange(f2)[:, None], np.arange(f1)[None, :]
+            tabs += [_unit_roots((b * c).ravel(), n), _unit_roots((c.T * b.T).ravel(), n)]
+        return (np.ascontiguousarray(np.concatenate(tabs, axis=1)),
+                np.concatenate([_line_rev(g.radices, g.length) for g in self.lines]))
+
+
+def _four_step_factors(fft_size: int, n1: int, n2: int) -> tuple[int, int]:
+    """(f1, f2): the caller's (n1, n2) when both are at most 2048 (so the
+    digit store writes whole rows), else the divisor pair nearest the square
+    root (f1 >= f2)."""
+    if n1 <= 2048 and n2 <= 2048:
+        return n1, n2
+    f2 = max(d for d in range(1, int(fft_size ** 0.5) + 1) if fft_size % d == 0)
+    return fft_size // f2, f2
+
+
+def fft_plan(fft_size: int, n2: int = LANE) -> FftPlan:
+    """The CUDA body for `fft_size` points at digit tile n1 = fft_size / n2.
+
+    The card takes every fft_size = n1 * n2 <= 2^20 that is (a) a power of
+    two from 256 to 8192 (the register body, ``fft.cu``), or (b) meets the
+    JAX kernel's tiling rule n2 % 128 == 0 and n1 % 8 == 0 (so a multiple of
+    1024; any n2, 384 included): below 16384 one block a frame
+    (``fft_mixed.cu``), from 16384 the four-step (``fft_4step.cu``).
+    Anything else raises a ValueError that states the rule.
+    """
+    rule = (f"the CUDA FFT kernels take fft_size = n1 * n2 <= {MAX_FFT_SIZE} that is a power "
+            f"of two from {1 << MIN_LOG2} to {1 << MAX_LOG2}, or has n2 % 128 == 0 and "
+            f"n1 % 8 == 0")
+    if n2 <= 0 or fft_size <= 0 or fft_size % n2:
+        raise ValueError(f"{rule}; got fft_size {fft_size}, n2 {n2} (fft_size % n2 != 0)")
+    n1 = fft_size // n2
+    if fft_size > MAX_FFT_SIZE:
+        raise ValueError(f"{rule}; got fft_size {fft_size} > {MAX_FFT_SIZE}")
     log2n = fft_size.bit_length() - 1
-    if fft_size != 1 << log2n or not MIN_LOG2 <= log2n <= MAX_LOG2:
-        raise ValueError(f"the CUDA FFT kernels take powers of two from {1 << MIN_LOG2} to "
-                         f"{1 << MAX_LOG2} points, got {fft_size}")
-    return log2n
+    if fft_size == 1 << log2n and MIN_LOG2 <= log2n <= MAX_LOG2:
+        return FftPlan(fft_size, n1, n2, "regs", ())
+    if n2 % LANE or n1 % 8:
+        raise ValueError(f"{rule}; got fft_size {fft_size} = {n1} * {n2}")
+    if fft_size < FOUR_STEP_MIN:
+        return FftPlan(fft_size, n1, n2, "mixed", (_line_geometry(fft_size, 1),))
+    f1, f2 = _four_step_factors(fft_size, n1, n2)
+    return FftPlan(fft_size, n1, n2, "four_step",
+                   (_line_geometry(f1, f2), _line_geometry(f2, f1)))
+
+
+def lines_info(kernel: str, geometry: LineGeometry) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) of one of the
+    bodies' kernels (``fft_mixed``, ``fftconv_mixed``, ``fft4_step1``,
+    ``fft4_step2``, ``fftconv4_mid``, ``fftconv4_out``) at a geometry's
+    shared memory (on the card)."""
+    names = ("fft_mixed", "fftconv_mixed", "fft4_step1", "fft4_step2", "fftconv4_mid",
+             "fftconv4_out")
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.load().srcdsp_fft_lines_info(names.index(kernel), geometry.smem_bytes(),
+                                                     *map(ctypes.byref, out)), "lines_info")
+    return tuple(v.value for v in out)
 
 
 def fft_rows_plain(xr: torch.Tensor, xi: torch.Tensor, consts, n1: int, n2: int
@@ -173,25 +422,64 @@ def unscramble(y: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
     return y.reshape(b, n1, n2).transpose(-1, -2).reshape(b, n1 * n2)
 
 
+def regs_plan(fft_size: int) -> FftPlan:
+    """fft_plan for a size the register body takes; any other raises."""
+    plan = fft_plan(fft_size, min(fft_size, LANE))
+    if plan.body != "regs":
+        raise ValueError(f"the register body takes powers of two from {1 << MIN_LOG2} to "
+                         f"{1 << MAX_LOG2} points, got {fft_size}")
+    return plan
+
+
 def fft_occupancy(fft_size: int) -> int:
-    """Resident blocks per SM of the CUDA kernel at `fft_size` (on the card)."""
+    """Resident blocks per SM of the register body at `fft_size` (on the card)."""
     blocks = ctypes.c_int(0)
-    _build.check(_build.load().srcdsp_fft_occupancy(check_cuda_fft_size(fft_size),
+    _build.check(_build.load().srcdsp_fft_occupancy(regs_plan(fft_size).log2n,
                                                    ctypes.byref(blocks)), "fft_occupancy")
     return blocks.value
 
 
-def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor, log2n: int, n2: int,
-              natural: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
+def line_args(g: LineGeometry) -> tuple:
+    """(radices as a C int array, passes, lanes): a LinePlan's arguments."""
+    return (ctypes.c_int * len(g.radices))(*g.radices), len(g.radices), g.lanes
+
+
+def scratch_frames(fft_size: int, planes: int) -> int:
+    """Frames of one four-step batch: `planes` float32 planes of fft_size
+    each within SCRATCH_BYTES (at least one, at most 65,535: a grid's y)."""
+    return max(1, min(65535, SCRATCH_BYTES // (4 * planes * fft_size)))
+
+
+def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
+              plan: FftPlan, natural: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    b = xr.numel() >> log2n
-    rc = lib.srcdsp_fft(xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
-                        yi.data_ptr(), b, log2n, n2.bit_length() - 1, int(natural),
-                        _build.stream_handle(xr))
+    n = plan.fft_size
+    b = xr.numel() // n
+    stream = _build.stream_handle(xr)
+    ptrs = (xr.data_ptr(), xi.data_ptr(), tw.data_ptr())
+    if plan.body == "regs":
+        rc = lib.srcdsp_fft(*ptrs, yr.data_ptr(), yi.data_ptr(), b, plan.log2n,
+                            plan.n2.bit_length() - 1, int(natural), stream)
+        launches = {counter: 1}
+    elif plan.body == "mixed":
+        rad, passes, _ = line_args(plan.lines[0])
+        rc = lib.srcdsp_fft_mixed(*ptrs, rev.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, rad,
+                                  passes, n, plan.n1, plan.n2, int(not natural), stream)
+        launches = {"fft_mixed": 1}
+    else:
+        batch = min(scratch_frames(n, 2), b)
+        scratch = torch.empty((2, batch * n), dtype=torch.float32, device=xr.device)
+        f1, f2 = plan.factors
+        rc = lib.srcdsp_fft_4step(*ptrs, rev.data_ptr(), scratch.data_ptr(), yr.data_ptr(),
+                                  yi.data_ptr(), b, batch, *line_args(plan.lines[0]),
+                                  *line_args(plan.lines[1]), f1, f2, plan.n1, plan.n2,
+                                  int(not natural), stream)
+        launches = {"fft_4step": 2 * (-(-b // batch))}
     _build.check(rc, counter)
-    _build.LAUNCHES[counter] += 1
+    for k, v in launches.items():
+        _build.LAUNCHES[k] += v
     return yr, yi
 
 
@@ -223,16 +511,19 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     """Build a batched FFT: (xr, xi) [B, N] -> (Xr, Xi) [B, N] float32.
 
     fft_size % n2 must be 0 (n1 = fft_size // n2 sets the digit order) and B
-    a multiple of b_frames, as for the JAX kernel. Its TPU tiling rules (n2 a
-    multiple of 128, n1 of 8) shape only the TPU's blocks and are not checked
-    here; on the card fft_size must be a power of two from 256 to 8192 (and
-    n2 a power of two). `precision` is accepted and changes nothing: the
-    port computes in float32 at both settings, which meets the reference's
-    DEFAULT accuracy too. `interpret` has no counterpart. natural_order:
-    True (natural order: on the card the kernel's natural store, no
-    transpose), False (digit order) or "kernel" (the same natural store, the
-    JAX kernel's ``fn_nat``). Launches count under ``fft``, ``fft_digit``
-    and ``fft_nat`` respectively.
+    a multiple of b_frames, as for the JAX kernel. On the CPU any n1, n2
+    runs (the plain version). On the card the size must lie in `fft_plan`'s
+    domain, the JAX kernel's with interpret=False and a cap: fft_size <=
+    2^20 and either a power of two from 256 to 8192 or n2 % 128 == 0 and
+    n1 % 8 == 0 (3072, 5120, 11264, 12288, 16384, 65536, 2^20, ...; n2 384
+    too); anything else raises. `precision` is accepted and changes nothing:
+    the port computes in float32 at both settings, which meets the
+    reference's DEFAULT accuracy too. `interpret` has no counterpart.
+    natural_order: True (natural order: on the card the kernel's natural
+    store, no transpose), False (digit order) or "kernel" (the same natural
+    store, the JAX kernel's ``fn_nat``). Launches of the register body
+    count under ``fft``, ``fft_digit`` and ``fft_nat`` respectively, those
+    of the other bodies under ``fft_mixed`` or ``fft_4step`` (two a batch).
     """
     n1 = fft_size // n2
     if n1 * n2 != fft_size:
@@ -240,14 +531,10 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     if natural_order not in (True, False, "kernel"):
         raise ValueError(f"natural_order must be True, False or 'kernel', got {natural_order!r}")
     dev = resolve(device)
-    if dev.type == "cuda":
-        log2n = check_cuda_fft_size(fft_size)
-        if n2 & (n2 - 1):
-            raise ValueError(f"n2 must be a power of two on the card, got {n2}")
-    else:
-        log2n = 0
+    plan = fft_plan(fft_size, n2) if dev.type == "cuda" else None
     consts = tuple(torch.as_tensor(a, device=dev) for a in fft_consts(fft_size, n2, b_frames))
-    tw = torch.as_tensor(stockham_twiddles(fft_size), device=dev) if log2n else None
+    tw, rev = ((torch.as_tensor(a, device=dev) for a in plan.tables()) if plan
+               else (None, None))
     rows_counter = {True: "fft", False: "fft_digit", "kernel": "fft_digit"}[natural_order]
 
     def check(x: torch.Tensor, shape: tuple) -> None:
@@ -267,7 +554,7 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
         check(xr, (rt, n2))
         check(xi, (rt, n2))
         if cuda_or_cpu(xr):
-            return _fft_cuda(xr, xi, tw, log2n, n2, False, rows_counter)
+            return _fft_cuda(xr, xi, tw, rev, plan, False, rows_counter)
         return fft_rows_plain(xr, xi, consts, n1, n2)
 
     def fn_nat(consts, xr: torch.Tensor, xi: torch.Tensor, counter: str
@@ -275,7 +562,7 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
         """Natural order stored by the kernel: checked [B, N] planes in and
         out (the kernel takes them as they are, no reshape)."""
         if cuda_or_cpu(xr):
-            return _fft_cuda(xr, xi, tw, log2n, n2, True, counter)
+            return _fft_cuda(xr, xi, tw, rev, plan, True, counter)
         yr, yi = fft_rows_plain(xr.reshape(-1, n2), xi.reshape(-1, n2), consts, n1, n2)
         return unscramble(yr, n1, n2), unscramble(yi, n1, n2)
 

@@ -15,13 +15,21 @@ hop 3073 there and `ops.fftconv_planes` 2048). Frame f covers samples
 [f*hop, f*hop + fft_size) of the history-prepended stream and gives outputs
 [f*hop, (f+1)*hop).
 
-The CUDA kernel (``csrc/fftconv.cu``) runs each frame through K10's
+On the card the body is K10's for the same size (`fft_plan`). At a power
+of two from 256 to 8192 (``csrc/fftconv.cu``) each frame runs K10's
 register-resident Stockham schedule (``csrc/fft_regs.cuh``, twiddles from
 `stockham_twiddles`) twice: forward, times H[c] in registers (register s of
 thread t holds X[t + T*s], so H stays in natural order), the conjugate
-inverse, and the registers past the overlap stored. H is the FFT of the taps
-zero-padded to fft_size, made in float64 and rounded to float32 ([Ct, 2, N],
-natural order; Ct = 1 for shared taps or C).
+inverse, and the registers past the overlap stored. At the other sizes
+below 16384 (``csrc/fft_mixed.cu``, one block a frame) the forward DIF
+passes of ``csrc/fft_lines.cuh`` leave X[k] at _line_rev(k), H[k] multiplies
+it there, and the transposed (DIT) passes of the conjugate inverse bring
+natural order back; from 16384 (``csrc/fft_4step.cu``) three kernels over
+two scratch buffers: the forward columns, then for each column c the
+forward rows, H, the inverse's rows and W_N^{c e}, then the inverse's
+columns and the store. H is the FFT of the taps zero-padded to fft_size,
+made in float64 and rounded to float32 ([Ct, 2, N], natural order; Ct = 1
+for shared taps or C).
 On a CPU tensor the wrappers run `fftconv_plain` (the same frames through
 the float32 matrix FFT of ``ops.fft_planes``, times H, the conjugate
 inverse, the overlap prefix dropped); on a CUDA tensor they launch the
@@ -39,7 +47,8 @@ import torch
 
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
-from srcdsp_tpu_torch.kernels.fft_pallas import check_cuda_fft_size, stockham_twiddles
+from srcdsp_tpu_torch.kernels.fft_pallas import (FftPlan, fft_plan, line_args, regs_plan,
+                                                  scratch_frames)
 from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, cuda_or_cpu
 from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
 
@@ -94,26 +103,46 @@ def fftconv_plain(x: torch.Tensor, h2: torch.Tensor, fft, fft_size: int, hop: in
     return yr.reshape(c, nf * hop), yi.reshape(c, nf * hop)
 
 
-def _fftconv_cuda(x: torch.Tensor, h2: torch.Tensor, tw: torch.Tensor, log2n: int, hop: int,
-                  per_channel: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
+def _fftconv_cuda(x: torch.Tensor, h2: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
+                  plan: FftPlan, hop: int, per_channel: bool, counter: str
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
     c, _, length = x.shape
-    nf = (length - ((1 << log2n) - hop)) // hop
+    n = plan.fft_size
+    nf = (length - (n - hop)) // hop
     yr = torch.empty((c, nf * hop), dtype=torch.float32, device=x.device)
     yi = torch.empty_like(yr)
-    rc = lib.srcdsp_fftconv(x.data_ptr(), h2.data_ptr(), tw.data_ptr(), yr.data_ptr(),
-                            yi.data_ptr(), c, length, nf, hop, log2n, int(per_channel),
-                            _build.stream_handle(x))
+    stream = _build.stream_handle(x)
+    ptrs = (x.data_ptr(), h2.data_ptr(), tw.data_ptr())
+    if plan.body == "regs":
+        rc = lib.srcdsp_fftconv(*ptrs, yr.data_ptr(), yi.data_ptr(), c, length, nf, hop,
+                                plan.log2n, int(per_channel), stream)
+        launches = {counter: 1}
+    elif plan.body == "mixed":
+        rad, passes, _ = line_args(plan.lines[0])
+        rc = lib.srcdsp_fftconv_mixed(*ptrs, rev.data_ptr(), yr.data_ptr(), yi.data_ptr(), c,
+                                      length, nf, hop, rad, passes, n, int(per_channel), stream)
+        launches = {"fftconv_mixed": 1}
+    else:
+        batch = min(scratch_frames(n, 4), c * nf)
+        scratch = torch.empty((4, batch * n), dtype=torch.float32, device=x.device)
+        f1, f2 = plan.factors
+        rc = lib.srcdsp_fftconv_4step(*ptrs, rev.data_ptr(), scratch.data_ptr(), yr.data_ptr(),
+                                      yi.data_ptr(), c, length, nf, hop, batch,
+                                      *line_args(plan.lines[0]), *line_args(plan.lines[1]), f1,
+                                      f2, int(per_channel), stream)
+        launches = {"fftconv_4step": 3 * (-(-(c * nf) // batch))}
     _build.check(rc, counter)
-    _build.LAUNCHES[counter] += 1
+    for k, v in launches.items():
+        _build.LAUNCHES[k] += v
     return yr, yi
 
 
 def kernel_info(fft_size: int) -> tuple[int, int, int]:
-    """(registers, local-memory bytes, resident blocks per SM) of the CUDA
-    kernel at `fft_size` (on the card)."""
+    """(registers, local-memory bytes, resident blocks per SM) of the
+    register body at `fft_size` (on the card)."""
     out = [ctypes.c_int(0) for _ in range(3)]
-    _build.check(_build.load().srcdsp_fftconv_info(check_cuda_fft_size(fft_size),
+    _build.check(_build.load().srcdsp_fftconv_info(regs_plan(fft_size).log2n,
                                                    *map(ctypes.byref, out)), "fftconv_info")
     return tuple(v.value for v in out)
 
@@ -149,10 +178,13 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
     is the `pipelined=True` ValueError when ov_rows does not divide
     b_frames*hs; `precision`, `karatsuba`, `pipelined` and `interpret`
     change nothing else (the TPU kernel's matrix-unit passes and DMA
-    staging). Its TPU tiling rules (n2 a multiple of 128, n1 of 8) are not
-    checked; on the card fft_size must be a power of two from 256 to 8192.
-    Launches count under ``fftconv`` (shared taps) or
-    ``fftconv_per_channel``.
+    staging). On the CPU any fft_size % n2 == 0 runs (the plain version);
+    on the card fft_size must lie in K10's domain (`fft_plan`: <= 2^20 and
+    a power of two from 256 to 8192, or n2 % 128 == 0 and n1 % 8 == 0, so
+    4096 taps at fft 16384 too), else a ValueError states the rule.
+    Launches of the register body count under ``fftconv`` (shared taps) or
+    ``fftconv_per_channel``, those of the other bodies under
+    ``fftconv_mixed`` or ``fftconv_4step`` (three a batch).
     """
     taps = np.asarray(taps, np.float64)
     per_channel = taps.ndim == 2
@@ -166,9 +198,10 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
         raise ValueError(f"pipelined form needs ov_rows ({ov_rows}) | b_frames*hs "
                          f"({b_frames * hs})")
     dev = resolve(device)
-    log2n = check_cuda_fft_size(fft_size) if dev.type == "cuda" else 0
+    plan = fft_plan(fft_size, n2) if dev.type == "cuda" else None
     h2 = torch.as_tensor(freq_response_planes(taps, fft_size), device=dev)
-    tw = torch.as_tensor(stockham_twiddles(fft_size), device=dev)
+    tw, rev = ((torch.as_tensor(a, device=dev) for a in plan.tables()) if plan
+               else (None, None))
     fft = make_fft_planes(fft_size, device=dev)
     counter = "fftconv_per_channel" if per_channel else "fftconv"
 
@@ -185,7 +218,7 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
             raise ValueError(f"x on {x.device}, kernel built for {dev}")
         x3 = x.reshape(c, 2, r * n2)
         if cuda_or_cpu(x):
-            yr, yi = _fftconv_cuda(x3, h2, tw, log2n, hop, per_channel, counter)
+            yr, yi = _fftconv_cuda(x3, h2, tw, rev, plan, hop, per_channel, counter)
         else:
             yr, yi = fftconv_plain(x3, h2, fft, fft_size, hop)
         return yr.reshape(c, rows_out, n2), yi.reshape(c, rows_out, n2)

@@ -545,8 +545,121 @@ def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
     kc = kfc.make_fftconv_kernel(lowpass(64, 0.2), 2048, b_frames=1, device="cpu")
     with pytest.raises(ValueError, match="kernel built for cpu"):
         kfc.fftconv_pallas(kc, torch.zeros((1, 2, kc.overlap + kc.block_in()), device=dev))
-    with pytest.raises(ValueError, match="powers of two"):
-        kfft.make_fft_kernel(16384, device=dev)
+    with pytest.raises(ValueError, match="n2 % 128 == 0 and n1 % 8 == 0"):
+        kfft.make_fft_kernel(1536, device=dev)
+
+
+@pytest.mark.parametrize("n,n2", [(3072, 384), (5120, 128), (11264, 128), (12288, 128),
+                                  (16384, 128), (65536, 128), (1 << 20, 1024)])
+def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
+    """K10 at the sizes past the powers of two (one block a frame below
+    16384, the four-step from there) in its three orders against its plain
+    version (rel L2 < 1e-5) and complex128 (> 110 dB; > 100 dB where 11
+    runs a direct-DFT pass); kernel-natural == natural == digit unscrambled
+    by torch.equal; one body launch a call (the four-step: 2), and no count
+    but the body's moves."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    plan = kfft.fft_plan(n, n2)
+    body = "fft_mixed" if plan.body == "mixed" else "fft_4step"
+    b = max(2, (1 << 19) // n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    xr, xi = (torch.randn((b, n), device=dev, generator=g) for _ in range(2))
+    outs = {}
+    for order in (True, False, "kernel"):
+        k = kfft.make_fft_kernel(n, n2=n2, b_frames=1, natural_order=order, device=dev)
+        before = dict(_build.LAUNCHES)
+        outs[order] = k.fn(xr, xi)
+        after = dict(_build.LAUNCHES)
+        assert after.pop(body) == before.pop(body) + (1 if body == "fft_mixed" else 2)
+        assert after == before
+    pr, pi = kfft.fft_rows_plain(xr.reshape(-1, n2), xi.reshape(-1, n2), k.consts, k.n1, n2)
+    plain = torch.complex(kfft.unscramble(pr, k.n1, n2), kfft.unscramble(pi, k.n1, n2))
+    nat = torch.complex(*outs[True])
+    assert float(torch.linalg.norm(nat - plain) / torch.linalg.norm(plain)) < 1e-5
+    ref = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-1)
+    assert _snr(ref, nat.to(torch.complex128)) > (100 if n == 11264 else 110)
+    for a, c, d in zip(outs[True], outs["kernel"], outs[False]):
+        assert torch.equal(a, c)
+        assert torch.equal(kfft.unscramble(d.reshape(-1, n2), k.n1, n2), a)
+
+
+def test_fft_four_step_short_last_batch(dev, monkeypatch):
+    """The four-step in batches of 2 frames over 5 (a short last batch)
+    equals one batch bit for bit, in both stores."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    n = 16384
+    g = torch.Generator(device=dev).manual_seed(3)
+    xr, xi = (torch.randn((5, n), device=dev, generator=g) for _ in range(2))
+    for order in (True, False):
+        k = kfft.make_fft_kernel(n, b_frames=1, natural_order=order, device=dev)
+        one = k.fn(xr, xi)
+        monkeypatch.setattr(kfft, "SCRATCH_BYTES", 2 * 2 * 4 * n)
+        before = _build.LAUNCHES["fft_4step"]
+        batched = k.fn(xr, xi)
+        assert _build.LAUNCHES["fft_4step"] == before + 6
+        monkeypatch.undo()
+        assert all(torch.equal(a, c) for a, c in zip(one, batched))
+
+
+@pytest.mark.parametrize("fft,num_taps", [(11264, 1000), (12288, 3000), (16384, 4096)])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_fftconv_mixed_and_four_step_match_plain_and_stream(dev, monkeypatch, per_channel,
+                                                             fft, num_taps):
+    """K11 on the new bodies against its plain version (SNR > 100 dB), 4
+    FftConvStream chunks == one launch bit for bit, and for the four-step a
+    launch in batches of 3 frames (a short last batch) == one batch."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+    from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
+    from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
+
+    c = 3
+    taps = (np.stack([lowpass(num_taps, 0.05 + 0.02 * i) for i in range(c)]) if per_channel
+            else lowpass(num_taps, 0.1))
+    k = kfc.make_fftconv_kernel(taps, fft, num_channels=c, b_frames=2, device=dev)
+    raw = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (c, 2, 4 * k.block_in())).astype(np.float32), device=dev)
+    x = torch.cat([torch.zeros((c, 2, k.overlap), device=dev), raw], dim=-1)
+    body = "fftconv_mixed" if fft < 16384 else "fftconv_4step"
+    before = dict(_build.LAUNCHES)
+    yr, yi = kfc.fftconv_pallas(k, x)
+    torch.cuda.synchronize()
+    after = dict(_build.LAUNCHES)
+    assert after.pop(body) == before.pop(body) + (1 if fft < 16384 else 3)
+    assert after == before
+    h2 = torch.as_tensor(kfc.freq_response_planes(taps, fft), device=dev)
+    pr, pi = kfc.fftconv_plain(x, h2, make_fft_planes(fft, device=dev), fft, k.hop)
+    assert _snr(torch.complex(pr, pi), torch.complex(yr, yi)) > 100
+    st = kfc.FftConvStream(k)
+    parts = [st.process(raw[..., i * k.block_in():(i + 1) * k.block_in()].contiguous())
+             for i in range(4)]
+    assert torch.equal(torch.cat([p[0] for p in parts], -1), yr)
+    assert torch.equal(torch.cat([p[1] for p in parts], -1), yi)
+    if fft >= 16384:
+        monkeypatch.setattr(kfft, "SCRATCH_BYTES", 3 * 4 * 4 * fft)
+        br, bi = kfc.fftconv_pallas(k, x)
+        assert torch.equal(br, yr) and torch.equal(bi, yi)
+
+
+def test_fft_lines_bodies_no_spill(dev):
+    """ptxas reports no spill in any kernel of fft_mixed.cu or fft_4step.cu,
+    none uses local memory, and each keeps a block resident at its largest
+    shared-memory plan (13312: a direct pass over 13, 4 planes)."""
+    from srcdsp_tpu_torch.kernels import fft_pallas as kfft
+
+    rep = {k: v for k, v in _build.ptxas_report().items()
+           if re.search(r"fft_mixed_kernel|fftconv_mixed_kernel|fft4_|fftconv4_", k)}
+    assert len(rep) == 6
+    assert all(st == 0 and ld == 0 for _, st, ld in rep.values()), rep
+    for n, n2 in [(13312, 128), (12288, 128), (1 << 20, 1024), (65536, 128)]:
+        plan = kfft.fft_plan(n, n2)
+        names = (("fft_mixed", "fftconv_mixed"),) if plan.body == "mixed" else (
+            ("fft4_step1", "fftconv4_out"), ("fft4_step2", "fftconv4_mid"))
+        for g, pair in zip(plan.lines, names):
+            for name in pair:
+                regs, local, blocks = kfft.lines_info(name, g)
+                assert local == 0 and blocks >= 1, (n, name, regs, local, blocks)
 
 
 @pytest.mark.parametrize("m,b_k,sps", [(64, 512, 4), (8, 128, 4), (16, 96, 3), (5, 16, 4),

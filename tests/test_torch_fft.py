@@ -156,10 +156,11 @@ def test_kernel_rejects_bad_shapes():
         k.fn(torch.zeros(6, 1024), torch.zeros(6, 1024))
     with pytest.raises(ValueError, match="rows"):
         k.fn_rows(torch.zeros(8, 128), torch.zeros(8, 128))
-    for bad in (128, 3 * 1024, 16384):
-        with pytest.raises(ValueError, match="powers of two"):
-            kfft.check_cuda_fft_size(bad)
-    assert kfft.check_cuda_fft_size(256) == 8 and kfft.check_cuda_fft_size(8192) == 13
+    for bad in (1536, 1000, 1 << 21):
+        with pytest.raises(ValueError, match="n2 % 128 == 0 and n1 % 8 == 0"):
+            kfft.fft_plan(bad)
+    assert [kfft.fft_plan(n).body for n in (256, 8192, 3072, 16384, 1 << 20)] == [
+        "regs", "regs", "mixed", "four_step", "four_step"]
 
 
 def test_twiddle_table():
