@@ -244,21 +244,28 @@ Phases, in order; any failure raises and the run exits non-zero:
    clock), K20 and K1 on a resident block in turns, and one shard's host
    decode and host-to-device copy.
 23. K10 and K11 past the powers of two up to 8192 (kernels.fft_pallas.fft_plan:
-   csrc/fft_mixed.cu, one block a frame, below 16384; csrc/fft_4step.cu, the
-   four-step, from 16384 to 2^20): the six new kernels' registers, local
-   bytes and blocks per SM, no spill; K10 over 2^25 samples at 3072 (n2 384),
-   5120, 11264 (a direct-DFT pass over 11), 12288, 16384, 65536 (n2 128) and
-   2^20 (n2 1024) against its plain version, timed with cuFFT in turns (one
-   call, 5 back to back); K11 on one chunk of config 3 with 4096 taps (fft
-   16384) and with 3000 taps at fft 12288 against its plain version and
+   csrc/fft_mixed.cu, one block a frame up to 16384; csrc/fft_4step.cu, the
+   four-step, from 17408 to 2^20; both on csrc/fft_lines.cuh's compile-time
+   register schedules): the new kernels' registers, local bytes and blocks
+   per SM, no spill; K10 over 2^25 samples at 3072 (n2 384), 5120, 11264,
+   12288, 16384, 21504 (96 x 224, the odd part 21 on two register lines),
+   65536 (n2 128), 2^20 (n2 1024) and 1024 x 1021 (n2 128, the 1021-point
+   rows on the generic passes) against its plain version, timed with cuFFT
+   in turns (one call, 5 back to back), each row beside the run-time-pass
+   bodies' time and ratio to cuFFT where they were measured; K11 on one
+   chunk of config 3 with 4096 taps (fft 16384, one block a frame), with
+   3000 taps at fft 12288, with 4352 taps at the four-step's first size
+   17408 and with 4096 taps at 1024 x 1021 against its plain version and
    cuDNN conv1d; then, counts at 0, K10's three orders at every size
    (natural == kernel-natural == digit unscrambled by torch.equal; > 110 dB
-   against complex128, > 100 dB with a direct-DFT pass; conj round trip >
-   110 dB) and config 3 at 4096 taps, 16 x 8,355,840 (one launch == 5
-   FftConvStream chunks == fftconv_time_sharded over 5 shards == per-channel
-   taps by torch.equal; > 100 dB against the plain K11, > 90 dB against the
-   C++ oracle on channels 0 and 15), and K11 at fft 12288 over 16 x
-   8,331,264 (> 100 dB, > 90 dB).
+   against complex128, > 100 dB where a generic line runs a direct-DFT
+   pass; conj round trip > 110 dB), config 3 at 4096 taps, 16 x 8,355,840
+   (one launch == 5 FftConvStream chunks == fftconv_time_sharded over 5
+   shards == per-channel taps by torch.equal; > 100 dB against the plain
+   K11, > 90 dB against the C++ oracle on channels 0 and 15), K11 at fft
+   12288 over 16 x 8,331,264, K11's four-step at 17408 over 16 x 7,864,320
+   and at 1024 x 1021 over 16 x 5 blocks of 8 frames (one launch == 5
+   FftConvStream chunks; > 100 dB, > 90 dB).
 
 Phase 3 also holds K10 (three orders, 8192 x 4096; SNR > 110 dB against
 torch.fft in complex128, natural == digit + unscramble == kernel-natural by
@@ -295,12 +302,13 @@ starts at 0, its warm-up call and rank 0's one-call comparisons left out),
 and those are added to K1's and K11's rows (and K19's and K20's); phase 22
 resets the counts before its passes and adds its K1 and K20 launches to
 their rows; phase 23 times its bodies first, one row a body and size
-(fft_mixed_3072 ... fft_4step_1048576, fftconv_4step_16384,
-fftconv_mixed_12288), then resets the counts before its path and gives
-each row the launches of its body at its size there (fft, fft_digit,
-fft_nat, fftconv and fftconv_per_channel count launches of the register
-body alone, which the phase's path never runs). The last three lines are one JSON
-object per kernel, the card's name and power limit, and
+(fft_mixed_3072 ... fft_4step_1045504, fftconv_mixed_16384,
+fftconv_mixed_12288, fftconv_4step_17408, fftconv_4step_1045504), then
+resets the counts before its path and gives each row the launches of its
+body at its size there (fft, fft_digit, fft_nat, fftconv and
+fftconv_per_channel count launches of the register body alone, which the
+phase's path never runs). The last three lines are one JSON object per
+kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -446,15 +454,29 @@ C21_SHARDS, C21_TIMEOUT = 2, 420.0
 C22_BLOCKS, C22_SHARDS = 4, 4
 # phase 23, K10 and K11 past the powers of two up to 8192: K10 over 2^25 samples a size
 # (frames rounded down to whole groups of 16) at the JAX kernels' sizes (n2 384 at 3072,
-# 1024 at 2^20, else 128; 11264 = 1024 x 11 runs a direct-DFT pass), the SNR against
-# complex128 on the first C23_SNR_SAMPLES; config 3 with 4096 taps (fft 16384, hop 12,288:
-# 16 x 8,355,840 = 85 blocks of 8 frames, 5 chunks of 17) and K11's one-block body at fft
-# 12288 with 3000 taps (hop 9216, 113 blocks of 8 frames)
+# 1024 at 2^20, else 128), the SNR against complex128 on the first C23_SNR_SAMPLES; config 3
+# with 4096 taps (fft 16384, hop 12,288: 16 x 8,355,840 = 85 blocks of 8 frames, 5 chunks
+# of 17), K11 at fft 12288 with 3000 taps (hop 9216, 113 blocks of 8 frames) and at the
+# four-step's first size 17408 with 17408 / 4 taps as config 3 has at 16384 (hop 12,288:
+# 16 x 7,864,320 = 80 blocks of 8 frames, 5 chunks of 16) and at 1024 x 1021 with 4096
+# taps, whose 1021-point rows run the generic passes (5 blocks of 8 frames, 5 chunks of
+# 1); K10 also at 21504 = 96 x 224 (the odd part 21 split across two register lines) and
+# at 1024 x 1021 (the generic rows)
 C23_SAMPLES, C23_BFRAMES, C23_SNR_SAMPLES = 1 << 25, 16, 1 << 22
 C23_SIZES = ((3072, 384), (5120, 128), (11264, 128), (12288, 128), (16384, 128),
-             (65536, 128), (1 << 20, 1024))
+             (21504, 128), (65536, 128), (1 << 20, 1024), (1024 * 1021, 128))
 C23_TAPS, C23_FFT, C23_BFRAMES_K11, C23_BLOCKS = 4096, 16384, 8, 85
 C23_MIXED_TAPS, C23_MIXED_FFT, C23_MIXED_BLOCKS = 3000, 12288, 113
+C23_4STEP_TAPS, C23_4STEP_FFT, C23_4STEP_BLOCKS = 4352, 17408, 80
+C23_PRIME_TAPS, C23_PRIME_FFT, C23_PRIME_BLOCKS = 4096, 1024 * 1021, 5
+# the bodies these replaced (every pass a run-time radix over the frame in shared
+# memory), on an H100 80GB HBM3 at 700.00 W: (ms one call, ms 5 back to back, ms over
+# cuFFT's one call) of K10 a size; ms of K11 at 4096 and 3000 taps
+C23_BEFORE = {3072: (0.4691, 0.4563, 2.19), 5120: (0.4909, 0.4546, 2.33),
+            11264: (1.5980, 1.4960, 5.67), 12288: (0.6822, 0.6168, 3.08),
+            16384: (0.8893, 0.7627, 3.89), 65536: (1.0209, 0.9327, 2.33),
+            1 << 20: (1.2669, 1.1799, 3.01)}
+C23_BEFORE_K11 = {C23_FFT: 1.6252, C23_MIXED_FFT: 0.9788}
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -751,21 +773,22 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
 
 def phase23(torch, dev) -> tuple[list, dict]:
     """K10 and K11 at the sizes past the powers of two (``kernels.fft_pallas.
-    fft_plan``: one block a frame below 16384, the four-step from there).
+    fft_plan``: one block a frame up to 16384, the four-step from 17408).
     First each body against its plain version and the library call, timed
     (kernel and plain: median of 5; K10 and cuFFT in turns, one call a turn
-    and 5 back to back); then, with the counts at 0, the path a user drives:
-    K10 in its three orders at every size (natural == kernel-natural ==
-    digit unscrambled by torch.equal; SNR against torch.fft in complex128
-    above 110 dB where the odd factor is built of 3, 5 and 7, above 100 dB
-    where a prime above 7 runs the direct-DFT pass, whose sums of p float32
-    products round more; the conj round trip above 110 dB), and config 3
-    with 4096 taps through K11 (one launch == 5 FftConvStream chunks ==
-    fftconv_time_sharded over 5 shards by torch.equal, per-channel taps
-    equal to shared ones, > 100 dB against the plain K11, > 90 dB against
-    the C++ oracle's direct FIR) and K11's one-block body at fft 12288.
-    Returns the new bodies' rows, one a body and size, each with the
-    launches of that size on the path, and the path's launches."""
+    and 5 back to back, beside the run-time-pass bodies' times and ratios);
+    then, with the counts at 0, the path a user drives: K10 in its three
+    orders at every size (natural == kernel-natural == digit unscrambled by
+    torch.equal; SNR against torch.fft in complex128 above 110 dB, or 100 dB
+    where a generic line runs a direct-DFT pass; the conj round trip above
+    110 dB), config 3 with 4096 taps through K11 (one launch == 5
+    FftConvStream chunks == fftconv_time_sharded over 5 shards ==
+    per-channel taps by torch.equal, > 100 dB against the plain K11, > 90 dB
+    against the C++ oracle's direct FIR), K11 at fft 12288 and K11's
+    four-step at 17408 and 1024 x 1021, whose rows run the generic passes
+    (one launch == 5 FftConvStream chunks). Returns the
+    new bodies' rows, one a body and size, each with the launches of that
+    size on the path, and the path's launches."""
     from srcdsp_tpu_torch import oracle
     from srcdsp_tpu_torch.configs import C3_CUTOFF, seeded_planes
     from srcdsp_tpu_torch.dist import fused as dfused
@@ -780,23 +803,26 @@ def phase23(torch, dev) -> tuple[list, dict]:
     rows = []
     orders = (("fft", True), ("fft_digit", False), ("fft_nat", "kernel"))
     bodies = {k: v for k, v in _build.ptxas_report().items()
-              if any(f"{b}_kernel" in k for b in ("fft_mixed", "fftconv_mixed", "fft4_step1",
-                                                   "fft4_step2", "fftconv4_mid", "fftconv4_out"))}
+              if any(b in k for b in ("fft_mixed_kernel", "fftconv_mixed_kernel", "fft4_",
+                                      "fftconv4_"))}
     spilled = [k for k, (_, st, ld) in bodies.items() if st or ld]
-    for n, n2 in ((12288, 128), (11264, 128), (C23_FFT, 128), (1 << 20, 1024)):
+    for n, n2 in C23_SIZES[:5] + ((C23_4STEP_FFT, 128),) + C23_SIZES[5:]:
         plan = kfft.fft_plan(n, n2)
-        names = (("fft_mixed", "fftconv_mixed"),) if plan.body == "mixed" else (
-            ("fft4_step1", "fftconv4_out"), ("fft4_step2", "fftconv4_mid"))
+        names = (kfft.MIXED_KERNELS,) if plan.body == "mixed" else (
+            ("cols", "out"), ("rows", "mid"))
         for g, pair in zip(plan.lines, names):
             for name in pair:
                 regs, local, blocks = kfft.lines_info(name, g)
-                print(f"[23] {name} at {n} ({g.length}-point lines x {g.lanes}, "
-                      f"{g.smem_bytes()} B of shared memory): {regs} registers, {local} bytes "
-                      f"of local memory, {blocks} blocks per SM")
+                threads = g.threads if isinstance(g, kfft.LineShape) else 256
+                print(f"[23] {name} at {n} ({g}, {g.smem_bytes()} B of shared memory): {regs} "
+                      f"registers, {local} bytes of local memory, {blocks} blocks of {threads} "
+                      f"threads per SM ({blocks * threads // 32} warps)")
                 require(local == 0 and blocks >= 1, f"{name} at {n}: {local} B local, {blocks}")
+    want = 3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES) + 4
     print(f"[23] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} fft_mixed / fft_4step "
           f"kernels without spills", flush=True)
-    require(len(bodies) == 6 and not spilled, f"ptxas spills in {spilled}")
+    require(len(bodies) == want and not spilled, f"ptxas: {len(bodies)} of {want}, spills in "
+                                                 f"{spilled}")
 
     def frames(n: int) -> int:
         return C23_SAMPLES // n // C23_BFRAMES * C23_BFRAMES
@@ -806,10 +832,13 @@ def phase23(torch, dev) -> tuple[list, dict]:
         return (torch.randn((frames(n), n), device=dev, generator=g),
                 torch.randn((frames(n), n), device=dev, generator=g))
 
+    def body_of(n: int, n2: int = 128) -> str:
+        return "mixed" if kfft.fft_plan(n, n2).body == "mixed" else "4step"
+
     # --- each body at each size against its plain version and the library, timed --
     for n, n2 in C23_SIZES:
         plan = kfft.fft_plan(n, n2)
-        body = "fft_" + ("mixed" if plan.body == "mixed" else "4step")
+        body = "fft_" + body_of(n, n2)
         xr, xi = inputs(n)
         xc = torch.complex(xr, xi)
         k = kfft.make_fft_kernel(n, n2=n2, b_frames=C23_BFRAMES, device=dev)
@@ -822,8 +851,7 @@ def phase23(torch, dev) -> tuple[list, dict]:
         y = k.fn(xr, xi)
         err, rel = complex_err(torch, y, plain())
         per_call = 1 if plan.body == "mixed" else 2 * -(-frames(n) // kfft.scratch_frames(n, 2))
-        print(f"[23] K10 {n} (n2 {n2}, {plan.body}: "
-              f"{'; '.join(f'{g.length} x {g.lanes} lanes {g.radices}' for g in plan.lines)}), "
+        print(f"[23] K10 {n} (n2 {n2}, {plan.body}: {'; '.join(map(str, plan.lines))}), "
               f"{frames(n)} frames, {per_call} launches a call:", flush=True)
         row = record_row(torch, rows, f"{body}_{n}", "srcdsp_tpu_torch/csrc/" + (
             "fft_mixed.cu" if plan.body == "mixed" else "fft_4step.cu"),
@@ -831,21 +859,23 @@ def phase23(torch, dev) -> tuple[list, dict]:
             lambda: k.fn(xr, xi), plain, 5 * n * np.log2(n) * frames(n),
             tensor_bytes(xr, xi, y), lib_fn=lambda: torch.fft.fft(xc, dim=-1),
             per_call=per_call, counter=body)
-        t1 = {a: float(np.median(v)) for a, v in in_turns(
-            torch, {"kernel": lambda: k.fn(xr, xi), "cuFFT": lambda: torch.fft.fft(xc, dim=-1)},
-            2 * REPS).items()}
-        t5 = {a: float(np.median(v)) for a, v in in_turns(
-            torch, {"kernel": lambda: k.fn(xr, xi), "cuFFT": lambda: torch.fft.fft(xc, dim=-1)},
-            2 * REPS, calls=REPS).items()}
-        print(f"[23] K10 {n} in turns: one call kernel {t1['kernel']:.4f} / cuFFT "
-              f"{t1['cuFFT']:.4f} ms, {REPS} back to back {t5['kernel']:.4f} / "
-              f"{t5['cuFFT']:.4f} ms ({t5['kernel'] / t5['cuFFT']:.3f} x cuFFT, "
-              f"{row['bound_ms'] / t5['kernel']:.3f} of the bound); {card}", flush=True)
+        fns = {"kernel": lambda: k.fn(xr, xi), "cuFFT": lambda: torch.fft.fft(xc, dim=-1)}
+        t1 = {a: float(np.median(v)) for a, v in in_turns(torch, fns, 2 * REPS).items()}
+        t5 = {a: float(np.median(v)) for a, v in in_turns(torch, fns, 2 * REPS,
+                                                             calls=REPS).items()}
+        old = [f" (before: {v})" for v in C23_BEFORE.get(n, ("not measured",) * 3)]
+        print(f"[23] K10 {n} in turns: one call kernel {t1['kernel']:.4f}{old[0]} / cuFFT "
+              f"{t1['cuFFT']:.4f} ms = {t1['kernel'] / t1['cuFFT']:.3f} x cuFFT{old[2]}; {REPS} "
+              f"back to back {t5['kernel']:.4f}{old[1]} / {t5['cuFFT']:.4f} ms "
+              f"({t5['kernel'] / t5['cuFFT']:.3f} x cuFFT, {row['bound_ms'] / t5['kernel']:.3f} of "
+              f"the bound); {card}", flush=True)
         del xr, xi, xc, y, k
 
     taps = lowpass(C23_TAPS, C3_CUTOFF)
     for fft, ntaps, blocks in ((C23_FFT, C23_TAPS, C23_BLOCKS),
-                               (C23_MIXED_FFT, C23_MIXED_TAPS, C23_MIXED_BLOCKS)):
+                               (C23_MIXED_FFT, C23_MIXED_TAPS, C23_MIXED_BLOCKS),
+                               (C23_4STEP_FFT, C23_4STEP_TAPS, C23_4STEP_BLOCKS),
+                               (C23_PRIME_FFT, C23_PRIME_TAPS, C23_PRIME_BLOCKS)):
         mixed = fft < kfft.FOUR_STEP_MIN
         body = "fftconv_" + ("mixed" if mixed else "4step")
         t_k = taps if fft == C23_FFT else lowpass(ntaps, C3_CUTOFF)
@@ -872,15 +902,17 @@ def phase23(torch, dev) -> tuple[list, dict]:
             nf * (2 * 5 * fft * np.log2(fft) + 6 * fft), tensor_bytes(xk, yc),
             lib_fn=lambda: torch.nn.functional.conv1d(xk.reshape(2 * C3_CHANNELS, 1, -1), w),
             per_call=per_call, counter=body)
-        print(f"[23] K11 {fft}: {C3_CHANNELS * chunk / row['ms'] / 1e3:.1f} Ms/s; {card}",
-              flush=True)
+        old = C23_BEFORE_K11.get(fft)
+        print(f"[23] K11 {fft}: {row['ms']:.4f} ms a chunk"
+              f"{f' (before: {old:.4f})' if old else ''}, "
+              f"{C3_CHANNELS * chunk / row['ms'] / 1e3:.1f} Ms/s; {card}", flush=True)
         del xk, yc, kc
     by_name = {row["name"]: row for row in rows}
 
     # --- the path, with the counts at 0 ---------------------------------------
     _build.reset_launches()
     for n, n2 in C23_SIZES:
-        body = "fft_" + ("mixed" if kfft.fft_plan(n, n2).body == "mixed" else "4step")
+        body = "fft_" + body_of(n, n2)
         before = _build.LAUNCHES[body]
         xr, xi = inputs(n)
         outs = {}
@@ -911,7 +943,8 @@ def phase23(torch, dev) -> tuple[list, dict]:
         by_name[f"{body}_{n}"]["launches"] = _build.LAUNCHES[body] - before
         del xr, xi, outs, nat, ref, rr, ri
 
-    before = _build.LAUNCHES["fftconv_4step"]
+    body3 = "fftconv_" + body_of(C23_FFT)
+    before = _build.LAUNCHES[body3]
     k11 = kfc.make_fftconv_kernel(taps, C23_FFT, num_channels=C3_CHANNELS,
                                   b_frames=C23_BFRAMES_K11, device=dev)
     chunk = C23_BLOCKS // 5 * k11.block_in()
@@ -955,41 +988,51 @@ def phase23(torch, dev) -> tuple[list, dict]:
         snr_or.append(snr_db(torch, torch.from_numpy(oracle.fir(xc, taps)),
                              y3[c, :C3_ORACLE_SAMPLES].cpu()))
     ms3 = median_ms(torch, lambda: kfc.fftconv_pallas(k11, x))
-    print(f"[23] config 3 at {C23_TAPS} taps (fft {C23_FFT}, hop {k11.hop}): {C3_CHANNELS} ch x "
-          f"{n3} samples, one launch {one_s * 1e3:.3f} ms (first call), median {ms3:.3f} ms "
-          f"({C3_CHANNELS * n3 / ms3 / 1e3:.1f} Ms/s); == 5 FftConvStream chunks == "
-          f"fftconv_time_sharded over 5 shards == per-channel taps (torch.equal); SNR "
-          f"{snr_plain:.2f} dB against the plain K11 (floor 100), {snr_or[0]:.2f} / "
-          f"{snr_or[1]:.2f} dB against the C++ oracle's direct FIR on the first "
-          f"{C3_ORACLE_SAMPLES} samples of channels 0 and {C3_CHANNELS - 1} (floor 90); {card}",
-          flush=True)
+    print(f"[23] config 3 at {C23_TAPS} taps (fft {C23_FFT}, hop {k11.hop}, {body3}): "
+          f"{C3_CHANNELS} ch x {n3} samples, one launch {one_s * 1e3:.3f} ms (first call), "
+          f"median {ms3:.3f} ms (before: 7.485) ({C3_CHANNELS * n3 / ms3 / 1e3:.1f} Ms/s); == 5 "
+          f"FftConvStream chunks == fftconv_time_sharded over 5 shards == per-channel taps "
+          f"(torch.equal); SNR {snr_plain:.2f} dB against the plain K11 (floor 100), "
+          f"{snr_or[0]:.2f} / {snr_or[1]:.2f} dB against the C++ oracle's direct FIR on the "
+          f"first {C3_ORACLE_SAMPLES} samples of channels 0 and {C3_CHANNELS - 1} (floor 90); "
+          f"{card}", flush=True)
     require(snr_plain > 100.0, f"config 3 at 4096 taps: SNR {snr_plain} dB against plain")
     require(min(snr_or) > 90.0, f"config 3 at 4096 taps: SNR {snr_or} dB against the oracle")
-    by_name[f"fftconv_4step_{C23_FFT}"]["launches"] = _build.LAUNCHES["fftconv_4step"] - before
+    by_name[f"{body3}_{C23_FFT}"]["launches"] = _build.LAUNCHES[body3] - before
     del x, one, y3, body
 
-    before = _build.LAUNCHES["fftconv_mixed"]
-    taps_m = lowpass(C23_MIXED_TAPS, C3_CUTOFF)
-    km = kfc.make_fftconv_kernel(taps_m, C23_MIXED_FFT, num_channels=C3_CHANNELS,
-                                 b_frames=C23_BFRAMES_K11, device=dev)
-    nm = C23_MIXED_BLOCKS * km.block_in()
-    x = seeded_planes(C3_CHANNELS, km.overlap, nm, seed=0, device=dev)
-    ym = torch.complex(*kfc.fftconv_pallas(km, x))
-    hm = torch.as_tensor(kfc.freq_response_planes(taps_m, C23_MIXED_FFT), device=dev)
-    snr_m = snr_db(torch, torch.complex(*kfc.fftconv_plain(
-        x, hm, make_fft_planes(C23_MIXED_FFT, device=dev), C23_MIXED_FFT, km.hop)), ym)
-    xc = torch.complex(x[0, 0, km.overlap:km.overlap + C3_ORACLE_SAMPLES],
-                       x[0, 1, km.overlap:km.overlap + C3_ORACLE_SAMPLES]).cpu().numpy()
-    snr_mo = snr_db(torch, torch.from_numpy(oracle.fir(xc, taps_m)),
-                    ym[0, :C3_ORACLE_SAMPLES].cpu())
-    print(f"[23] K11 at fft {C23_MIXED_FFT}, {C23_MIXED_TAPS} taps (hop {km.hop}, one block a "
-          f"frame): {C3_CHANNELS} ch x {nm} samples, SNR {snr_m:.2f} dB against the plain K11 "
-          f"(floor 100), {snr_mo:.2f} dB against the C++ oracle on channel 0 (floor 90)",
-          flush=True)
-    require(snr_m > 100.0 and snr_mo > 90.0, f"K11 {C23_MIXED_FFT}: SNR {snr_m}, {snr_mo} dB")
-    by_name[f"fftconv_mixed_{C23_MIXED_FFT}"]["launches"] = (_build.LAUNCHES["fftconv_mixed"]
-                                                            - before)
-    del x, ym
+    for fft, ntaps, blocks in ((C23_MIXED_FFT, C23_MIXED_TAPS, C23_MIXED_BLOCKS),
+                               (C23_4STEP_FFT, C23_4STEP_TAPS, C23_4STEP_BLOCKS),
+                               (C23_PRIME_FFT, C23_PRIME_TAPS, C23_PRIME_BLOCKS)):
+        bodyk = "fftconv_" + body_of(fft)
+        before = _build.LAUNCHES[bodyk]
+        taps_k = lowpass(ntaps, C3_CUTOFF)
+        km = kfc.make_fftconv_kernel(taps_k, fft, num_channels=C3_CHANNELS,
+                                     b_frames=C23_BFRAMES_K11, device=dev)
+        nm = blocks * km.block_in()
+        x = seeded_planes(C3_CHANNELS, km.overlap, nm, seed=0, device=dev)
+        one = kfc.fftconv_pallas(km, x)
+        st = kfc.FftConvStream(km)
+        edges = [km.overlap + i * blocks // 5 * km.block_in() for i in range(6)]  # whole blocks
+        parts = [st.process(x[..., a:b]) for a, b in zip(edges, edges[1:])]
+        require(all(torch.equal(torch.cat([q[j] for q in parts], -1), one[j]) for j in range(2)),
+                f"K11 {fft}: 5 FftConvStream chunks != one launch (torch.equal)")
+        del parts
+        ym = torch.complex(*one)
+        hm = torch.as_tensor(kfc.freq_response_planes(taps_k, fft), device=dev)
+        snr_m = snr_db(torch, torch.complex(*kfc.fftconv_plain(
+            x, hm, make_fft_planes(fft, device=dev), fft, km.hop)), ym)
+        xc = torch.complex(x[0, 0, km.overlap:km.overlap + C3_ORACLE_SAMPLES],
+                           x[0, 1, km.overlap:km.overlap + C3_ORACLE_SAMPLES]).cpu().numpy()
+        snr_mo = snr_db(torch, torch.from_numpy(oracle.fir(xc, taps_k)),
+                        ym[0, :C3_ORACLE_SAMPLES].cpu())
+        print(f"[23] K11 at fft {fft}, {ntaps} taps (hop {km.hop}, {bodyk}): {C3_CHANNELS} ch x "
+              f"{nm} samples, == 5 FftConvStream chunks (torch.equal), SNR {snr_m:.2f} dB "
+              f"against the plain K11 (floor 100), {snr_mo:.2f} dB against the C++ oracle on "
+              f"channel 0 (floor 90)", flush=True)
+        require(snr_m > 100.0 and snr_mo > 90.0, f"K11 {fft}: SNR {snr_m}, {snr_mo} dB")
+        by_name[f"{bodyk}_{fft}"]["launches"] = _build.LAUNCHES[bodyk] - before
+        del x, ym, one
 
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     require(set(launches) <= {"fft_mixed", "fft_4step", "fftconv_mixed", "fftconv_4step"},

@@ -1,6 +1,7 @@
 // The register-resident Stockham FFT of K10 (fft.cu): one frame of
-// N = 2^LOG2N complex float32 samples (256 <= N <= 8192), forward transform,
-// X[k] = sum_n x[n] e^{-2 pi i k n / N}, no scaling.
+// N = 2^LOG2N complex float32 samples (256 <= N <= 8192 there; fft_lines.cuh
+// runs it on the power-of-two factor of the other sizes, 16 <= N <= 16384),
+// forward transform, X[k] = sum_n x[n] e^{-2 pi i k n / N}, no scaling.
 //
 // Each of T = N/16 threads of a frame keeps 16 complex samples in registers.
 // The transform runs as radix-16 passes with at most one radix-2, -4 or -8
@@ -192,9 +193,7 @@ __device__ __forceinline__ void fft_regs_dft(float (&ar)[kFftRegsVals], float (&
   }
 }
 
-// Pass Q of the transform on a thread's registers: the twiddles (none in
-// pass 0), then the 16/R butterflies.
-template <int LOG2N, int Q>
+template <int LOG2N, int Q, bool kLdg = true>
 __device__ __forceinline__ void fft_regs_pass(float (&vr)[kFftRegsVals],
                                               float (&vi)[kFftRegsVals], int t,
                                               const float* __restrict__ twr,
@@ -209,19 +208,29 @@ __device__ __forceinline__ void fft_regs_pass(float (&vr)[kFftRegsVals],
 #pragma unroll
       for (int m = 1; m < R; ++m) {
         const int e = OFF + (m - 1) * NS + k;
-        fft_regs_cmul(vr[g + G * m], vi[g + G * m], __ldg(twr + e), __ldg(twi + e));
+        if constexpr (kLdg)
+          fft_regs_cmul(vr[g + G * m], vi[g + G * m], __ldg(twr + e), __ldg(twi + e));
+        else
+          fft_regs_cmul(vr[g + G * m], vi[g + G * m], twr[e], twi[e]);
       }
     }
     fft_regs_dft<R, G>(vr, vi, g);
   }
 }
 
+// Shared-memory index of element e of a frame: the padded plane (fft_regs_pad).
+// The transform takes any such map (fft_lines.cuh lays a line out across a
+// tile of lines).
+struct FftPadAt {
+  __device__ __forceinline__ int operator()(int e) const { return fft_regs_pad(e); }
+};
+
 // Pass Q's outputs to their Stockham places in shared memory, then the next
-// pass's inputs back: register s <- element t + T*s. Starts with a barrier
-// when an earlier exchange's reads may still be running.
-template <int LOG2N, int Q>
+// pass's inputs back: register s <- element t + T*s, element e at at(e).
+// Starts with a barrier when an earlier exchange's reads may still be running.
+template <int LOG2N, int Q, class At>
 __device__ __forceinline__ void fft_exchange(float (&vr)[kFftRegsVals], float (&vi)[kFftRegsVals],
-                                             int t, float* sr, float* si) {
+                                             int t, float* sr, float* si, At at) {
   constexpr int R = fft_pass_radix(LOG2N, Q), NS = fft_pass_span(LOG2N, Q);
   constexpr int G = kFftRegsVals / R, T = FftRegsShape<LOG2N>::kT;
   if constexpr (Q > 0) __syncthreads();
@@ -231,7 +240,7 @@ __device__ __forceinline__ void fft_exchange(float (&vr)[kFftRegsVals], float (&
     const int base = (j / NS) * NS * R + (j & (NS - 1));
 #pragma unroll
     for (int m = 0; m < R; ++m) {
-      const int a = fft_regs_pad(base + m * NS);
+      const int a = at(base + m * NS);
       sr[a] = vr[g + G * m];
       si[a] = vi[g + G * m];
     }
@@ -239,34 +248,37 @@ __device__ __forceinline__ void fft_exchange(float (&vr)[kFftRegsVals], float (&
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kFftRegsVals; ++s) {
-    const int a = fft_regs_pad(t + T * s);
+    const int a = at(t + T * s);
     vr[s] = sr[a];
     vi[s] = si[a];
   }
 }
 
-template <int LOG2N, int Q>
+template <int LOG2N, int Q, bool kLdg, class At>
 __device__ __forceinline__ void fft_regs_passes(float (&vr)[kFftRegsVals],
                                                 float (&vi)[kFftRegsVals], int t, float* sr,
-                                                float* si, const float* __restrict__ twr,
-                                                const float* __restrict__ twi) {
-  fft_regs_pass<LOG2N, Q>(vr, vi, t, twr, twi);
+                                                float* si, const float* twr, const float* twi,
+                                                At at) {
+  fft_regs_pass<LOG2N, Q, kLdg>(vr, vi, t, twr, twi);
   if constexpr (Q + 1 < fft_pass_count(LOG2N)) {
-    fft_exchange<LOG2N, Q>(vr, vi, t, sr, si);
-    fft_regs_passes<LOG2N, Q + 1>(vr, vi, t, sr, si, twr, twi);
+    fft_exchange<LOG2N, Q>(vr, vi, t, sr, si, at);
+    fft_regs_passes<LOG2N, Q + 1, kLdg>(vr, vi, t, sr, si, twr, twi, at);
   }
 }
 
 // The whole transform of one frame. On entry register s of thread t (t < T)
-// holds x[t + T*s]; on return X[t + T*s]. sr, si: this frame's two padded
-// planes of shared memory (kPlane floats each). tw: the [2, kTwiddles] table.
-// Every thread of the block must call it (it has barriers), and the last
-// barrier leaves sr, si free only after the caller's next __syncthreads().
-template <int LOG2N>
+// holds x[t + T*s]; on return X[t + T*s]. sr, si: the two planes of shared
+// memory the exchanges use, element e at at(e) (by default this frame's two
+// padded planes of kPlane floats each). tw: the [2, kTwiddles] table, read
+// as fft_regs_pass's kLdg says. Every thread of the block must call it (it
+// has barriers), and the last barrier leaves sr, si free only after the
+// caller's next __syncthreads().
+template <int LOG2N, class At = FftPadAt, bool kLdg = true>
 __device__ __forceinline__ void fft_regs_forward(float (&vr)[kFftRegsVals],
                                                  float (&vi)[kFftRegsVals], int t, float* sr,
-                                                 float* si, const float* __restrict__ tw) {
-  fft_regs_passes<LOG2N, 0>(vr, vi, t, sr, si, tw, tw + FftRegsShape<LOG2N>::kTwiddles);
+                                                 float* si, const float* tw, At at = At()) {
+  fft_regs_passes<LOG2N, 0, kLdg>(vr, vi, t, sr, si, tw, tw + FftRegsShape<LOG2N>::kTwiddles,
+                                  at);
 }
 
 }  // namespace srcdsp

@@ -14,26 +14,33 @@ On the card `fft_plan` picks one of three CUDA bodies for each size:
   a register-resident radix-16 Stockham FFT (16 samples per thread, two
   shared-memory exchanges between the three passes at N = 4096);
 - any other size the JAX kernel takes (n2 % 128 == 0 and n1 % 8 == 0, so a
-  multiple of 1024) below 16384: ``csrc/fft_mixed.cu``, one block a frame,
-  the frame in shared memory, in-place mixed-radix passes (the odd primes
-  first: 3, 5 and 7 in registers, any other prime as a direct DFT; then 16s
-  and a last 2, 4 or 8);
-- such a size from 16384 to 2^20: ``csrc/fft_4step.cu``, the four-step
-  N = f1 * f2 in two kernels over a scratch buffer in device memory (the
-  f1-point column transforms times W_N^{b c}, then the f2-point row
-  transforms), each a tile of lines on the same passes.
+  multiple of 1024) up to 16384: ``csrc/fft_mixed.cu``, one block a frame,
+  N = P M (P odd up to 15, 1 at 16384; MIXED_SHAPES), on the compile-time
+  register schedule of ``csrc/fft_lines.cuh``: the odd pass (a P-point DFT
+  in registers a butterfly, straight from device memory), then fft_regs.cuh's
+  Stockham passes on the P sub-transforms of M points, 16 values a thread;
+- such a size from 17408 (FOUR_STEP_MIN) to 2^20: ``csrc/fft_4step.cu``, the
+  four-step N = f1 * f2 in two kernels over a scratch buffer in device memory
+  (the f1-point column transforms times W_N^{b c}, then the f2-point row
+  transforms), each a tile of adjacent lines on the same register schedule
+  (FOUR_STEP_LINES: an odd part above 15 that is the product of two up to
+  15, as 21 = 3 x 7, is split across the two lines), or, for a line of no
+  instantiated shape (a prime above 15, as 17 or 1021, or an odd part that
+  no two factors up to 15 make, as 243), on the generic in-place passes
+  (`LineGeometry`).
 
 The output order is always a store index, so the natural store equals the
 digit store followed by the transpose bit for bit, and `natural_order=True`
 launches the natural store with no transpose. The kernels' schedules are
-mirrored here (`regs_*` for ``fft_regs.cuh``; the private `_line_*` and
-`_digit_position` for ``fft_lines.cuh`` and its two bodies): the host builds
-the kernels' tables from them (`stockham_twiddles`, `FftPlan.tables`:
-`_line_table`, `_line_rev` and the four-step's post-twiddles) and the CPU
-tests run them in numpy. On a CPU tensor the
-wrappers run `fft_rows_plain`, the JAX kernel's own factorization in float32
-matrix products with its constants (`fft_consts`), which takes any n1, n2;
-on a CUDA tensor they launch a kernel or raise.
+mirrored here (`regs_*` for ``fft_regs.cuh``; the private `_odd_trig`,
+`_line_shape`, `_line_order`, `_forward_order`, `_reg_line_table`,
+`_mixed_shape`, `_mixed_stage` and `_line_at` for the compile-time
+schedules of ``fft_lines.cuh`` and its two bodies, `_line_*` for its
+generic lines and `_digit_position` for the digit store): the host builds the kernels' tables
+from them (`FftPlan.tables`) and the CPU tests run them in numpy. On a CPU
+tensor the wrappers run `fft_rows_plain`, the JAX kernel's own
+factorization in float32 matrix products with its constants (`fft_consts`),
+which takes any n1, n2; on a CUDA tensor they launch a kernel or raise.
 
 `ifft_pallas` is the inverse by conj -> forward -> conj and 1/N, around a
 natural-order kernel.
@@ -53,20 +60,29 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import cuda_or_cpu
 from srcdsp_tpu_torch.ops.fir import pin_f32
 
-__all__ = ["FftKernel", "FftPlan", "LineGeometry", "make_fft_kernel", "ifft_pallas",
-           "fft_consts", "fft_rows_plain", "fft_twiddles", "fft_occupancy", "fft_plan",
-           "lines_info", "stockham_twiddles", "unscramble", "regs_pad", "regs_passes",
-           "regs_shape", "regs_store_index", "regs_twiddle_exponent"]
+__all__ = ["FftKernel", "FftPlan", "LineGeometry", "LineShape", "make_fft_kernel",
+           "ifft_pallas", "fft_consts", "fft_rows_plain", "fft_twiddles", "fft_occupancy",
+           "fft_plan", "lines_info", "stockham_twiddles", "unscramble", "regs_pad",
+           "regs_passes", "regs_shape", "regs_store_index", "regs_twiddle_exponent"]
 
 LANE = 128
 MIN_LOG2, MAX_LOG2 = 8, 13      # the register body's sizes: 256 ... 8192 points
 MAX_FFT_SIZE = 1 << 20          # the card's cap (the JAX kernel's [2 n1, 2 n1] f32 DFT
                                 # matrix alone is 1 GiB there at n2 = 128)
-FOUR_STEP_MIN = 16384           # from here the four-step body; one block a frame below
+FOUR_STEP_MIN = 17 * 1024       # the four-step from the domain's first size past 16384;
+                                # one block a frame below (16384 = 1024 threads x 16 values)
+# fft_mixed.cu MIXED_SHAPES: (P, log2 M) of the one-block body, N = P M
+MIXED_SHAPES = ((3, 10), (5, 10), (7, 10), (9, 10), (11, 10), (13, 10), (15, 10), (3, 11),
+                (5, 11), (7, 11), (3, 12), (1, 14))
+# fft_4step.cu FOUR_STEP_LINES: (P, log2 M) of the four-step's register lines
+FOUR_STEP_LINES = (tuple((1, m) for m in range(4, 12))
+                   + tuple((p, m) for m in (5, 6, 7) for p in range(3, 16, 2)))
+ODD_FACTORS = (3, 5, 7, 9, 11, 13, 15)  # fft_lines.cuh odd_dft's register butterflies
 LINE_TILE = 8192                # points (lines x length) a four-step block holds at most
-MAX_LANES = 32                  # lines a four-step block holds at most
+MAX_LANES = 32                  # lines a generic line's block holds at most
+MAX_REG_LANES = 64              # lines a register line's block holds at most
 SCRATCH_BYTES = 1 << 28         # the four-step's scratch per launch batch (256 MiB)
-LINE_RADICES = (2, 3, 4, 5, 7, 8, 16)  # fft_lines.cuh's register butterflies
+LINE_RADICES = (2, 3, 4, 5, 7, 8, 16)  # the generic passes' register butterflies
 
 
 def _dft(n: int, sign: float) -> np.ndarray:
@@ -158,8 +174,143 @@ def stockham_twiddles(n: int) -> np.ndarray:
     return np.ascontiguousarray(full[:, np.concatenate(idx)])
 
 
-# The schedule of csrc/fft_lines.cuh (the bodies of fft_mixed.cu and
-# fft_4step.cu), mirrored item by item. A line is one transform of L points;
+# The compile-time schedules of csrc/fft_lines.cuh (fft_mixed.cu's frames and
+# fft_4step.cu's register lines), mirrored item by item. A transform of
+# L = P M points (P odd up to 15, M = 2^log2m) runs on P M / 16 threads:
+# thread (k_p, t) of sub-transform k_p; the forward's odd pass takes
+# butterfly n_m's inputs at rows n_m + M n_p, its P-point DFT (odd_dft),
+# output k times W_L^{n_m k} to row n_m + M k; then the sub-transforms over
+# rows k_p M ... run fft_regs.cuh's schedule (regs_*); register s of thread
+# (k_p, t) then holds X[k_p + P (t + (M/16) s)] (_line_order).
+
+def _odd_trig(p: int) -> np.ndarray:
+    """fft_lines.cuh kOddTrig's entries for P: [cos, sin] of 2 pi j / P for
+    j = 1 ... (P - 1) / 2, each the float64 value rounded to float32 once."""
+    j = np.arange(1, (p - 1) // 2 + 1)
+    return np.stack([np.cos(2 * np.pi * j / p), np.sin(2 * np.pi * j / p)], 1).astype(np.float32)
+
+
+def _odd_trig_offset(p: int) -> int:
+    """fft_lines.cuh _odd_trig_offset: P's first float of kOddTrig."""
+    return sum(q - 1 for q in range(3, p, 2))
+
+
+def _line_shape(p: int, log2m: int) -> tuple[int, int, int]:
+    """fft_lines.cuh LineShape: (kTM threads of a sub-transform, kTL threads
+    of a line, kOdd entries of the odd section)."""
+    m = 1 << log2m
+    return m // REGS_VALS, p * m // REGS_VALS, (p - 1) * m
+
+
+def _line_order(p: int, log2m: int, kp, t, s):
+    """Where the forward leaves X (fft_lines.cuh line_forward, fft_mixed.cu
+    mixed_forward): register s of thread (k_p, t) holds X[k_p + P (t + (M/16) s)]."""
+    return kp + p * (t + ((1 << log2m) // REGS_VALS) * s)
+
+
+def _forward_order(p: int, log2m: int) -> np.ndarray:
+    """The forward's order as an array: entry k_p M + k_m holds X[k_p + P k_m]
+    (K11's H is laid out so on the host, fftconv_pallas)."""
+    m = 1 << log2m
+    return (np.arange(p)[:, None] + p * np.arange(m)[None, :]).ravel()
+
+
+def _reg_line_table(p: int, log2m: int) -> np.ndarray:
+    """The table of a transform of P 2^log2m points, flat float32 as the
+    kernels read it: the odd section [2, (P - 1) M], W_L^{j k} at (k - 1) M +
+    j (k = 1 ... P - 1, j < M), then stockham_twiddles(M) [2, ...], every
+    entry made in float64 and rounded once."""
+    m = 1 << log2m
+    j, k = np.arange(m)[None, :], np.arange(1, p)[:, None]
+    odd = _unit_roots((j * k).ravel(), p * m)
+    return np.concatenate([odd.ravel(), stockham_twiddles(m).ravel()])
+
+
+def _mixed_stage(k):
+    """fft_mixed.cu _mixed_stage: the natural-order staging's index of X[k]."""
+    return k + k // 31
+
+
+def _mixed_shape(p: int, log2m: int) -> tuple[int, int, int]:
+    """fft_mixed.cu MixedShape: (kT threads, kMinBlocks, kPlane floats of one
+    plane); the sub-transform k_p's rows at k_p (M + M / 32)."""
+    n = p << log2m
+    t = n // REGS_VALS
+    return t, max(1, 1024 // t), max(regs_pad(n - 1) + 1, _mixed_stage(n - 1) + 1)
+
+
+def _line_at(j, lane, log2lanes: int):
+    """fft_lines.cuh LineTile::at / LineAt: element j of lane `lane` of a
+    four-step tile, its shared-memory index."""
+    return regs_pad((j << log2lanes) + lane)
+
+
+@dataclasses.dataclass(frozen=True)
+class LineShape:
+    """A transform on the compile-time register schedule: `length` = p 2^log2m
+    points, `lanes` of them a block (1 for the one-block body)."""
+
+    p: int
+    log2m: int
+    lanes: int = 1
+
+    @property
+    def length(self) -> int:
+        return self.p << self.log2m
+
+    @property
+    def threads(self) -> int:
+        """A block's threads: lanes x P M / 16."""
+        return self.lanes * self.length // REGS_VALS
+
+    @property
+    def direct(self) -> bool:
+        return False
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the two planes."""
+        if self.lanes == 1:
+            return 2 * _mixed_shape(self.p, self.log2m)[2] * 4
+        return 2 * (regs_pad(self.lanes * self.length - 1) + 1) * 4
+
+    def table(self, n: int) -> np.ndarray:
+        return _reg_line_table(self.p, self.log2m)
+
+    def rev(self) -> np.ndarray:
+        """A register line leaves natural order (the generic lines' rev slot)."""
+        return np.arange(self.length, dtype=np.int32)
+
+    def descriptor(self) -> tuple[int, ...]:
+        """fft_4step.cu make_line's descriptor: (p, log2m, log2 lanes, 0)."""
+        return self.p, self.log2m, self.lanes.bit_length() - 1, 0
+
+
+def _odd_split(n: int) -> tuple[int, int]:
+    """(odd part, log2 of the power of two) of n."""
+    a = (n & -n).bit_length() - 1
+    return n >> a, a
+
+
+def _reg_line(length: int) -> tuple[int, int] | None:
+    """(P, log2 M) of a four-step line on a register schedule, or None."""
+    p, a = _odd_split(length)
+    return (p, a) if (p, a) in FOUR_STEP_LINES else None
+
+
+def _reg_line_shape(length: int, lines: int) -> LineShape:
+    """A register line of `length` points, `lines` of them in a frame: lanes
+    the largest power of two up to MAX_REG_LANES dividing `lines` with lanes x
+    length <= LINE_TILE (so at most 512 threads, fft_4step.cu kLineThreads)."""
+    p, log2m = _reg_line(length)
+    lanes = 1
+    while (lanes * 2 <= MAX_REG_LANES and lines % (lanes * 2) == 0
+           and lanes * 2 * length <= LINE_TILE):
+        lanes *= 2
+    return LineShape(p, log2m, lanes)
+
+
+# The generic lines of csrc/fft_lines.cuh (a four-step line of no instantiated
+# shape), mirrored item by item. A line is one transform of L points;
 # a block holds `lanes` adjacent lines, element j of lane l at shared-memory
 # index pad(j * lanes + l). The passes run in place, decimation in frequency
 # (DIF) for a forward transform: pass q of radix R over spans M = L / (R_0 ...
@@ -275,8 +426,9 @@ def _digit_position(k, n1: int, n2: int):
 
 @dataclasses.dataclass(frozen=True)
 class LineGeometry:
-    """One pass plan of fft_lines.cuh (LinePlan): `length`-point lines,
-    `lanes` of them a block, its radices."""
+    """A generic line of fft_lines.cuh (LinePlan): `length`-point lines,
+    `lanes` of them a block, its radices (a shape FOUR_STEP_LINES does not
+    hold)."""
 
     length: int
     lanes: int
@@ -293,11 +445,24 @@ class LineGeometry:
         of lanes * length floats, padded one in 32."""
         return (4 if self.direct else 2) * (regs_pad(self.lanes * self.length - 1) + 1) * 4
 
+    def table(self, n: int) -> np.ndarray:
+        return _line_table(self, n).ravel()
 
-def _line_geometry(length: int, lines: int) -> LineGeometry:
-    """The pass plan of `length`-point lines, `lines` of them in a frame:
-    lanes the largest power of two up to MAX_LANES that divides `lines` and
-    keeps lanes * length <= LINE_TILE (at least 1)."""
+    def rev(self) -> np.ndarray:
+        return _line_rev(self.radices, self.length)
+
+    def descriptor(self) -> tuple[int, ...]:
+        """fft_4step.cu make_line's descriptor: (0, 0, log2 lanes, passes, radices...)."""
+        return (0, 0, self.lanes.bit_length() - 1, len(self.radices), *self.radices)
+
+
+def _line_geometry(length: int, lines: int) -> LineShape | LineGeometry:
+    """A four-step line of `length` points, `lines` of them in a frame: a
+    register line where FOUR_STEP_LINES has its shape, else a generic one
+    (lanes the largest power of two up to MAX_LANES that divides `lines` and
+    keeps lanes * length <= LINE_TILE, at least 1)."""
+    if _reg_line(length):
+        return _reg_line_shape(length, lines)
     lanes = 1
     while (lanes * 2 <= MAX_LANES and lines % (lanes * 2) == 0
            and lanes * 2 * length <= LINE_TILE):
@@ -313,7 +478,8 @@ class FftPlan:
     n1: int                       # the caller's digit tile [n1, n2]
     n2: int
     body: str                     # "regs", "mixed" or "four_step"
-    lines: tuple[LineGeometry, ...]  # mixed: (the frame,); four_step: (f1 columns, f2 rows)
+    lines: tuple                  # mixed: (the frame's LineShape,); four_step: (f1 columns,
+                                  # f2 rows), each a LineShape or a LineGeometry
 
     @property
     def log2n(self) -> int:
@@ -324,30 +490,65 @@ class FftPlan:
         """(f1, f2) of the four-step: N = f1 * f2."""
         return self.lines[0].length, self.lines[1].length
 
-    def tables(self) -> tuple[np.ndarray, np.ndarray]:
-        """(twiddle table, rev tables) the body reads: stockham_twiddles and
-        a one-entry placeholder for the register body, which reads no rev;
-        else the lines' _line_table (the
-        four-step's columns, then rows, then W_N^{b c} at b f1 + c and
-        W_N^{c e} at c f2 + e, the two post-twiddles of
-        fft_4step.cu) and their _line_rev, concatenated in that order."""
+    def tables(self) -> tuple[np.ndarray, tuple[int, ...], np.ndarray]:
+        """(table, section offsets, rev) the body reads. The table is flat
+        float32, each section [2, size] (its real plane, then its imaginary
+        one): stockham_twiddles for the register body; the frame's
+        _reg_line_table for one block a frame; for the four-step the columns'
+        and the rows' tables (_reg_line_table, or _line_table for a generic
+        line), then W_N^{b c} at b f1 + c and W_N^{c e} at c f2 + e (its two
+        post-twiddles, [2, N] each). rev: the four-step's lines' _line_rev
+        (a register line's natural order for its slot), else one entry."""
         n = self.fft_size
         if self.body == "regs":
-            return stockham_twiddles(n), np.zeros(1, np.int32)
-        tabs = [_line_table(g, n) for g in self.lines]
+            return stockham_twiddles(n).ravel(), (0,), np.zeros(1, np.int32)
+        parts = [g.table(n) for g in self.lines]
+        rev = np.zeros(1, np.int32)
         if self.body == "four_step":
             f1, f2 = self.factors
             b, c = np.arange(f2)[:, None], np.arange(f1)[None, :]
-            tabs += [_unit_roots((b * c).ravel(), n), _unit_roots((c.T * b.T).ravel(), n)]
-        return (np.ascontiguousarray(np.concatenate(tabs, axis=1)),
-                np.concatenate([_line_rev(g.radices, g.length) for g in self.lines]))
+            parts += [_unit_roots((b * c).ravel(), n).ravel(),
+                      _unit_roots((c.T * b.T).ravel(), n).ravel()]
+            rev = np.concatenate([g.rev() for g in self.lines]).astype(np.int32)
+        offs = tuple(int(x) for x in np.cumsum([0] + [a.size for a in parts[:-1]]))
+        return np.ascontiguousarray(np.concatenate(parts)), offs, rev
+
+    def h_order(self) -> np.ndarray:
+        """K11's H index for each entry the body reads: the one-block body
+        reads H in the forward's order (_forward_order), the others natural."""
+        if self.body == "mixed":
+            g = self.lines[0]
+            return _forward_order(g.p, g.log2m)
+        return np.arange(self.fft_size)
+
+
+def _odd_pair(q: int, a: int) -> tuple[int, int] | None:
+    """Two register lines (q1 2^a1, q2 2^a2) for an odd part q = q1 q2 above
+    15, both factors up to 15 (a2 = min(7, a - 5), a1 = a - a2, both among
+    FOUR_STEP_LINES' 5, 6 and 7), or None (a prime factor above 15, an odd
+    part no two such factors make, or a above 14)."""
+    a2 = min(7, a - 5)
+    for q1 in ODD_FACTORS:
+        if q % q1 == 0 and (q1, a - a2) in FOUR_STEP_LINES and (q // q1, a2) in FOUR_STEP_LINES:
+            return q1 << (a - a2), (q // q1) << a2
+    return None
 
 
 def _four_step_factors(fft_size: int, n1: int, n2: int) -> tuple[int, int]:
-    """(f1, f2): the caller's (n1, n2) when both are at most 2048 (so the
-    digit store writes whole rows), else the divisor pair nearest the square
-    root (f1 >= f2)."""
-    if n1 <= 2048 and n2 <= 2048:
+    """(f1, f2): the caller's (n1, n2) when both run a register schedule (so
+    the digit store writes whole rows); else, for an odd part q of fft_size
+    up to 15, (q x 128, the power of two); else q split across two register
+    lines (_odd_pair); else (n1, n2) when both are at most 2048; else the
+    divisor pair nearest the square root (f1 >= f2)."""
+    q, a = _odd_split(fft_size)
+    if _reg_line(n1) and _reg_line(n2):
+        return n1, n2
+    if 1 < q <= 15:
+        return q * 128, 1 << (a - 7)
+    pair = _odd_pair(q, a) if q > 15 else None
+    if pair:
+        return pair
+    if q > 15 and n1 <= 2048 and n2 <= 2048:
         return n1, n2
     f2 = max(d for d in range(1, int(fft_size ** 0.5) + 1) if fft_size % d == 0)
     return fft_size // f2, f2
@@ -359,9 +560,10 @@ def fft_plan(fft_size: int, n2: int = LANE) -> FftPlan:
     The card takes every fft_size = n1 * n2 <= 2^20 that is (a) a power of
     two from 256 to 8192 (the register body, ``fft.cu``), or (b) meets the
     JAX kernel's tiling rule n2 % 128 == 0 and n1 % 8 == 0 (so a multiple of
-    1024; any n2, 384 included): below 16384 one block a frame
-    (``fft_mixed.cu``), from 16384 the four-step (``fft_4step.cu``).
-    Anything else raises a ValueError that states the rule.
+    1024; any n2, 384 included): up to 16384 one block a frame
+    (``fft_mixed.cu``, N = P M of MIXED_SHAPES), from FOUR_STEP_MIN (17408)
+    the four-step (``fft_4step.cu``). Anything else raises a ValueError that
+    states the rule.
     """
     rule = (f"the CUDA FFT kernels take fft_size = n1 * n2 <= {MAX_FFT_SIZE} that is a power "
             f"of two from {1 << MIN_LOG2} to {1 << MAX_LOG2}, or has n2 % 128 == 0 and "
@@ -377,22 +579,36 @@ def fft_plan(fft_size: int, n2: int = LANE) -> FftPlan:
     if n2 % LANE or n1 % 8:
         raise ValueError(f"{rule}; got fft_size {fft_size} = {n1} * {n2}")
     if fft_size < FOUR_STEP_MIN:
-        return FftPlan(fft_size, n1, n2, "mixed", (_line_geometry(fft_size, 1),))
+        q, a = _odd_split(fft_size)
+        shape = (q, a) if q > 1 else (1, 14)
+        assert shape in MIXED_SHAPES, fft_size
+        return FftPlan(fft_size, n1, n2, "mixed", (LineShape(*shape),))
     f1, f2 = _four_step_factors(fft_size, n1, n2)
     return FftPlan(fft_size, n1, n2, "four_step",
                    (_line_geometry(f1, f2), _line_geometry(f2, f1)))
 
 
-def lines_info(kernel: str, geometry: LineGeometry) -> tuple[int, int, int]:
-    """(registers, local-memory bytes, resident blocks per SM) of one of the
-    bodies' kernels (``fft_mixed``, ``fftconv_mixed``, ``fft4_step1``,
-    ``fft4_step2``, ``fftconv4_mid``, ``fftconv4_out``) at a geometry's
-    shared memory (on the card)."""
-    names = ("fft_mixed", "fftconv_mixed", "fft4_step1", "fft4_step2", "fftconv4_mid",
-             "fftconv4_out")
+MIXED_KERNELS = ("fft_mixed", "fft_mixed_digit", "fftconv_mixed")  # fft_mixed.cu's info `which`
+FOUR_STEP_KERNELS = ("cols", "rows", "mid", "out")  # fft_4step.cu srcdsp_fft_4step_info's `which`
+
+
+def lines_info(kernel: str, geometry) -> tuple[int, int, int]:
+    """(registers, local-memory bytes, resident blocks per SM) on the card of
+    a kernel of the two bodies: one of MIXED_KERNELS at a one-block
+    LineShape (K10's natural and digit stores, K11), or a four-step step
+    (FOUR_STEP_KERNELS: ``cols``, ``rows``, K11's ``mid``, ``out``) on its
+    line."""
     out = [ctypes.c_int(0) for _ in range(3)]
-    _build.check(_build.load().srcdsp_fft_lines_info(names.index(kernel), geometry.smem_bytes(),
-                                                     *map(ctypes.byref, out)), "lines_info")
+    lib = _build.load()
+    if kernel in MIXED_KERNELS:
+        rc = lib.srcdsp_fft_mixed_info(MIXED_KERNELS.index(kernel), geometry.p, geometry.log2m,
+                                       *map(ctypes.byref, out))
+    else:
+        desc = geometry.descriptor()
+        rc = lib.srcdsp_fft_4step_info(FOUR_STEP_KERNELS.index(kernel),
+                                       (ctypes.c_int * len(desc))(*desc), geometry.length,
+                                       *map(ctypes.byref, out))
+    _build.check(rc, "lines_info")
     return tuple(v.value for v in out)
 
 
@@ -439,9 +655,10 @@ def fft_occupancy(fft_size: int) -> int:
     return blocks.value
 
 
-def line_args(g: LineGeometry) -> tuple:
-    """(radices as a C int array, passes, lanes): a LinePlan's arguments."""
-    return (ctypes.c_int * len(g.radices))(*g.radices), len(g.radices), g.lanes
+def line_args(g) -> "ctypes.Array":
+    """A four-step line's descriptor as a C int array (fft_4step.cu make_line)."""
+    desc = g.descriptor()
+    return (ctypes.c_int * len(desc))(*desc)
 
 
 def scratch_frames(fft_size: int, planes: int) -> int:
@@ -450,31 +667,40 @@ def scratch_frames(fft_size: int, planes: int) -> int:
     return max(1, min(65535, SCRATCH_BYTES // (4 * planes * fft_size)))
 
 
-def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
-              plan: FftPlan, natural: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
+def table_ptrs(tw: torch.Tensor, offs: tuple[int, ...]) -> list[int]:
+    """Device pointers of the table's sections (FftPlan.tables' offsets)."""
+    return [tw.data_ptr() + 4 * o for o in offs]
+
+
+def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tables: tuple, plan: FftPlan, natural: bool,
+              counter: str) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
+    tw, offs, rev = tables
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     n = plan.fft_size
     b = xr.numel() // n
     stream = _build.stream_handle(xr)
-    ptrs = (xr.data_ptr(), xi.data_ptr(), tw.data_ptr())
     if plan.body == "regs":
-        rc = lib.srcdsp_fft(*ptrs, yr.data_ptr(), yi.data_ptr(), b, plan.log2n,
-                            plan.n2.bit_length() - 1, int(natural), stream)
+        rc = lib.srcdsp_fft(xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
+                            yi.data_ptr(), b, plan.log2n, plan.n2.bit_length() - 1, int(natural),
+                            stream)
         launches = {counter: 1}
     elif plan.body == "mixed":
-        rad, passes, _ = line_args(plan.lines[0])
-        rc = lib.srcdsp_fft_mixed(*ptrs, rev.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, rad,
-                                  passes, n, plan.n1, plan.n2, int(not natural), stream)
+        g = plan.lines[0]
+        rc = lib.srcdsp_fft_mixed(xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
+                                  yi.data_ptr(), b, g.p, g.log2m, plan.n1, plan.n2,
+                                  int(not natural), stream)
         launches = {"fft_mixed": 1}
     else:
         batch = min(scratch_frames(n, 2), b)
         scratch = torch.empty((2, batch * n), dtype=torch.float32, device=xr.device)
         f1, f2 = plan.factors
-        rc = lib.srcdsp_fft_4step(*ptrs, rev.data_ptr(), scratch.data_ptr(), yr.data_ptr(),
-                                  yi.data_ptr(), b, batch, *line_args(plan.lines[0]),
-                                  *line_args(plan.lines[1]), f1, f2, plan.n1, plan.n2,
+        w1, w2, post, _ = table_ptrs(tw, offs)
+        rc = lib.srcdsp_fft_4step(xr.data_ptr(), xi.data_ptr(), w1, w2, post, rev.data_ptr(),
+                                  rev.data_ptr() + 4 * f1, scratch.data_ptr(), yr.data_ptr(),
+                                  yi.data_ptr(), b, batch, line_args(plan.lines[0]),
+                                  line_args(plan.lines[1]), f1, f2, plan.n1, plan.n2,
                                   int(not natural), stream)
         launches = {"fft_4step": 2 * (-(-b // batch))}
     _build.check(rc, counter)
@@ -533,8 +759,10 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     dev = resolve(device)
     plan = fft_plan(fft_size, n2) if dev.type == "cuda" else None
     consts = tuple(torch.as_tensor(a, device=dev) for a in fft_consts(fft_size, n2, b_frames))
-    tw, rev = ((torch.as_tensor(a, device=dev) for a in plan.tables()) if plan
-               else (None, None))
+    tables = None
+    if plan:
+        tw, offs, rev = plan.tables()
+        tables = (torch.as_tensor(tw, device=dev), offs, torch.as_tensor(rev, device=dev))
     rows_counter = {True: "fft", False: "fft_digit", "kernel": "fft_digit"}[natural_order]
 
     def check(x: torch.Tensor, shape: tuple) -> None:
@@ -554,7 +782,7 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
         check(xr, (rt, n2))
         check(xi, (rt, n2))
         if cuda_or_cpu(xr):
-            return _fft_cuda(xr, xi, tw, rev, plan, False, rows_counter)
+            return _fft_cuda(xr, xi, tables, plan, False, rows_counter)
         return fft_rows_plain(xr, xi, consts, n1, n2)
 
     def fn_nat(consts, xr: torch.Tensor, xi: torch.Tensor, counter: str
@@ -562,7 +790,7 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
         """Natural order stored by the kernel: checked [B, N] planes in and
         out (the kernel takes them as they are, no reshape)."""
         if cuda_or_cpu(xr):
-            return _fft_cuda(xr, xi, tw, rev, plan, True, counter)
+            return _fft_cuda(xr, xi, tables, plan, True, counter)
         yr, yi = fft_rows_plain(xr.reshape(-1, n2), xi.reshape(-1, n2), consts, n1, n2)
         return unscramble(yr, n1, n2), unscramble(yi, n1, n2)
 

@@ -20,16 +20,19 @@ of two from 256 to 8192 (``csrc/fftconv.cu``) each frame runs K10's
 register-resident Stockham schedule (``csrc/fft_regs.cuh``, twiddles from
 `stockham_twiddles`) twice: forward, times H[c] in registers (register s of
 thread t holds X[t + T*s], so H stays in natural order), the conjugate
-inverse, and the registers past the overlap stored. At the other sizes
-below 16384 (``csrc/fft_mixed.cu``, one block a frame) the forward DIF
-passes of ``csrc/fft_lines.cuh`` leave X[k] at _line_rev(k), H[k] multiplies
-it there, and the transposed (DIT) passes of the conjugate inverse bring
-natural order back; from 16384 (``csrc/fft_4step.cu``) three kernels over
+inverse, and the registers past the overlap stored. At the other sizes up
+to 16384 (``csrc/fft_mixed.cu``, one block a frame, N = P M) the forward
+of ``csrc/fft_lines.cuh`` (the odd pass, then the Stockham sub-transforms)
+leaves X[k_p + P k_m] in register s of thread (k_p, t), k_m = t + (M/16) s;
+H is laid out once in that order (`fft_pallas._forward_order`) and read
+coalesced, and the conjugate inverse runs in the transposed order (the
+sub-transforms on the registers as they lie, then the odd pass), which
+leaves natural order; from 17408 (``csrc/fft_4step.cu``) three kernels over
 two scratch buffers: the forward columns, then for each column c the
 forward rows, H, the inverse's rows and W_N^{c e}, then the inverse's
 columns and the store. H is the FFT of the taps zero-padded to fft_size,
-made in float64 and rounded to float32 ([Ct, 2, N], natural order; Ct = 1
-for shared taps or C).
+made in float64 and rounded to float32 ([Ct, 2, N]; Ct = 1 for shared taps
+or C), natural order but for the one-block body.
 On a CPU tensor the wrappers run `fftconv_plain` (the same frames through
 the float32 matrix FFT of ``ops.fft_planes``, times H, the conjugate
 inverse, the overlap prefix dropped); on a CUDA tensor they launch the
@@ -48,7 +51,7 @@ import torch
 from srcdsp_tpu_torch.device import resolve
 from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.fft_pallas import (FftPlan, fft_plan, line_args, regs_plan,
-                                                  scratch_frames)
+                                                  scratch_frames, table_ptrs)
 from srcdsp_tpu_torch.kernels.mixfir import LANE, _round_up, cuda_or_cpu
 from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
 
@@ -103,33 +106,35 @@ def fftconv_plain(x: torch.Tensor, h2: torch.Tensor, fft, fft_size: int, hop: in
     return yr.reshape(c, nf * hop), yi.reshape(c, nf * hop)
 
 
-def _fftconv_cuda(x: torch.Tensor, h2: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
-                  plan: FftPlan, hop: int, per_channel: bool, counter: str
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def _fftconv_cuda(x: torch.Tensor, hk: torch.Tensor, tables: tuple, plan: FftPlan, hop: int,
+                  per_channel: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
+    tw, offs, rev = tables
     c, _, length = x.shape
     n = plan.fft_size
     nf = (length - (n - hop)) // hop
     yr = torch.empty((c, nf * hop), dtype=torch.float32, device=x.device)
     yi = torch.empty_like(yr)
     stream = _build.stream_handle(x)
-    ptrs = (x.data_ptr(), h2.data_ptr(), tw.data_ptr())
+    ptrs = (x.data_ptr(), hk.data_ptr())
     if plan.body == "regs":
-        rc = lib.srcdsp_fftconv(*ptrs, yr.data_ptr(), yi.data_ptr(), c, length, nf, hop,
-                                plan.log2n, int(per_channel), stream)
+        rc = lib.srcdsp_fftconv(*ptrs, tw.data_ptr(), yr.data_ptr(), yi.data_ptr(), c, length,
+                                nf, hop, plan.log2n, int(per_channel), stream)
         launches = {counter: 1}
     elif plan.body == "mixed":
-        rad, passes, _ = line_args(plan.lines[0])
-        rc = lib.srcdsp_fftconv_mixed(*ptrs, rev.data_ptr(), yr.data_ptr(), yi.data_ptr(), c,
-                                      length, nf, hop, rad, passes, n, int(per_channel), stream)
+        g = plan.lines[0]
+        rc = lib.srcdsp_fftconv_mixed(*ptrs, tw.data_ptr(), yr.data_ptr(), yi.data_ptr(), c,
+                                      length, nf, hop, g.p, g.log2m, int(per_channel), stream)
         launches = {"fftconv_mixed": 1}
     else:
         batch = min(scratch_frames(n, 4), c * nf)
         scratch = torch.empty((4, batch * n), dtype=torch.float32, device=x.device)
         f1, f2 = plan.factors
-        rc = lib.srcdsp_fftconv_4step(*ptrs, rev.data_ptr(), scratch.data_ptr(), yr.data_ptr(),
+        w1, w2, post, _ = table_ptrs(tw, offs)
+        rc = lib.srcdsp_fftconv_4step(*ptrs, w1, w2, post, rev.data_ptr(),
+                                      rev.data_ptr() + 4 * f1, scratch.data_ptr(), yr.data_ptr(),
                                       yi.data_ptr(), c, length, nf, hop, batch,
-                                      *line_args(plan.lines[0]), *line_args(plan.lines[1]), f1,
+                                      line_args(plan.lines[0]), line_args(plan.lines[1]), f1,
                                       f2, int(per_channel), stream)
         launches = {"fftconv_4step": 3 * (-(-(c * nf) // batch))}
     _build.check(rc, counter)
@@ -199,9 +204,14 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
                          f"({b_frames * hs})")
     dev = resolve(device)
     plan = fft_plan(fft_size, n2) if dev.type == "cuda" else None
-    h2 = torch.as_tensor(freq_response_planes(taps, fft_size), device=dev)
-    tw, rev = ((torch.as_tensor(a, device=dev) for a in plan.tables()) if plan
-               else (None, None))
+    h_np = freq_response_planes(taps, fft_size)
+    h2 = torch.as_tensor(h_np, device=dev)
+    tables = hk = None
+    if plan:
+        tw, offs, rev = plan.tables()
+        tables = (torch.as_tensor(tw, device=dev), offs, torch.as_tensor(rev, device=dev))
+        # the body reads H in its own order (FftPlan.h_order), laid out once here
+        hk = torch.as_tensor(np.ascontiguousarray(h_np[..., plan.h_order()]), device=dev)
     fft = make_fft_planes(fft_size, device=dev)
     counter = "fftconv_per_channel" if per_channel else "fftconv"
 
@@ -218,7 +228,7 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
             raise ValueError(f"x on {x.device}, kernel built for {dev}")
         x3 = x.reshape(c, 2, r * n2)
         if cuda_or_cpu(x):
-            yr, yi = _fftconv_cuda(x3, h2, tw, rev, plan, hop, per_channel, counter)
+            yr, yi = _fftconv_cuda(x3, hk, tables, plan, hop, per_channel, counter)
         else:
             yr, yi = fftconv_plain(x3, h2, fft, fft_size, hop)
         return yr.reshape(c, rows_out, n2), yi.reshape(c, rows_out, n2)

@@ -550,14 +550,16 @@ def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
 
 
 @pytest.mark.parametrize("n,n2", [(3072, 384), (5120, 128), (11264, 128), (12288, 128),
-                                  (16384, 128), (65536, 128), (1 << 20, 1024)])
+                                  (16384, 128), (17408, 128), (21504, 128), (65536, 128),
+                                  (1 << 20, 1024), (1024 * 1021, 128)])
 def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
-    """K10 at the sizes past the powers of two (one block a frame below
-    16384, the four-step from there) in its three orders against its plain
-    version (rel L2 < 1e-5) and complex128 (> 110 dB; > 100 dB where 11
-    runs a direct-DFT pass); kernel-natural == natural == digit unscrambled
-    by torch.equal; one body launch a call (the four-step: 2), and no count
-    but the body's moves."""
+    """K10 at the sizes past the powers of two (one block a frame up to
+    16384, the four-step from 17408; 21 split across two register lines at
+    21504; 17 and 1021 on generic lines) in its
+    three orders against its plain version (rel L2 < 1e-5) and complex128
+    (> 110 dB; > 100 dB where a generic line runs a direct-DFT pass);
+    kernel-natural == natural == digit unscrambled by torch.equal; one body
+    launch a call (the four-step: 2), and no count but the body's moves."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
 
     plan = kfft.fft_plan(n, n2)
@@ -578,7 +580,8 @@ def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
     nat = torch.complex(*outs[True])
     assert float(torch.linalg.norm(nat - plain) / torch.linalg.norm(plain)) < 1e-5
     ref = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-1)
-    assert _snr(ref, nat.to(torch.complex128)) > (100 if n == 11264 else 110)
+    assert _snr(ref, nat.to(torch.complex128)) > (100 if any(g.direct for g in plan.lines)
+                                                  else 110)
     for a, c, d in zip(outs[True], outs["kernel"], outs[False]):
         assert torch.equal(a, c)
         assert torch.equal(kfft.unscramble(d.reshape(-1, n2), k.n1, n2), a)
@@ -586,10 +589,10 @@ def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
 
 def test_fft_four_step_short_last_batch(dev, monkeypatch):
     """The four-step in batches of 2 frames over 5 (a short last batch)
-    equals one batch bit for bit, in both stores."""
+    equals one batch bit for bit, in both stores, at its first size."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
 
-    n = 16384
+    n = kfft.FOUR_STEP_MIN
     g = torch.Generator(device=dev).manual_seed(3)
     xr, xi = (torch.randn((5, n), device=dev, generator=g) for _ in range(2))
     for order in (True, False):
@@ -603,13 +606,18 @@ def test_fft_four_step_short_last_batch(dev, monkeypatch):
         assert all(torch.equal(a, c) for a, c in zip(one, batched))
 
 
-@pytest.mark.parametrize("fft,num_taps", [(11264, 1000), (12288, 3000), (16384, 4096)])
+@pytest.mark.parametrize("fft,num_taps", [(11264, 1000), (12288, 3000), (16384, 4096),
+                                          (17408, 4352), (21504, 5376), (1024 * 1021, 4096)])
 @pytest.mark.parametrize("per_channel", [False, True])
 def test_fftconv_mixed_and_four_step_match_plain_and_stream(dev, monkeypatch, per_channel,
                                                              fft, num_taps):
-    """K11 on the new bodies against its plain version (SNR > 100 dB), 4
-    FftConvStream chunks == one launch bit for bit, and for the four-step a
-    launch in batches of 3 frames (a short last batch) == one batch."""
+    """K11 on the new bodies (one block a frame up to 16384, the four-step
+    from 17408, 21 split across two register lines at 21504, 1021 on a
+    generic line) against its plain version (SNR > 100
+    dB), 4 FftConvStream chunks == one launch bit for bit, one launch a call
+    (the four-step: 3 a batch of frames within SCRATCH_BYTES), and for the
+    four-step a launch in batches of 3 frames (a short last batch) == one
+    batch."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
     from srcdsp_tpu_torch.kernels import fftconv_pallas as kfc
     from srcdsp_tpu_torch.ops.fft_planes import make_fft_planes
@@ -621,12 +629,15 @@ def test_fftconv_mixed_and_four_step_match_plain_and_stream(dev, monkeypatch, pe
     raw = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (c, 2, 4 * k.block_in())).astype(np.float32), device=dev)
     x = torch.cat([torch.zeros((c, 2, k.overlap), device=dev), raw], dim=-1)
-    body = "fftconv_mixed" if fft < 16384 else "fftconv_4step"
+    mixed = fft < kfft.FOUR_STEP_MIN
+    body = "fftconv_mixed" if mixed else "fftconv_4step"
+    frames = c * (x.shape[-1] - k.overlap) // k.hop
     before = dict(_build.LAUNCHES)
     yr, yi = kfc.fftconv_pallas(k, x)
     torch.cuda.synchronize()
     after = dict(_build.LAUNCHES)
-    assert after.pop(body) == before.pop(body) + (1 if fft < 16384 else 3)
+    assert after.pop(body) == before.pop(body) + (
+        1 if mixed else 3 * -(-frames // kfft.scratch_frames(fft, 4)))
     assert after == before
     h2 = torch.as_tensor(kfc.freq_response_planes(taps, fft), device=dev)
     pr, pi = kfc.fftconv_plain(x, h2, make_fft_planes(fft, device=dev), fft, k.hop)
@@ -636,30 +647,41 @@ def test_fftconv_mixed_and_four_step_match_plain_and_stream(dev, monkeypatch, pe
              for i in range(4)]
     assert torch.equal(torch.cat([p[0] for p in parts], -1), yr)
     assert torch.equal(torch.cat([p[1] for p in parts], -1), yi)
-    if fft >= 16384:
+    if not mixed:
         monkeypatch.setattr(kfft, "SCRATCH_BYTES", 3 * 4 * 4 * fft)
         br, bi = kfc.fftconv_pallas(k, x)
         assert torch.equal(br, yr) and torch.equal(bi, yi)
 
 
 def test_fft_lines_bodies_no_spill(dev):
-    """ptxas reports no spill in any kernel of fft_mixed.cu or fft_4step.cu,
-    none uses local memory, and each keeps a block resident at its largest
-    shared-memory plan (13312: a direct pass over 13, 4 planes)."""
+    """ptxas reports no spill in any kernel of fft_mixed.cu or fft_4step.cu
+    and none uses local memory; at each size of phase 23 each kernel of its
+    body keeps the resident threads its launch bounds promise: the one-block
+    body floor(1024 / threads) blocks (30, 30, 22, 24 and 32 warps at 3072,
+    5120, 11264, 12288 and 16384); the four-step's register lines 32 warps
+    (1024 threads) but K11's mid step, which holds two transforms in up to
+    128 registers (16 warps); the generic lines one block of 256."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
 
     rep = {k: v for k, v in _build.ptxas_report().items()
            if re.search(r"fft_mixed_kernel|fftconv_mixed_kernel|fft4_|fftconv4_", k)}
-    assert len(rep) == 6
+    assert len(rep) == 3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES) + 4
     assert all(st == 0 and ld == 0 for _, st, ld in rep.values()), rep
-    for n, n2 in [(13312, 128), (12288, 128), (1 << 20, 1024), (65536, 128)]:
+    for n, n2 in [(3072, 384), (5120, 128), (11264, 128), (12288, 128), (16384, 128),
+                  (17408, 128), (65536, 128), (1 << 20, 1024)]:
         plan = kfft.fft_plan(n, n2)
-        names = (("fft_mixed", "fftconv_mixed"),) if plan.body == "mixed" else (
-            ("fft4_step1", "fftconv4_out"), ("fft4_step2", "fftconv4_mid"))
-        for g, pair in zip(plan.lines, names):
-            for name in pair:
+        if plan.body == "mixed":
+            g = plan.lines[0]
+            for name in kfft.MIXED_KERNELS:
                 regs, local, blocks = kfft.lines_info(name, g)
-                assert local == 0 and blocks >= 1, (n, name, regs, local, blocks)
+                assert local == 0 and blocks >= max(1, 1024 // g.threads), (n, name, regs, blocks)
+            continue
+        for g, names in zip(plan.lines, (("cols", "out"), ("rows", "mid"))):
+            for name in names:
+                regs, local, blocks = kfft.lines_info(name, g)
+                assert local == 0 and blocks >= 1, (n, name, g, regs, blocks)
+                if isinstance(g, kfft.LineShape) and name != "mid":
+                    assert blocks * g.threads >= 1024, (n, name, g, regs, blocks)
 
 
 @pytest.mark.parametrize("m,b_k,sps", [(64, 512, 4), (8, 128, 4), (16, 96, 3), (5, 16, 4),

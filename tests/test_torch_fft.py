@@ -159,8 +159,8 @@ def test_kernel_rejects_bad_shapes():
     for bad in (1536, 1000, 1 << 21):
         with pytest.raises(ValueError, match="n2 % 128 == 0 and n1 % 8 == 0"):
             kfft.fft_plan(bad)
-    assert [kfft.fft_plan(n).body for n in (256, 8192, 3072, 16384, 1 << 20)] == [
-        "regs", "regs", "mixed", "four_step", "four_step"]
+    assert [kfft.fft_plan(n).body for n in (256, 8192, 3072, 16384, 17408, 1 << 20)] == [
+        "regs", "regs", "mixed", "mixed", "four_step", "four_step"]
 
 
 def test_twiddle_table():

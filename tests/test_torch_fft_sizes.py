@@ -1,21 +1,33 @@
-"""K10 and K11 at the sizes past the powers of two up to 8192: the plan that
-picks the card's body, the bodies' schedules in numpy, and the plain
-versions against the JAX kernels.
+"""K10 and K11 past the powers of two up to 8192: the plan that picks the
+card's body, the bodies' schedules in numpy, and the plain versions against
+the JAX kernels.
 
 Contracts:
 
 - `fft_plan`'s domain is the JAX kernel's with interpret=False (n2 % 128 ==
   0 and n1 % 8 == 0) plus the powers of two from 256 to 8192, capped at
-  2^20: one block a frame below 16384, the four-step from there;
-- the schedules of ``csrc/fft_lines.cuh``, ``fft_mixed.cu`` and
-  ``fft_4step.cu`` (mirrored in ``kernels/fft_pallas``: radices, spans,
-  butterfly elements, twiddle and direct-DFT exponents, the rev table, the
-  four-step's input, twiddle and scratch maps, the digit store) run in
-  float64 numpy on the float32 twiddle table: rel L2 < 1e-6 against
-  ``np.fft.fft`` (the table's rounding leaves ~1e-7); the digit store equal
-  to the natural store permuted, exactly (the same values moved); the
-  transposed (DIT) passes after the forward ones give N x back, rel L2 <
+  2^20: one block a frame up to 16384 (N = P M of MIXED_SHAPES), the
+  four-step from 17408;
+- the compile-time schedules of ``csrc/fft_lines.cuh`` (mirrored in
+  ``kernels/fft_pallas``: the odd DFT's constants, the odd pass's rows and
+  twiddle table, the Stockham sub-transforms on fft_regs.cuh's maps, the
+  forward's register order, the transposed order of K11's inverse, the
+  four-step's post-twiddles and lines, and the generic lines' _line_* passes
+  for the shapes not instantiated) run in float64 numpy on the float32
+  tables: rel L2 < 1e-6 against ``np.fft.fft`` at every size of SIZES, for
+  every odd part 3 ... 15, and for odd parts above 15 split across two
+  register lines (the tables' rounding leaves ~1e-7); the
+  digit store equal to the natural store permuted, exactly (the same values
+  moved); the transposed order after the forward gives N x back, rel L2 <
   1e-6;
+- every table entry is its constant rounded once from float64, and the
+  odd DFT's float32 literals in fft_lines.cuh are the float64 values rounded
+  once, exactly; the shapes the host plans with (MIXED_SHAPES,
+  FOUR_STEP_LINES) are the ones the CUDA sources instantiate;
+- no warp's access of the one-block body's staging (registers in the
+  forward's order written, the natural and digit stores' reads at every
+  n2), odd pass or sub-transform loads, nor of the four-step's tiles on
+  phase 23's lines, touches a shared-memory bank more than twice;
 - K10's plain version against the JAX kernel with ``interpret=True`` in all
   three orders: SNR > 120 dB (the same factorization and constants, float32
   products summed in another order), against complex128 > 110 dB (the
@@ -25,6 +37,9 @@ Contracts:
   reference's bar against the oracle's direct FIR); the kernel's frame
   schedule in numpy against the plain version: > 100 dB.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,36 +65,136 @@ def _rel(got, ref) -> float:
     return float(np.linalg.norm(np.asarray(got) - np.asarray(ref)) / np.linalg.norm(ref))
 
 
-def _cplx(t: np.ndarray) -> np.ndarray:
-    t = t.astype(np.float64)
+def _cplx(flat: np.ndarray) -> np.ndarray:
+    """A flat [2, size] section (real plane, imaginary plane) as complex128."""
+    t = flat.astype(np.float64).reshape(2, -1)
     return t[0] + 1j * t[1]
 
 
-def _tables(plan: kfft.FftPlan):
-    """The plan's table split as the kernels take it: each line geometry's
-    section, then (four-step) the two post-twiddles [f2, f1] and [f1, f2]."""
-    tab = _cplx(plan.tables()[0])
-    out, at = [], 0
-    for g in plan.lines:
-        size = kfft._line_table(g, plan.fft_size).shape[1]
-        out.append(tab[at:at + size])
-        at += size
+def _line_section(flat: np.ndarray, g) -> np.ndarray:
+    """A line's table as complex128: a register line's odd section [2, (P -
+    1) M] then its Stockham section, each its own pair of planes
+    (_reg_line_table), concatenated; a generic line's [2, size]."""
+    if not isinstance(g, kfft.LineShape):
+        return _cplx(flat)
+    size = 2 * (g.p - 1) << g.log2m
+    return np.concatenate([_cplx(flat[:size]), _cplx(flat[size:])])
+
+
+def _sections(plan: kfft.FftPlan) -> list:
+    """The plan's table split as the kernels take it (FftPlan.tables'
+    offsets): each line's table, then (four-step) the two post-twiddles
+    [f2, f1] and [f1, f2], complex128."""
+    tab, offs, _ = plan.tables()
+    ends = list(offs[1:]) + [tab.size]
+    out = [_line_section(tab[a:b], g) if i < len(plan.lines) else _cplx(tab[a:b])
+           for i, (a, b, g) in enumerate(zip(offs, ends, list(plan.lines) + [None] * 2))]
     if plan.body == "four_step":
         f1, f2 = plan.factors
-        n = plan.fft_size
-        out += [tab[at:at + n].reshape(f2, f1), tab[at + n:at + 2 * n].reshape(f1, f2)]
-        assert at + 2 * n == tab.size
+        out[2], out[3] = out[2].reshape(f2, f1), out[3].reshape(f1, f2)
     return out
 
 
-# --- the bodies' schedules in numpy ------------------------------------------
+def _expand(a: np.ndarray, nd: int) -> np.ndarray:
+    return a.reshape(a.shape + (1,) * nd)
+
+
+# --- the compile-time schedules in numpy ---------------------------------------
+
+def _stockham(v: np.ndarray, log2m: int, stock: np.ndarray) -> np.ndarray:
+    """fft_regs.cuh's schedule on v [M, ...] (element e at v[e]) with the
+    section `stock` (stockham_twiddles): pass q's butterfly j takes elements
+    j + (M/R) m (thread t's registers g + (16/R) m, j = t + T g), input m
+    times entry (m - 1) NS + j mod NS of the pass's part, the R-point DFT,
+    output m to regs_store_index. Returns X in natural order."""
+    m = v.shape[0]
+    off = 0
+    for q, (r, ns) in enumerate(kfft.regs_passes(log2m)):
+        j = np.arange(m // r)
+        x = v[j[:, None] + (m // r) * np.arange(r)[None, :]]          # [m/r, R, ...]
+        if q:
+            e = off + (np.arange(1, r)[None, :] - 1) * ns + (j % ns)[:, None]
+            x[:, 1:] *= _expand(stock[e], v.ndim - 1)
+            off += (r - 1) * ns
+        kk = np.arange(r)
+        y = np.moveaxis(np.tensordot(np.exp(-2j * np.pi * np.outer(kk, kk) / r), x,
+                                     axes=([1], [1])), 0, 1)            # [m/r, R, ...]
+        out = np.empty_like(v)
+        out[kfft.regs_store_index(j[:, None], r, ns, kk[None, :])] = y
+        v = out
+    return v
+
+
+def _odd_dft(x: np.ndarray, p: int) -> np.ndarray:
+    """fft_lines.cuh odd_dft on x [P, ...] with kOddTrig's float32 constants
+    (_odd_trig): a_n = x_n + x_{P-n}, b_n = x_n - x_{P-n}, y[k] = A_k - i B_k,
+    y[P - k] = A_k + i B_k."""
+    h = (p - 1) // 2
+    cs = kfft._odd_trig(p).astype(np.float64)
+    a, b = x[1:h + 1] + x[p - 1:h:-1], x[1:h + 1] - x[p - 1:h:-1]
+    y = np.empty_like(x)
+    y[0] = x[0] + a.sum(0)
+    for k in range(1, h + 1):
+        j = np.arange(1, h + 1) * k % p
+        c = np.where(j == 0, 1.0, cs[np.minimum(j, p - j) - 1, 0])
+        s = np.where(j == 0, 0.0, np.where(j <= h, 1.0, -1.0) * cs[np.minimum(j, p - j) - 1, 1])
+        big_a = x[0] + np.tensordot(c, a, axes=1)
+        big_b = np.tensordot(s, b, axes=1)
+        y[k], y[p - k] = big_a - 1j * big_b, big_a + 1j * big_b
+    return y
+
+
+def _split(tab: np.ndarray, p: int, log2m: int):
+    """A _reg_line_table (complex) as (odd section [P - 1, M], Stockham section)."""
+    m = 1 << log2m
+    return tab[:(p - 1) * m].reshape(p - 1, m), tab[(p - 1) * m:]
+
+
+def _line_fwd(x: np.ndarray, p: int, log2m: int, tab: np.ndarray) -> np.ndarray:
+    """fft_lines.cuh line_forward (mixed_forward) on x [L, ...]: the odd pass
+    (butterfly n_m's inputs at rows n_m + M n_p, odd_dft, output k times
+    W_L^{n_m k} to row n_m + M k), then the Stockham sub-transforms k_p over
+    rows k_p M + k_m. Returns the forward's order F[k_p M + k_m] =
+    X[k_p + P k_m] (_forward_order)."""
+    m = 1 << log2m
+    odd, stock = _split(tab, p, log2m)
+    y = x.reshape((p, m) + x.shape[1:]).astype(np.complex128)
+    if p > 1:
+        y = _odd_dft(y, p)
+        y[1:] *= _expand(odd, x.ndim - 1)
+    z = np.stack([_stockham(y[k], log2m, stock) for k in range(p)])
+    return z.reshape(x.shape)
+
+
+def _natural(f: np.ndarray, p: int, log2m: int) -> np.ndarray:
+    """The forward's order as natural order (the staging)."""
+    out = np.empty_like(f)
+    out[kfft._forward_order(p, log2m)] = f
+    return out
+
+
+def _line_dit(f: np.ndarray, p: int, log2m: int, tab: np.ndarray) -> np.ndarray:
+    """fft_lines.cuh line_forward_dit / K11's inverse on an input in the
+    forward's order (entry k_p M + k_m holding z[k_p + P k_m]): the Stockham
+    sub-transforms on it as it lies, then the odd pass (input n_p times
+    W_L^{n_p k_m}, odd_dft, output k_p to k_m + M k_p). Returns the DFT of z
+    in natural order."""
+    m = 1 << log2m
+    odd, stock = _split(tab, p, log2m)
+    w = np.stack([_stockham(f.reshape((p, m) + f.shape[1:])[k], log2m, stock)
+                  for k in range(p)])
+    if p > 1:
+        w[1:] *= _expand(odd, f.ndim - 1)
+        w = _odd_dft(w, p)
+    return w.reshape(f.shape)
+
 
 def _passes(v: np.ndarray, g: kfft.LineGeometry, tab: np.ndarray, dit: bool) -> np.ndarray:
-    """fft_lines.cuh lines_transform on v [L, lines] (element j of a line at
-    v[j]): every pass in place at _line_elements, its DFT constants at
-    _line_dft_index and its twiddles at _line_twiddle_index of the geometry's
-    table, the twiddles before the DFT for DIT, after it for DIF; DIT runs
-    the passes in reverse."""
+    """A generic line (fft_lines.cuh lines_transform) on v [L, lines]: every
+    pass in place at _line_elements, its DFT constants at _line_dft_index
+    and its twiddles at _line_twiddle_index of the line's table, the twiddles
+    before the DFT for DIT, after it for DIF; DIT runs the passes in
+    reverse."""
     v = v.copy()
     length = g.length
     spans = kfft._line_spans(g.radices, length)
@@ -102,54 +217,62 @@ def _passes(v: np.ndarray, g: kfft.LineGeometry, tab: np.ndarray, dit: bool) -> 
     return v
 
 
+def _fwd(g, v: np.ndarray, tab: np.ndarray) -> np.ndarray:
+    """A four-step line's forward transform on v [L, lines], natural order out."""
+    if isinstance(g, kfft.LineShape):
+        return _natural(_line_fwd(v, g.p, g.log2m, tab), g.p, g.log2m)
+    return _passes(v.astype(np.complex128), g, tab, False)[g.rev()]
+
+
+def _dit(g, z: np.ndarray, tab: np.ndarray) -> np.ndarray:
+    """A four-step line's transform of z [L, lines] (natural order in) in the
+    order its forward left (K11's mid): natural order out."""
+    if isinstance(g, kfft.LineShape):
+        return _line_dit(z[kfft._forward_order(g.p, g.log2m)], g.p, g.log2m, tab)
+    v = np.empty_like(z)
+    v[g.rev()] = z
+    return _passes(v, g, tab, True)
+
+
 def _mixed_fft(x: np.ndarray, plan: kfft.FftPlan, digit: bool) -> np.ndarray:
-    """fft_mixed.cu fft_mixed_kernel on one frame: the DIF passes, then offset
-    q takes X[k] from rev[k], k = q (natural) or (q mod n2) n1 + q div n2."""
-    n = plan.fft_size
+    """fft_mixed.cu fft_mixed_kernel on one frame: the forward, then offset
+    q takes X[k] from the staging, k = q (natural) or (q mod n2) n1 + q div
+    n2."""
     g = plan.lines[0]
-    v = _passes(x[:, None].astype(np.complex128), g, _tables(plan)[0], False)[:, 0]
-    q = np.arange(n)
-    k = (q % plan.n2) * plan.n1 + q // plan.n2 if digit else q
-    return v[kfft._line_rev(g.radices, n)[k]]
+    nat = _natural(_line_fwd(x, g.p, g.log2m, _sections(plan)[0]), g.p, g.log2m)
+    q = np.arange(plan.fft_size)
+    return nat[(q % plan.n2) * plan.n1 + q // plan.n2] if digit else nat
 
 
 def _four_step_fft(x: np.ndarray, plan: kfft.FftPlan, digit: bool) -> np.ndarray:
-    """fft_4step.cu on one frame: step 1 over the f2 columns b of [f1, f2]
-    (element a of column b at b + a f2), times W_N^{b c} (the first
-    post-twiddle), into the scratch at b f1 + c; step 2 over the f1 lines c
-    of the scratch, X[c + f1 d] stored at k or at its digit offset."""
+    """fft_4step.cu on one frame: the columns b of [f1, f2] (element a of
+    column b at b + a f2), times W_N^{b c} (the first post-twiddle), into the
+    scratch at b f1 + c; the f1 lines c of the scratch, X[c + f1 d] stored at
+    k or at its digit offset."""
     n = plan.fft_size
     (g1, g2), (f1, f2) = plan.lines, plan.factors
-    t1, t2, post1, _ = _tables(plan)
-    b, a = np.arange(f2)[None, :], np.arange(f1)[:, None]
-    v = _passes(x[b + a * f2].astype(np.complex128), g1, t1, False)
-    c = np.arange(f1)[:, None]
-    y = v[kfft._line_rev(g1.radices, f1)[c[:, 0]]] * post1.T          # [c, b] x W_N^{b c}
-    s = np.empty(n, np.complex128)
-    s[b * f1 + c] = y                          # [c, b] -> b f1 + c
-    c_, b_ = np.arange(f1)[None, :], np.arange(f2)[:, None]
-    v = _passes(s[c_ + b_ * f1], g2, t2, False)  # [b -> d, c]
-    d = np.arange(f2)[:, None]
-    xk = v[kfft._line_rev(g2.radices, f2)[d[:, 0]]]                   # [d, c] = X[c + f1 d]
-    k = c_ + f1 * d
+    t1, t2, post1, _ = _sections(plan)
+    v = _fwd(g1, x.reshape(f1, f2), t1) * post1.T                      # [c, b]
+    xk = _fwd(g2, v.T, t2)                                              # [d, c]
     out = np.empty(n, np.complex128)
+    k = np.arange(f1)[None, :] + f1 * np.arange(f2)[:, None]
     out[kfft._digit_position(k, plan.n1, plan.n2) if digit else k] = xk
     return out
 
 
 SIZES = [(3072, 128), (5120, 128), (7168, 128), (11264, 128), (12288, 128), (16384, 128),
-         (65536, 128), (1024 * 1021, 128)]
+         (17408, 128), (21504, 128), (65536, 128), (1024 * 1021, 128)]
 
 
 @pytest.mark.parametrize("n,n2", SIZES)
 def test_body_schedule_matches_numpy_fft(n, n2):
-    """The planned body's schedule (one block a frame below 16384, the
-    four-step from there; 11264's 11 and 1021 as direct-DFT passes) against
-    np.fft.fft; the digit store a permutation of the natural one; and, for
-    one block a frame, the transposed passes taking the forward's order back
-    to natural (K11's inverse): N x."""
+    """The planned body's schedule (one block a frame up to 16384, the
+    four-step from 17408; 21 split across two register lines at 21504; 17
+    and 1021 on generic lines) against np.fft.fft;
+    the digit store a permutation of the natural one; and, for one block a
+    frame, the transposed order after the forward (K11's inverse): N x."""
     plan = kfft.fft_plan(n, n2)
-    assert plan.body == ("mixed" if n < 16384 else "four_step")
+    assert plan.body == ("mixed" if n <= 16384 else "four_step")
     x = np.random.default_rng(n).standard_normal((2, n))
     x = x[0] + 1j * x[1]
     run = _mixed_fft if plan.body == "mixed" else _four_step_fft
@@ -159,64 +282,107 @@ def test_body_schedule_matches_numpy_fft(n, n2):
     k = np.arange(n)
     np.testing.assert_array_equal(dig[kfft._digit_position(k, plan.n1, plan.n2)], nat)
     if plan.body == "mixed":
-        g, tab = plan.lines[0], _tables(plan)[0]
-        fwd = _passes(x[:, None], g, tab, False)                     # X at rev order
-        back = np.conj(_passes(np.conj(fwd), g, tab, True)[:, 0])    # N x, natural order
+        g, tab = plan.lines[0], _sections(plan)[0]
+        fwd = _line_fwd(x, g.p, g.log2m, tab)                        # the forward's order
+        back = np.conj(_line_dit(np.conj(fwd), g.p, g.log2m, tab))    # N x, natural order
         assert _rel(back, n * x) < 1e-6
+
+
+@pytest.mark.parametrize("p", kfft.ODD_FACTORS)
+def test_odd_part_schedules_match_numpy_fft(p):
+    """Odd part p on both bodies: one block a frame at p x 1024 (forward,
+    digit store, the transposed order back to N x) and the four-step at
+    p x 2^15, whose lines p x 128 and 256 both run register schedules."""
+    for n, body in ((p * 1024, "mixed"), (p << 15, "four_step")):
+        plan = kfft.fft_plan(n)
+        assert plan.body == body
+        x = np.random.default_rng(n + p).standard_normal((2, n))
+        x = x[0] + 1j * x[1]
+        run = _mixed_fft if body == "mixed" else _four_step_fft
+        nat = run(x, plan, False)
+        assert _rel(nat, np.fft.fft(x)) < 1e-6
+        k = np.arange(n)
+        np.testing.assert_array_equal(
+            run(x, plan, True)[kfft._digit_position(k, plan.n1, plan.n2)], nat)
+        if body == "mixed":
+            g, tab = plan.lines[0], _sections(plan)[0]
+            back = np.conj(_line_dit(np.conj(_line_fwd(x, g.p, g.log2m, tab)), g.p, g.log2m,
+                                     tab))
+            assert _rel(back, n * x) < 1e-6
+        else:
+            assert all(isinstance(g, kfft.LineShape) for g in plan.lines)
+            assert plan.factors == (p * 128, 256)
+
+
+@pytest.mark.parametrize("q,a", [(21, 10), (45, 11), (225, 10), (35, 12), (63, 13), (27, 14)])
+def test_split_odd_parts_match_numpy_fft(q, a):
+    """An odd part q above 15 made of two factors up to 15 runs the four-step
+    on two register lines q1 2^a1 x q2 2^a2 (_odd_pair) at every power of two
+    2^10 ... 2^14: K10's schedule against np.fft.fft (rel L2 < 1e-6), the
+    digit store the natural one permuted, and one K11 frame through the
+    three kernels' schedule against the circular product by np.fft
+    (rel L2 < 1e-6)."""
+    n = q << a
+    plan = kfft.fft_plan(n)
+    assert plan.body == "four_step"
+    assert all(isinstance(g, kfft.LineShape) and g.p > 1 for g in plan.lines), plan.lines
+    f1, f2 = plan.factors
+    assert f1 * f2 == n and kfft._odd_split(f1)[0] * kfft._odd_split(f2)[0] == q
+    rng = np.random.default_rng(q + a)
+    x = rng.standard_normal((2, n))
+    x = x[0] + 1j * x[1]
+    nat = _four_step_fft(x, plan, False)
+    assert _rel(nat, np.fft.fft(x)) < 1e-6
+    k = np.arange(n)
+    np.testing.assert_array_equal(
+        _four_step_fft(x, plan, True)[kfft._digit_position(k, plan.n1, plan.n2)], nat)
+    h = rng.standard_normal((2, n))
+    h = h[0] + 1j * h[1]
+    hop = n // 4 * 3
+    got = _fftconv_frames(x, h, plan, hop)
+    assert _rel(got, np.fft.ifft(np.fft.fft(x) * h)[n - hop:]) < 1e-6
 
 
 def _fftconv_frames(x: np.ndarray, h: np.ndarray, plan: kfft.FftPlan, hop: int) -> np.ndarray:
     """K11's frames through the planned body in numpy: one block a frame
-    (fftconv_mixed_kernel: DIF, H at rev[k], conj, DIT, conj / N) or the
-    four-step's three kernels (fft4_step1, fftconv4_mid: rows, H, conj, the
-    inverse's rows by DIT, W_N^{c e}, into [c, e]; fftconv4_out: columns
-    over c, n = e + f2 g); the last hop samples of each frame kept."""
+    (fftconv_mixed_kernel: the forward in its order, H in that order, conj,
+    the transposed order, conj / N) or the four-step's three kernels (cols;
+    mid: rows, H, conj, the rows' transposed order, W_N^{c e}, into [c, e];
+    out: columns over c, n = e + f2 g); the last hop samples of each frame
+    kept."""
     n = plan.fft_size
-    tabs = _tables(plan)
+    tabs = _sections(plan)
     overlap = n - hop
     frames = (x.shape[-1] - overlap) // hop
     y = np.empty(frames * hop, np.complex128)
+    hk = h[plan.h_order()]
     for f in range(frames):
         fr = x[f * hop:f * hop + n].astype(np.complex128)
         if plan.body == "mixed":
             g = plan.lines[0]
-            rev = kfft._line_rev(g.radices, n)
-            v = _passes(fr[:, None], g, tabs[0], False)[:, 0]
-            v[rev] = np.conj(v[rev] * h)
-            out = np.conj(_passes(v[:, None], g, tabs[0], True)[:, 0]) / n
+            z = np.conj(_line_fwd(fr, g.p, g.log2m, tabs[0]) * hk)
+            out = np.conj(_line_dit(z, g.p, g.log2m, tabs[0])) / n
         else:
             (g1, g2), (f1, f2) = plan.lines, plan.factors
             t1, t2, post1, post2 = tabs
-            rev1, rev2 = kfft._line_rev(g1.radices, f1), kfft._line_rev(g2.radices, f2)
-            b, a = np.arange(f2)[None, :], np.arange(f1)[:, None]
-            c = np.arange(f1)[:, None]
-            v = _passes(fr[b + a * f2], g1, t1, False)
-            s = np.empty(n, np.complex128)
-            s[b * f1 + c] = v[rev1] * post1.T
-            c_, b_ = np.arange(f1)[None, :], np.arange(f2)[:, None]
-            v = _passes(s[c_ + b_ * f1], g2, t2, False)
-            d = np.arange(f2)[:, None]
-            v[rev2] = np.conj(v[rev2] * h[c_ + f1 * d])               # [d at rev, c]
-            v = _passes(v, g2, t2, True)                              # [e, c], natural e
-            e = np.arange(f2)[:, None]
-            s2 = np.empty(n, np.complex128)
-            s2[c_ * f2 + e] = v * post2.T                             # [c, e] at c f2 + e
-            e_, cc = np.arange(f2)[None, :], np.arange(f1)[:, None]
-            v = _passes(s2[e_ + cc * f2], g1, t1, False)
-            gg = np.arange(f1)[:, None]
-            out = np.empty(n, np.complex128)
-            out[e_ + f2 * gg] = np.conj(v[rev1]) / n
+            v = _fwd(g1, fr.reshape(f1, f2), t1) * post1.T                 # [c, b]
+            xk = _fwd(g2, v.T, t2)                                         # [d, c]
+            k = np.arange(f1)[None, :] + f1 * np.arange(f2)[:, None]
+            e = _dit(g2, np.conj(xk * hk[k]), t2)                          # [e, c]
+            s2 = e.T * post2                                               # [c, e]
+            gg = _fwd(g1, s2, t1)                                          # [g, e]
+            out = np.conj(gg.ravel()) / n                                  # n = e + f2 g
         y[f * hop:(f + 1) * hop] = out[overlap:]
     return y
 
 
 @pytest.mark.parametrize("n,num_taps,per_channel", [(12288, 3000, False), (16384, 4096, False),
-                                                    (16384, 4096, True)])
+                                                    (16384, 4096, True), (17408, 4352, False)])
 def test_fftconv_plain_matches_jax_direct_fir_and_schedule(n, num_taps, per_channel):
     """K11's plain version at the new sizes against the JAX kernel in
-    interpret mode and a float64 direct FIR; the planned body's frames
-    (one block a frame at 12288, the four-step at 16384) in numpy against
-    the plain version."""
+    interpret mode and a float64 direct FIR; the planned body's frames (one
+    block a frame at 12288 and 16384, the four-step at 17408) in numpy
+    against the plain version."""
     c = 2
     taps = (np.stack([lowpass(num_taps, 0.05 * (i + 1)) for i in range(c)]) if per_channel
             else lowpass(num_taps, 0.1))
@@ -244,32 +410,155 @@ def test_fftconv_plain_matches_jax_direct_fir_and_schedule(n, num_taps, per_chan
         assert _snr_db(got, sched) > 100
 
 
-@pytest.mark.parametrize("n,n2", [(12288, 128), (11264, 128), (65536, 128)])
+@pytest.mark.parametrize("n,n2", [(12288, 128), (11264, 128), (65536, 128),
+                                  (1024 * 1021, 128)])
 def test_tables_hold_each_constant_once_rounded(n, n2):
     """Every entry of the plan's table is W_N^e rounded once from float64 at
-    the exponent its index stands for: twiddle (m, n0) of a pass
-    _line_twiddle_exponent, DFT constant j W_R^j, the four-step's post
-    entries W_N^{b c} and W_N^{c e}."""
+    the exponent its index stands for: a register line's odd section
+    W_L^{j k} at (k - 1) M + j and its Stockham section (stockham_twiddles);
+    a generic line's twiddle (m, n0) _line_twiddle_exponent and DFT
+    constant W_R^j; the four-step's post entries W_N^{b c} and W_N^{c e}."""
     plan = kfft.fft_plan(n, n2)
-    tabs = _tables(plan)
-    for g, tab in zip(plan.lines, tabs):
-        for r, m, off in zip(g.radices, kfft._line_spans(g.radices, g.length),
-                             kfft._line_table_offsets(g.radices, g.length)):
+    tab, offs, _ = plan.tables()
+    for g, off in zip(plan.lines, offs):
+        if isinstance(g, kfft.LineShape):
+            m, length = 1 << g.log2m, g.length
+            j, k = np.arange(m)[None, :], np.arange(1, g.p)[:, None]
+            want = np.exp(-2j * np.pi * (j * k) / length).ravel()
+            size = (g.p - 1) * m
+            np.testing.assert_array_equal(tab[off:off + size], want.real.astype(np.float32))
+            np.testing.assert_array_equal(tab[off + size:off + 2 * size],
+                                          want.imag.astype(np.float32))
+            stock = kfft.stockham_twiddles(m).ravel()
+            np.testing.assert_array_equal(tab[off + 2 * size:off + 2 * size + stock.size], stock)
+            continue
+        sec = _cplx(tab[off:off + kfft._line_table(g, n).size])
+        for r, m, o in zip(g.radices, kfft._line_spans(g.radices, g.length),
+                           kfft._line_table_offsets(g.radices, g.length)):
             bf, k = np.arange(m)[None, :], np.arange(1, r)[:, None]
             e = kfft._line_twiddle_exponent(bf, m, r, k, n, g.length)
             want = np.exp(-2j * np.pi * e / n)
-            got = tab[kfft._line_twiddle_index(bf, m, k, off)]
+            got = sec[kfft._line_twiddle_index(bf, m, k, o)]
             np.testing.assert_array_equal(got.real, want.real.astype(np.float32))
             np.testing.assert_array_equal(got.imag, want.imag.astype(np.float32))
             j = np.arange(r)
-            want = np.exp(-2j * np.pi * j / r)
-            got = tab[kfft._line_dft_index(j, 1, r, m, off)]
-            np.testing.assert_allclose(got, want, atol=1e-7)
+            np.testing.assert_allclose(sec[kfft._line_dft_index(j, 1, r, m, o)],
+                                       np.exp(-2j * np.pi * j / r), atol=1e-7)
     if plan.body == "four_step":
+        secs = _sections(plan)
         f1, f2 = plan.factors
         b, c = np.arange(f2)[:, None], np.arange(f1)[None, :]
-        np.testing.assert_allclose(tabs[2], np.exp(-2j * np.pi * b * c / n), atol=1e-7)
-        np.testing.assert_allclose(tabs[3], np.exp(-2j * np.pi * c.T * b.T / n), atol=1e-7)
+        np.testing.assert_allclose(secs[2], np.exp(-2j * np.pi * b * c / n), atol=1e-7)
+        np.testing.assert_allclose(secs[3], np.exp(-2j * np.pi * c.T * b.T / n), atol=1e-7)
+
+
+def test_odd_dft_literals_are_float64_rounded_once():
+    """fft_lines.cuh kOddTrig holds, for P = 3, 5, ..., 15 at _odd_trig_offset,
+    cos and sin of 2 pi j / P as the float32 rounding of the float64 values,
+    bit for bit."""
+    src = (Path(kfft.__file__).resolve().parents[1] / "csrc" / "fft_lines.cuh").read_text()
+    body = re.search(r"kOddTrig\[(\d+)\] = \{(.*?)\};", src, re.S)
+    lits = np.array([float(v) for v in re.findall(r"(-?\d\.\d+(?:e-?\d+)?)f", body.group(2))],
+                    np.float32)
+    assert lits.size == int(body.group(1)) == kfft._odd_trig_offset(17)
+    for p in kfft.ODD_FACTORS:
+        want = kfft._odd_trig(p).ravel()
+        at = kfft._odd_trig_offset(p)
+        np.testing.assert_array_equal(lits[at:at + want.size], want)
+
+
+@pytest.mark.parametrize("source,macro,shapes", [
+    ("fft_mixed.cu", "MIXED_SHAPES", kfft.MIXED_SHAPES),
+    ("fft_4step.cu", "FOUR_STEP_LINES", kfft.FOUR_STEP_LINES)])
+def test_instantiated_shapes_match_the_sources(source, macro, shapes):
+    """The (P, log2 M) shapes the host plans with are the ones the CUDA
+    source instantiates, in its order: fft_mixed.cu MIXED_SHAPES and
+    fft_4step.cu FOUR_STEP_LINES against their Python tuples."""
+    src = (Path(kfft.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)\n", src)
+    got = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body.group(1)))
+    assert got == tuple(shapes)
+
+
+# --- shared-memory banks -------------------------------------------------------
+
+def _worst_bank(addrs: np.ndarray) -> int:
+    """Largest number of distinct 4-byte words one bank serves for one
+    warp's addresses (rows of addrs)."""
+    worst = 0
+    for row in np.atleast_2d(addrs):
+        for b in range(32):
+            worst = max(worst, len(set(row[row % 32 == b].tolist())))
+    return worst
+
+
+@pytest.mark.parametrize("p,log2m", kfft.MIXED_SHAPES)
+def test_one_block_and_tile_banks_at_most_two_way(p, log2m):
+    """The one-block body (fft_mixed.cu) at N = p 2^log2m: the odd pass's
+    writes (row n_m + M k at pad(n_m) + k (M + M/32)), the sub-transforms'
+    loads, the staging write of register s of thread (k_p, t) at
+    _mixed_stage(k_p + P (t + (M/16) s)), and its reads by the natural store
+    and the digit store at every n2 of the domain; and the four-step's tiles
+    on phase 23's register lines (2^20: 1024 x 8 lanes; 65536: 512 x 16 and
+    128 x 64; 21504: 96 x 32 and 224 x 32): cp.async writes, the odd pass's
+    rows, the sub-transforms' loads, exchanges, staging and the row-order
+    reads. Each warp's 32 accesses touch a bank at most twice."""
+    m, n = 1 << log2m, p << log2m
+    t_count, _, _ = kfft._mixed_shape(p, log2m)
+    tm_count, _, _ = kfft._line_shape(p, log2m)
+    t = np.arange(t_count).reshape(-1, 32)
+    kp, tm = t // tm_count, t % tm_count
+    sub = m + m // 32
+    worst = 0
+    for i in range(-(-m // t_count)):
+        nm = t + t_count * i
+        nm = np.where(nm < m, nm, nm % m)
+        for k in range(p):
+            worst = max(worst, _worst_bank(kfft.regs_pad(nm) + k * sub))
+    for s in range(kfft.REGS_VALS):
+        worst = max(worst, _worst_bank(kp * sub + kfft.regs_pad(tm + tm_count * s)),
+                    _worst_bank(kfft._mixed_stage(kfft._line_order(p, log2m, kp, tm, s))),
+                    _worst_bank(kfft._mixed_stage(t + t_count * s)))
+    q = np.arange(n).reshape(-1, 32)
+    for n2 in range(128, n + 1, 128):
+        if n % n2 or (n // n2) % 8:
+            continue
+        n1 = n // n2
+        worst = max(worst, _worst_bank(kfft._mixed_stage((q % n2) * n1 + q // n2)))
+    assert worst <= 2
+    # the four-step's tiles of phase 23's register lines (21504: 96 x 224 on
+    # (3, 5) and (7, 5), 32 lanes each)
+    for length, lanes in ((1024, 8), (512, 16), (128, 64), (96, 32), (224, 32)):
+        lp, lm = kfft._reg_line(length)
+        log2lanes = lanes.bit_length() - 1
+        tl_all = np.arange(lanes * length // kfft.REGS_VALS)
+        lane, tl = tl_all % lanes, tl_all // lanes
+        tmc, tlc, _ = kfft._line_shape(lp, lm)
+        kp, tm, mm_ = tl // tmc, tl % tmc, 1 << lm
+        worst = _worst_bank(kfft.regs_pad(np.arange(lanes * length)).reshape(-1, 32))
+        for i in range(-(-mm_ // tlc) if lp > 1 else 0):   # the odd pass's rows
+            nm = tl + tlc * i
+            nm = np.where(nm < mm_, nm, nm % mm_)
+            for k in range(lp):
+                worst = max(worst, _worst_bank(kfft._line_at(nm + mm_ * k, lane, log2lanes)
+                                               .reshape(-1, 32)))
+        for r, ns in kfft.regs_passes(lm)[:-1]:
+            g_count = kfft.REGS_VALS // r
+            for g in range(g_count):
+                j = tm + tmc * g
+                for mm in range(r):
+                    e = kp * mm_ + kfft.regs_store_index(j, r, ns, mm)
+                    worst = max(worst, _worst_bank(kfft._line_at(e, lane, log2lanes)
+                                                   .reshape(-1, 32)))
+        for s in range(kfft.REGS_VALS):
+            e = kfft._line_order(lp, lm, kp, tm, s)
+            worst = max(worst, _worst_bank(kfft._line_at(e, lane, log2lanes).reshape(-1, 32)),
+                        _worst_bank(kfft._line_at(kp * mm_ + tm + tmc * s, lane, log2lanes)
+                                    .reshape(-1, 32)))
+        u = np.arange(lanes * length)
+        worst = max(worst, _worst_bank(kfft._line_at(u % length, u // length, log2lanes)
+                                       .reshape(-1, 32)))
+        assert worst <= 2, (length, lanes, worst)
 
 
 # --- K10's plain version against the JAX kernel ------------------------------
@@ -298,23 +587,38 @@ def test_plain_fft_matches_jax_interpret(n, n2, order):
 # --- the plan ----------------------------------------------------------------
 
 def test_plan_domain_and_bodies():
-    """Every size of the domain gets its body and geometry within the
-    shared-memory budget; sizes outside raise with the rule."""
+    """Every size of the domain gets its body and lines within the
+    shared-memory and thread budgets; sizes outside raise with the rule."""
     for n, n2, body in [(256, 128, "regs"), (8192, 128, "regs"), (4096, 64, "regs"),
                         (3072, 384, "mixed"), (1024 * 15, 128, "mixed"),
-                        (1024 * 13, 128, "mixed"), (16384, 128, "four_step"),
+                        (1024 * 13, 128, "mixed"), (16384, 128, "mixed"),
+                        (16384, 2048, "mixed"), (17408, 128, "four_step"),
                         (1 << 20, 1024, "four_step"), (1 << 20, 128, "four_step"),
-                        (6144, 384, "mixed"), (1024 * 1023, 128, "four_step")]:
+                        (6144, 384, "mixed"), (1024 * 1023, 128, "four_step"),
+                        (3 << 15, 128, "four_step"), (21504, 128, "four_step"),
+                        (27 << 15, 128, "four_step")]:
         plan = kfft.fft_plan(n, n2)
         assert plan.body == body, (n, n2)
+        tab, offs, rev = plan.tables()
+        assert len(offs) == {"regs": 1, "mixed": 1, "four_step": 4}[body]
         for g in plan.lines:
-            assert np.prod(g.radices) == g.length
             assert g.smem_bytes() + 256 <= 232448            # a block's shared memory
-            assert kfft.fft_plan(n, n2).tables()[1].size == sum(x.length for x in plan.lines)
+            if isinstance(g, kfft.LineShape):
+                assert g.threads <= 1024
+                assert (g.p, g.log2m) in (kfft.MIXED_SHAPES if body == "mixed"
+                                          else kfft.FOUR_STEP_LINES)
+            else:
+                assert np.prod(g.radices) == g.length and kfft._reg_line(g.length) is None
         if body == "four_step":
             f1, f2 = plan.factors
-            assert f1 * f2 == n and plan.lines[0].length == f1
+            assert f1 * f2 == n and rev.size == f1 + f2
             assert f2 % plan.lines[0].lanes == 0 and f1 % plan.lines[1].lanes == 0
+    assert kfft.fft_plan(17408).lines[0].radices == (17, 8)     # 136 = 17 x 8: generic
+    assert isinstance(kfft.fft_plan(17408).lines[1], kfft.LineShape)
+    assert kfft.fft_plan(21504).lines == (kfft.LineShape(3, 5, 32), kfft.LineShape(7, 5, 32))
+    # 27 x 2^15: no two lines of 2^5 ... 2^7 points beside an odd factor make 2^15
+    assert any(isinstance(g, kfft.LineGeometry) for g in kfft.fft_plan(27 << 15).lines)
+    assert kfft.fft_plan(3 << 15).factors == (384, 256)
     for n, n2 in [(1536, 128), (1000, 128), (1 << 21, 128), (3072, 256), (128, 128)]:
         with pytest.raises(ValueError, match="n2 % 128 == 0 and n1 % 8 == 0"):
             kfft.fft_plan(n, n2)
