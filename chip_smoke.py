@@ -246,20 +246,22 @@ Phases, in order; any failure raises and the run exits non-zero:
 23. K10 and K11 past the powers of two up to 8192 (kernels.fft_pallas.fft_plan:
    csrc/fft_mixed.cu, one block a frame up to 16384; csrc/fft_4step.cu, the
    four-step, from 17408 to 2^20; both on csrc/fft_lines.cuh's compile-time
-   register schedules): the new kernels' registers, local bytes and blocks
-   per SM, no spill; K10 over 2^25 samples at 3072 (n2 384), 5120, 11264,
-   12288, 16384, 21504 (96 x 224, the odd part 21 on two register lines),
-   65536 (n2 128), 2^20 (n2 1024) and 1024 x 1021 (n2 128, the 1021-point
-   rows on the generic passes) against its plain version, timed with cuFFT
-   in turns (one call, 5 back to back), each row beside the run-time-pass
-   bodies' time and ratio to cuFFT where they were measured; K11 on one
+   register schedules, a four-step line of no register shape a Bluestein
+   line on two register transforms): the new kernels' registers, local
+   bytes and blocks per SM, no spill; the plans at 17408, 1024 x 1021 and
+   884,736 hold only register and Bluestein lines; K10 over 2^25 samples at
+   3072 (n2 384), 5120, 11264, 12288, 16384, 21504 (96 x 224, the odd part
+   21 on two register lines), 65536 (n2 128), 2^20 (n2 1024), 1024 x 1021
+   (n2 128, the 1021-point rows a Bluestein line) and 27 x 2^15 = 884,736
+   (the 864-point rows a Bluestein line) against its plain version, timed
+   with cuFFT in turns (one call, 5 back to back), each row beside the
+   earlier bodies' time and ratio to cuFFT where they were measured; K11 on one
    chunk of config 3 with 4096 taps (fft 16384, one block a frame), with
    3000 taps at fft 12288, with 4352 taps at the four-step's first size
    17408 and with 4096 taps at 1024 x 1021 against its plain version and
    cuDNN conv1d; then, counts at 0, K10's three orders at every size
    (natural == kernel-natural == digit unscrambled by torch.equal; > 110 dB
-   against complex128, > 100 dB where a generic line runs a direct-DFT
-   pass; conj round trip > 110 dB), config 3 at 4096 taps, 16 x 8,355,840
+   against complex128; conj round trip > 110 dB), config 3 at 4096 taps, 16 x 8,355,840
    (one launch == 5 FftConvStream chunks == fftconv_time_sharded over 5
    shards == per-channel taps by torch.equal; > 100 dB against the plain
    K11, > 90 dB against the C++ oracle on channels 0 and 15), K11 at fft
@@ -458,25 +460,32 @@ C22_BLOCKS, C22_SHARDS = 4, 4
 # with 4096 taps (fft 16384, hop 12,288: 16 x 8,355,840 = 85 blocks of 8 frames, 5 chunks
 # of 17), K11 at fft 12288 with 3000 taps (hop 9216, 113 blocks of 8 frames) and at the
 # four-step's first size 17408 with 17408 / 4 taps as config 3 has at 16384 (hop 12,288:
-# 16 x 7,864,320 = 80 blocks of 8 frames, 5 chunks of 16) and at 1024 x 1021 with 4096
-# taps, whose 1021-point rows run the generic passes (5 blocks of 8 frames, 5 chunks of
-# 1); K10 also at 21504 = 96 x 224 (the odd part 21 split across two register lines) and
-# at 1024 x 1021 (the generic rows)
+# 16 x 7,864,320 = 80 blocks of 8 frames, 5 chunks of 16; its 136-point columns a
+# Bluestein line) and at 1024 x 1021 with 4096 taps, whose 1021-point rows are a
+# Bluestein line (5 blocks of 8 frames, 5 chunks of 1); K10 also at 21504 = 96 x 224 (the
+# odd part 21 split across two register lines), at 1024 x 1021 (the Bluestein rows) and
+# at 27 x 2^15 = 884,736 (1024 x 864: the 864-point rows, radix 3 alone, a Bluestein line)
 C23_SAMPLES, C23_BFRAMES, C23_SNR_SAMPLES = 1 << 25, 16, 1 << 22
 C23_SIZES = ((3072, 384), (5120, 128), (11264, 128), (12288, 128), (16384, 128),
-             (21504, 128), (65536, 128), (1 << 20, 1024), (1024 * 1021, 128))
+             (21504, 128), (65536, 128), (1 << 20, 1024), (1024 * 1021, 128), (27 << 15, 128))
 C23_TAPS, C23_FFT, C23_BFRAMES_K11, C23_BLOCKS = 4096, 16384, 8, 85
 C23_MIXED_TAPS, C23_MIXED_FFT, C23_MIXED_BLOCKS = 3000, 12288, 113
 C23_4STEP_TAPS, C23_4STEP_FFT, C23_4STEP_BLOCKS = 4352, 17408, 80
 C23_PRIME_TAPS, C23_PRIME_FFT, C23_PRIME_BLOCKS = 4096, 1024 * 1021, 5
+# the sizes whose plans hold a Bluestein line (and register lines besides)
+C23_BLUESTEIN = (C23_4STEP_FFT, C23_PRIME_FFT, 27 << 15)
 # the bodies these replaced (every pass a run-time radix over the frame in shared
 # memory), on an H100 80GB HBM3 at 700.00 W: (ms one call, ms 5 back to back, ms over
-# cuFFT's one call) of K10 a size; ms of K11 at 4096 and 3000 taps
+# cuFFT's one call) of K10 a size; ms of K11 a chunk; at 884,736 and 1024 x 1021 (K10)
+# and at 17408 and 1024 x 1021 (K11) the generic run-time passes of the four-step's
+# lines that the Bluestein lines replaced, timed with that code as phase 23 times them
 C23_BEFORE = {3072: (0.4691, 0.4563, 2.19), 5120: (0.4909, 0.4546, 2.33),
             11264: (1.5980, 1.4960, 5.67), 12288: (0.6822, 0.6168, 3.08),
             16384: (0.8893, 0.7627, 3.89), 65536: (1.0209, 0.9327, 2.33),
-            1 << 20: (1.2669, 1.1799, 3.01)}
-C23_BEFORE_K11 = {C23_FFT: 1.6252, C23_MIXED_FFT: 0.9788}
+            1 << 20: (1.2669, 1.1799, 3.01), 27 << 15: (0.8354, 0.7908, 1.65),
+            1024 * 1021: (40.7528, 40.6356, 15.96)}
+C23_BEFORE_K11 = {C23_FFT: 1.6252, C23_MIXED_FFT: 0.9788, C23_4STEP_FFT: 2.7361,
+                  C23_PRIME_FFT: 379.3376}
 FM_PILOT = 19.0 / 240.0
 REPS = 5
 # published H100 SXM peaks: f32 outside the tensor cores, and HBM3
@@ -773,22 +782,22 @@ def phase13(torch, dev, x1, x3r, n3r, c1, k17, k18, taps1_np, word1, w01) -> Non
 
 def phase23(torch, dev) -> tuple[list, dict]:
     """K10 and K11 at the sizes past the powers of two (``kernels.fft_pallas.
-    fft_plan``: one block a frame up to 16384, the four-step from 17408).
-    First each body against its plain version and the library call, timed
-    (kernel and plain: median of 5; K10 and cuFFT in turns, one call a turn
-    and 5 back to back, beside the run-time-pass bodies' times and ratios);
-    then, with the counts at 0, the path a user drives: K10 in its three
-    orders at every size (natural == kernel-natural == digit unscrambled by
-    torch.equal; SNR against torch.fft in complex128 above 110 dB, or 100 dB
-    where a generic line runs a direct-DFT pass; the conj round trip above
-    110 dB), config 3 with 4096 taps through K11 (one launch == 5
-    FftConvStream chunks == fftconv_time_sharded over 5 shards ==
-    per-channel taps by torch.equal, > 100 dB against the plain K11, > 90 dB
-    against the C++ oracle's direct FIR), K11 at fft 12288 and K11's
-    four-step at 17408 and 1024 x 1021, whose rows run the generic passes
-    (one launch == 5 FftConvStream chunks). Returns the
-    new bodies' rows, one a body and size, each with the launches of that
-    size on the path, and the path's launches."""
+    fft_plan``: one block a frame up to 16384, the four-step from 17408, a
+    line of no register shape a Bluestein line). First each body against
+    its plain version and the library call, timed (kernel and plain: median
+    of 5; K10 and cuFFT in turns, one call a turn and 5 back to back, beside
+    the earlier bodies' times and ratios); then, with the counts at 0, the
+    path a user drives: K10 in its three orders at every size (natural ==
+    kernel-natural == digit unscrambled by torch.equal; SNR against
+    torch.fft in complex128 above 110 dB; the conj round trip above 110 dB),
+    config 3 with 4096 taps through K11 (one launch == 5 FftConvStream
+    chunks == fftconv_time_sharded over 5 shards == per-channel taps by
+    torch.equal, > 100 dB against the plain K11, > 90 dB against the C++
+    oracle's direct FIR), K11 at fft 12288 and K11's four-step at 17408 (the
+    136-point columns a Bluestein line) and 1024 x 1021 (the 1021-point rows
+    one) (one launch == 5 FftConvStream chunks). Returns the new bodies' rows, one a body and
+    size, each with the launches of that size on the path, and the path's
+    launches."""
     from srcdsp_tpu_torch import oracle
     from srcdsp_tpu_torch.configs import C3_CUTOFF, seeded_planes
     from srcdsp_tpu_torch.dist import fused as dfused
@@ -806,6 +815,13 @@ def phase23(torch, dev) -> tuple[list, dict]:
               if any(b in k for b in ("fft_mixed_kernel", "fftconv_mixed_kernel", "fft4_",
                                       "fftconv4_"))}
     spilled = [k for k, (_, st, ld) in bodies.items() if st or ld]
+    blue = [k for k in bodies if "bluestein" in k]
+    for n in C23_BLUESTEIN:
+        lines = kfft.fft_plan(n).lines
+        print(f"[23] {n}: {'; '.join(map(str, lines))}", flush=True)
+        require(all(isinstance(g, (kfft.LineShape, kfft.BluesteinLine)) for g in lines)
+                and any(isinstance(g, kfft.BluesteinLine) for g in lines),
+                f"{n}: lines {lines} (register and Bluestein lines, a Bluestein one among them)")
     for n, n2 in C23_SIZES[:5] + ((C23_4STEP_FFT, 128),) + C23_SIZES[5:]:
         plan = kfft.fft_plan(n, n2)
         names = (kfft.MIXED_KERNELS,) if plan.body == "mixed" else (
@@ -813,16 +829,19 @@ def phase23(torch, dev) -> tuple[list, dict]:
         for g, pair in zip(plan.lines, names):
             for name in pair:
                 regs, local, blocks = kfft.lines_info(name, g)
-                threads = g.threads if isinstance(g, kfft.LineShape) else 256
+                threads = g.threads
                 print(f"[23] {name} at {n} ({g}, {g.smem_bytes()} B of shared memory): {regs} "
                       f"registers, {local} bytes of local memory, {blocks} blocks of {threads} "
                       f"threads per SM ({blocks * threads // 32} warps)")
                 require(local == 0 and blocks >= 1, f"{name} at {n}: {local} B local, {blocks}")
-    want = 3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES) + 4
+    want = (3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES)
+            + 4 * len(kfft.BLUESTEIN_LOG2M))
     print(f"[23] ptxas: {len(bodies) - len(spilled)} of {len(bodies)} fft_mixed / fft_4step "
-          f"kernels without spills", flush=True)
+          f"kernels without spills, {len(blue)} of them Bluestein: "
+          f"{', '.join(f'{k} {bodies[k][0]} registers' for k in sorted(blue))}", flush=True)
     require(len(bodies) == want and not spilled, f"ptxas: {len(bodies)} of {want}, spills in "
                                                  f"{spilled}")
+    require(len(blue) == 4 * len(kfft.BLUESTEIN_LOG2M), f"ptxas: Bluestein kernels {blue}")
 
     def frames(n: int) -> int:
         return C23_SAMPLES // n // C23_BFRAMES * C23_BFRAMES
@@ -932,13 +951,10 @@ def phase23(torch, dev) -> tuple[list, dict]:
         snr = snr_db(torch, ref, torch.complex(nat[0][:b], nat[1][:b]).to(torch.complex128))
         rr, ri = kfft.ifft_pallas(outs["fft"][0], *nat)
         trip = min(snr_db(torch, xr, rr), snr_db(torch, xi, ri))
-        direct = any(g.direct for g in kfft.fft_plan(n, n2).lines)
-        floor = 100.0 if direct else 110.0
         print(f"[23] K10 {n}: natural == kernel-natural == unscrambled digit (torch.equal); SNR "
-              f"{snr:.2f} dB against torch.fft in complex128 on {b} frames (floor {floor:.0f}"
-              f"{', a direct-DFT pass' if direct else ''}); conj round trip {trip:.2f} dB (floor "
-              f"110)", flush=True)
-        require(snr > floor, f"K10 {n}: SNR {snr} dB against complex128")
+              f"{snr:.2f} dB against torch.fft in complex128 on {b} frames (floor 110); conj "
+              f"round trip {trip:.2f} dB (floor 110)", flush=True)
+        require(snr > 110.0, f"K10 {n}: SNR {snr} dB against complex128")
         require(trip > 110.0, f"K10 {n}: round trip SNR {trip} dB")
         by_name[f"{body}_{n}"]["launches"] = _build.LAUNCHES[body] - before
         del xr, xi, outs, nat, ref, rr, ri

@@ -40,9 +40,12 @@
 // line's output in natural order in the tile and writes the scratch or the
 // result in whole rows. A line FOUR_STEP_LINES does not hold (a prime factor
 // above 15, as 17 in 136 x 128 or 1021 in 1024 x 1021, an odd part that no
-// two factors up to 15 make, as 243, or an odd factor on other than 32 to 128
-// points) runs the generic passes of fft_lines.cuh (256
-// threads, a direct DFT pass over a prime above 7, X[k] at rev[k]). The
+// two factors up to 15 make, as 27 in 864, or an odd factor on other than 32
+// to 128 points) is a Bluestein line of fft_lines.cuh (bluestein_line): a
+// chirp, then the cyclic convolution on two register transforms of M = 2^9 ...
+// 2^12 >= 2L - 1 points (BLUESTEIN_LINES), a tile of up to 8192 points (lanes
+// M: 16 lanes at M = 512, 8 at 1024, 4 at 2048, 2 at 4096 where the line count
+// allows), 512 threads at up to 128 registers, one block an SM. The
 // wrapper works in batches of frames whose scratch fits 256 MiB. Every frame
 // is computed the same way wherever it lies, so the digit store, unscrambled,
 // equals the natural store bit for bit, and chunked, streamed and
@@ -64,6 +67,10 @@ namespace {
   X(1, 4) X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(3, 5) X(5, 5) X(7, 5) \
   X(9, 5) X(11, 5) X(13, 5) X(15, 5) X(3, 6) X(5, 6) X(7, 6) X(9, 6) X(11, 6) X(13, 6)     \
   X(15, 6) X(3, 7) X(5, 7) X(7, 7) X(9, 7) X(11, 7) X(13, 7) X(15, 7)
+
+// The Bluestein lines' transform lengths: log2 M (kernels/fft_pallas.py
+// BLUESTEIN_LOG2M), M the least power of two >= 2L - 1 for L = 17 ... 2040.
+#define BLUESTEIN_LINES(X) X(9) X(10) X(11) X(12)
 
 // --- register lines ----------------------------------------------------------
 
@@ -242,160 +249,204 @@ __global__ void __launch_bounds__(kLineThreads, kOutMinBlocks<P, LOG2M>)
   }
 }
 
-// --- generic lines (shapes FOUR_STEP_LINES does not hold) ----------------------
+// --- Bluestein lines (shapes FOUR_STEP_LINES does not hold) -------------------
 
-// Step 1 on generic lines (fft4_cols_regs's contract; tw this line's
-// section, its imaginary plane tw_size floats on; X[c] at rev[c]).
-__global__ void __launch_bounds__(kLinesThreads)
-    fft4_step1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                      long long chan_stride, long long frame_stride, int F, long long g0,
-                      const float* __restrict__ tw, const float* __restrict__ post,
-                      const int* __restrict__ rev, float* __restrict__ s1r,
-                      float* __restrict__ s1i, const LinePlan plan, int N) {
-  __shared__ LinePlan p;
+// A Bluestein line's block: lanes x M / 16 threads, at most 512 (a tile of
+// 8192 points), up to 128 registers: at 1024 threads and 64 registers every
+// step spilled (4 to 504 bytes, the mid step most), at 512 and 128 none.
+constexpr int kBluesteinThreads = 512;
+
+// Step 1 on Bluestein lines of L points (fft4_cols_regs's contract; tw the
+// line's table, divL dividing by L).
+template <int LOG2M>
+__global__ void __launch_bounds__(kBluesteinThreads, 1)
+    fft4_cols_bluestein(const float* __restrict__ xr, const float* __restrict__ xi,
+                        long long chan_stride, long long frame_stride, int F, long long g0,
+                        const float* tw, const float* __restrict__ post, float* __restrict__ s1r,
+                        float* __restrict__ s1i, int log2lanes, int N, int L,
+                        const LineDiv divL) {
+  using S = BluesteinShape<LOG2M>;
   extern __shared__ float smem[];
-  lines_stage_plan(p, plan);
-  const int L = plan.L, lanes = plan.lanes, W = N / L;
-  LinePlanes s(smem, L * lanes);
+  const int count = L << log2lanes;
+  const LineTile s(smem, lines_plane(S::kM << log2lanes), log2lanes);
+  lines_zero_set();
   const long long G = g0 + blockIdx.y;
   const long long base = (G / F) * chan_stride + (G % F) * frame_stride;
-  const int line0 = blockIdx.x * lanes;
-  tile_load_async(s.r, s.i, __ffs(lanes) - 1, xr + base + line0, xi + base + line0, L * lanes, W);
-  lines_transform<false>(s.r, s.i, s.sr, s.si, p, tw, tw + plan.tw_size);
-  const long long so = (long long)blockIdx.y * N;
-  for (int t = threadIdx.x; t < L * lanes; t += blockDim.x) {
-    const int c = t % L, lane = t / L, b = line0 + lane;
-    const int a = lines_at(__ldg(rev + c), lane, lanes);
-    float vr = s.r[a], vi = s.i[a];
-    const int e = b * L + c;
-    fft_regs_cmul(vr, vi, __ldg(post + e), __ldg(post + N + e));
-    s1r[so + (long long)b * L + c] = vr;
-    s1i[so + (long long)b * L + c] = vi;
+  const int line0 = blockIdx.x << log2lanes;
+  tile_load_async(s.r, s.i, log2lanes, xr + base + line0, xi + base + line0, count, N / L);
+  float vr[kFftRegsVals], vi[kFftRegsVals];
+  bluestein_load<LOG2M>(vr, vi, s, L);
+  bluestein_line<LOG2M>(vr, vi, s, L, tw);
+  const LineTile s2 = s.fresh();  // the epilogue's indices made here
+  line_stage<1, LOG2M>(vr, vi, s2);
+  const long long at = (long long)blockIdx.y * N + (long long)line0 * L;
+  const float* pr = post + (long long)line0 * L;
+  const float* pi = pr + N;
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int l = divL(t), c = t - l * L;
+    const int a = fft_regs_pad((c << s2.log2lanes) + l);
+    float ur = s2.r[a], ui = s2.i[a];
+    fft_regs_cmul(ur, ui, __ldg(pr + t), __ldg(pi + t));
+    s1r[at + t] = ur;
+    s1i[at + t] = ui;
   }
 }
 
-// Step 2 of K10 on generic lines (fft4_rows_regs's contract).
-__global__ void __launch_bounds__(kLinesThreads)
-    fft4_step2_kernel(const float* __restrict__ s1r, const float* __restrict__ s1i, long long g0,
-                      const float* __restrict__ tw, const int* __restrict__ rev,
-                      float* __restrict__ yr, float* __restrict__ yi, const LinePlan plan, int N,
-                      int n1, int n2, int digit) {
-  __shared__ LinePlan p;
+// Step 2 of K10 on Bluestein lines (fft4_rows_regs's contract).
+template <int LOG2M>
+__global__ void __launch_bounds__(kBluesteinThreads, 1)
+    fft4_rows_bluestein(const float* __restrict__ s1r, const float* __restrict__ s1i,
+                        long long g0, const float* tw, float* __restrict__ yr,
+                        float* __restrict__ yi, int log2lanes, int N, int L, int n1, int n2,
+                        const LineDiv div1, const LineDiv divL, int digit) {
+  using S = BluesteinShape<LOG2M>;
   extern __shared__ float smem[];
-  lines_stage_plan(p, plan);
-  const int L = plan.L, lanes = plan.lanes, W = N / L;
-  LinePlanes s(smem, L * lanes);
+  const int count = L << log2lanes, W = N / L;
+  const LineTile s(smem, lines_plane(S::kM << log2lanes), log2lanes);
+  lines_zero_set();
   const long long so = (long long)blockIdx.y * N;
-  const int line0 = blockIdx.x * lanes;
-  tile_load_async(s.r, s.i, __ffs(lanes) - 1, s1r + so + line0, s1i + so + line0, L * lanes, W);
-  lines_transform<false>(s.r, s.i, s.sr, s.si, p, tw, tw + plan.tw_size);
+  const int line0 = blockIdx.x << log2lanes;
+  tile_load_async(s.r, s.i, log2lanes, s1r + so + line0, s1i + so + line0, count, W);
+  float vr[kFftRegsVals], vi[kFftRegsVals];
+  bluestein_load<LOG2M>(vr, vi, s, L);
+  bluestein_line<LOG2M>(vr, vi, s, L, tw);
+  const LineTile s2 = s.fresh();  // the store's indices made here
   const long long out = (g0 + blockIdx.y) * N;
-  for (int t = threadIdx.x; t < L * lanes; t += blockDim.x) {
-    // natural: neighbouring threads on neighbouring lines (offsets k); digit:
-    // on neighbouring d (offsets c n2 + d where f1 == n1)
-    const int lane = digit ? t / L : t % lanes, d = digit ? t % L : t / lanes;
-    const int k = line0 + lane + W * d;
-    const int a = lines_at(__ldg(rev + d), lane, lanes);
-    const long long o = out + (digit ? (long long)(k % n1) * n2 + k / n1 : k);
-    yr[o] = s.r[a];
-    yi[o] = s.i[a];
+  if (!digit) {  // the lanes of a row d are consecutive offsets
+#pragma unroll
+    for (int q = 0; q < kFftRegsVals; ++q) {
+      const int d = s2.tl + S::kT * q;
+      if (d < L) {
+        const int k = line0 + s2.lane + W * d;
+        yr[out + k] = vr[q];
+        yi[out + k] = vi[q];
+      }
+    }
+    return;
+  }
+  line_stage<1, LOG2M>(vr, vi, s2);
+  // offset (k mod n1) n2 + k div n1: a line's run of d where f1 == n1
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int l = divL(t), d = t - l * L;
+    const int k = line0 + l + W * d, r = div1(k);
+    const long long o = out + (long long)(k - r * n1) * n2 + r;
+    const int a = fft_regs_pad((d << s2.log2lanes) + l);
+    yr[o] = s2.r[a];
+    yi[o] = s2.i[a];
   }
 }
 
-// K11's middle step on generic lines (fftconv4_mid_regs's contract).
-__global__ void __launch_bounds__(kLinesThreads)
-    fftconv4_mid_kernel(const float* __restrict__ s1r, const float* __restrict__ s1i,
-                        const float* __restrict__ h, long long h_stride, int F, long long g0,
-                        const float* __restrict__ tw, const float* __restrict__ post2,
-                        const int* __restrict__ rev, float* __restrict__ s2r,
-                        float* __restrict__ s2i, const LinePlan plan, int N) {
-  __shared__ LinePlan p;
+// K11's middle step on Bluestein lines (fftconv4_mid_regs's contract): the
+// forward, times H and conjugated, then the inverse's transform over d as a
+// second Bluestein forward (natural order in and out), times W_N^{c e}.
+template <int LOG2M>
+__global__ void __launch_bounds__(kBluesteinThreads, 1)
+    fftconv4_mid_bluestein(const float* __restrict__ s1r, const float* __restrict__ s1i,
+                           const float* h, long long h_stride, int F, long long g0,
+                           const float* tw, const float* __restrict__ post2,
+                           float* __restrict__ s2r, float* __restrict__ s2i, int log2lanes,
+                           int N, int L, const LineDiv divL) {
+  using S = BluesteinShape<LOG2M>;
   extern __shared__ float smem[];
-  lines_stage_plan(p, plan);
-  const int L = plan.L, lanes = plan.lanes, W = N / L;
-  LinePlanes s(smem, L * lanes);
+  const int count = L << log2lanes, W = N / L;
+  const LineTile s(smem, lines_plane(S::kM << log2lanes), log2lanes);
+  lines_zero_set();
   const long long so = (long long)blockIdx.y * N;
-  const int line0 = blockIdx.x * lanes;
-  tile_load_async(s.r, s.i, __ffs(lanes) - 1, s1r + so + line0, s1i + so + line0, L * lanes, W);
-  lines_transform<false>(s.r, s.i, s.sr, s.si, p, tw, tw + plan.tw_size);
-  const float* hr = h + ((g0 + blockIdx.y) / F) * h_stride;
+  const int line0 = blockIdx.x << log2lanes;
+  const long long ch = (g0 + blockIdx.y) / F;
+  tile_load_async(s.r, s.i, log2lanes, s1r + so + line0, s1i + so + line0, count, W);
+  float vr[kFftRegsVals], vi[kFftRegsVals];
+  bluestein_load<LOG2M>(vr, vi, s, L);
+  bluestein_line<LOG2M>(vr, vi, s, L, tw);
+  // the product and the inverse with indices made after the forward (fresh)
+  // and an opaque H pointer (lines_opaque)
+  const LineTile s2 = s.fresh();
+  const float* hr = lines_opaque(h) + ch * h_stride + line0 + s2.lane;
   const float* hi = hr + N;
-  for (int t = threadIdx.x; t < L * lanes; t += blockDim.x) {
-    const int lane = t % lanes, d = t / lanes;
-    const int k = line0 + lane + W * d;
-    const int a = lines_at(__ldg(rev + d), lane, lanes);
-    float zr = s.r[a], zi = s.i[a];
-    fft_regs_cmul(zr, zi, __ldg(hr + k), __ldg(hi + k));
-    s.r[a] = zr;
-    s.i[a] = -zi;
+#pragma unroll
+  for (int q = 0; q < kFftRegsVals; ++q) {
+    const int d = s2.tl + S::kT * q;
+    if (d < L) {
+      fft_regs_cmul(vr[q], vi[q], hr[W * d], hi[W * d]);
+      vi[q] = -vi[q];
+    }
   }
-  __syncthreads();
-  lines_transform<true>(s.r, s.i, s.sr, s.si, p, tw, tw + plan.tw_size);
-  for (int t = threadIdx.x; t < L * lanes; t += blockDim.x) {
-    const int e = t % L, lane = t / L, c = line0 + lane;
-    const int a = lines_at(e, lane, lanes);
-    float vr = s.r[a], vi = s.i[a];
-    const int x = c * L + e;
-    fft_regs_cmul(vr, vi, __ldg(post2 + x), __ldg(post2 + N + x));
-    s2r[so + (long long)c * L + e] = vr;
-    s2i[so + (long long)c * L + e] = vi;
+  bluestein_line<LOG2M>(vr, vi, s2, L, tw);
+  const LineTile s3 = s.fresh();
+  line_stage<1, LOG2M>(vr, vi, s3);
+  const long long at = so + (long long)line0 * L;
+  const float* pr = post2 + (long long)line0 * L;
+  const float* pi = pr + N;
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int l = divL(t), e = t - l * L;
+    const int a = fft_regs_pad((e << s3.log2lanes) + l);
+    float ur = s3.r[a], ui = s3.i[a];
+    fft_regs_cmul(ur, ui, __ldg(pr + t), __ldg(pi + t));
+    s2r[at + t] = ur;
+    s2i[at + t] = ui;
   }
 }
 
-// K11's last step on generic lines (fftconv4_out_regs's contract).
-__global__ void __launch_bounds__(kLinesThreads)
-    fftconv4_out_kernel(const float* __restrict__ s2r, const float* __restrict__ s2i, int F,
-                        int hop, long long g0, const float* __restrict__ tw,
-                        const int* __restrict__ rev, float* __restrict__ yr,
-                        float* __restrict__ yi, const LinePlan plan, int N) {
-  __shared__ LinePlan p;
+// K11's last step on Bluestein lines (fftconv4_out_regs's contract).
+template <int LOG2M>
+__global__ void __launch_bounds__(kBluesteinThreads, 1)
+    fftconv4_out_bluestein(const float* __restrict__ s2r, const float* __restrict__ s2i, int F,
+                           int hop, long long g0, const float* tw, float* __restrict__ yr,
+                           float* __restrict__ yi, int log2lanes, int N, int L) {
+  using S = BluesteinShape<LOG2M>;
   extern __shared__ float smem[];
-  lines_stage_plan(p, plan);
-  const int L = plan.L, lanes = plan.lanes, W = N / L;
-  LinePlanes s(smem, L * lanes);
+  const int count = L << log2lanes, W = N / L;
+  const LineTile s(smem, lines_plane(S::kM << log2lanes), log2lanes);
+  lines_zero_set();
   const long long so = (long long)blockIdx.y * N;
-  const int line0 = blockIdx.x * lanes;
-  tile_load_async(s.r, s.i, __ffs(lanes) - 1, s2r + so + line0, s2i + so + line0, L * lanes, W);
-  lines_transform<false>(s.r, s.i, s.sr, s.si, p, tw, tw + plan.tw_size);
-  const long long G = g0 + blockIdx.y;
+  const int line0 = blockIdx.x << log2lanes;
+  tile_load_async(s.r, s.i, log2lanes, s2r + so + line0, s2i + so + line0, count, W);
+  float vr[kFftRegsVals], vi[kFftRegsVals];
+  bluestein_load<LOG2M>(vr, vi, s, L);
+  bluestein_line<LOG2M>(vr, vi, s, L, tw);
+  // staged in natural order g, then stored in rows: frame f of channel c
+  // lands at (c F + f) hop = G hop of y [C, F hop]
+  line_stage<1, LOG2M>(vr, vi, s.fresh());
   const int overlap = N - hop;
+  const long long out = (g0 + blockIdx.y) * hop - overlap;
   const float inv_n = 1.0f / (float)N;
-  const long long out = (G / F) * F * hop + (G % F) * hop - overlap;
-  for (int t = threadIdx.x; t < L * lanes; t += blockDim.x) {
-    const int lane = t % lanes, g = t / lanes;
-    const int n = line0 + lane + W * g;
-    if (n < overlap) continue;
-    const int a = lines_at(__ldg(rev + g), lane, lanes);
-    yr[out + n] = s.r[a] * inv_n;
-    yi[out + n] = -s.i[a] * inv_n;
+  const int mask = (1 << log2lanes) - 1;
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int n = line0 + (t & mask) + W * (t >> log2lanes);  // lane e, row g
+    if (n >= overlap) {
+      const int a = fft_regs_pad(t);
+      yr[out + n] = s.r[a] * inv_n;
+      yi[out + n] = -s.i[a] * inv_n;
+    }
   }
 }
 
 // --- the host side -------------------------------------------------------------
 
 // One of the two line kinds of a four-step (kernels/fft_pallas.py
-// line_descriptor): {p, log2m, log2lanes, 0} a register line (p odd, 1 ...
-// 15), {0, 0, log2lanes, passes, radices...} a generic line.
+// LineShape.descriptor, BluesteinLine.descriptor): {p, log2m, log2lanes}, a
+// register line of L = p 2^log2m points (p odd, 1 ... 15), or (p == 0) a
+// Bluestein line of L points on M = 2^log2m >= 2L - 1.
 struct Line {
   int p = 0, log2m = 0, log2lanes = 0, L = 0;
-  LinePlan plan{};
-  int threads() const { return p ? (L << log2lanes) / kFftRegsVals : kLinesThreads; }
+  int line_points() const { return p ? L : 1 << log2m; }  // a line's rows in the tile
+  int threads() const { return (line_points() << log2lanes) / kFftRegsVals; }
   size_t smem() const {
-    return p ? 2 * (size_t)lines_plane(L << log2lanes) * sizeof(float) : lines_smem(plan);
+    return 2 * (size_t)lines_plane(line_points() << log2lanes) * sizeof(float);
   }
   int lanes() const { return 1 << log2lanes; }
 };
 
 bool make_line(Line& d, const int* desc, int L) {
   d.p = desc[0], d.log2m = desc[1], d.log2lanes = desc[2], d.L = L;
-  if (d.log2lanes < 0 || d.log2lanes > 10) return false;
-  if (d.p) return d.log2m >= 4 && d.log2m <= 14 && (d.p << d.log2m) == L &&
-                  (L << d.log2lanes) / kFftRegsVals <= kLineThreads;
-  return lines_make_plan(d.plan, desc + 4, desc[3], L, d.lanes());
+  if (d.log2lanes < 0 || d.log2lanes > 10 || d.log2m < 4 || d.log2m > 14 || L <= 0) return false;
+  if (d.p) return (d.p << d.log2m) == L && d.threads() <= kLineThreads;
+  return 2 * L - 1 <= (1 << d.log2m) && d.threads() <= kBluesteinThreads;
 }
 
 // Calls fn(std::integral_constant P, std::integral_constant LOG2M) for a
-// register line of FOUR_STEP_LINES; cudaErrorInvalidValue for any other.
+// register line of FOUR_STEP_LINES, with P = 0 for a Bluestein line of
+// BLUESTEIN_LINES; cudaErrorInvalidValue for any other.
 template <class Fn>
 int with_line(const Line& d, Fn fn) {
   switch (d.p * 64 + d.log2m) {
@@ -404,13 +455,23 @@ int with_line(const Line& d, Fn fn) {
     return fn(std::integral_constant<int, P>{}, std::integral_constant<int, M>{});
     FOUR_STEP_LINES(SRCDSP_LINE_CASE)
 #undef SRCDSP_LINE_CASE
+#define SRCDSP_BLUESTEIN_CASE(M) \
+  case M:                        \
+    return fn(std::integral_constant<int, 0>{}, std::integral_constant<int, M>{});
+    BLUESTEIN_LINES(SRCDSP_BLUESTEIN_CASE)
+#undef SRCDSP_BLUESTEIN_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <class Kernel>
-int launch_ready(Kernel kernel, const Line& d) {
-  return (int)allow_smem(kernel, d.smem());
+// Launches kernel<<<grid, d's threads and shared memory, st>>>(args...) after
+// allowing its shared memory; returns that call's cudaError_t, or 0.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, const Line& d, dim3 grid, cudaStream_t st, Args... args) {
+  const int err = (int)allow_smem(kernel, d.smem());
+  if (err) return err;
+  kernel<<<grid, d.threads(), d.smem(), st>>>(args...);
+  return 0;
 }
 
 // The two lines of a four-step: columns (f1 points, f2 of them) and rows (f2
@@ -424,23 +485,16 @@ bool make_lines(Line& cols, Line& rows, const int* desc1, const int* desc2, int 
 // Step 1 over `frames` frames from g0.
 int cols_step(const Line& d, int frames, cudaStream_t st, const float* xr, const float* xi,
               long long chan_stride, long long frame_stride, int F, long long g0,
-              const float* tw, const float* post, const int* rev, float* s1r, float* s1i,
-              int n) {
+              const float* tw, const float* post, float* s1r, float* s1i, int n) {
   const dim3 grid(n / d.L / d.lanes(), frames);
-  if (!d.p) {
-    const int err = launch_ready(fft4_step1_kernel, d);
-    if (err) return err;
-    fft4_step1_kernel<<<grid, kLinesThreads, d.smem(), st>>>(
-        xr, xi, chan_stride, frame_stride, F, g0, tw, post, rev, s1r, s1i, d.plan, n);
-    return 0;
-  }
   return with_line(d, [&](auto pc, auto mc) {
     constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
-    const int err = launch_ready(fft4_cols_regs<kP, kLog2M>, d);
-    if (err) return err;
-    fft4_cols_regs<kP, kLog2M><<<grid, d.threads(), d.smem(), st>>>(
-        xr, xi, chan_stride, frame_stride, F, g0, tw, post, s1r, s1i, d.log2lanes, n);
-    return 0;
+    if constexpr (kP == 0)
+      return launch(fft4_cols_bluestein<kLog2M>, d, grid, st, xr, xi, chan_stride, frame_stride,
+                    F, g0, tw, post, s1r, s1i, d.log2lanes, n, d.L, LineDiv(d.L));
+    else
+      return launch(fft4_cols_regs<kP, kLog2M>, d, grid, st, xr, xi, chan_stride, frame_stride,
+                    F, g0, tw, post, s1r, s1i, d.log2lanes, n);
   });
 }
 
@@ -449,17 +503,15 @@ int cols_step(const Line& d, int frames, cudaStream_t st, const float* xr, const
 // x planes xr, xi [B, N] f32, N = f1 * f2 <= 2^20; tw1, tw2 the two lines'
 // tables and post the two post-twiddle planes [2, N] each (W_N^{b c} at
 // b f1 + c, then W_N^{c e} at c f2 + e; kernels/fft_pallas.py
-// FftPlan.tables); rev1 [f1], rev2 [f2] int32 (a generic line's _line_rev);
-// scratch [2, batch * N] f32; yr, yi [B, N], natural order (digit == 0) or
-// the digit order of [n1, n2]; desc1, desc2 the lines (line_descriptor).
+// FftPlan.tables); scratch [2, batch * N] f32; yr, yi [B, N], natural order
+// (digit == 0) or the digit order of [n1, n2]; desc1, desc2 the lines (Line).
 // Runs the frames in batches of `batch`, two launches a batch. Returns the
 // first launch's cudaError_t (cudaErrorInvalidValue for lines that do not
 // fit), or 0.
 extern "C" int srcdsp_fft_4step(const void* xr, const void* xi, const void* tw1, const void* tw2,
-                                const void* post, const void* rev1, const void* rev2,
-                                void* scratch, void* yr, void* yi, int B, int batch,
-                                const int* desc1, const int* desc2, int f1, int f2, int n1,
-                                int n2, int digit, void* stream) {
+                                const void* post, void* scratch, void* yr, void* yi, int B,
+                                int batch, const int* desc1, const int* desc2, int f1, int f2,
+                                int n1, int n2, int digit, void* stream) {
   Line cols, rows;
   if (B <= 0 || batch <= 0 || batch > 65535 || n1 <= 0 || n2 <= 0 ||
       !make_lines(cols, rows, desc1, desc2, f1, f2) || (long long)n1 * n2 != (long long)f1 * f2)
@@ -470,31 +522,25 @@ extern "C" int srcdsp_fft_4step(const void* xr, const void* xi, const void* tw1,
   const float* post1 = (const float*)post;
   float* s1r = (float*)scratch;
   float* s1i = s1r + (long long)batch * n;
+  float* y_r = (float*)yr;
+  float* y_i = (float*)yi;
   const cudaStream_t st = (cudaStream_t)stream;
   for (long long g0 = 0; g0 < B; g0 += batch) {
     const int frames = (int)(B - g0 < batch ? B - g0 : batch);
     int err = cols_step(cols, frames, st, (const float*)xr, (const float*)xi, 0, n, B, g0, w1,
-                        post1, (const int*)rev1, s1r, s1i, n);
+                        post1, s1r, s1i, n);
     if (err) return err;
     const dim3 grid(f1 / rows.lanes(), frames);
-    if (!rows.p) {
-      err = launch_ready(fft4_step2_kernel, rows);
-      if (err) return err;
-      fft4_step2_kernel<<<grid, kLinesThreads, rows.smem(), st>>>(
-          s1r, s1i, g0, w2, (const int*)rev2, (float*)yr, (float*)yi, rows.plan, n, n1, n2,
-          digit);
-    } else {
-      err = with_line(rows, [&](auto pc, auto mc) {
-        constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
-        const int e = launch_ready(fft4_rows_regs<kP, kLog2M>, rows);
-        if (e) return e;
-        fft4_rows_regs<kP, kLog2M><<<grid, rows.threads(), rows.smem(), st>>>(
-            s1r, s1i, g0, w2, (float*)yr, (float*)yi, rows.log2lanes, n, n1, n2, LineDiv(n1),
-            digit);
-        return 0;
-      });
-      if (err) return err;
-    }
+    err = with_line(rows, [&](auto pc, auto mc) {
+      constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
+      if constexpr (kP == 0)
+        return launch(fft4_rows_bluestein<kLog2M>, rows, grid, st, s1r, s1i, g0, w2, y_r, y_i,
+                      rows.log2lanes, n, rows.L, n1, n2, LineDiv(n1), LineDiv(rows.L), digit);
+      else
+        return launch(fft4_rows_regs<kP, kLog2M>, rows, grid, st, s1r, s1i, g0, w2, y_r, y_i,
+                      rows.log2lanes, n, n1, n2, LineDiv(n1), digit);
+    });
+    if (err) return err;
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -502,16 +548,15 @@ extern "C" int srcdsp_fft_4step(const void* xr, const void* xi, const void* tw1,
 }
 
 // x [C, 2, L] f32, L = overlap + F * hop; h [Ct, 2, N] f32 natural order,
-// Ct = C when per_channel != 0, else 1; tw1, tw2, post, rev1, rev2, desc1,
-// desc2 as srcdsp_fft_4step; scratch [4, batch * N] f32; yr, yi [C, F * hop].
-// The C * F frames run in batches of `batch`, three launches a batch. Returns
-// the first launch's cudaError_t, or 0.
+// Ct = C when per_channel != 0, else 1; tw1, tw2, post, desc1, desc2 as
+// srcdsp_fft_4step; scratch [4, batch * N] f32; yr, yi [C, F * hop]. The
+// C * F frames run in batches of `batch`, three launches a batch. Returns the
+// first launch's cudaError_t, or 0.
 extern "C" int srcdsp_fftconv_4step(const void* x, const void* h, const void* tw1,
-                                    const void* tw2, const void* post, const void* rev1,
-                                    const void* rev2, void* scratch, void* yr, void* yi, int C,
-                                    long long L, int F, int hop, int batch, const int* desc1,
-                                    const int* desc2, int f1, int f2, int per_channel,
-                                    void* stream) {
+                                    const void* tw2, const void* post, void* scratch, void* yr,
+                                    void* yi, int C, long long L, int F, int hop, int batch,
+                                    const int* desc1, const int* desc2, int f1, int f2,
+                                    int per_channel, void* stream) {
   Line cols, rows;
   if (!make_lines(cols, rows, desc1, desc2, f1, f2)) return (int)cudaErrorInvalidValue;
   const int n = f1 * f2;
@@ -523,53 +568,41 @@ extern "C" int srcdsp_fftconv_4step(const void* x, const void* h, const void* tw
   const float* post1 = (const float*)post;
   const float* post2 = post1 + 2LL * n;
   const float* xr = (const float*)x;
-  const int* r1 = (const int*)rev1;
-  const int* r2 = (const int*)rev2;
+  const float* hk = (const float*)h;
   float* s1r = (float*)scratch;
   float* s1i = s1r + (long long)batch * n;
   float* s2r = s1i + (long long)batch * n;
   float* s2i = s2r + (long long)batch * n;
+  float* y_r = (float*)yr;
+  float* y_i = (float*)yi;
   const long long h_stride = per_channel ? 2LL * n : 0LL;
   const long long frames_all = (long long)C * F;
   const cudaStream_t st = (cudaStream_t)stream;
   for (long long g0 = 0; g0 < frames_all; g0 += batch) {
     const int frames = (int)(frames_all - g0 < batch ? frames_all - g0 : batch);
-    int err = cols_step(cols, frames, st, xr, xr + L, 2 * L, hop, F, g0, w1, post1, r1, s1r,
-                        s1i, n);
+    int err = cols_step(cols, frames, st, xr, xr + L, 2 * L, hop, F, g0, w1, post1, s1r, s1i, n);
     if (err) return err;
     const dim3 gmid(f1 / rows.lanes(), frames), gout(f2 / cols.lanes(), frames);
-    if (!rows.p) {
-      err = launch_ready(fftconv4_mid_kernel, rows);
-      if (err) return err;
-      fftconv4_mid_kernel<<<gmid, kLinesThreads, rows.smem(), st>>>(
-          s1r, s1i, (const float*)h, h_stride, F, g0, w2, post2, r2, s2r, s2i, rows.plan, n);
-    } else {
-      err = with_line(rows, [&](auto pc, auto mc) {
-        constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
-        const int e = launch_ready(fftconv4_mid_regs<kP, kLog2M>, rows);
-        if (e) return e;
-        fftconv4_mid_regs<kP, kLog2M><<<gmid, rows.threads(), rows.smem(), st>>>(
-            s1r, s1i, (const float*)h, h_stride, F, g0, w2, post2, s2r, s2i, rows.log2lanes, n);
-        return 0;
-      });
-      if (err) return err;
-    }
-    if (!cols.p) {
-      err = launch_ready(fftconv4_out_kernel, cols);
-      if (err) return err;
-      fftconv4_out_kernel<<<gout, kLinesThreads, cols.smem(), st>>>(
-          s2r, s2i, F, hop, g0, w1, r1, (float*)yr, (float*)yi, cols.plan, n);
-    } else {
-      err = with_line(cols, [&](auto pc, auto mc) {
-        constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
-        const int e = launch_ready(fftconv4_out_regs<kP, kLog2M>, cols);
-        if (e) return e;
-        fftconv4_out_regs<kP, kLog2M><<<gout, cols.threads(), cols.smem(), st>>>(
-            s2r, s2i, F, hop, g0, w1, (float*)yr, (float*)yi, cols.log2lanes, n);
-        return 0;
-      });
-      if (err) return err;
-    }
+    err = with_line(rows, [&](auto pc, auto mc) {
+      constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
+      if constexpr (kP == 0)
+        return launch(fftconv4_mid_bluestein<kLog2M>, rows, gmid, st, s1r, s1i, hk, h_stride, F,
+                      g0, w2, post2, s2r, s2i, rows.log2lanes, n, rows.L, LineDiv(rows.L));
+      else
+        return launch(fftconv4_mid_regs<kP, kLog2M>, rows, gmid, st, s1r, s1i, hk, h_stride, F,
+                      g0, w2, post2, s2r, s2i, rows.log2lanes, n);
+    });
+    if (err) return err;
+    err = with_line(cols, [&](auto pc, auto mc) {
+      constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
+      if constexpr (kP == 0)
+        return launch(fftconv4_out_bluestein<kLog2M>, cols, gout, st, s2r, s2i, F, hop, g0, w1,
+                      y_r, y_i, cols.log2lanes, n, cols.L);
+      else
+        return launch(fftconv4_out_regs<kP, kLog2M>, cols, gout, st, s2r, s2i, F, hop, g0, w1,
+                      y_r, y_i, cols.log2lanes, n);
+    });
+    if (err) return err;
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -586,21 +619,22 @@ extern "C" int srcdsp_fft_4step_info(int which, const int* desc, int L, int* reg
   const auto info = [&](auto kernel) {
     return kernel_info(kernel, d.threads(), d.smem(), regs, local_bytes, blocks_per_sm);
   };
-  if (!d.p) {
-    switch (which) {
-      case 0: return info(fft4_step1_kernel);
-      case 1: return info(fft4_step2_kernel);
-      case 2: return info(fftconv4_mid_kernel);
-      default: return info(fftconv4_out_kernel);
-    }
-  }
   return with_line(d, [&](auto pc, auto mc) {
     constexpr int kP = decltype(pc)::value, kLog2M = decltype(mc)::value;
-    switch (which) {
-      case 0: return info(fft4_cols_regs<kP, kLog2M>);
-      case 1: return info(fft4_rows_regs<kP, kLog2M>);
-      case 2: return info(fftconv4_mid_regs<kP, kLog2M>);
-      default: return info(fftconv4_out_regs<kP, kLog2M>);
+    if constexpr (kP == 0) {
+      switch (which) {
+        case 0: return info(fft4_cols_bluestein<kLog2M>);
+        case 1: return info(fft4_rows_bluestein<kLog2M>);
+        case 2: return info(fftconv4_mid_bluestein<kLog2M>);
+        default: return info(fftconv4_out_bluestein<kLog2M>);
+      }
+    } else {
+      switch (which) {
+        case 0: return info(fft4_cols_regs<kP, kLog2M>);
+        case 1: return info(fft4_rows_regs<kP, kLog2M>);
+        case 2: return info(fftconv4_mid_regs<kP, kLog2M>);
+        default: return info(fftconv4_out_regs<kP, kLog2M>);
+      }
     }
   });
 }

@@ -1,7 +1,7 @@
 // The arithmetic of K10's and K11's bodies past fft_regs.cuh's powers of two
 // (fft_mixed.cu: one block a frame up to 16384 points; fft_4step.cu: the
 // four-step's column and row transforms). kernels/fft_pallas.py mirrors every
-// index map here (_mixed_*, _line_*, _odd_* and the generic _line_*), and
+// index map and table here (_mixed_*, _line_*, _odd_*, _bluestein_*), and
 // tests/test_torch_fft_sizes.py runs them in numpy against np.fft.fft and
 // checks their shared-memory banks.
 //
@@ -45,9 +45,9 @@
 // plane (LineAt), lanes fastest among a block's threads, so a warp's
 // accesses of one row are consecutive words; the tile loads with cp.async.
 // A line of no instantiated shape (an odd factor above 15, as 1021 in
-// 1024 x 1021 or 17 in 136 x 128) runs the generic in-place passes at the
-// end of this file (LinePlan): a run-time radix a pass, a direct DFT pass
-// over a prime above 7 into a spare pair of planes, X[k] left at rev[k].
+// 1024 x 1021 or 17 in 136 x 128) runs as a Bluestein line at the end of this
+// file: a chirp, then the convolution on two M-point register transforms of
+// the same schedule at P = 1, M = 2^LOG2M >= 2L - 1.
 //
 // Registers bound the design: 16 values a thread and 32 warps an SM leave 64
 // registers (at 16384 points a frame is 1024 threads, so 64 is the cap), and
@@ -390,256 +390,109 @@ struct LineDiv {
 };
 
 
-// --- generic lines: shapes not instantiated (run-time passes) -----------------
+// --- Bluestein lines: a line of no register shape ------------------------------
+//
+// A four-step line of L points that no register shape holds (a prime above
+// 15, as 17 in 136 or 1021, or an odd part no two factors up to 15 make, as
+// 27 in 864) is the cyclic convolution of length M = 2^LOG2M >= 2L - 1 (512 ...
+// 4096) that a chirp makes of it: with c[n] = W_{2L}^{n^2 mod 2L} (n k =
+// (n^2 + k^2 - (k - n)^2) / 2),
+//   X[k] = c[k] sum_{n < L} x[n] c[n] conj(c[k - n]).
+// So, with a[n] = x[n] c[n] zero-padded to M, b[m] = conj(c[m]) for |m| < L
+// wrapped mod M (zero elsewhere) and B = FFT_M(b) / M:
+//   X[k] = c[k] conj(FFT_M(conj(FFT_M(a) B)))[k],  k < L,
+// conj(FFT(conj(Z))) being M IFFT(Z). Both transforms are fft_regs.cuh's
+// forward at P = 1 on the tile (line_forward<1, LOG2M>'s schedule: thread t
+// of a line holds element t + (M/16) q in register q, in natural order before
+// and after), so no radix or length is chosen at run time. The table of a
+// line (kernels/fft_pallas.py _bluestein_table): stockham_twiddles(M) [2,
+// kStock], B [2, M] in natural order (the forward's order at P = 1), c [2, L];
+// every entry made on the host in float64 from integer exponents (n^2 mod 2L
+// in 64-bit integers) and rounded to float32 once, so the device computes no
+// sin or cos. The table is read through lines_opaque and the indices after
+// each transform come from lines_zero, as for the register lines.
 
-constexpr int kLinesThreads = 256;    // threads of a generic line's block
-constexpr int kLinesMaxPasses = 24;   // L <= 2^20: at most 20 passes
-
-// One generic line's passes (kernels/fft_pallas.py LineGeometry).
-struct LinePlan {
-  int L;        // points of a line
-  int lanes;    // lines a block holds
-  int passes;
-  int direct;   // a pass is a direct DFT over a prime above 7 (the block has 4 planes)
-  int tw_size;  // floats of one plane of this plan's table
-  int radix[kLinesMaxPasses];
-  int span[kLinesMaxPasses];
-  int tw_off[kLinesMaxPasses];  // pass q's section of the table
+template <int LOG2M>
+struct BluesteinShape {
+  static_assert(LOG2M >= 9 && LOG2M <= 12, "M = 512 ... 4096");
+  static constexpr int kM = 1 << LOG2M;
+  static constexpr int kT = kM / kFftRegsVals;           // threads of a line
+  static constexpr int kStock = FftRegsShape<LOG2M>::kTwiddles;
+  static constexpr int kB = 2 * kStock;                  // B's planes in the table
+  static constexpr int kChirp = kB + 2 * kM;             // c's planes
 };
 
-// A block's planes in dynamic shared memory: (r, i) its `elems` elements,
-// (sr, si) the spare pair of a direct pass.
-struct LinePlanes {
-  float *r, *i, *sr, *si;
-  __device__ LinePlanes(float* smem, int elems) {
-    const int plane = lines_plane(elems);
-    r = smem;
-    i = smem + plane;
-    sr = smem + 2 * plane;
-    si = smem + 3 * plane;
-  }
-};
-
-__host__ __device__ inline bool lines_register_radix(int r) {
-  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 16;
-}
-
-// The plan of `passes` radices for lines of L points, `lanes` a block; spans
-// as _line_spans, table sections as _line_table_offsets. Returns false if it
-// does not fit.
-inline bool lines_make_plan(LinePlan& p, const int* radices, int passes, int L, int lanes) {
-  if (passes < 0 || passes > kLinesMaxPasses || L <= 0 || lanes <= 0) return false;
-  p.L = L;
-  p.lanes = lanes;
-  p.passes = passes;
-  p.direct = 0;
-  int m = L, off = 0;
-  for (int q = 0; q < passes; ++q) {
-    const int r = radices[q];
-    if (r < 2 || m % r) return false;
-    m /= r;
-    p.radix[q] = r;
-    p.span[q] = m;
-    p.tw_off[q] = off;
-    off += (r - 1) * m + r;
-    if (!lines_register_radix(r)) p.direct = 1;
-  }
-  p.tw_size = off;
-  return m == 1;
-}
-
-// Dynamic shared memory of a block: 2 planes, 4 with a direct pass.
-inline size_t lines_smem(const LinePlan& p) {
-  return (size_t)(p.direct ? 4 : 2) * lines_plane(p.L * p.lanes) * sizeof(float);
-}
-
-__device__ __forceinline__ int lines_at(int j, int lane, int lanes) {
-  return fft_regs_pad(j * lanes + lane);
-}
-
-// y[k] = sum_n x[n] W_R^{nk} in registers for R = 3, 5, 7 (W_R^j = w[j]).
-template <int R>
-__device__ __forceinline__ void lines_dft_odd(float (&ar)[kFftRegsVals],
-                                              float (&ai)[kFftRegsVals],
-                                              const float* __restrict__ wtr,
-                                              const float* __restrict__ wti) {
-  float wr[R], wi[R], yr[R], yi[R];
+// Register q of thread t of this thread's line <- element t + (M/16) q of its
+// lane in the tile, for elements below L (behind the tile's barrier).
+template <int LOG2M>
+__device__ __forceinline__ void bluestein_load(float (&vr)[kFftRegsVals],
+                                               float (&vi)[kFftRegsVals], const LineTile& s,
+                                               int L) {
+  using S = BluesteinShape<LOG2M>;
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    wr[j] = __ldg(wtr + j);
-    wi[j] = __ldg(wti + j);
-  }
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    float sr = ar[0], si = ai[0];
-#pragma unroll
-    for (int n = 1; n < R; ++n) {
-      const int j = (n * k) % R;
-      sr = fmaf(ar[n], wr[j], fmaf(-ai[n], wi[j], sr));
-      si = fmaf(ar[n], wi[j], fmaf(ai[n], wr[j], si));
+  for (int q = 0; q < kFftRegsVals; ++q) {
+    const int n = s.tl + S::kT * q;
+    if (n < L) {
+      const int a = s.at(n);
+      vr[q] = s.r[a];
+      vi[q] = s.i[a];
     }
-    yr[k] = sr;
-    yi[k] = si;
-  }
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    ar[k] = yr[k];
-    ai[k] = yi[k];
   }
 }
 
-template <int R>
-__device__ __forceinline__ void lines_dft(float (&ar)[kFftRegsVals], float (&ai)[kFftRegsVals],
-                                          const float* __restrict__ wtr,
-                                          const float* __restrict__ wti) {
-  if constexpr (R == 3 || R == 5 || R == 7)
-    lines_dft_odd<R>(ar, ai, wtr, wti);
-  else
-    fft_regs_dft<R, 1>(ar, ai, 0);
-}
-
-// Pass q (radix R, register butterflies) in place; DIT: the twiddles first.
-// tw_r, tw_i: this plan's table; pass q's twiddle (m, n0) at (m - 1) M + n0
-// of its section, its DFT constants after them.
-template <int R, bool DIT>
-__device__ __forceinline__ void lines_pass(float* sr, float* si, const LinePlan& p, int q,
-                                           const float* __restrict__ tw_r,
-                                           const float* __restrict__ tw_i) {
-  const int M = p.span[q], lanes = p.lanes;
-  const float* __restrict__ twr = tw_r + p.tw_off[q];
-  const float* __restrict__ twi = tw_i + p.tw_off[q];
-  const int count = lanes * (p.L / R);
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const int lane = i % lanes, bf = i / lanes, n0 = bf % M;
-    const int base = (bf - n0) * R + n0;
-    float ar[kFftRegsVals], ai[kFftRegsVals];
+// The L-point DFT of this thread's line in registers: on entry register q of
+// thread t (s.tl) holds x[t + (M/16) q] (registers at L and past it are not
+// read); on return X[t + (M/16) q] where t + (M/16) q < L. The tile is the
+// transforms' exchange space: it starts with a barrier, so the caller's last
+// reads of the tile may precede it; a store through the tile afterwards needs
+// a barrier first (line_stage has it). tw: the line's table.
+template <int LOG2M>
+__device__ __forceinline__ void bluestein_line(float (&vr)[kFftRegsVals],
+                                               float (&vi)[kFftRegsVals], const LineTile& s,
+                                               int L, const float* tw) {
+  using S = BluesteinShape<LOG2M>;
+  {
+    const float* cr = lines_opaque(tw) + S::kChirp;
+    const float* ci = cr + L;
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      const int a = lines_at(base + M * m, lane, lanes);
-      ar[m] = sr[a];
-      ai[m] = si[a];
-    }
-    if (DIT && n0) {
-#pragma unroll
-      for (int m = 1; m < R; ++m) {
-        const int e = (m - 1) * M + n0;
-        fft_regs_cmul(ar[m], ai[m], __ldg(twr + e), __ldg(twi + e));
+    for (int q = 0; q < kFftRegsVals; ++q) {
+      const int n = s.tl + S::kT * q;
+      if (n < L) {
+        fft_regs_cmul(vr[q], vi[q], cr[n], ci[n]);
+      } else {
+        vr[q] = 0.f;
+        vi[q] = 0.f;
       }
     }
-    lines_dft<R>(ar, ai, twr + (R - 1) * M, twi + (R - 1) * M);
-    if (!DIT && n0) {
+  }
+  __syncthreads();  // the first exchange writes what the caller last read
+  fft_regs_forward<LOG2M, LineAt, false>(vr, vi, s.tl, s.r, s.i, lines_opaque(tw),
+                                         LineAt{s.log2lanes, s.lane, 0});
+  // times B where the forward left it (natural order), conjugated
+  const LineTile s2 = s.fresh();
+  {
+    const float* br = lines_opaque(tw) + S::kB;
+    const float* bi = br + S::kM;
 #pragma unroll
-      for (int m = 1; m < R; ++m) {
-        const int e = (m - 1) * M + n0;
-        fft_regs_cmul(ar[m], ai[m], __ldg(twr + e), __ldg(twi + e));
-      }
+    for (int q = 0; q < kFftRegsVals; ++q) {
+      const int k = s2.tl + S::kT * q;
+      fft_regs_cmul(vr[q], vi[q], br[k], bi[k]);
+      vi[q] = -vi[q];
     }
+  }
+  __syncthreads();  // the second transform's first exchange writes what the first's last read
+  fft_regs_forward<LOG2M, LineAt, false>(vr, vi, s2.tl, s2.r, s2.i, lines_opaque(tw),
+                                         LineAt{s2.log2lanes, s2.lane, 0});
+  // conjugated and times c[k]
+  const LineTile s3 = s.fresh();
+  const float* cr = lines_opaque(tw) + S::kChirp;
+  const float* ci = cr + L;
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      const int a = lines_at(base + M * m, lane, lanes);
-      sr[a] = ar[m];
-      si[a] = ai[m];
-    }
-  }
-}
-
-// Pass q as a direct DFT over any prime R, from (sr, si) into (dr, di): one
-// output a thread, its R inputs read from shared memory.
-template <bool DIT>
-__device__ __forceinline__ void lines_pass_direct(const float* sr, const float* si, float* dr,
-                                                  float* di, const LinePlan& p, int q,
-                                                  const float* __restrict__ tw_r,
-                                                  const float* __restrict__ tw_i) {
-  const int R = p.radix[q], M = p.span[q], lanes = p.lanes;
-  const float* __restrict__ twr = tw_r + p.tw_off[q];
-  const float* __restrict__ twi = tw_i + p.tw_off[q];
-  const float* __restrict__ wtr = twr + (R - 1) * M;  // W_R^j
-  const float* __restrict__ wti = twi + (R - 1) * M;
-  const int count = lanes * p.L;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const int lane = i % lanes, r = i / lanes;
-    const int k = r % R, bf = r / R, n0 = bf % M;
-    const int base = (bf - n0) * R + n0;
-    float accr = 0.f, acci = 0.f;
-    int j = 0;  // (n k) mod R
-    for (int n = 0; n < R; ++n) {
-      const int a = lines_at(base + M * n, lane, lanes);
-      float xr = sr[a], xi = si[a];
-      if (DIT && n0 && n) {
-        const int e = (n - 1) * M + n0;
-        fft_regs_cmul(xr, xi, __ldg(twr + e), __ldg(twi + e));
-      }
-      const float wr = __ldg(wtr + j), wi = __ldg(wti + j);
-      accr = fmaf(xr, wr, fmaf(-xi, wi, accr));
-      acci = fmaf(xr, wi, fmaf(xi, wr, acci));
-      j += k;
-      if (j >= R) j -= R;
-    }
-    if (!DIT && n0 && k) {
-      const int e = (k - 1) * M + n0;
-      fft_regs_cmul(accr, acci, __ldg(twr + e), __ldg(twi + e));
-    }
-    const int a = lines_at(base + M * k, lane, lanes);
-    dr[a] = accr;
-    di[a] = acci;
-  }
-}
-
-template <bool DIT>
-__device__ __forceinline__ void lines_pass_any(float*& sr, float*& si, float*& xr, float*& xi,
-                                               const LinePlan& p, int q,
-                                               const float* __restrict__ twr,
-                                               const float* __restrict__ twi) {
-  switch (p.radix[q]) {
-    case 2: lines_pass<2, DIT>(sr, si, p, q, twr, twi); break;
-    case 3: lines_pass<3, DIT>(sr, si, p, q, twr, twi); break;
-    case 4: lines_pass<4, DIT>(sr, si, p, q, twr, twi); break;
-    case 5: lines_pass<5, DIT>(sr, si, p, q, twr, twi); break;
-    case 7: lines_pass<7, DIT>(sr, si, p, q, twr, twi); break;
-    case 8: lines_pass<8, DIT>(sr, si, p, q, twr, twi); break;
-    case 16: lines_pass<16, DIT>(sr, si, p, q, twr, twi); break;
-    default: {
-      lines_pass_direct<DIT>(sr, si, xr, xi, p, q, twr, twi);
-      float* t = sr;
-      sr = xr;
-      xr = t;
-      t = si;
-      si = xi;
-      xi = t;
-    }
-  }
-}
-
-// The whole transform of the block's lines: forward DIF (natural order in,
-// X[k] at rev[k] out) or the transposed DIT (rev order in, natural out). The
-// data is in (sr, si) on entry and on return (a direct pass swaps it with the
-// spare planes xr, xi). Every thread of the block calls it; the caller's
-// stores into (sr, si) must be behind a barrier, and it ends with one.
-template <bool DIT>
-__device__ __forceinline__ void lines_transform(float*& sr, float*& si, float*& xr, float*& xi,
-                                                const LinePlan& p,
-                                                const float* __restrict__ twr,
-                                                const float* __restrict__ twi) {
-  for (int s = 0; s < p.passes; ++s) {
-    lines_pass_any<DIT>(sr, si, xr, xi, p, DIT ? p.passes - 1 - s : s, twr, twi);
-    __syncthreads();
-  }
-}
-
-// A block's copy of its plan in shared memory (read with run-time pass
-// indices, which a kernel parameter would take through local memory).
-__device__ __forceinline__ void lines_stage_plan(LinePlan& dst, const LinePlan& src) {
-  if (threadIdx.x == 0) {
-    dst.L = src.L;
-    dst.lanes = src.lanes;
-    dst.passes = src.passes;
-    dst.direct = src.direct;
-    dst.tw_size = src.tw_size;
-#pragma unroll
-    for (int q = 0; q < kLinesMaxPasses; ++q) {
-      dst.radix[q] = src.radix[q];
-      dst.span[q] = src.span[q];
-      dst.tw_off[q] = src.tw_off[q];
+  for (int q = 0; q < kFftRegsVals; ++q) {
+    const int k = s3.tl + S::kT * q;
+    if (k < L) {
+      vi[q] = -vi[q];
+      fft_regs_cmul(vr[q], vi[q], cr[k], ci[k]);
     }
   }
 }

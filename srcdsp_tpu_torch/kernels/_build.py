@@ -74,8 +74,8 @@ _SIGNATURES = {
     "srcdsp_fft_mixed": [_P] * 5 + [_I] * 6 + [_P],
     "srcdsp_fftconv_mixed": [_P] * 5 + [_I, _LL] + [_I] * 5 + [_P],
     "srcdsp_fft_mixed_info": [_I] * 3 + [ctypes.POINTER(_I)] * 3,
-    "srcdsp_fft_4step": [_P] * 10 + [_I, _I] + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
-    "srcdsp_fftconv_4step": ([_P] * 10 + [_I, _LL, _I, _I, _I] + [ctypes.POINTER(_I)] * 2
+    "srcdsp_fft_4step": [_P] * 8 + [_I, _I] + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P],
+    "srcdsp_fftconv_4step": ([_P] * 8 + [_I, _LL, _I, _I, _I] + [ctypes.POINTER(_I)] * 2
                              + [_I] * 3 + [_P]),
     "srcdsp_fft_4step_info": [_I, ctypes.POINTER(_I), _I] + [ctypes.POINTER(_I)] * 3,
     "srcdsp_bank": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [_F, _I, _I, _P],

@@ -26,8 +26,9 @@ On the card `fft_plan` picks one of three CUDA bodies for each size:
   (FOUR_STEP_LINES: an odd part above 15 that is the product of two up to
   15, as 21 = 3 x 7, is split across the two lines), or, for a line of no
   instantiated shape (a prime above 15, as 17 or 1021, or an odd part that
-  no two factors up to 15 make, as 243), on the generic in-place passes
-  (`LineGeometry`).
+  no two factors up to 15 make, as 27 in 864), a Bluestein line
+  (`BluesteinLine`): a chirp, then the cyclic convolution on two register
+  transforms of M = 2^9 ... 2^12 >= 2L - 1 points at P = 1.
 
 The output order is always a store index, so the natural store equals the
 digit store followed by the transpose bit for bit, and `natural_order=True`
@@ -35,8 +36,8 @@ launches the natural store with no transpose. The kernels' schedules are
 mirrored here (`regs_*` for ``fft_regs.cuh``; the private `_odd_trig`,
 `_line_shape`, `_line_order`, `_forward_order`, `_reg_line_table`,
 `_mixed_shape`, `_mixed_stage` and `_line_at` for the compile-time
-schedules of ``fft_lines.cuh`` and its two bodies, `_line_*` for its
-generic lines and `_digit_position` for the digit store): the host builds the kernels' tables
+schedules of ``fft_lines.cuh`` and its two bodies, `_bluestein_*` for its
+Bluestein lines and `_digit_position` for the digit store): the host builds the kernels' tables
 from them (`FftPlan.tables`) and the CPU tests run them in numpy. On a CPU
 tensor the wrappers run `fft_rows_plain`, the JAX kernel's own
 factorization in float32 matrix products with its constants (`fft_consts`),
@@ -60,7 +61,7 @@ from srcdsp_tpu_torch.kernels import _build
 from srcdsp_tpu_torch.kernels.mixfir import cuda_or_cpu
 from srcdsp_tpu_torch.ops.fir import pin_f32
 
-__all__ = ["FftKernel", "FftPlan", "LineGeometry", "LineShape", "make_fft_kernel",
+__all__ = ["BluesteinLine", "FftKernel", "FftPlan", "LineShape", "make_fft_kernel",
            "ifft_pallas", "fft_consts", "fft_rows_plain", "fft_twiddles", "fft_occupancy",
            "fft_plan", "lines_info", "stockham_twiddles", "unscramble", "regs_pad",
            "regs_passes", "regs_shape", "regs_store_index", "regs_twiddle_exponent"]
@@ -77,12 +78,13 @@ MIXED_SHAPES = ((3, 10), (5, 10), (7, 10), (9, 10), (11, 10), (13, 10), (15, 10)
 # fft_4step.cu FOUR_STEP_LINES: (P, log2 M) of the four-step's register lines
 FOUR_STEP_LINES = (tuple((1, m) for m in range(4, 12))
                    + tuple((p, m) for m in (5, 6, 7) for p in range(3, 16, 2)))
+# fft_4step.cu BLUESTEIN_LINES: log2 M of the Bluestein lines' transforms
+BLUESTEIN_LOG2M = (9, 10, 11, 12)
 ODD_FACTORS = (3, 5, 7, 9, 11, 13, 15)  # fft_lines.cuh odd_dft's register butterflies
-LINE_TILE = 8192                # points (lines x length) a four-step block holds at most
-MAX_LANES = 32                  # lines a generic line's block holds at most
-MAX_REG_LANES = 64              # lines a register line's block holds at most
+LINE_TILE = 8192                # points (lanes x length, lanes x M for a Bluestein line) a
+                                # four-step block holds at most: 512 threads
+MAX_REG_LANES = 64              # lines a four-step block holds at most
 SCRATCH_BYTES = 1 << 28         # the four-step's scratch per launch batch (256 MiB)
-LINE_RADICES = (2, 3, 4, 5, 7, 8, 16)  # the generic passes' register butterflies
 
 
 def _dft(n: int, sign: float) -> np.ndarray:
@@ -263,10 +265,6 @@ class LineShape:
         """A block's threads: lanes x P M / 16."""
         return self.lanes * self.length // REGS_VALS
 
-    @property
-    def direct(self) -> bool:
-        return False
-
     def smem_bytes(self) -> int:
         """Dynamic shared memory of a block: the two planes."""
         if self.lanes == 1:
@@ -276,13 +274,9 @@ class LineShape:
     def table(self, n: int) -> np.ndarray:
         return _reg_line_table(self.p, self.log2m)
 
-    def rev(self) -> np.ndarray:
-        """A register line leaves natural order (the generic lines' rev slot)."""
-        return np.arange(self.length, dtype=np.int32)
-
     def descriptor(self) -> tuple[int, ...]:
-        """fft_4step.cu make_line's descriptor: (p, log2m, log2 lanes, 0)."""
-        return self.p, self.log2m, self.lanes.bit_length() - 1, 0
+        """fft_4step.cu make_line's descriptor: (p, log2m, log2 lanes)."""
+        return self.p, self.log2m, self.lanes.bit_length() - 1
 
 
 def _odd_split(n: int) -> tuple[int, int]:
@@ -301,104 +295,7 @@ def _reg_line_shape(length: int, lines: int) -> LineShape:
     """A register line of `length` points, `lines` of them in a frame: lanes
     the largest power of two up to MAX_REG_LANES dividing `lines` with lanes x
     length <= LINE_TILE (so at most 512 threads, fft_4step.cu kLineThreads)."""
-    p, log2m = _reg_line(length)
-    lanes = 1
-    while (lanes * 2 <= MAX_REG_LANES and lines % (lanes * 2) == 0
-           and lanes * 2 * length <= LINE_TILE):
-        lanes *= 2
-    return LineShape(p, log2m, lanes)
-
-
-# The generic lines of csrc/fft_lines.cuh (a four-step line of no instantiated
-# shape), mirrored item by item. A line is one transform of L points;
-# a block holds `lanes` adjacent lines, element j of lane l at shared-memory
-# index pad(j * lanes + l). The passes run in place, decimation in frequency
-# (DIF) for a forward transform: pass q of radix R over spans M = L / (R_0 ...
-# R_q) takes butterfly bf's R elements, runs the R-point DFT and multiplies
-# output m by W_{R M}^{n0 m} (n0 = bf mod M), back into the same places;
-# after the last pass X[k] lies at _line_rev(k). The transposed passes (DIT,
-# reversed pass order, the twiddle before the DFT) take that order back to
-# natural order: K11's inverse.
-
-def _line_radices(n: int) -> tuple[int, ...]:
-    """fft_lines.cuh lines_transform's passes over n points, in order: the odd
-    primes of n ascending (3, 5 and 7 as register butterflies, any other as
-    a direct DFT), then radix 16 and the leftover 2, 4 or 8 last."""
-    odd, a = n, 0
-    while odd % 2 == 0:
-        odd //= 2
-        a += 1
-    primes, p = [], 3
-    while p * p <= odd:
-        while odd % p == 0:
-            primes.append(p)
-            odd //= p
-        p += 2
-    if odd > 1:
-        primes.append(odd)
-    return tuple(primes) + (16,) * (a // 4) + ((1 << (a % 4),) if a % 4 else ())
-
-
-def _line_spans(radices, n: int) -> tuple[int, ...]:
-    """M of each pass (fft_lines.cuh LinePlan::span): n / (R_0 ... R_q)."""
-    spans, m = [], n
-    for r in radices:
-        m //= r
-        spans.append(m)
-    return tuple(spans)
-
-
-def _line_elements(bf, m: int, r: int, k):
-    """fft_lines.cuh lines_pass: element k of butterfly bf of a pass (R, M),
-    base + M k with base = (bf - n0) R + n0, n0 = bf mod M (ints or arrays)."""
-    n0 = bf % m
-    return (bf - n0) * r + n0 + m * k
-
-
-def _line_twiddle_exponent(bf, m: int, r: int, k, n: int, length: int):
-    """fft_lines.cuh lines_pass: output k of butterfly bf (DIF; input k for
-    DIT) is multiplied by W_N^e, e this: W_{R M}^{n0 k} as a power of the
-    frame's W_N (n points), for a line of `length` points (`_line_table`
-    holds it at `_line_twiddle_index`)."""
-    return (bf % m) * k * (n // length) * (length // (m * r))
-
-
-def _line_table_offsets(radices, n: int) -> tuple[int, ...]:
-    """fft_lines.cuh LinePlan::tw_off: pass q's section of the table after
-    the (R - 1) M twiddles and R DFT constants of each pass before it."""
-    offs, at = [], 0
-    for r, m in zip(radices, _line_spans(radices, n)):
-        offs.append(at)
-        at += (r - 1) * m + r
-    return tuple(offs)
-
-
-def _line_twiddle_index(bf, m: int, k, off: int):
-    """fft_lines.cuh lines_pass: where output k >= 1 of butterfly bf (DIF;
-    input k for DIT) finds its twiddle, W_N^{_line_twiddle_exponent}: entry
-    (k - 1) M + n0 of the pass's section at `off`."""
-    return off + (k - 1) * m + bf % m
-
-
-def _line_dft_index(nn, k, r: int, m: int, off: int):
-    """fft_lines.cuh lines_dft_odd / lines_pass_direct: input nn of the
-    pass's R-point DFT contributes to output k times W_R^{nn k mod R}, entry
-    (R - 1) M + (nn k mod R) of the pass's section at `off`."""
-    return off + (r - 1) * m + (nn * k) % r
-
-
-def _line_table(g: "LineGeometry", n: int) -> np.ndarray:
-    """The table of one pass plan [2, size] (fft_lines.cuh; the pass
-    sections at _line_table_offsets): each pass's (R - 1) M twiddles W_N^e,
-    e = _line_twiddle_exponent, at (m - 1) M + n0, then its R DFT constants
-    W_R^j = W_N^{j N / R}; every entry made in float64 and rounded to
-    float32 once."""
-    parts = []
-    for r, m in zip(g.radices, _line_spans(g.radices, g.length)):
-        e = _line_twiddle_exponent(np.arange(m)[None, :], m, r, np.arange(1, r)[:, None], n,
-                                  g.length)
-        parts += [e.ravel(), np.arange(r) * (n // r)]
-    return _unit_roots(np.concatenate(parts), n)
+    return LineShape(*_reg_line(length), _lanes(lines, LINE_TILE // length))
 
 
 def _unit_roots(e: np.ndarray, n: int) -> np.ndarray:
@@ -407,67 +304,102 @@ def _unit_roots(e: np.ndarray, n: int) -> np.ndarray:
     return np.stack([w.real, w.imag]).astype(np.float32)
 
 
-def _line_rev(radices, n: int) -> np.ndarray:
-    """Where the DIF passes leave X[k]: k = d_0 + R_0 (d_1 + R_1 (...)) lies
-    at sum_q d_q M_q (int32, the kernels' `rev` table)."""
-    k = np.arange(n)
-    pos = np.zeros(n, np.int64)
-    for r, m in zip(radices, _line_spans(radices, n)):
-        pos += (k % r) * m
-        k //= r
-    return pos.astype(np.int32)
-
-
 def _digit_position(k, n1: int, n2: int):
     """The digit store (every body): X[k] at offset (k mod n1) * n2 + k div n1
     of the frame, row k1 = k mod n1, lane k2 = k div n1 of the [n1, n2] tile."""
     return (k % n1) * n2 + k // n1
 
 
+# The Bluestein lines of csrc/fft_lines.cuh (bluestein_line): a four-step line
+# of L points that no register shape holds is the cyclic convolution of length
+# M = 2^log2m >= 2L - 1 that the chirp c[n] = W_{2L}^{n^2 mod 2L} makes of it,
+# X[k] = c[k] conj(FFT_M(conj(FFT_M(x c) B)))[k] for k < L, with
+# B = FFT_M(b) / M, b[m] = conj(c[m]) for |m| < L wrapped mod M, zero
+# elsewhere. Both transforms are the register schedule at P = 1 (fft_regs.cuh,
+# `regs_*`), natural order in and out.
+
+def _bluestein_log2m(length: int) -> int:
+    """log2 M of a Bluestein line of `length` points: M the least power of two
+    >= 2 length - 1."""
+    return (2 * length - 2).bit_length()
+
+
+def _bluestein_chirp(length: int) -> np.ndarray:
+    """c[n] = W_{2L}^{n^2 mod 2L}, n < L, as float32 planes [2, L]: the exponent
+    in 64-bit integers, the value made in float64 and rounded once."""
+    n = np.arange(length, dtype=np.int64)
+    return _unit_roots(n * n % (2 * length), 2 * length)
+
+
+def _bluestein_b(length: int, log2m: int) -> np.ndarray:
+    """B = FFT_M(b) / M as float32 planes [2, M] (natural order, the forward's
+    order at P = 1): b[m] = conj(c[m]) = W_{2L}^{-(m^2 mod 2L)} for m < L and
+    b[M - m] = b[m] for 0 < m < L, made and transformed in float64, rounded
+    once."""
+    m = 1 << log2m
+    n = np.arange(length, dtype=np.int64)
+    c = np.exp(2j * np.pi * (n * n % (2 * length)).astype(np.float64) / (2 * length))
+    b = np.zeros(m, np.complex128)
+    b[:length] = c
+    b[m - length + 1:] = c[1:][::-1]
+    big = np.fft.fft(b) / m
+    return np.stack([big.real, big.imag]).astype(np.float32)
+
+
+def _bluestein_table(length: int, log2m: int) -> np.ndarray:
+    """The table of a Bluestein line, flat float32 as bluestein_line reads it
+    (BluesteinShape): stockham_twiddles(M) [2, kStock], B [2, M], c [2, L]."""
+    return np.concatenate([stockham_twiddles(1 << log2m).ravel(),
+                           _bluestein_b(length, log2m).ravel(),
+                           _bluestein_chirp(length).ravel()])
+
+
 @dataclasses.dataclass(frozen=True)
-class LineGeometry:
-    """A generic line of fft_lines.cuh (LinePlan): `length`-point lines,
-    `lanes` of them a block, its radices (a shape FOUR_STEP_LINES does not
-    hold)."""
+class BluesteinLine:
+    """A four-step line of `length` points that no register shape holds
+    (fft_lines.cuh bluestein_line): its two transforms of 2^log2m points on
+    the register schedule at P = 1, `lanes` lines a block."""
 
     length: int
+    log2m: int
     lanes: int
-    radices: tuple[int, ...]
 
     @property
-    def direct(self) -> bool:
-        """A pass runs as a direct DFT (a prime above 7): the block takes a
-        second pair of planes."""
-        return any(r not in LINE_RADICES for r in self.radices)
+    def threads(self) -> int:
+        """A block's threads: lanes x M / 16."""
+        return (self.lanes << self.log2m) // REGS_VALS
 
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of a block: 2 planes (4 with a direct pass)
-        of lanes * length floats, padded one in 32."""
-        return (4 if self.direct else 2) * (regs_pad(self.lanes * self.length - 1) + 1) * 4
+        """Dynamic shared memory of a block: the tile's two planes of lanes x M
+        floats, padded one in 32."""
+        return 2 * (regs_pad((self.lanes << self.log2m) - 1) + 1) * 4
 
     def table(self, n: int) -> np.ndarray:
-        return _line_table(self, n).ravel()
-
-    def rev(self) -> np.ndarray:
-        return _line_rev(self.radices, self.length)
+        return _bluestein_table(self.length, self.log2m)
 
     def descriptor(self) -> tuple[int, ...]:
-        """fft_4step.cu make_line's descriptor: (0, 0, log2 lanes, passes, radices...)."""
-        return (0, 0, self.lanes.bit_length() - 1, len(self.radices), *self.radices)
+        """fft_4step.cu make_line's descriptor: (0, log2m, log2 lanes)."""
+        return 0, self.log2m, self.lanes.bit_length() - 1
 
 
-def _line_geometry(length: int, lines: int) -> LineShape | LineGeometry:
+def _lanes(lines: int, cap: int) -> int:
+    """The largest power of two up to MAX_REG_LANES that divides `lines` and
+    is at most `cap` (at least 1)."""
+    lanes = 1
+    while lanes * 2 <= min(MAX_REG_LANES, cap) and lines % (lanes * 2) == 0:
+        lanes *= 2
+    return lanes
+
+
+def _line_geometry(length: int, lines: int) -> LineShape | BluesteinLine:
     """A four-step line of `length` points, `lines` of them in a frame: a
-    register line where FOUR_STEP_LINES has its shape, else a generic one
-    (lanes the largest power of two up to MAX_LANES that divides `lines` and
-    keeps lanes * length <= LINE_TILE, at least 1)."""
+    register line where FOUR_STEP_LINES has its shape, else a Bluestein line
+    (lanes as many as divide `lines` with lanes x M <= LINE_TILE: 16 at M =
+    512 ... 2 at 4096 where `lines` allows)."""
     if _reg_line(length):
         return _reg_line_shape(length, lines)
-    lanes = 1
-    while (lanes * 2 <= MAX_LANES and lines % (lanes * 2) == 0
-           and lanes * 2 * length <= LINE_TILE):
-        lanes *= 2
-    return LineGeometry(length, lanes, _line_radices(length))
+    log2m = _bluestein_log2m(length)
+    return BluesteinLine(length, log2m, _lanes(lines, LINE_TILE >> log2m))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -479,7 +411,7 @@ class FftPlan:
     n2: int
     body: str                     # "regs", "mixed" or "four_step"
     lines: tuple                  # mixed: (the frame's LineShape,); four_step: (f1 columns,
-                                  # f2 rows), each a LineShape or a LineGeometry
+                                  # f2 rows), each a LineShape or a BluesteinLine
 
     @property
     def log2n(self) -> int:
@@ -490,28 +422,25 @@ class FftPlan:
         """(f1, f2) of the four-step: N = f1 * f2."""
         return self.lines[0].length, self.lines[1].length
 
-    def tables(self) -> tuple[np.ndarray, tuple[int, ...], np.ndarray]:
-        """(table, section offsets, rev) the body reads. The table is flat
-        float32, each section [2, size] (its real plane, then its imaginary
-        one): stockham_twiddles for the register body; the frame's
-        _reg_line_table for one block a frame; for the four-step the columns'
-        and the rows' tables (_reg_line_table, or _line_table for a generic
-        line), then W_N^{b c} at b f1 + c and W_N^{c e} at c f2 + e (its two
-        post-twiddles, [2, N] each). rev: the four-step's lines' _line_rev
-        (a register line's natural order for its slot), else one entry."""
+    def tables(self) -> tuple[np.ndarray, tuple[int, ...]]:
+        """(table, section offsets) the body reads. The table is flat float32,
+        each section [2, size] (its real plane, then its imaginary one):
+        stockham_twiddles for the register body; the frame's _reg_line_table
+        for one block a frame; for the four-step the columns' and the rows'
+        tables (_reg_line_table, or _bluestein_table for a Bluestein line),
+        then W_N^{b c} at b f1 + c and W_N^{c e} at c f2 + e (its two
+        post-twiddles, [2, N] each)."""
         n = self.fft_size
         if self.body == "regs":
-            return stockham_twiddles(n).ravel(), (0,), np.zeros(1, np.int32)
+            return stockham_twiddles(n).ravel(), (0,)
         parts = [g.table(n) for g in self.lines]
-        rev = np.zeros(1, np.int32)
         if self.body == "four_step":
             f1, f2 = self.factors
             b, c = np.arange(f2)[:, None], np.arange(f1)[None, :]
             parts += [_unit_roots((b * c).ravel(), n).ravel(),
                       _unit_roots((c.T * b.T).ravel(), n).ravel()]
-            rev = np.concatenate([g.rev() for g in self.lines]).astype(np.int32)
         offs = tuple(int(x) for x in np.cumsum([0] + [a.size for a in parts[:-1]]))
-        return np.ascontiguousarray(np.concatenate(parts)), offs, rev
+        return np.ascontiguousarray(np.concatenate(parts)), offs
 
     def h_order(self) -> np.ndarray:
         """K11's H index for each entry the body reads: the one-block body
@@ -675,7 +604,7 @@ def table_ptrs(tw: torch.Tensor, offs: tuple[int, ...]) -> list[int]:
 def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tables: tuple, plan: FftPlan, natural: bool,
               counter: str) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
-    tw, offs, rev = tables
+    tw, offs = tables
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     n = plan.fft_size
@@ -697,8 +626,8 @@ def _fft_cuda(xr: torch.Tensor, xi: torch.Tensor, tables: tuple, plan: FftPlan, 
         scratch = torch.empty((2, batch * n), dtype=torch.float32, device=xr.device)
         f1, f2 = plan.factors
         w1, w2, post, _ = table_ptrs(tw, offs)
-        rc = lib.srcdsp_fft_4step(xr.data_ptr(), xi.data_ptr(), w1, w2, post, rev.data_ptr(),
-                                  rev.data_ptr() + 4 * f1, scratch.data_ptr(), yr.data_ptr(),
+        rc = lib.srcdsp_fft_4step(xr.data_ptr(), xi.data_ptr(), w1, w2, post,
+                                  scratch.data_ptr(), yr.data_ptr(),
                                   yi.data_ptr(), b, batch, line_args(plan.lines[0]),
                                   line_args(plan.lines[1]), f1, f2, plan.n1, plan.n2,
                                   int(not natural), stream)
@@ -761,8 +690,8 @@ def make_fft_kernel(fft_size: int = 4096, n2: int = LANE, b_frames: int = 16, pr
     consts = tuple(torch.as_tensor(a, device=dev) for a in fft_consts(fft_size, n2, b_frames))
     tables = None
     if plan:
-        tw, offs, rev = plan.tables()
-        tables = (torch.as_tensor(tw, device=dev), offs, torch.as_tensor(rev, device=dev))
+        tw, offs = plan.tables()
+        tables = (torch.as_tensor(tw, device=dev), offs)
     rows_counter = {True: "fft", False: "fft_digit", "kernel": "fft_digit"}[natural_order]
 
     def check(x: torch.Tensor, shape: tuple) -> None:

@@ -30,7 +30,8 @@ sub-transforms on the registers as they lie, then the odd pass), which
 leaves natural order; from 17408 (``csrc/fft_4step.cu``) three kernels over
 two scratch buffers: the forward columns, then for each column c the
 forward rows, H, the inverse's rows and W_N^{c e}, then the inverse's
-columns and the store. H is the FFT of the taps zero-padded to fft_size,
+columns and the store (a line no register shape holds on a Bluestein line
+of ``csrc/fft_lines.cuh``). H is the FFT of the taps zero-padded to fft_size,
 made in float64 and rounded to float32 ([Ct, 2, N]; Ct = 1 for shared taps
 or C), natural order but for the one-block body.
 On a CPU tensor the wrappers run `fftconv_plain` (the same frames through
@@ -109,7 +110,7 @@ def fftconv_plain(x: torch.Tensor, h2: torch.Tensor, fft, fft_size: int, hop: in
 def _fftconv_cuda(x: torch.Tensor, hk: torch.Tensor, tables: tuple, plan: FftPlan, hop: int,
                   per_channel: bool, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.load()
-    tw, offs, rev = tables
+    tw, offs = tables
     c, _, length = x.shape
     n = plan.fft_size
     nf = (length - (n - hop)) // hop
@@ -131,8 +132,7 @@ def _fftconv_cuda(x: torch.Tensor, hk: torch.Tensor, tables: tuple, plan: FftPla
         scratch = torch.empty((4, batch * n), dtype=torch.float32, device=x.device)
         f1, f2 = plan.factors
         w1, w2, post, _ = table_ptrs(tw, offs)
-        rc = lib.srcdsp_fftconv_4step(*ptrs, w1, w2, post, rev.data_ptr(),
-                                      rev.data_ptr() + 4 * f1, scratch.data_ptr(), yr.data_ptr(),
+        rc = lib.srcdsp_fftconv_4step(*ptrs, w1, w2, post, scratch.data_ptr(), yr.data_ptr(),
                                       yi.data_ptr(), c, length, nf, hop, batch,
                                       line_args(plan.lines[0]), line_args(plan.lines[1]), f1,
                                       f2, int(per_channel), stream)
@@ -208,8 +208,8 @@ def make_fftconv_kernel(taps, fft_size: int = 4096, num_channels: int = 1, n2: i
     h2 = torch.as_tensor(h_np, device=dev)
     tables = hk = None
     if plan:
-        tw, offs, rev = plan.tables()
-        tables = (torch.as_tensor(tw, device=dev), offs, torch.as_tensor(rev, device=dev))
+        tw, offs = plan.tables()
+        tables = (torch.as_tensor(tw, device=dev), offs)
         # the body reads H in its own order (FftPlan.h_order), laid out once here
         hk = torch.as_tensor(np.ascontiguousarray(h_np[..., plan.h_order()]), device=dev)
     fft = make_fft_planes(fft_size, device=dev)

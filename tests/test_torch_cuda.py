@@ -551,13 +551,13 @@ def test_cuda_tensor_with_cpu_fft_kernels_raises(dev):
 
 @pytest.mark.parametrize("n,n2", [(3072, 384), (5120, 128), (11264, 128), (12288, 128),
                                   (16384, 128), (17408, 128), (21504, 128), (65536, 128),
-                                  (1 << 20, 1024), (1024 * 1021, 128)])
+                                  (1 << 20, 1024), (1024 * 1021, 128), (27 << 15, 128)])
 def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
     """K10 at the sizes past the powers of two (one block a frame up to
     16384, the four-step from 17408; 21 split across two register lines at
-    21504; 17 and 1021 on generic lines) in its
+    21504; 17, 1021 and 27 x 32 on Bluestein lines) in its
     three orders against its plain version (rel L2 < 1e-5) and complex128
-    (> 110 dB; > 100 dB where a generic line runs a direct-DFT pass);
+    (> 110 dB);
     kernel-natural == natural == digit unscrambled by torch.equal; one body
     launch a call (the four-step: 2), and no count but the body's moves."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
@@ -580,8 +580,7 @@ def test_fft_mixed_and_four_step_match_plain(dev, n, n2):
     nat = torch.complex(*outs[True])
     assert float(torch.linalg.norm(nat - plain) / torch.linalg.norm(plain)) < 1e-5
     ref = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-1)
-    assert _snr(ref, nat.to(torch.complex128)) > (100 if any(g.direct for g in plan.lines)
-                                                  else 110)
+    assert _snr(ref, nat.to(torch.complex128)) > 110
     for a, c, d in zip(outs[True], outs["kernel"], outs[False]):
         assert torch.equal(a, c)
         assert torch.equal(kfft.unscramble(d.reshape(-1, n2), k.n1, n2), a)
@@ -607,13 +606,14 @@ def test_fft_four_step_short_last_batch(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("fft,num_taps", [(11264, 1000), (12288, 3000), (16384, 4096),
-                                          (17408, 4352), (21504, 5376), (1024 * 1021, 4096)])
+                                          (17408, 4352), (21504, 5376), (1024 * 1021, 4096),
+                                          (27 << 15, 4096)])
 @pytest.mark.parametrize("per_channel", [False, True])
 def test_fftconv_mixed_and_four_step_match_plain_and_stream(dev, monkeypatch, per_channel,
                                                              fft, num_taps):
     """K11 on the new bodies (one block a frame up to 16384, the four-step
-    from 17408, 21 split across two register lines at 21504, 1021 on a
-    generic line) against its plain version (SNR > 100
+    from 17408, 21 split across two register lines at 21504, 17, 1021 and
+    27 x 32 on Bluestein lines) against its plain version (SNR > 100
     dB), 4 FftConvStream chunks == one launch bit for bit, one launch a call
     (the four-step: 3 a batch of frames within SCRATCH_BYTES), and for the
     four-step a launch in batches of 3 frames (a short last batch) == one
@@ -660,15 +660,19 @@ def test_fft_lines_bodies_no_spill(dev):
     body floor(1024 / threads) blocks (30, 30, 22, 24 and 32 warps at 3072,
     5120, 11264, 12288 and 16384); the four-step's register lines 32 warps
     (1024 threads) but K11's mid step, which holds two transforms in up to
-    128 registers (16 warps); the generic lines one block of 256."""
+    128 registers (16 warps); the Bluestein lines' four steps (16 kernels)
+    512 threads an SM at least (up to 128 registers)."""
     from srcdsp_tpu_torch.kernels import fft_pallas as kfft
 
     rep = {k: v for k, v in _build.ptxas_report().items()
            if re.search(r"fft_mixed_kernel|fftconv_mixed_kernel|fft4_|fftconv4_", k)}
-    assert len(rep) == 3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES) + 4
+    assert len(rep) == (3 * len(kfft.MIXED_SHAPES) + 4 * len(kfft.FOUR_STEP_LINES)
+                        + 4 * len(kfft.BLUESTEIN_LOG2M))
+    assert sum("bluestein" in k for k in rep) == 4 * len(kfft.BLUESTEIN_LOG2M)
     assert all(st == 0 and ld == 0 for _, st, ld in rep.values()), rep
     for n, n2 in [(3072, 384), (5120, 128), (11264, 128), (12288, 128), (16384, 128),
-                  (17408, 128), (65536, 128), (1 << 20, 1024)]:
+                  (17408, 128), (65536, 128), (1 << 20, 1024), (1024 * 1021, 128),
+                  (27 << 15, 128), (132096, 128)]:
         plan = kfft.fft_plan(n, n2)
         if plan.body == "mixed":
             g = plan.lines[0]
@@ -680,7 +684,9 @@ def test_fft_lines_bodies_no_spill(dev):
             for name in names:
                 regs, local, blocks = kfft.lines_info(name, g)
                 assert local == 0 and blocks >= 1, (n, name, g, regs, blocks)
-                if isinstance(g, kfft.LineShape) and name != "mid":
+                if isinstance(g, kfft.BluesteinLine):
+                    assert blocks * g.threads >= 512, (n, name, g, regs, blocks)
+                elif name != "mid":
                     assert blocks * g.threads >= 1024, (n, name, g, regs, blocks)
 
 

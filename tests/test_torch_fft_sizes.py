@@ -12,22 +12,26 @@ Contracts:
   ``kernels/fft_pallas``: the odd DFT's constants, the odd pass's rows and
   twiddle table, the Stockham sub-transforms on fft_regs.cuh's maps, the
   forward's register order, the transposed order of K11's inverse, the
-  four-step's post-twiddles and lines, and the generic lines' _line_* passes
-  for the shapes not instantiated) run in float64 numpy on the float32
-  tables: rel L2 < 1e-6 against ``np.fft.fft`` at every size of SIZES, for
-  every odd part 3 ... 15, and for odd parts above 15 split across two
-  register lines (the tables' rounding leaves ~1e-7); the
+  four-step's post-twiddles and lines, and the Bluestein lines for the
+  shapes not instantiated: the chirp, the two M-point transforms at P = 1,
+  the B product) run in float64 numpy on the float32 tables: rel L2 < 1e-6
+  against ``np.fft.fft`` at every size of SIZES, for every odd part 3 ...
+  15, for odd parts above 15 split across two register lines, and for
+  Bluestein lines of 136 ... 2040 points (the tables' rounding leaves
+  ~1e-7); the
   digit store equal to the natural store permuted, exactly (the same values
   moved); the transposed order after the forward gives N x back, rel L2 <
   1e-6;
 - every table entry is its constant rounded once from float64, and the
   odd DFT's float32 literals in fft_lines.cuh are the float64 values rounded
   once, exactly; the shapes the host plans with (MIXED_SHAPES,
-  FOUR_STEP_LINES) are the ones the CUDA sources instantiate;
+  FOUR_STEP_LINES, BLUESTEIN_LOG2M) are the ones the CUDA sources
+  instantiate;
 - no warp's access of the one-block body's staging (registers in the
   forward's order written, the natural and digit stores' reads at every
   n2), odd pass or sub-transform loads, nor of the four-step's tiles on
-  phase 23's lines, touches a shared-memory bank more than twice;
+  phase 23's lines and the Bluestein lines' tiles, touches a shared-memory
+  bank more than twice;
 - K10's plain version against the JAX kernel with ``interpret=True`` in all
   three orders: SNR > 120 dB (the same factorization and constants, float32
   products summed in another order), against complex128 > 110 dB (the
@@ -71,21 +75,30 @@ def _cplx(flat: np.ndarray) -> np.ndarray:
     return t[0] + 1j * t[1]
 
 
-def _line_section(flat: np.ndarray, g) -> np.ndarray:
+def _line_section(flat: np.ndarray, g):
     """A line's table as complex128: a register line's odd section [2, (P -
     1) M] then its Stockham section, each its own pair of planes
-    (_reg_line_table), concatenated; a generic line's [2, size]."""
-    if not isinstance(g, kfft.LineShape):
-        return _cplx(flat)
+    (_reg_line_table), concatenated; a Bluestein line's (Stockham section,
+    B, c), each its own pair of planes (_bluestein_table)."""
+    if isinstance(g, kfft.BluesteinLine):
+        return _bluestein_sections(flat, g.length, g.log2m)
     size = 2 * (g.p - 1) << g.log2m
     return np.concatenate([_cplx(flat[:size]), _cplx(flat[size:])])
+
+
+def _bluestein_sections(flat: np.ndarray, length: int, log2m: int) -> tuple:
+    """A flat _bluestein_table as complex128 (Stockham section, B [M], c [L])."""
+    stock = 2 * kfft.stockham_twiddles(1 << log2m).shape[1]
+    b = stock + (2 << log2m)
+    assert flat.size == b + 2 * length
+    return _cplx(flat[:stock]), _cplx(flat[stock:b]), _cplx(flat[b:])
 
 
 def _sections(plan: kfft.FftPlan) -> list:
     """The plan's table split as the kernels take it (FftPlan.tables'
     offsets): each line's table, then (four-step) the two post-twiddles
     [f2, f1] and [f1, f2], complex128."""
-    tab, offs, _ = plan.tables()
+    tab, offs = plan.tables()
     ends = list(offs[1:]) + [tab.size]
     out = [_line_section(tab[a:b], g) if i < len(plan.lines) else _cplx(tab[a:b])
            for i, (a, b, g) in enumerate(zip(offs, ends, list(plan.lines) + [None] * 2))]
@@ -189,49 +202,33 @@ def _line_dit(f: np.ndarray, p: int, log2m: int, tab: np.ndarray) -> np.ndarray:
     return w.reshape(f.shape)
 
 
-def _passes(v: np.ndarray, g: kfft.LineGeometry, tab: np.ndarray, dit: bool) -> np.ndarray:
-    """A generic line (fft_lines.cuh lines_transform) on v [L, lines]: every
-    pass in place at _line_elements, its DFT constants at _line_dft_index
-    and its twiddles at _line_twiddle_index of the line's table, the twiddles
-    before the DFT for DIT, after it for DIF; DIT runs the passes in
-    reverse."""
-    v = v.copy()
-    length = g.length
-    spans = kfft._line_spans(g.radices, length)
-    offs = kfft._line_table_offsets(g.radices, length)
-    order = range(len(g.radices) - 1, -1, -1) if dit else range(len(g.radices))
-    for q in order:
-        r, m, off = g.radices[q], spans[q], offs[q]
-        bf = np.arange(length // r)[:, None]
-        k = np.arange(r)[None, :]
-        idx = kfft._line_elements(bf, m, r, k)                        # [bf, R]
-        tw = np.where(k == 0, 1.0, tab[kfft._line_twiddle_index(bf, m, np.maximum(k, 1), off)])
-        dft = tab[kfft._line_dft_index(k.T, k, r, m, off)]            # [n, k]
-        x = v[idx]                                                   # [bf, R, lines]
-        if dit:
-            x = x * tw[..., None]
-        y = np.matmul(dft.T[None], x)                                # [bf, k, lines]
-        if not dit:
-            y = y * tw[..., None]
-        v[idx] = y
-    return v
+def _bluestein(x: np.ndarray, log2m: int, sections: tuple) -> np.ndarray:
+    """fft_lines.cuh bluestein_line on x [L, ...] (natural order in and out):
+    x times the chirp c, zero-padded to M, the Stockham forward at P = 1,
+    times B, conjugated, the forward again, conjugated, times c, the first L
+    entries."""
+    stock, big_b, c = sections
+    length, m = x.shape[0], 1 << log2m
+    a = np.zeros((m,) + x.shape[1:], np.complex128)
+    a[:length] = x * _expand(c, x.ndim - 1)
+    y = np.conj(_stockham(a, log2m, stock) * _expand(big_b, x.ndim - 1))
+    return np.conj(_stockham(y, log2m, stock))[:length] * _expand(c, x.ndim - 1)
 
 
-def _fwd(g, v: np.ndarray, tab: np.ndarray) -> np.ndarray:
+def _fwd(g, v: np.ndarray, tab) -> np.ndarray:
     """A four-step line's forward transform on v [L, lines], natural order out."""
     if isinstance(g, kfft.LineShape):
         return _natural(_line_fwd(v, g.p, g.log2m, tab), g.p, g.log2m)
-    return _passes(v.astype(np.complex128), g, tab, False)[g.rev()]
+    return _bluestein(v.astype(np.complex128), g.log2m, tab)
 
 
-def _dit(g, z: np.ndarray, tab: np.ndarray) -> np.ndarray:
+def _dit(g, z: np.ndarray, tab) -> np.ndarray:
     """A four-step line's transform of z [L, lines] (natural order in) in the
-    order its forward left (K11's mid): natural order out."""
+    order its forward left (K11's mid): natural order out. A Bluestein line
+    takes and leaves natural order, so its second transform is its forward."""
     if isinstance(g, kfft.LineShape):
         return _line_dit(z[kfft._forward_order(g.p, g.log2m)], g.p, g.log2m, tab)
-    v = np.empty_like(z)
-    v[g.rev()] = z
-    return _passes(v, g, tab, True)
+    return _bluestein(z, g.log2m, tab)
 
 
 def _mixed_fft(x: np.ndarray, plan: kfft.FftPlan, digit: bool) -> np.ndarray:
@@ -268,7 +265,7 @@ SIZES = [(3072, 128), (5120, 128), (7168, 128), (11264, 128), (12288, 128), (163
 def test_body_schedule_matches_numpy_fft(n, n2):
     """The planned body's schedule (one block a frame up to 16384, the
     four-step from 17408; 21 split across two register lines at 21504; 17
-    and 1021 on generic lines) against np.fft.fft;
+    and 1021 on Bluestein lines) against np.fft.fft;
     the digit store a permutation of the natural one; and, for one block a
     frame, the transposed order after the forward (K11's inverse): N x."""
     plan = kfft.fft_plan(n, n2)
@@ -343,6 +340,31 @@ def test_split_odd_parts_match_numpy_fft(q, a):
     assert _rel(got, np.fft.ifft(np.fft.fft(x) * h)[n - hop:]) < 1e-6
 
 
+@pytest.mark.parametrize("length,log2m,lanes", [(136, 9, 8), (864, 11, 4), (1021, 11, 4),
+                                                (1018, 11, 4), (2040, 12, 2)])
+def test_bluestein_line_matches_numpy_fft(length, log2m, lanes):
+    """A Bluestein line (fft_lines.cuh bluestein_line) in float64 numpy on its
+    float32 table, 8 lines at once: M the least power of two >= 2L - 1,
+    lanes as many of the 8 as a tile of 8192 points takes; the forward
+    against np.fft.fft (rel L2 < 1e-6); K11's round trip through it (the
+    forward, times H, conjugated, the line's second transform, conjugated
+    and / L, as fftconv4_mid_bluestein runs it) against
+    np.fft.ifft(np.fft.fft(x) H) (rel L2 < 1e-6)."""
+    g = kfft._line_geometry(length, 8)
+    assert g == kfft.BluesteinLine(length, log2m, lanes)
+    assert (1 << log2m) >= 2 * length - 1 > (1 << (log2m - 1))
+    tab = _line_section(g.table(length), g)
+    rng = np.random.default_rng(length)
+    x = rng.standard_normal((2, length, 8))
+    x = x[0] + 1j * x[1]
+    got = _fwd(g, x, tab)
+    assert _rel(got, np.fft.fft(x, axis=0)) < 1e-6
+    h = rng.standard_normal((2, length, 1))
+    h = h[0] + 1j * h[1]
+    back = np.conj(_dit(g, np.conj(got * h), tab)) / length
+    assert _rel(back, np.fft.ifft(np.fft.fft(x, axis=0) * h, axis=0)) < 1e-6
+
+
 def _fftconv_frames(x: np.ndarray, h: np.ndarray, plan: kfft.FftPlan, hop: int) -> np.ndarray:
     """K11's frames through the planned body in numpy: one block a frame
     (fftconv_mixed_kernel: the forward in its order, H in that order, conj,
@@ -413,13 +435,14 @@ def test_fftconv_plain_matches_jax_direct_fir_and_schedule(n, num_taps, per_chan
 @pytest.mark.parametrize("n,n2", [(12288, 128), (11264, 128), (65536, 128),
                                   (1024 * 1021, 128)])
 def test_tables_hold_each_constant_once_rounded(n, n2):
-    """Every entry of the plan's table is W_N^e rounded once from float64 at
-    the exponent its index stands for: a register line's odd section
-    W_L^{j k} at (k - 1) M + j and its Stockham section (stockham_twiddles);
-    a generic line's twiddle (m, n0) _line_twiddle_exponent and DFT
-    constant W_R^j; the four-step's post entries W_N^{b c} and W_N^{c e}."""
+    """Every entry of the plan's table is its value rounded once from float64:
+    a register line's odd section W_L^{j k} at (k - 1) M + j and its
+    Stockham section (stockham_twiddles); a Bluestein line's Stockham
+    section, B = FFT_M(b) / M with b[m] = W_{2L}^{-(m^2 mod 2L)} for |m| < L
+    (m taken mod M), and the chirp W_{2L}^{n^2 mod 2L}, the exponents exact
+    integers; the four-step's post entries W_N^{b c} and W_N^{c e}."""
     plan = kfft.fft_plan(n, n2)
-    tab, offs, _ = plan.tables()
+    tab, offs = plan.tables()
     for g, off in zip(plan.lines, offs):
         if isinstance(g, kfft.LineShape):
             m, length = 1 << g.log2m, g.length
@@ -432,24 +455,36 @@ def test_tables_hold_each_constant_once_rounded(n, n2):
             stock = kfft.stockham_twiddles(m).ravel()
             np.testing.assert_array_equal(tab[off + 2 * size:off + 2 * size + stock.size], stock)
             continue
-        sec = _cplx(tab[off:off + kfft._line_table(g, n).size])
-        for r, m, o in zip(g.radices, kfft._line_spans(g.radices, g.length),
-                           kfft._line_table_offsets(g.radices, g.length)):
-            bf, k = np.arange(m)[None, :], np.arange(1, r)[:, None]
-            e = kfft._line_twiddle_exponent(bf, m, r, k, n, g.length)
-            want = np.exp(-2j * np.pi * e / n)
-            got = sec[kfft._line_twiddle_index(bf, m, k, o)]
-            np.testing.assert_array_equal(got.real, want.real.astype(np.float32))
-            np.testing.assert_array_equal(got.imag, want.imag.astype(np.float32))
-            j = np.arange(r)
-            np.testing.assert_allclose(sec[kfft._line_dft_index(j, 1, r, m, o)],
-                                       np.exp(-2j * np.pi * j / r), atol=1e-7)
+        m, length = 1 << g.log2m, g.length
+        stock = kfft.stockham_twiddles(m).ravel()
+        np.testing.assert_array_equal(tab[off:off + stock.size], stock)
+        signed = np.where(np.arange(m) < length, np.arange(m), np.arange(m) - m)
+        b = np.where(np.abs(signed) < length,
+                     np.exp(2j * np.pi * (signed * signed % (2 * length)) / (2 * length)), 0)
+        big_b = np.fft.fft(b) / m
+        at = off + stock.size
+        np.testing.assert_array_equal(tab[at:at + m], big_b.real.astype(np.float32))
+        np.testing.assert_array_equal(tab[at + m:at + 2 * m], big_b.imag.astype(np.float32))
+        np.testing.assert_allclose(big_b, _dft(m) @ b / m, atol=1e-12)
+        j = np.arange(length, dtype=np.int64)
+        chirp = np.exp(-2j * np.pi * (j * j % (2 * length)) / (2 * length))
+        at += 2 * m
+        np.testing.assert_array_equal(tab[at:at + length], chirp.real.astype(np.float32))
+        np.testing.assert_array_equal(tab[at + length:at + 2 * length],
+                                      chirp.imag.astype(np.float32))
+        assert g.table(n).size == stock.size + 2 * m + 2 * length
     if plan.body == "four_step":
         secs = _sections(plan)
         f1, f2 = plan.factors
         b, c = np.arange(f2)[:, None], np.arange(f1)[None, :]
         np.testing.assert_allclose(secs[2], np.exp(-2j * np.pi * b * c / n), atol=1e-7)
         np.testing.assert_allclose(secs[3], np.exp(-2j * np.pi * c.T * b.T / n), atol=1e-7)
+
+
+def _dft(m: int) -> np.ndarray:
+    """The m-point DFT matrix in float64, exponents j k mod m exact."""
+    j = np.arange(m)
+    return np.exp(-2j * np.pi * (np.outer(j, j) % m) / m)
 
 
 def test_odd_dft_literals_are_float64_rounded_once():
@@ -469,24 +504,27 @@ def test_odd_dft_literals_are_float64_rounded_once():
 
 @pytest.mark.parametrize("source,macro,shapes", [
     ("fft_mixed.cu", "MIXED_SHAPES", kfft.MIXED_SHAPES),
-    ("fft_4step.cu", "FOUR_STEP_LINES", kfft.FOUR_STEP_LINES)])
+    ("fft_4step.cu", "FOUR_STEP_LINES", kfft.FOUR_STEP_LINES),
+    ("fft_4step.cu", "BLUESTEIN_LINES", tuple((m,) for m in kfft.BLUESTEIN_LOG2M))])
 def test_instantiated_shapes_match_the_sources(source, macro, shapes):
-    """The (P, log2 M) shapes the host plans with are the ones the CUDA
-    source instantiates, in its order: fft_mixed.cu MIXED_SHAPES and
-    fft_4step.cu FOUR_STEP_LINES against their Python tuples."""
+    """The shapes the host plans with are the ones the CUDA source
+    instantiates, in its order: fft_mixed.cu MIXED_SHAPES and fft_4step.cu
+    FOUR_STEP_LINES ((P, log2 M) each) and BLUESTEIN_LINES (log2 M) against
+    their Python tuples."""
     src = (Path(kfft.__file__).resolve().parents[1] / "csrc" / source).read_text()
     body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)\n", src)
-    got = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body.group(1)))
+    got = tuple(tuple(int(v) for v in args.split(","))
+                for args in re.findall(r"X\(([\d, ]+)\)", body.group(1)))
     assert got == tuple(shapes)
 
 
 # --- shared-memory banks -------------------------------------------------------
 
-def _worst_bank(addrs: np.ndarray) -> int:
+def _worst_bank(addrs) -> int:
     """Largest number of distinct 4-byte words one bank serves for one
-    warp's addresses (rows of addrs)."""
+    warp's addresses (rows of addrs, or a list of them)."""
     worst = 0
-    for row in np.atleast_2d(addrs):
+    for row in (addrs if isinstance(addrs, list) else np.atleast_2d(addrs)):
         for b in range(32):
             worst = max(worst, len(set(row[row % 32 == b].tolist())))
     return worst
@@ -502,7 +540,11 @@ def test_one_block_and_tile_banks_at_most_two_way(p, log2m):
     on phase 23's register lines (2^20: 1024 x 8 lanes; 65536: 512 x 16 and
     128 x 64; 21504: 96 x 32 and 224 x 32): cp.async writes, the odd pass's
     rows, the sub-transforms' loads, exchanges, staging and the row-order
-    reads. Each warp's 32 accesses touch a bank at most twice."""
+    reads; and the Bluestein lines' tiles (M x lanes: 512 x 16 at 136
+    points, 1024 x 8 at 272, 2048 x 4 at 1021 and 864, 2048 x 2 at 1018,
+    4096 x 2 at 2040), their cp.async writes and row-order reads over L
+    rows, their transforms' loads, exchanges and staging over M. Each
+    warp's 32 accesses touch a bank at most twice."""
     m, n = 1 << log2m, p << log2m
     t_count, _, _ = kfft._mixed_shape(p, log2m)
     tm_count, _, _ = kfft._line_shape(p, log2m)
@@ -527,15 +569,20 @@ def test_one_block_and_tile_banks_at_most_two_way(p, log2m):
         worst = max(worst, _worst_bank(kfft._mixed_stage((q % n2) * n1 + q // n2)))
     assert worst <= 2
     # the four-step's tiles of phase 23's register lines (21504: 96 x 224 on
-    # (3, 5) and (7, 5), 32 lanes each)
-    for length, lanes in ((1024, 8), (512, 16), (128, 64), (96, 32), (224, 32)):
-        lp, lm = kfft._reg_line(length)
+    # (3, 5) and (7, 5), 32 lanes each), then of Bluestein lines (P = 1 on M
+    # rows, L of them loaded and stored)
+    tiles = [(*kfft._reg_line(length), lanes, length)
+             for length, lanes in ((1024, 8), (512, 16), (128, 64), (96, 32), (224, 32))]
+    tiles += [(1, lm, lanes, length) for lm, lanes, length in
+              ((9, 16, 136), (10, 8, 272), (11, 4, 1021), (11, 4, 864), (11, 2, 1018),
+               (12, 2, 2040))]
+    for lp, lm, lanes, length in tiles:
         log2lanes = lanes.bit_length() - 1
-        tl_all = np.arange(lanes * length // kfft.REGS_VALS)
+        tl_all = np.arange((lanes * lp << lm) // kfft.REGS_VALS)
         lane, tl = tl_all % lanes, tl_all // lanes
         tmc, tlc, _ = kfft._line_shape(lp, lm)
         kp, tm, mm_ = tl // tmc, tl % tmc, 1 << lm
-        worst = _worst_bank(kfft.regs_pad(np.arange(lanes * length)).reshape(-1, 32))
+        worst = _worst_bank(_warps(kfft.regs_pad(np.arange(lanes * length))))
         for i in range(-(-mm_ // tlc) if lp > 1 else 0):   # the odd pass's rows
             nm = tl + tlc * i
             nm = np.where(nm < mm_, nm, nm % mm_)
@@ -556,9 +603,15 @@ def test_one_block_and_tile_banks_at_most_two_way(p, log2m):
                         _worst_bank(kfft._line_at(kp * mm_ + tm + tmc * s, lane, log2lanes)
                                     .reshape(-1, 32)))
         u = np.arange(lanes * length)
-        worst = max(worst, _worst_bank(kfft._line_at(u % length, u // length, log2lanes)
-                                       .reshape(-1, 32)))
+        worst = max(worst, _worst_bank(_warps(kfft._line_at(u % length, u // length,
+                                                            log2lanes))))
         assert worst <= 2, (length, lanes, worst)
+
+
+def _warps(a: np.ndarray) -> list:
+    """A flat array of a loop's addresses as its warps' rows of 32 (the last
+    one shorter)."""
+    return [a[i:i + 32] for i in range(0, a.size, 32)]
 
 
 # --- K10's plain version against the JAX kernel ------------------------------
@@ -599,7 +652,7 @@ def test_plan_domain_and_bodies():
                         (27 << 15, 128, "four_step")]:
         plan = kfft.fft_plan(n, n2)
         assert plan.body == body, (n, n2)
-        tab, offs, rev = plan.tables()
+        tab, offs = plan.tables()
         assert len(offs) == {"regs": 1, "mixed": 1, "four_step": 4}[body]
         for g in plan.lines:
             assert g.smem_bytes() + 256 <= 232448            # a block's shared memory
@@ -608,16 +661,23 @@ def test_plan_domain_and_bodies():
                 assert (g.p, g.log2m) in (kfft.MIXED_SHAPES if body == "mixed"
                                           else kfft.FOUR_STEP_LINES)
             else:
-                assert np.prod(g.radices) == g.length and kfft._reg_line(g.length) is None
+                assert isinstance(g, kfft.BluesteinLine) and kfft._reg_line(g.length) is None
+                assert g.log2m in kfft.BLUESTEIN_LOG2M and 1 << g.log2m >= 2 * g.length - 1
+                assert g.threads <= 512 and g.lanes << g.log2m <= kfft.LINE_TILE
         if body == "four_step":
             f1, f2 = plan.factors
-            assert f1 * f2 == n and rev.size == f1 + f2
+            assert f1 * f2 == n and tab.size == offs[3] + 2 * n
             assert f2 % plan.lines[0].lanes == 0 and f1 % plan.lines[1].lanes == 0
-    assert kfft.fft_plan(17408).lines[0].radices == (17, 8)     # 136 = 17 x 8: generic
-    assert isinstance(kfft.fft_plan(17408).lines[1], kfft.LineShape)
+    # 136 = 17 x 8 and 1021: Bluestein lines on M = 512 and 2048
+    assert kfft.fft_plan(17408).lines == (kfft.BluesteinLine(136, 9, 16),
+                                          kfft.LineShape(1, 7, 8))
+    assert kfft.fft_plan(1024 * 1021).lines == (kfft.LineShape(1, 10, 1),
+                                                kfft.BluesteinLine(1021, 11, 4))
     assert kfft.fft_plan(21504).lines == (kfft.LineShape(3, 5, 32), kfft.LineShape(7, 5, 32))
-    # 27 x 2^15: no two lines of 2^5 ... 2^7 points beside an odd factor make 2^15
-    assert any(isinstance(g, kfft.LineGeometry) for g in kfft.fft_plan(27 << 15).lines)
+    # 27 x 2^15: no two lines of 2^5 ... 2^7 points beside an odd factor make 2^15, so
+    # the 864-point rows (27 x 32) are a Bluestein line
+    assert kfft.fft_plan(27 << 15).lines == (kfft.LineShape(1, 10, 8),
+                                             kfft.BluesteinLine(864, 11, 4))
     assert kfft.fft_plan(3 << 15).factors == (384, 256)
     for n, n2 in [(1536, 128), (1000, 128), (1 << 21, 128), (3072, 256), (128, 128)]:
         with pytest.raises(ValueError, match="n2 % 128 == 0 and n1 % 8 == 0"):
